@@ -1,0 +1,119 @@
+"""DINO featurizer: frozen ViT patch features + projection head, eval mode
+(``depthg_tpu/models/featurizer.py``).
+
+The module tree follows the reference Lightning layout (``net.model.*``,
+``net.cluster1.0``, ``net.cluster2.{0,2}``) so checkpoints load with
+``strict=True``. Only eval is ported: no dropout, no gradients. The JAX
+package's ``dispatch_apply`` also routes the depth-fused (``dino_depth``)
+and ``feature-pyramid`` featurizers; those are later ROADMAP items, and
+``inference.fcfg_from_run_cfg`` raises ``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from depthg_tpu_torch.models import vit as vit_lib
+from depthg_tpu_torch.models.layers import conv1x1
+
+
+@dataclasses.dataclass(frozen=True)
+class FeaturizerConfig:
+    arch: str = "vit_small"          # cfg.model_type in the reference
+    patch_size: int = 8              # cfg.dino_patch_size
+    feat_type: str = "feat"          # "feat" | "KK"
+    projection_type: str | None = "nonlinear"  # "nonlinear" | "linear" | None
+    dim: int = 70                    # projection output dim
+    vit_config: vit_lib.ViTConfig | None = None  # override (tests)
+    # "auto" = the Hopper attention kernel on CUDA when the attention matrix
+    # isn't consumed, eager "xla" otherwise; "xla" | "flash" | "fused" force
+    attention_impl: str = "auto"
+
+    @property
+    def vit(self) -> vit_lib.ViTConfig:
+        if self.vit_config is not None:
+            return self.vit_config
+        return vit_lib.make_config(self.arch, self.patch_size)
+
+    @property
+    def n_feats(self) -> int:
+        return self.vit.embed_dim
+
+
+class DinoFeaturizer(nn.Module):
+    def __init__(self, fcfg: FeaturizerConfig):
+        super().__init__()
+        self.fcfg = fcfg
+        nf = fcfg.n_feats
+        self.model = vit_lib.VisionTransformer(fcfg.vit)
+        if fcfg.projection_type is not None:
+            self.cluster1 = nn.Sequential(conv1x1(nf, fcfg.dim))
+        if fcfg.projection_type == "nonlinear":
+            self.cluster2 = nn.Sequential(conv1x1(nf, nf), nn.ReLU(),
+                                          conv1x1(nf, fcfg.dim))
+
+
+def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
+                      precision: str | None = None,
+                      backbone_dtype: str | None = None):
+    """Frozen-backbone dense features [B, C, H/ps, W/ps] (float32) plus the
+    last block's attention (None under the kernel).
+
+    ``backbone_dtype="bfloat16"`` runs the ViT with its parameters and the
+    image cast to bf16 for this call (the module keeps float32 weights) and
+    returns float32 features."""
+    fcfg = net.fcfg
+    vcfg = fcfg.vit
+    if img.shape[2] % vcfg.patch_size or img.shape[3] % vcfg.patch_size:
+        raise ValueError(f"image {tuple(img.shape)} is not a multiple of the "
+                         f"patch size {vcfg.patch_size}")
+    fh, fw = img.shape[2] // vcfg.patch_size, img.shape[3] // vcfg.patch_size
+    if backbone_dtype not in (None, "float32", "bfloat16"):
+        raise NotImplementedError(
+            f"backbone_dtype {backbone_dtype!r}: only float32 and bfloat16 "
+            "are ported (int8 w8a8 is a later ROADMAP item)")
+    impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device)
+    if backbone_dtype == "bfloat16":
+        params = {k: p.to(torch.bfloat16) for k, p in net.model.named_parameters()}
+        feats, attns, qkvs = functional_call(
+            net.model, params, (img.to(torch.bfloat16),),
+            {"n": 1, "attn_impl": impl})
+    else:
+        feats, attns, qkvs = net.model(img, n=1, attn_impl=impl)
+    feat, attn, qkv = feats[0].float(), attns[0], qkvs[0].float()
+    if attn is not None:
+        attn = attn.float()
+
+    if fcfg.feat_type == "feat":
+        b = feat.shape[0]
+        image_feat = feat[:, 1:].reshape(b, fh, fw, -1).permute(0, 3, 1, 2)
+    elif fcfg.feat_type == "KK":
+        k = qkv[1][:, :, 1:, :]  # [B, h, HW, hd] keys of the last block
+        b, nh, _, hd = k.shape
+        image_feat = (k.reshape(b, nh, fh, fw, hd).permute(0, 1, 4, 2, 3)
+                      .reshape(b, nh * hd, fh, fw))
+    else:
+        raise ValueError(f"Unknown feat type: {fcfg.feat_type}")
+    return image_feat, attn
+
+
+def project(net: DinoFeaturizer, image_feat: torch.Tensor) -> torch.Tensor:
+    """Eval-mode projection: cluster1(x) [+ cluster2(x)]."""
+    if net.fcfg.projection_type is None:
+        return image_feat
+    code = net.cluster1(image_feat)
+    if net.fcfg.projection_type == "nonlinear":
+        code = code + net.cluster2(image_feat)
+    return code
+
+
+def featurizer_apply(net: DinoFeaturizer, img: torch.Tensor,
+                     precision: str | None = None,
+                     backbone_dtype: str | None = None) -> dict:
+    """Eval-mode featurizer: dict(feats, code, attn)."""
+    image_feat, attn = backbone_features(net, img, precision, backbone_dtype)
+    return {"feats": image_feat, "code": project(net, image_feat), "attn": attn}

@@ -1,0 +1,156 @@
+"""Masked non-causal softmax attention: Hopper kernel + its plain version.
+
+Replaces the TPU kernels ``depthg_tpu/ops/attention.py:whole_kv_mha_qkv``
+(packed qkv, head pairs), ``whole_kv_mha`` (split operands, for head
+counts that do not pair) and ``depthg_tpu/models/vit.py:_flash_mha``
+(Pallas flash attention with segment ids) with ONE CUDA kernel,
+``csrc/attention.cu``, which reads q, k and v through (batch, head, token)
+strides and writes token-major [B, N, D] directly, so neither relayout
+exists. ``attention_qkv`` takes any head count, so the split-operand entry
+the TPU needed for odd head counts has no counterpart here.
+
+Contract (``_attend`` of the JAX package): ``softmax(q k^T * scale) v`` with
+q*scale rounded to the input dtype, fp32 logits and accumulation, the row
+sum clamped at 1e-30 and applied to the output; keys j >= n_valid weigh
+exactly 0 and query rows i >= n_valid come out exactly 0.
+
+What bounds the kernel on an H100 and what its design does about it is in
+the header of ``csrc/attention.cu``. The wrappers here:
+
+* CUDA tensor -> the kernel, or an exception (bad shape, dtype, stride,
+  alignment, build or launch). There is no fallback.
+* CPU tensor -> ``attention_plain``, the eager version of the same math.
+* ``KERNEL.launches`` counts kernel launches (one per call, all heads and
+  images), so a run can show that it went through the kernel.
+
+The optional per-head [H, N, N] logit bias of the JAX kernels (BEiT) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from depthg_tpu_torch.ops import _build
+
+HEAD_DIM = 64
+
+
+class _AttentionKernel:
+    """The compiled library (built on first CUDA call) and its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def fn(self):
+        if self._fn is None:
+            lib = _build.load("attention")
+            f = lib.depthg_attention_fwd
+            f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                          + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_void_p])
+            f.restype = ctypes.c_int
+            self._fn = f
+        return self._fn
+
+
+KERNEL = _AttentionKernel()
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, n_valid: int | None = None) -> torch.Tensor:
+    """Eager reference of the kernel on [B, H, N, HD] -> [B, H, N, HD]."""
+    n = q.shape[2]
+    nv = n if n_valid is None else int(n_valid)
+    qs = (q.float() * scale).to(q.dtype).float()
+    s = torch.einsum("bhnd,bhmd->bhnm", qs, k.float())
+    keep = torch.arange(n, device=q.device) < nv
+    s = s.masked_fill(~keep, float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    vz = v.float().masked_fill(~keep[:, None], 0.0)  # masked keys weigh exactly 0
+    o = torch.einsum("bhnm,bhmd->bhnd", e.to(v.dtype).float(), vz) / l
+    o = o.masked_fill(~keep[:, None], 0.0)  # padded query rows exactly 0
+    return o.to(q.dtype)
+
+
+def _check(q, k, v, n_valid):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention needs q/k/v of one [B, H, N, {HEAD_DIM}] "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"attention kernel supports head_dim {HEAD_DIM}, "
+                         f"got {q.shape[-1]}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32,
+                                                              torch.bfloat16):
+        raise ValueError(f"attention needs float32 or bfloat16 q/k/v of one "
+                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    n = q.shape[2]
+    nv = n if n_valid is None else int(n_valid)
+    if not 1 <= nv <= n:
+        raise ValueError(f"n_valid must be in [1, {n}], got {nv}")
+    return nv
+
+
+def _launch(q, k, v, out, scale: float, nv: int):
+    """Launch the kernel on [B, H, N, 64] views (``out`` may be a view)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
+    itemsize = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"attention kernel needs a contiguous head_dim; "
+                             f"{name} has strides {t.stride()}")
+        if t.data_ptr() % 16 or any((s * itemsize) % 16 for s in t.stride()[:3]):
+            raise ValueError(f"attention kernel needs 16-byte aligned rows; "
+                             f"{name} has strides {t.stride()}")
+    b, h, n, _ = q.shape
+    if n >= 2 ** 31 // 2:
+        raise ValueError(f"sequence too long for the kernel: {n}")
+    fn = KERNEL.fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *out.stride()[:3], b, h, n, nv, float(scale),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+    KERNEL.launches += 1
+    return out
+
+
+def split_qkv(qkv: torch.Tensor, num_heads: int):
+    """[B, N, 3D] packed projection -> q, k, v views [B, H, N, D/H]."""
+    b, n, d3 = qkv.shape
+    if d3 % (3 * num_heads):
+        raise ValueError(f"qkv last axis {d3} does not factor as 3 x "
+                         f"{num_heads} heads")
+    x = qkv.view(b, n, 3, num_heads, d3 // (3 * num_heads))
+    return (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+
+
+def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
+                  n_valid: int | None = None) -> torch.Tensor:
+    """Packed qkv [B, N, 3D] (K1 ``whole_kv_mha_qkv``) -> token-major [B, N, D].
+
+    The kernel reads each head straight out of ``qkv`` through strides and
+    writes its [N, 64] slice of the [B, N, D] output in place."""
+    if qkv.dim() != 3:
+        raise ValueError(f"attention_qkv needs [B, N, 3D], got {tuple(qkv.shape)}")
+    q, k, v = split_qkv(qkv, num_heads)
+    nv = _check(q, k, v, n_valid)
+    b, n, d3 = qkv.shape
+    if qkv.device.type == "cpu":
+        out = attention_plain(q, k, v, scale, nv)
+        return out.permute(0, 2, 1, 3).reshape(b, n, d3 // 3)
+    out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _launch(q, k, v, out.view(b, n, num_heads, -1).permute(0, 2, 1, 3),
+            scale, nv)
+    return out

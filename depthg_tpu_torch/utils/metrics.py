@@ -1,0 +1,111 @@
+"""Unsupervised segmentation metrics (``depthg_tpu/utils/metrics.py``).
+
+``confusion_update`` is the reference's own bincount of
+``(n + extra) * actual + pred`` (the JAX package used a one-hot matmul
+because scatter-adds are slow on a TPU). The reference quirk is kept: the
+mask drops ``pred >= n_classes``, so predictions in extra clusters never
+enter the matrix. The Hungarian matching and mIoU/accuracy are host-side
+numpy + scipy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from scipy.optimize import linear_sum_assignment
+
+
+def confusion_update(preds: torch.Tensor, target: torch.Tensor, n_classes: int,
+                     extra_clusters: int = 0) -> torch.Tensor:
+    """Confusion increment [n_classes + extra, n_classes] (int64, on the
+    inputs' device): stats[pred_cluster, actual_class]."""
+    k = n_classes + extra_clusters
+    actual = target.reshape(-1).long()
+    pred = preds.reshape(-1).long()
+    mask = (actual >= 0) & (actual < n_classes) & (pred >= 0) & (pred < n_classes)
+    # masked pixels land in one overflow bin, so no data-dependent shapes
+    idx = torch.where(mask, k * actual + pred, torch.full_like(actual, k * n_classes))
+    counts = torch.bincount(idx, minlength=k * n_classes + 1)[:k * n_classes]
+    return counts.reshape(n_classes, k).T
+
+
+def compute_metrics(stats: np.ndarray, n_classes: int, extra_clusters: int,
+                    compute_hungarian: bool, prefix: str = ""):
+    """Host-side metric computation. Returns (metrics dict, assignments)."""
+    stats = np.asarray(stats)
+    if compute_hungarian:
+        assignments = linear_sum_assignment(stats, maximize=True)
+        if extra_clusters == 0:
+            histogram = stats[np.argsort(assignments[1]), :]
+        else:
+            assignments_t = linear_sum_assignment(stats.T, maximize=True)
+            histogram = stats[assignments_t[1], :]
+            missing = list(set(range(n_classes + extra_clusters)) - set(assignments[0]))
+            new_row = stats[missing, :].sum(0, keepdims=True)
+            histogram = np.concatenate([histogram, new_row], axis=0)
+            new_col = np.zeros((n_classes + 1, 1), histogram.dtype)
+            histogram = np.concatenate([histogram, new_col], axis=1)
+    else:
+        assignments = (np.arange(n_classes), np.arange(n_classes))
+        histogram = stats
+
+    tp = np.diag(histogram).astype(np.float64)
+    fp = histogram.sum(0) - tp
+    fn = histogram.sum(1) - tp
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = tp / (tp + fp + fn)
+    acc = tp.sum() / histogram.sum() if histogram.sum() > 0 else float("nan")
+    metrics = {
+        prefix + "mIoU": (100.0 * float(np.nanmean(iou))
+                          if not np.isnan(iou).all() else float("nan")),
+        prefix + "Accuracy": 100.0 * float(acc),
+    }
+    return metrics, assignments
+
+
+def map_clusters(assignments, n_classes: int, extra_clusters: int,
+                 clusters: np.ndarray) -> np.ndarray:
+    """Map raw cluster predictions to matched class ids (-1 for unassigned)."""
+    if extra_clusters == 0:
+        return np.asarray(assignments[1])[clusters]
+    missing = sorted(set(range(n_classes + extra_clusters)) - set(assignments[0]))
+    cluster_to_class = np.asarray(assignments[1])
+    for m in missing:
+        if m == cluster_to_class.shape[0]:
+            cluster_to_class = np.append(cluster_to_class, -1)
+        else:
+            cluster_to_class = np.insert(cluster_to_class, m + 1, -1)
+    return cluster_to_class[clusters]
+
+
+class SegMetrics:
+    """Host accumulator of confusion blocks, reference lifecycle."""
+
+    def __init__(self, prefix: str, n_classes: int, extra_clusters: int,
+                 compute_hungarian: bool):
+        self.prefix = prefix
+        self.n_classes = n_classes
+        self.extra_clusters = extra_clusters
+        self.compute_hungarian = compute_hungarian
+        self.reset()
+
+    def reset(self):
+        self.stats = np.zeros((self.n_classes + self.extra_clusters,
+                               self.n_classes), np.int64)
+        self.assignments = None
+
+    def add_stats(self, stats: torch.Tensor):
+        """Add a precomputed confusion block (fetched to the host here)."""
+        self.stats += stats.cpu().numpy()
+
+    def compute(self):
+        metrics, self.assignments = compute_metrics(
+            self.stats, self.n_classes, self.extra_clusters,
+            self.compute_hungarian, self.prefix)
+        return metrics
+
+    def map_clusters(self, clusters):
+        if self.assignments is None:
+            self.compute()
+        return map_clusters(self.assignments, self.n_classes, self.extra_clusters,
+                            np.asarray(clusters))
