@@ -6,20 +6,33 @@ Phases, each printing one line (any failure exits non-zero before the
 final line):
 
 1. device: CUDA required; card name and power limit; TF32 off;
-2. build: nvcc builds ``depthg_tpu_torch/csrc/attention.cu``;
+2. build: nvcc builds ``depthg_tpu_torch/csrc/attention.cu`` and
+   ``csrc/crf_bilateral.cu``, one process each, started together;
 3. attention kernel vs ``attention_plain`` at the ViT-S/8 eval shape
    (B=16, N=1601, 6 heads x 64, packed qkv) in bf16 and f32, plus
    n_valid=1601 inside N=1664: max abs and relative error, exact-zero
    padded rows, masked keys without influence, CUDA-event times of kernel and plain;
-4. CRF precision: the int8 bilateral cache of a 320 px scene built on the
-   card vs float64 on the CPU, then the default-point CRF on the six
-   fidelity scenes of ``scripts/crf_fidelity_study.py`` (mIoU, accuracy);
-5. main path: full-width ViT-S/8 at 320 px with random weights from a
+4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
+   two fidelity scenes: N=25,600 (ds=2), C=54, B=2 in f32 and bf16, a
+   ragged N=25,563 read through views of a NaN-padded buffer, and the
+   exact CRF's N=102,400 at the shapes its paths launch: B=2, C=54 in f32
+   and bf16 (the eval step), its f32 degree (C=1, values 1) and the
+   fidelity row's f32 C=27; relative and max abs error, CUDA-event times
+   of kernel and plain;
+5. CRF precision: the int8 bilateral cache of a 320 px scene built on the
+   card vs float64 on the CPU, then the CRF on the six fidelity scenes of
+   ``scripts/crf_fidelity_study.py`` (mIoU, accuracy) at the default point
+   and at the rows exact (ds=1, through K4), ds=2 legacy, ds=4 mixed bf16
+   (``safe``) and quality+, each within 0.2 of its ``docs/CRF_FIDELITY.md``
+   row;
+6. main path: full-width ViT-S/8 at 320 px with random weights from a
    fixed generator, ``make_eval_step`` at the default point (bf16 backbone,
    bf16 CRF state), batch 16, one warm-up and three timed batches; launch
-   count, confusion sums, img/s; then one image in float32 on the card vs
-   the CPU (plain path) for pixel agreement;
-6. the kernels JSON line, the card line and the final JSON line.
+   counts, confusion sums, img/s; then one image in float32 on the card vs
+   the CPU (plain path) for pixel agreement; then the same step at
+   ``crf_downsample=1`` (batch 2, 11 K4 launches per batch) and at
+   ``operating_point=safe`` (batch 16);
+7. the total time, the kernels JSON line, the card line and the final JSON line.
 """
 
 import copy
@@ -32,6 +45,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 B, N, HEADS, DIM = 16, 1601, 6, 384
 SCALE = 64 ** -0.5
 # kernel vs plain: dtype -> (max abs error, relative error ||out-ref||/||ref||).
@@ -40,6 +54,17 @@ SCALE = 64 ** -0.5
 # the output gives a relative error near 3e-3, such a bug 2e-2 and more.
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 5e-3)}
 CRF_REF = (69.67, 84.08)  # docs/CRF_FIDELITY.md:33 (mIoU, accuracy), +-0.2
+# K4 vs plain: dtype -> (relative error, max abs error / max |ref|), as in
+# tests/test_torch_cuda.py; in bf16 both sides round float32 sums to bf16
+# and may land one bf16 step (<= 2^-7 of the value) apart. At
+# N=102,400 the f32 kernel's sequential sum over the keys and cuBLAS's
+# order in the plain version part by ~sqrt(N) float32 roundings: 5e-5.
+K4_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-3, 1e-2)}
+K4_TOL_EXACT = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (5e-3, 1e-2)}
+# fidelity rows run besides the default: (name in the port's study, K4
+# launches per run: the exact CRF streams, the others cache)
+FIDELITY_ROWS = [("exact (ds=1)", 11), ("ds=2 legacy", 0), ("ds=4 mixed bf16", 0),
+                 ("ds=4 jbu2 sf1.41 bf16 (quality+)", 0)]
 
 
 def phase(name, **values):
@@ -67,7 +92,7 @@ def cuda_time_ms(fn, inputs, iters=30, warmup=10):
     stop.record()
     torch.cuda.synchronize()
     if not torch.isfinite(check):
-        raise AssertionError("non-finite attention output while timing")
+        raise AssertionError("non-finite kernel output while timing")
     return start.elapsed_time(stop) / iters
 
 
@@ -123,6 +148,89 @@ def attention_phase(att, gen):
     return results
 
 
+def bilateral_phase(bil, crf, fidelity):
+    """K4 against its plain version on the CRF's own features, at every
+    shape the main path and the exact fidelity row launch."""
+    import numpy as np
+
+    from depthg_tpu_torch.ops.resize import resize_bilinear
+
+    def scene_feats(ds, seeds):
+        ccfg = crf.CRFConfig(downsample=ds)
+        imgs = torch.from_numpy(np.stack([fidelity.make_scene(320, 27, seed=s)[0]
+                                          for s in seeds])).cuda()
+        if ds > 1:
+            imgs = resize_bilinear(imgs, (320 // ds, 320 // ds))
+        return crf._bilateral_features(imgs, ccfg, ds)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {}
+    # (label, ds, scenes, C, dtypes, values all ones, limits, timed calls of
+    # kernel and plain)
+    for label, ds, seeds, c, dtypes, ones, tol, iters in (
+            ("n25600", 2, (0, 1), 54, (torch.float32, torch.bfloat16), False,
+             K4_TOL, (20, 5)),
+            # the eval step at ds=1: batch 2, both probes, and its degree
+            ("n102400", 1, (0, 1), 54, (torch.float32, torch.bfloat16), False,
+             K4_TOL_EXACT, (5, 2)),
+            ("n102400_degree", 1, (0, 1), 1, (torch.float32,), True,
+             K4_TOL_EXACT, (5, 2)),
+            # the exact fidelity row: one probe of 27 classes in float32
+            ("n102400_c27", 1, (0,), 27, (torch.float32,), False,
+             K4_TOL_EXACT, (3, 1))):
+        feats = scene_feats(ds, seeds)
+        b, n, _ = feats.shape
+        for dtype in dtypes:
+            base = (torch.ones(b, n, c, device="cuda") if ones
+                    else torch.rand(b, n, c, device="cuda", generator=gen))
+            inputs = [(base * (1 - 0.05 * i)).to(dtype) for i in range(3)]
+            out = bil.bilateral_message(feats, inputs[0])
+            ref = bil.bilateral_message_plain(feats, inputs[0])
+            torch.cuda.synchronize()
+            rel, err = k4_errors(out, ref, tol[dtype], f"bilateral {label}")
+            row = {"rel_err": rel, "max_abs_err": err,
+                   "max_abs_ref": ref.float().abs().max().item()}
+            if label == "n25600":
+                # ragged N=25,563 through views of a buffer that is NaN past it
+                nr = n - 37
+                fbuf, vbuf = feats.clone(), inputs[0].clone()
+                rag_ref = bil.bilateral_message_plain(fbuf[:, :nr].contiguous(),
+                                                      vbuf[:, :nr].contiguous())
+                fbuf[:, nr:], vbuf[:, nr:] = float("nan"), float("nan")
+                obuf = torch.full_like(vbuf, 7.0)
+                bil._launch(fbuf[:, :nr], vbuf[:, :nr], obuf[:, :nr])
+                torch.cuda.synchronize()
+                if not torch.all(obuf[:, nr:] == 7.0):
+                    raise AssertionError("the bilateral kernel wrote rows past N")
+                row["ragged_rel_err"], row["ragged_max_abs_err"] = k4_errors(
+                    obuf[:, :nr], rag_ref, tol[dtype], f"bilateral ragged N={nr}")
+                del fbuf, vbuf, obuf, rag_ref
+            row["ms"] = cuda_time_ms(lambda v: bil.bilateral_message(feats, v), inputs,
+                                     iters=iters[0], warmup=3)
+            row["plain_ms"] = cuda_time_ms(
+                lambda v: bil.bilateral_message_plain(feats, v), inputs,
+                iters=iters[1], warmup=1)
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            results[f"{label}_{name}"] = row
+            phase("crf_bilateral", case=label, dtype=name, shape=[b, n, c], **row)
+            del base, inputs, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def k4_errors(out, ref, limits, what):
+    """(relative error, max abs error) of K4 vs plain; raises past ``limits``
+    = (relative, max abs / max |ref|)."""
+    diff = out.float() - ref.float()
+    rel = (diff.norm() / ref.float().norm()).item()
+    err = diff.abs().max().item()
+    top = ref.float().abs().max().item()
+    if not (rel <= limits[0] and err <= limits[1] * top):
+        raise AssertionError(f"{what} {out.dtype}: relative err {rel}, max abs err "
+                             f"{err} (max |ref| {top}); limits {limits}")
+    return rel, err
+
+
 def crf_phase(fidelity, crf):
     import numpy as np
 
@@ -164,22 +272,34 @@ def crf_phase(fidelity, crf):
                              f"of {CRF_REF}")
 
 
-def main_path_phase(att, inference, vit_lib, featurizer, crf, gen):
-    fcfg = featurizer.FeaturizerConfig()  # vit_small, patch 8, dim 70
-    cpu_gen = torch.Generator().manual_seed(0)
-    model_cpu = inference.Segmenter(fcfg, 27, 27).init_weights(cpu_gen)
-    model = copy.deepcopy(model_cpu).cuda()
-    ecfg = inference.EvalConfig(n_classes=27, crf=crf.crf_config_from_cfg({}),
-                                backbone_dtype="bfloat16")
-    step = inference.make_eval_step(ecfg)
+def fidelity_rows_phase(study, bil):
+    """The fidelity study's rows away from the default point: the exact CRF
+    streams through K4 (11 launches per run), the others cache."""
+    rows = {}
+    for name, k4_per_run in FIDELITY_ROWS:
+        bil.KERNEL.launches = 0
+        (row,) = [r for r in study.run_rows([name], reps=1) if r["name"] == name]
+        launches = bil.KERNEL.launches
+        ref = row["jax"]
+        phase("crf_fidelity_row", row=name, miou=row["miou"], accuracy=row["accuracy"],
+              ms_per_image=row["ms_per_image"], jax_row=list(ref),
+              k4_launches=launches)
+        if launches != 2 * k4_per_run:  # the quality run and one timed run
+            raise AssertionError(f"{name}: {launches} K4 launches, expected "
+                                 f"{2 * k4_per_run}")
+        if not (abs(row["miou"] - ref[0]) <= 0.2 and abs(row["accuracy"] - ref[1]) <= 0.2):
+            raise AssertionError(f"{name}: {row['miou']:.2f}/{row['accuracy']:.2f} not "
+                                 f"within 0.2 of {ref}")
+        rows[name] = row
+    return rows
 
-    low = torch.rand(B, 3, 40, 40, device="cuda", generator=gen)
-    base = torch.nn.functional.interpolate(low, size=(320, 320), mode="bilinear")
-    labels = torch.randint(-1, 27, (B, 320, 320), device="cuda", generator=gen)
-    batches = [((base + 0.02 * i - 0.45) / 0.226, labels.roll(i, dims=-1))
-               for i in range(4)]  # warm-up + 3 timed
 
+def run_eval_batches(step, model, batches, att, bil):
+    """Drive ``step`` over ``batches`` (the first one a warm-up), counts of
+    both kernels set to 0 just before and read just after; returns
+    (stats, img/s of the timed batches, attention launches, K4 launches)."""
     att.KERNEL.launches = 0
+    bil.KERNEL.launches = 0
     stats = [step(model, *batches[0])]
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -188,17 +308,41 @@ def main_path_phase(att, inference, vit_lib, featurizer, crf, gen):
         stats.append(step(model, img, label))
     stop.record()
     torch.cuda.synchronize()
-    launches = att.KERNEL.launches
-    img_s = 3 * B / (start.elapsed_time(stop) / 1e3)
-
-    expected = vit_lib.VIT_PRESETS["vit_small"]["depth"] * 2 * len(batches)
-    if launches != expected:
-        raise AssertionError(f"attention launches {launches} != {expected}")
+    n_timed = sum(img.shape[0] for img, _ in batches[1:])
+    img_s = n_timed / (start.elapsed_time(stop) / 1e3)
     for (img, label), (lin, clu) in zip(batches, stats):
         counted = int(((label >= 0) & (label < 27)).sum())
         for s in (lin, clu):
             if int(s.sum()) != counted or s.shape != (27, 27):
                 raise AssertionError(f"confusion sums {int(s.sum())} != {counted}")
+    return stats, img_s, att.KERNEL.launches, bil.KERNEL.launches
+
+
+def make_batches(gen, b, n):
+    low = torch.rand(b, 3, 40, 40, device="cuda", generator=gen)
+    base = torch.nn.functional.interpolate(low, size=(320, 320), mode="bilinear")
+    labels = torch.randint(-1, 27, (b, 320, 320), device="cuda", generator=gen)
+    return [((base + 0.02 * i - 0.45) / 0.226, labels.roll(i, dims=-1))
+            for i in range(n)]
+
+
+def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
+    fcfg = featurizer.FeaturizerConfig()  # vit_small, patch 8, dim 70
+    cpu_gen = torch.Generator().manual_seed(0)
+    model_cpu = inference.Segmenter(fcfg, 27, 27).init_weights(cpu_gen)
+    model = copy.deepcopy(model_cpu).cuda()
+    ecfg = inference.EvalConfig(n_classes=27, crf=crf.crf_config_from_cfg({}),
+                                backbone_dtype="bfloat16")
+    step = inference.make_eval_step(ecfg)
+    per_batch = vit_lib.VIT_PRESETS["vit_small"]["depth"] * 2
+
+    batches = make_batches(gen, B, 4)  # warm-up + 3 timed
+    torch.cuda.reset_peak_memory_stats()
+    _, img_s, launches, k4 = run_eval_batches(step, model, batches, att, bil)
+    expected = per_batch * len(batches)
+    if launches != expected or k4 != 0:
+        raise AssertionError(f"attention launches {launches} != {expected} or "
+                             f"K4 launches {k4} != 0 at the default point")
     phase("main_path", batch=B, res=320, batches_timed=3, img_per_s=img_s,
           attention_launches=launches, expected_launches=expected,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
@@ -218,7 +362,34 @@ def main_path_phase(att, inference, vit_lib, featurizer, crf, gen):
     phase("f32_card_vs_cpu", linear_agreement=agree[0], cluster_agreement=agree[1])
     if min(agree) < 0.995:
         raise AssertionError(f"card vs CPU prediction agreement {agree} < 99.5%")
-    return {"img_per_s": img_s, "launches": launches, "agreement": agree}
+    del batches
+    torch.cuda.empty_cache()
+
+    # the eval step away from the default point: the exact CRF (every
+    # message through K4 in bf16, C = 27 + 27) and the safe point
+    points = {}
+    for name, cfg, b, n_batches, k4_per_batch in (
+            ("exact_ds1", {"crf_downsample": 1}, 2, 3, 11),
+            ("safe", crf.EVAL_OPERATING_POINTS["safe"], B, 4, 0)):
+        ccfg = crf.crf_config_from_cfg(cfg)
+        step = inference.make_eval_step(inference.EvalConfig(
+            n_classes=27, crf=ccfg, backbone_dtype="bfloat16"))
+        batches = make_batches(gen, b, n_batches)
+        torch.cuda.reset_peak_memory_stats()
+        _, pt_img_s, pt_att, pt_k4 = run_eval_batches(step, model, batches, att, bil)
+        if pt_att != per_batch * n_batches or pt_k4 != k4_per_batch * n_batches:
+            raise AssertionError(f"{name}: attention launches {pt_att}, K4 launches "
+                                 f"{pt_k4}; expected {per_batch * n_batches} and "
+                                 f"{k4_per_batch * n_batches}")
+        points[name] = {"img_per_s": pt_img_s, "k4_launches": pt_k4}
+        phase("main_path_point", point=name, cfg=cfg, batch=b,
+              batches_timed=n_batches - 1, img_per_s=pt_img_s, attention_launches=pt_att,
+              k4_launches=pt_k4, k4_launches_per_batch=pt_k4 / n_batches,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        del batches
+        torch.cuda.empty_cache()
+    return {"img_per_s": img_s, "launches": launches, "agreement": agree,
+            "points": points}
 
 
 def main():
@@ -227,19 +398,16 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import importlib.util
-
     import depthg_tpu_torch
+    from depthg_tpu_torch import crf_fidelity_study as study
     from depthg_tpu_torch import inference, runtime
     from depthg_tpu_torch.models import featurizer
     from depthg_tpu_torch.models import vit as vit_lib
     from depthg_tpu_torch.ops import _build, crf
     from depthg_tpu_torch.ops import attention as att
+    from depthg_tpu_torch.ops import crf_bilateral as bil
 
-    spec = importlib.util.spec_from_file_location(
-        "crf_fidelity_study", os.path.join(ROOT, "scripts", "crf_fidelity_study.py"))
-    fidelity = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fidelity)
+    fidelity = study.load_scenes_module()
 
     card = card_line()
     depthg_tpu_torch.get_device("cuda")
@@ -248,16 +416,23 @@ def main():
     phase("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
           gpu=torch.cuda.get_device_name(0), tf32_off=True)
 
+    t_build = time.perf_counter()
+    _build.build(["attention", "crf_bilateral"])
     att.KERNEL.fn()
-    phase("build", source="depthg_tpu_torch/csrc/attention.cu",
-          seconds=_build.BUILD_SECONDS["attention"],
-          ptxas=[ln.strip() for ln in _build.BUILD_LOG.get("attention", "").splitlines()
-                 if "registers" in ln or "spill" in ln])
+    bil.KERNEL.fn()
+    for name in ("attention", "crf_bilateral"):
+        phase("build", source=f"depthg_tpu_torch/csrc/{name}.cu",
+              seconds=_build.BUILD_SECONDS[name],
+              ptxas=[ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
+                     if "registers" in ln or "spill" in ln])
+    phase("build_all", seconds=time.perf_counter() - t_build)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = attention_phase(att, gen)
+    k4 = bilateral_phase(bil, crf, fidelity)
     crf_phase(fidelity, crf)
-    main_res = main_path_phase(att, inference, vit_lib, featurizer, crf, gen)
+    fidelity_rows_phase(study, bil)
+    main_res = main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -277,7 +452,26 @@ def main():
         "f32_max_abs_err": attn["f32"]["max_abs_err"],
         "f32_rel_err": attn["f32"]["rel_err"],
         "f32_ms": attn["f32"]["ms"], "f32_plain_ms": attn["f32"]["plain_ms"],
+    }, {
+        "name": "crf_bilateral", "route": "cuda",
+        "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
+        "replaces": "depthg_tpu/ops/crf_pallas.py:66",
+        "launches": main_res["points"]["exact_ds1"]["k4_launches"],
+        "shape": "B=2, N=25600, C=54; n102400: B=2, C=54; degree: B=2, C=1",
+        "max_abs_err": k4["n25600_bf16"]["max_abs_err"],
+        "rel_err": k4["n25600_bf16"]["rel_err"],
+        "ms": k4["n25600_bf16"]["ms"], "plain_ms": k4["n25600_bf16"]["plain_ms"],
+        "f32_max_abs_err": k4["n25600_f32"]["max_abs_err"],
+        "f32_rel_err": k4["n25600_f32"]["rel_err"],
+        "f32_ms": k4["n25600_f32"]["ms"], "f32_plain_ms": k4["n25600_f32"]["plain_ms"],
+        "n102400_ms": k4["n102400_bf16"]["ms"],
+        "n102400_plain_ms": k4["n102400_bf16"]["plain_ms"],
+        "n102400_f32_ms": k4["n102400_f32"]["ms"],
+        "n102400_f32_plain_ms": k4["n102400_f32"]["plain_ms"],
+        "degree_f32_ms": k4["n102400_degree_f32"]["ms"],
+        "degree_f32_plain_ms": k4["n102400_degree_f32"]["plain_ms"],
     }]}
+    phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -134,15 +134,18 @@ def _write_predictions(cfg, loader, model, ecfg, device, dataset_name,
              cluster=cluster_metrics.stats, linear=linear_metrics.stats)
 
 
-def main(argv=None):
-    overrides = cli_overrides(argv if argv is not None else sys.argv[1:])
-    # operating_point=<name> expands ahead of the user's own overrides, so
-    # explicit crf_* flags still win
+def eval_config(overrides) -> Config:
+    """``eval_config.yml`` with ``k=v`` overrides. ``operating_point=<name>``
+    expands ahead of the other overrides, so explicit crf_* keys still win."""
     point = [o.split("=", 1)[1] for o in overrides if o.startswith("operating_point=")]
     if point:
         overrides = (operating_point_overrides(point[-1])
                      + [o for o in overrides if not o.startswith("operating_point=")])
-    cfg = load_config("eval_config.yml", overrides)
+    return load_config("eval_config.yml", overrides)
+
+
+def main(argv=None):
+    cfg = eval_config(cli_overrides(argv if argv is not None else sys.argv[1:]))
     device = get_device(cfg.get("device", "cuda"))
     all_metrics = {p: evaluate_checkpoint(p, cfg, device) for p in cfg.model_paths}
     out_path = join(cfg.output_root, "eval_metrics.json")

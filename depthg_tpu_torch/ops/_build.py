@@ -4,7 +4,8 @@ Each source under ``depthg_tpu_torch/csrc/`` is compiled at first use into
 ``build/depthg_tpu_torch/`` at the repository root (listed in .gitignore),
 with a plain C interface and no PyTorch headers, so a build takes seconds.
 The library's file name carries a hash of the source and the flags: an edit
-to the source builds a new library, an unchanged one is reused.
+to the source builds a new library, an unchanged one is reused. ``build``
+starts one nvcc per missing library, all at once, and waits for them all.
 """
 
 from __future__ import annotations
@@ -44,21 +45,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
-    so = library_path(name)
-    if not so.exists():
+def build(names) -> None:
+    """Compile ``csrc/<name>.cu`` for every name whose library is missing,
+    one nvcc process each, all started together."""
+    jobs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(CSRC / f"{name}.cu")],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs[name] = (proc, tmp, so, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, so, t0) in jobs.items():
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
         os.replace(tmp, so)
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = proc.stderr
-    else:
-        BUILD_SECONDS.setdefault(name, 0.0)
-    return ctypes.CDLL(str(so))
+        BUILD_LOG[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,10 +1,12 @@
-"""Where the eval step's time goes on the GPU, at the default point.
+"""Where the eval step's time goes on the GPU, at any CRF point.
 
-    python -m depthg_tpu_torch.profile_eval [--steps 20] [--out FILE]
+    python -m depthg_tpu_torch.profile_eval [--steps 20] [--batch 16]
+        [--out FILE] [operating_point=NAME] [crf_KEY=VALUE ...]
 
-Batch 16, full-width ViT-S/8 at 320 px with random weights (``torch.Generator`` seed
-0), synthetic smooth images and random labels, the eval default CRF point,
-bf16 backbone. Prints one JSON object (also written to ``--out``):
+Full-width ViT-S/8 at 320 px with random weights (``torch.Generator`` seed
+0), synthetic smooth images and random labels, bf16 backbone, the CRF point
+the ``k=v`` overrides give (read by the eval CLI's ``eval_config``; the
+eval default without any). Prints one JSON object (also written to ``--out``):
 
 * ``step_ms`` / ``img_per_s``: the whole eval step, CUDA events around
   ``--steps`` back-to-back steps on perturbed inputs after a warm-up, with
@@ -14,6 +16,8 @@ bf16 backbone. Prints one JSON object (also written to ``--out``):
   minus the backbone), the dense CRF on both probes, argmax + confusion
   (the rest of the step). Parts run one after another with a sync between
   them, so they need not add up to ``step_ms``;
+* ``peak_mem_gb``: the largest device memory allocated during the timed
+  steps (``torch.cuda.max_memory_allocated``);
 * ``profile``: one step under ``torch.profiler``: device time and the
   number of device events (kernels, copies), and the largest host ops and
   device events by device time.
@@ -22,16 +26,17 @@ bf16 backbone. Prints one JSON object (also written to ``--out``):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 
 import torch
 
 from depthg_tpu_torch import get_device, inference
+from depthg_tpu_torch.eval_segmentation import eval_config
 from depthg_tpu_torch.models import featurizer
 from depthg_tpu_torch.ops import crf
 
-BATCH = 16
 TOP = 12  # largest ops and device events listed
 
 
@@ -56,15 +61,18 @@ def _top(events, n: int) -> list:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--out", default=None)
+    ap.add_argument("overrides", nargs="*", help="operating_point=NAME, crf_KEY=VALUE")
     args = ap.parse_args(argv)
     dev = get_device("cuda")
-    b = BATCH
+    b = args.batch
 
     model = inference.Segmenter(featurizer.FeaturizerConfig(), 27, 27).init_weights(
         torch.Generator().manual_seed(0)).to(dev)
-    ecfg = inference.EvalConfig(n_classes=27, crf=crf.crf_config_from_cfg({}),
-                                backbone_dtype="bfloat16")
+    ecfg = inference.EvalConfig(
+        n_classes=27, crf=crf.crf_config_from_cfg(eval_config(args.overrides)),
+        backbone_dtype="bfloat16")
     step = inference.make_eval_step(ecfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     low = torch.rand(b, 3, 40, 40, device=dev, generator=gen)
@@ -73,7 +81,9 @@ def main(argv=None) -> dict:
     label = torch.randint(-1, 27, (b, 320, 320), device=dev, generator=gen)
 
     with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats(dev)
         step_ms = _cuda_ms(lambda i: step(model, imgs[i % 4], label), args.steps)
+        peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         tta_ms = _cuda_ms(lambda i: inference.tta_code(
             model.net, imgs[i % 4], backbone_dtype="bfloat16"), args.steps)
         logits_ms = _cuda_ms(lambda i: inference.eval_logits(
@@ -99,7 +109,8 @@ def main(argv=None) -> dict:
                           text=True, timeout=60).stdout.strip()
     result = {
         "card": card, "torch": torch.__version__, "batch": b, "steps": args.steps,
-        "step_ms": step_ms, "img_per_s": b / step_ms * 1e3,
+        "overrides": args.overrides, "crf": dataclasses.asdict(ecfg.crf),
+        "step_ms": step_ms, "img_per_s": b / step_ms * 1e3, "peak_mem_gb": peak_mem_gb,
         "parts_ms": {"tta_backbone": tta_ms, "probes_upsample": logits_ms - tta_ms,
                      "crf": crf_ms, "argmax_confusion_rest": step_ms - logits_ms - crf_ms},
         "profile": {

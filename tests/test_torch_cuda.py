@@ -13,7 +13,10 @@ limit is what sees a wrong kernel in bf16: with randn inputs each output
 averages hundreds of keys, so outputs are ~0.04 (max ~0.3) at N=1601 and a
 bug that shrinks every output by 2% moves them by less than 1e-2, while
 bf16 rounding of P and of the output gives a relative error near 3e-3.
-The int8 CRF product is held exactly.
+The bilateral message kernel (K4, ``csrc/crf_bilateral.cu``) is held to the
+relative errors 1e-5 (float32) and 5e-3 (bf16), and to a max abs error
+scaled by the largest output (``K4_MAX_TOL``). The int8 CRF product is held
+exactly.
 """
 
 import pytest
@@ -21,6 +24,7 @@ import torch
 
 from depthg_tpu_torch.ops import attention as tatt
 from depthg_tpu_torch.ops import crf as tcrf
+from depthg_tpu_torch.ops import crf_bilateral as tbil
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +86,63 @@ def test_attention_kernel_rejects_misaligned_rows(cuda):
     qkv = torch.randn(1, 64, 3 * 128 + 1, device=cuda)[..., 1:]  # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
         tatt.attention_qkv(qkv, 2, 0.125)
+
+
+# K4: dtype -> limit on the relative error and on max abs error / max |ref|.
+# In bf16 both sides round float32 sums that agree to ~1e-6 to bf16, so they
+# may land one bf16 step apart: 2^-8 of the value, under 1e-2 of the largest.
+K4_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+K4_MAX_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _assert_k4_close(out, ref, dtype):
+    diff = out.float() - ref.float()
+    assert (diff.norm() / ref.float().norm()).item() <= K4_TOL[dtype]
+    assert diff.abs().max().item() <= K4_MAX_TOL[dtype] * ref.float().abs().max().item()
+
+
+def _bilateral_inputs(b, n, c, dtype, seed=0):
+    """Features spread like the CRF's (positions over ~5 sigmas, colors over
+    ~20), so kernel entries range from 1 down to far below bf16's reach;
+    values in [0, 1) like the mean-field distributions."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.rand(b, n, 5, generator=gen) * torch.tensor([5.0, 5, 20, 20, 20])
+    values = torch.rand(b, n, c, generator=gen)
+    return feats, values.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c", [(2, 1000, 27), (2, 1000, 54), (2, 1000, 1),
+                                   (1, 4099, 54), (2, 64, 5), (1, 777, 70)])
+def test_bilateral_kernel_matches_plain(cuda, dtype, b, n, c):
+    """K4 vs ``bilateral_message_plain``: any N (1000, 4099 and 777 end in a
+    ragged key tile), C in {1, 27, 54}, and C = 70 over two channel chunks."""
+    feats, values = _bilateral_inputs(b, n, c, dtype)
+    ref = tbil.bilateral_message_plain(feats, values)
+    before = tbil.KERNEL.launches
+    out = tbil.bilateral_message(feats.to(cuda), values.to(cuda))
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, n, c)
+    _assert_k4_close(out.cpu(), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilateral_kernel_reads_nothing_past_n(cuda, dtype):
+    """Points past N (here NaN in a larger buffer the inputs are views of)
+    weigh exactly 0 and are never written: the ragged last tile is masked
+    in the kernel."""
+    feats, values = _bilateral_inputs(2, 1100, 27, dtype, seed=1)
+    feats, values = feats.to(cuda), values.to(cuda)
+    ref = tbil.bilateral_message(feats[:, :1000].contiguous(),
+                                 values[:, :1000].contiguous())
+    feats[:, 1000:] = float("nan")
+    values[:, 1000:] = float("nan")
+    out = torch.full_like(values, 7.0)
+    tbil._launch(feats[:, :1000], values[:, :1000], out[:, :1000])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[:, :1000], ref, rtol=0, atol=0)
+    assert torch.all(out[:, 1000:] == 7.0)
 
 
 def test_int8_product_exact_on_card(cuda):

@@ -2,8 +2,10 @@
 
 Tiny segmenter (2-block 128-wide ViT, code dim 16, 5 classes + 2 extra
 clusters) at 64 px, batch 2, on fidelity-study scenes: flip-TTA, low-res
-probes, the default-point CRF (ds=8 jbu4 cp5 m4, int8 cache) with float32
-backbone and float32 mean-field state, argmax and confusion blocks.
+probes, the CRF with float32 backbone and float32 mean-field state, argmax
+and confusion blocks. The CRF runs at the default point (ds=8 jbu4 cp5 m4,
+int8 cache), at ``operating_point=safe`` (ds=4, phase-free mixed, cached)
+and as the exact ds=1 CRF with the cache off (the streaming message).
 Predictions agree on >= 99.9% of pixels; the confusion blocks have the
 same total and an L1 difference <= 0.2% of it (the int8 roundings of the
 CRF can land one step apart between frameworks, see test_torch_crf).
@@ -63,13 +65,18 @@ def setup():
     return fj, params, model, img, label
 
 
-def _configs(**kw):
+def _configs(crf_cfg=None, kernel_cache_mb=2700, **kw):
+    crf_cfg = crf_cfg or {}
     ej = jinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
-                         crf=dataclasses.replace(jcrf.crf_config_from_cfg({}),
-                                                 dtype="float32"), **kw)
+                         crf=dataclasses.replace(jcrf.crf_config_from_cfg(crf_cfg),
+                                                 dtype="float32",
+                                                 kernel_cache_mb=kernel_cache_mb),
+                         **kw)
     et = tinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
-                         crf=dataclasses.replace(tcrf.crf_config_from_cfg({}),
-                                                 dtype="float32"), **kw)
+                         crf=dataclasses.replace(tcrf.crf_config_from_cfg(crf_cfg),
+                                                 dtype="float32",
+                                                 kernel_cache_mb=kernel_cache_mb),
+                         **kw)
     return ej, et
 
 
@@ -85,8 +92,20 @@ def test_predictions_match_jax(setup):
 
 
 def test_eval_step_confusion_matches_jax(setup):
+    _check_eval_step(setup)
+
+
+@pytest.mark.parametrize("crf_cfg,kernel_cache_mb", [
+    (jcrf.EVAL_OPERATING_POINTS["safe"], 2700),
+    ({"crf_downsample": 1}, 0),  # the exact CRF, streaming as at 320 px
+], ids=["safe", "exact_ds1"])
+def test_eval_step_other_points_match_jax(setup, crf_cfg, kernel_cache_mb):
+    _check_eval_step(setup, crf_cfg, kernel_cache_mb)
+
+
+def _check_eval_step(setup, crf_cfg=None, kernel_cache_mb=2700):
     fj, params, model, img, label = setup
-    ej, et = _configs()
+    ej, et = _configs(crf_cfg, kernel_cache_mb)
     stats_j = jinf.make_eval_step(fj, ej)(params, jnp.asarray(img),
                                           jnp.asarray(label))
     stats_t = tinf.make_eval_step(et)(model, torch.from_numpy(img),
@@ -132,6 +151,18 @@ def _coco_val(root, n=4, size=48):
 def test_eval_cli_on_cpu(tmp_path):
     """The port's entry module end to end on a tiny synthetic COCO val set:
     Lightning .ckpt in, metrics JSON and prediction PNGs out."""
+    _run_eval_cli(tmp_path, "operating_point=default", predictions=True)
+
+
+@pytest.mark.parametrize("point", ["operating_point=safe", "operating_point=quality_plus",
+                                   "operating_point=fast", "crf_downsample=1",
+                                   "crf_mixed_resolution=False", "crf_kernel_int8=False"])
+def test_eval_cli_other_points_on_cpu(tmp_path, point):
+    """The same CLI at the other CRF points a user can ask for."""
+    _run_eval_cli(tmp_path, point, predictions=False)
+
+
+def _run_eval_cli(tmp_path, point, predictions):
     import json
 
     from depthg_tpu_torch import eval_segmentation
@@ -148,7 +179,7 @@ def test_eval_cli_on_cpu(tmp_path):
     metrics = eval_segmentation.main([
         f"data_dir={tmp_path}", f"output_root={out_root}", f"model_paths=[{ckpt}]",
         "res=32", "batch_size=1", "num_workers=1", "device=cpu",
-        "run_prediction=True", "experiment_name=tiny", "operating_point=default"])
+        f"run_prediction={predictions}", "experiment_name=tiny", point])
     vals = metrics[ckpt]
     assert vals["n_images"] == 4 and vals["device"] == "cpu"
     assert np.isfinite(vals["final/linear/Accuracy"])
@@ -156,7 +187,7 @@ def test_eval_cli_on_cpu(tmp_path):
     with open(os.path.join(out_root, "eval_metrics.json")) as f:
         assert json.load(f)[ckpt]["n_images"] == 4
     assert os.path.exists(os.path.join(out_root, "predictions", "tiny",
-                                       "cluster", "0.png"))
+                                       "cluster", "0.png")) == predictions
 
 
 def test_config_builders_match_jax(setup):
@@ -183,3 +214,30 @@ def test_config_builders_match_jax(setup):
     for arch in ("dino_depth", "feature-pyramid"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tinf.fcfg_from_run_cfg(Config({"arch": arch}))
+
+
+@pytest.mark.parametrize("flags,keys", [
+    *[([f"operating_point={name}"], tcrf.EVAL_OPERATING_POINTS[name])
+      for name in sorted(tcrf.EVAL_OPERATING_POINTS)],
+    (["crf_downsample=1"], {"crf_downsample": 1}),
+    (["crf_kernel_int8=False"], {"crf_kernel_int8": False}),
+    (["operating_point=quality_plus", "crf_downsample=2"], {"crf_downsample": 2}),
+    (["crf_downsample=2", "operating_point=quality_plus"], {"crf_downsample": 2}),
+])
+def test_eval_config_resolves_crf_points(flags, keys):
+    """The eval CLI's ``eval_config`` (eval_config.yml, ``operating_point``
+    expanded ahead of the other flags, explicit crf_* keys winning) resolves
+    the CRF point that the same keys give ``crf_config_from_cfg`` directly
+    (as chip_smoke.py passes them), and the one the JAX package's eval
+    script resolves from the same flags."""
+    from depthg_tpu.config import load_config
+    from depthg_tpu_torch.eval_segmentation import eval_config
+
+    port = tcrf.crf_config_from_cfg(eval_config(flags))
+    assert port == tcrf.crf_config_from_cfg(keys)
+    point = [f.split("=", 1)[1] for f in flags if f.startswith("operating_point=")]
+    jflags = (jcrf.operating_point_overrides(point[0]) if point else []) + [
+        f for f in flags if not f.startswith("operating_point=")]
+    ref = jcrf.crf_config_from_cfg(load_config("eval_config.yml", jflags))
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name

@@ -1,7 +1,9 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing
-``depthg_tpu_torch`` and running the tiny eval step on the CPU leaves
-``jax`` out of ``sys.modules``. The attention wrapper raises on an input
-its kernel cannot take instead of falling back to its plain version."""
+``depthg_tpu_torch`` (and its fidelity-study module) and running the tiny
+eval step on the CPU at the default point, the ``safe`` point and the
+streaming exact CRF leaves ``jax`` out of ``sys.modules``. The attention
+and bilateral wrappers raise on an input their kernels cannot take instead
+of falling back to their plain versions."""
 
 import os
 import subprocess
@@ -11,14 +13,16 @@ import pytest
 import torch
 
 from depthg_tpu_torch.ops import attention as tatt
+from depthg_tpu_torch.ops import crf_bilateral as tbil
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROGRAM = r"""
+import dataclasses
 import sys
 import torch
 import depthg_tpu_torch
-from depthg_tpu_torch import inference
+from depthg_tpu_torch import crf_fidelity_study, inference
 from depthg_tpu_torch.models import featurizer, vit
 from depthg_tpu_torch.ops.crf import crf_config_from_cfg
 
@@ -28,15 +32,18 @@ fcfg = featurizer.FeaturizerConfig(
     vit_config=vit.ViTConfig(embed_dim=128, depth=2, num_heads=2), dim=16)
 gen = torch.Generator().manual_seed(0)
 model = inference.Segmenter(fcfg, 5, 7).init_weights(gen).to(dev)
-ecfg = inference.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
-                            crf=crf_config_from_cfg({}),
-                            backbone_dtype="bfloat16")
 img = torch.randn(2, 3, 64, 64, generator=gen)
 label = torch.randint(-1, 5, (2, 64, 64), generator=gen)
-lin, clu = inference.make_eval_step(ecfg)(model, img, label)
-assert lin.shape == (5, 5) and clu.shape == (7, 5)
 counted = int(((label >= 0) & (label < 5)).sum())
-assert int(lin.sum()) <= counted and int(clu.sum()) <= counted
+for crf in (crf_config_from_cfg({}),
+            crf_config_from_cfg({"crf_downsample": 4, "crf_splat_phases": 0}),
+            dataclasses.replace(crf_config_from_cfg({"crf_downsample": 1}),
+                                kernel_cache_mb=0)):
+    ecfg = inference.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
+                                crf=crf, backbone_dtype="bfloat16")
+    lin, clu = inference.make_eval_step(ecfg)(model, img, label)
+    assert lin.shape == (5, 5) and clu.shape == (7, 5)
+    assert int(lin.sum()) <= counted and int(clu.sum()) <= counted
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NO_JAX_OK")
 """
@@ -70,3 +77,8 @@ def test_kernel_path_raises_instead_of_falling_back():
         tatt._launch(q, k, v, torch.empty_like(q), 0.125, 64)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tatt.attention_qkv(qkv.double(), 2, 0.125)
+    feats, values = torch.zeros(2, 64, 5), torch.zeros(2, 64, 27)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbil._launch(feats, values, torch.empty_like(values))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tbil.bilateral_message(feats, values.double())
