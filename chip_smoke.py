@@ -11,14 +11,21 @@ final line):
 3. attention kernel vs ``attention_plain`` at the ViT-S/8 eval shape
    (B=16, N=1601, 6 heads x 64, packed qkv) in bf16 and f32, plus
    n_valid=1601 inside N=1664: max abs and relative error, exact-zero
-   padded rows, masked keys without influence, CUDA-event times of kernel and plain;
+   padded rows, masked keys without influence, CUDA-event times of kernel
+   and plain; in bf16 also the kernel alone on preallocated views, one
+   PyTorch ``scaled_dot_product_attention`` call on the same views as the
+   library yardstick (the package never calls it), the host time of a
+   launch and the kernel's bound from the shapes;
 4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
    two fidelity scenes: N=25,600 (ds=2), C=54, B=2 in f32 and bf16, a
    ragged N=25,563 read through views of a NaN-padded buffer, and the
    exact CRF's N=102,400 at the shapes its paths launch: B=2, C=54 in f32
-   and bf16 (the eval step), its f32 degree (C=1, values 1) and the
-   fidelity row's f32 C=27; relative and max abs error, CUDA-event times
-   of kernel and plain;
+   and bf16 (the eval step), its degree (the degree entry, and the f32
+   C=1 message on ones) and the fidelity row's f32 C=27, plus bf16 at
+   B=2, C=27 and at B=1, C=54 and 27 (one image, one or both probes);
+   relative and max abs error, CUDA-event times of kernel and plain, in
+   bf16 the kernel alone on a preallocated output, and the bounds from the
+   shapes;
 5. CRF precision: the int8 bilateral cache of a 320 px scene built on the
    card vs float64 on the CPU, then the CRF on the six fidelity scenes of
    ``scripts/crf_fidelity_study.py`` (mIoU, accuracy) at the default point
@@ -48,6 +55,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 B, N, HEADS, DIM = 16, 1601, 6, 384
 SCALE = 64 ** -0.5
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
+# cores, float32 outside them (an FMA counts 2, so 33.5e12 instructions/s:
+# 128 lanes x 132 SMs x ~1.98 GHz), HBM3
+PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
+SMS = 132
 # kernel vs plain: dtype -> (max abs error, relative error ||out-ref||/||ref||).
 # Outputs here average ~600 keys (~0.04, max ~0.3), so a max-abs limit alone
 # cannot see a kernel that is off by a few percent; bf16 rounding of P and of
@@ -78,22 +90,49 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, inputs, iters=30, warmup=10):
-    """Mean ms per call over ``iters`` calls cycling through perturbed
-    ``inputs``, after ``warmup`` calls (the card leaves its idle clocks);
-    every output is consumed into a checksum."""
-    check = torch.zeros((), device="cuda")
+    """Mean ms per call over ``iters`` back-to-back calls cycling through
+    perturbed ``inputs``, after ``warmup`` calls (the card leaves its idle
+    clocks); nothing but the calls runs between the two events, and the last
+    output is checked to be finite."""
     for i in range(warmup):
-        check += fn(inputs[i % len(inputs)]).float().flatten()[0]
+        out = fn(inputs[i % len(inputs)])
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for i in range(iters):
-        check += fn(inputs[i % len(inputs)]).float().flatten()[-1]
+        out = fn(inputs[i % len(inputs)])
     stop.record()
     torch.cuda.synchronize()
-    if not torch.isfinite(check):
+    if not torch.isfinite(out.float()).all():
         raise AssertionError("non-finite kernel output while timing")
     return start.elapsed_time(stop) / iters
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock ``nvidia-smi`` reports right now (call it under load)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def attention_bound(b, n, h):
+    """Least ms the card could take for one attention call: q, k, v read and
+    o written once over the memory rate, or 4 B H N^2 64 operations over the
+    bf16 tensor-core peak, whichever is larger."""
+    bytes_ms = 4 * b * h * n * 64 * 2 / PEAK_HBM * 1e3
+    ops_ms = 4.0 * b * h * n * n * 64 / PEAK_BF16 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def bilateral_bound(b, n, c, itemsize):
+    """Least ms for one message: feats and values read, the output written
+    once, or the N^2 entries' 10 float32 instructions (5 subtractions, 5 FMAs;
+    the float32 peak counts an FMA as 2) beside their 2 C N^2 tensor-core
+    operations, whichever is largest."""
+    entries = float(b) * n * n
+    bytes_ms = b * n * (20 + 2 * c * itemsize) / PEAK_HBM * 1e3
+    ops_ms = max(entries * 10 / (PEAK_F32 / 2), entries * 2 * c / PEAK_BF16) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
 
 
 def compare(out, ref, dtype, what):
@@ -137,15 +176,50 @@ def attention_phase(att, gen):
             return att.attention_plain(q, k, v, SCALE)
 
         ms = cuda_time_ms(lambda x: att.attention_qkv(x, HEADS, SCALE), inputs)
-        plain_ms = cuda_time_ms(plain, inputs)
+        plain_ms = cuda_time_ms(plain, inputs, iters=5, warmup=2)
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         results[name] = {"max_abs_err": err, "rel_err": rel,
                          "padded_max_abs_err": pad_err, "padded_rel_err": pad_rel,
                          "ms": ms, "plain_ms": plain_ms}
+        if dtype == torch.bfloat16:
+            results[name].update(attention_yardsticks(att, inputs))
         phase("attention", dtype=name, shape=[B, N, HEADS, 64], **results[name])
         del base, inputs, ref, out, pad, out_pad, out_inf
         torch.cuda.empty_cache()
     return results
+
+
+def attention_yardsticks(att, inputs):
+    """bf16 at the eval shape: the kernel alone on a preallocated output,
+    the library call, the host time of a launch (its three tensor maps
+    included) and the bound."""
+    out = torch.empty(B, N, HEADS, 64, device="cuda", dtype=torch.bfloat16).permute(0, 2, 1, 3)
+
+    def launch(x):
+        q, k, v = att.split_qkv(x, HEADS)
+        return att._launch(q, k, v, out, SCALE, N)
+
+    def library(x):
+        q, k, v = att.split_qkv(x, HEADS)
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=SCALE)
+
+    kernel_ms = cuda_time_ms(launch, inputs, iters=50)
+    library_ms = cuda_time_ms(library, inputs, iters=50)
+    clock = sm_clock_mhz()
+    q, k, v = att.split_qkv(inputs[0], HEADS)
+    ref = library(inputs[0]).float()
+    lib_rel = ((launch(inputs[0]).float() - ref).norm() / ref.norm()).item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        att._launch(q, k, v, out, SCALE, N)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    bound_ms, bound_by = attention_bound(B, N, HEADS)
+    return {"kernel_only_ms": kernel_ms, "library_ms": library_ms, "rel_err_vs_library": lib_rel,
+            "host_us_per_launch": host_us, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ex2_bound_ms": B * HEADS * N * N / (16 * SMS * clock * 1e6) * 1e3,
+            "sm_clock_mhz": clock}
 
 
 def bilateral_phase(bil, crf, fidelity):
@@ -174,9 +248,16 @@ def bilateral_phase(bil, crf, fidelity):
             ("n102400", 1, (0, 1), 54, (torch.float32, torch.bfloat16), False,
              K4_TOL_EXACT, (5, 2)),
             ("n102400_degree", 1, (0, 1), 1, (torch.float32,), True,
-             K4_TOL_EXACT, (5, 2)),
+             K4_TOL_EXACT, (3, 2)),
             # the exact fidelity row: one probe of 27 classes in float32
             ("n102400_c27", 1, (0,), 27, (torch.float32,), False,
+             K4_TOL_EXACT, (3, 1)),
+            # bf16 at the other batch and probe counts an exact eval can take
+            ("n102400_b2_c27", 1, (0, 1), 27, (torch.bfloat16,), False,
+             K4_TOL_EXACT, (3, 1)),
+            ("n102400_b1_c54", 1, (0,), 54, (torch.bfloat16,), False,
+             K4_TOL_EXACT, (3, 1)),
+            ("n102400_b1_c27", 1, (0,), 27, (torch.bfloat16,), False,
              K4_TOL_EXACT, (3, 1))):
         feats = scene_feats(ds, seeds)
         b, n, _ = feats.shape
@@ -210,6 +291,23 @@ def bilateral_phase(bil, crf, fidelity):
             row["plain_ms"] = cuda_time_ms(
                 lambda v: bil.bilateral_message_plain(feats, v), inputs,
                 iters=iters[1], warmup=1)
+            row["bound_ms"], row["bound_by"] = bilateral_bound(b, n, c, inputs[0].element_size())
+            if dtype == torch.bfloat16:
+                # the kernel alone: no allocation of the output
+                obuf = torch.empty_like(inputs[0])
+                row["kernel_only_ms"] = cuda_time_ms(
+                    lambda v: bil._launch(feats, v, obuf), inputs, iters=iters[0], warmup=2)
+                row["sm_clock_mhz"] = sm_clock_mhz()
+                row["ex2_bound_ms"] = float(b) * n * n / (16 * SMS * row["sm_clock_mhz"] * 1e6) * 1e3
+            if ones:
+                # the degree entry (what the CRF calls) on the same features
+                deg = bil.bilateral_degree(feats)
+                torch.cuda.synchronize()
+                drel, derr = k4_errors(deg, ref, tol[dtype], "bilateral degree entry")
+                row.update(degree_entry_rel_err=drel, degree_entry_max_abs_err=derr,
+                           degree_entry_ms=cuda_time_ms(
+                               lambda v: bil.bilateral_degree(feats), inputs, iters=5, warmup=2),
+                           degree_entry_bound_ms=bilateral_bound(b, n, 0, 4)[0])
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             results[f"{label}_{name}"] = row
             phase("crf_bilateral", case=label, dtype=name, shape=[b, n, c], **row)
@@ -439,16 +537,23 @@ def main():
     if loaded:
         raise AssertionError(f"chip_smoke imported the JAX package or JAX: {loaded}")
 
+    k4_main = k4["n102400_bf16"]  # the exact eval step's launches: B=2, N=102,400, C=54
     kernels = {"kernels": [{
         "name": "attention", "route": "cuda",
         "source": "depthg_tpu_torch/csrc/attention.cu",
         "replaces": "depthg_tpu/ops/attention.py:144",
         "also_replaces": ["depthg_tpu/ops/attention.py:205",
                           "depthg_tpu/models/vit.py:160"],
+        "shape": f"bf16, B={B}, N={N}, {HEADS} heads x 64, packed qkv",
         "launches": main_res["launches"],
         "max_abs_err": attn["bf16"]["max_abs_err"],
         "rel_err": attn["bf16"]["rel_err"],
         "ms": attn["bf16"]["ms"], "plain_ms": attn["bf16"]["plain_ms"],
+        "bound_ms": attn["bf16"]["bound_ms"], "bound_by": attn["bf16"]["bound_by"],
+        "library_ms": attn["bf16"]["library_ms"],
+        "ex2_bound_ms": attn["bf16"]["ex2_bound_ms"],
+        "kernel_only_ms": attn["bf16"]["kernel_only_ms"],
+        "host_us_per_launch": attn["bf16"]["host_us_per_launch"],
         "f32_max_abs_err": attn["f32"]["max_abs_err"],
         "f32_rel_err": attn["f32"]["rel_err"],
         "f32_ms": attn["f32"]["ms"], "f32_plain_ms": attn["f32"]["plain_ms"],
@@ -457,19 +562,32 @@ def main():
         "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
         "replaces": "depthg_tpu/ops/crf_pallas.py:66",
         "launches": main_res["points"]["exact_ds1"]["k4_launches"],
-        "shape": "B=2, N=25600, C=54; n102400: B=2, C=54; degree: B=2, C=1",
-        "max_abs_err": k4["n25600_bf16"]["max_abs_err"],
-        "rel_err": k4["n25600_bf16"]["rel_err"],
-        "ms": k4["n25600_bf16"]["ms"], "plain_ms": k4["n25600_bf16"]["plain_ms"],
-        "f32_max_abs_err": k4["n25600_f32"]["max_abs_err"],
-        "f32_rel_err": k4["n25600_f32"]["rel_err"],
-        "f32_ms": k4["n25600_f32"]["ms"], "f32_plain_ms": k4["n25600_f32"]["plain_ms"],
-        "n102400_ms": k4["n102400_bf16"]["ms"],
-        "n102400_plain_ms": k4["n102400_bf16"]["plain_ms"],
+        "shape": "bf16, B=2, N=102400, C=54 (the exact eval step's message); "
+                 "n25600: B=2, C=54; degree: B=2, N=102400",
+        "max_abs_err": k4_main["max_abs_err"], "rel_err": k4_main["rel_err"],
+        "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
+        "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
+        "library_ms": None,
+        "ex2_bound_ms": k4_main["ex2_bound_ms"],
+        "kernel_only_ms": k4_main["kernel_only_ms"],
+        "b2_c27_ms": k4["n102400_b2_c27_bf16"]["kernel_only_ms"],
+        "b1_c54_ms": k4["n102400_b1_c54_bf16"]["kernel_only_ms"],
+        "b1_c27_ms": k4["n102400_b1_c27_bf16"]["kernel_only_ms"],
         "n102400_f32_ms": k4["n102400_f32"]["ms"],
         "n102400_f32_plain_ms": k4["n102400_f32"]["plain_ms"],
-        "degree_f32_ms": k4["n102400_degree_f32"]["ms"],
-        "degree_f32_plain_ms": k4["n102400_degree_f32"]["plain_ms"],
+        "n25600_ms": k4["n25600_bf16"]["ms"],
+        "n25600_plain_ms": k4["n25600_bf16"]["plain_ms"],
+        "n25600_bound_ms": k4["n25600_bf16"]["bound_ms"],
+        "n25600_max_abs_err": k4["n25600_bf16"]["max_abs_err"],
+        "n25600_rel_err": k4["n25600_bf16"]["rel_err"],
+        "n25600_f32_ms": k4["n25600_f32"]["ms"],
+        "n25600_f32_plain_ms": k4["n25600_f32"]["plain_ms"],
+        "n25600_f32_rel_err": k4["n25600_f32"]["rel_err"],
+        "degree_ms": k4["n102400_degree_f32"]["degree_entry_ms"],
+        "degree_rel_err": k4["n102400_degree_f32"]["degree_entry_rel_err"],
+        "degree_bound_ms": k4["n102400_degree_f32"]["degree_entry_bound_ms"],
+        "degree_plain_ms": k4["n102400_degree_f32"]["plain_ms"],
+        "degree_as_f32_message_ms": k4["n102400_degree_f32"]["ms"],
     }]}
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))

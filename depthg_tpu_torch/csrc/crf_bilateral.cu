@@ -8,41 +8,58 @@
 // exponentiated and multiplied into the values on chip.
 //
 // What bounds it: per image N^2 kernel entries (1.05e10 at N=102,400), each
-// 5 subtractions, 5 FMAs and one exp on the CUDA cores, against N x C values
-// of a few MB that stay in L2. So it is bound by the FP32 pipe and the MUFU
-// (exp) rate, not by HBM. The value product is cheap next to that and runs
-// on tensor cores in the bf16 kernel.
+// 5 subtractions and 5 FMAs in fp32 (128 per clock per SM) and one ex2 on
+// the MUFU (16 per clock per SM), against N x C values of a few MB that
+// stay in L2. So it is bound by operations, not bytes: the FP32 pipe needs
+// 10 / 128 clocks per entry per SM, the MUFU 1 / 16, and the instruction
+// issue (one warp instruction per clock per scheduler, 128 lanes per clock
+// per SM) is the limit the kernel actually meets: 11.5 instructions per
+// entry at the least (10 fp32, one ex2, half a bf16x2 conversion), plus the
+// shared loads and mma that feed them. The value product is cheap next to
+// that and runs on tensor cores.
 //
 // Design: one block owns a tile of query rows of one image (grid: row tile x
 // channel chunk x image, so one launch covers the batch) and keeps their
-// features in registers; it streams 64-key tiles of features and values
-// through shared memory. Both entries take feats [B, N, 5] and values
+// features in registers; it streams key tiles of features and values
+// through shared memory. All entries take feats [B, N, 5] and values
 // [B, N, C] through their strides (last axis contiguous).
 //   * Log-kernel: -|f_i - f_j|^2 / 2 in fp32, computed directly (5 subtractions
 //     and 5 FMAs). The TPU kernel's augmented depth-7 matmul
 //     a.b - |a|^2/2 - |b|^2/2 cancels terms of ~2e4 (rgb/3 ~ 85) and leaves
 //     ~1e-3 of noise per entry; the direct form has no cancellation.
-//   * bf16 values: four warps of 16 query rows each. Every thread computes
-//     the kernel entries at exactly the positions it holds in the A fragment
-//     of mma.sync m16n8k16, so P goes from the CUDA cores to the tensor cores
-//     without shared memory; P is rounded to bf16 only as that operand and
-//     the product accumulates in fp32 (the TPU kernel's value dot_general at
-//     default precision). The exp is ex2.approx.ftz (MUFU): ~2^-22 relative
-//     error, results below 2^-126 flushed to 0, both far below the bf16
-//     rounding of P that follows.
-//     The entry first packs the operands (pack_bf16_kernel, a shared-memory
-//     transpose) into a workspace the caller allocates with the size
-//     depthg_bilateral_workspace_bytes gives: features [B, 5, NP] times
-//     sqrt(log2(e) / 2), so an entry is ex2(-|f_i - f_j|^2) with the
-//     negation riding on the FMA and no multiply left, and values
-//     [B, chunks * CP, NP], both channel-major, NP = N rounded up to the key
-//     tile. Every tile is then whole 16-byte rows, copied with cp.async into
-//     a second shared buffer while the block computes on the first. (A
-//     version that read [B, N, C] in place, through registers, took 1.7-2.5x
-//     as long on an H100: rows of C = 54 halves allow no 16-byte copies,
-//     and C = 27 no 4-byte ones.) The value tile is
-//     stored [channel][key] with a row stride of 72 halves (36 words), so
-//     each B fragment is one conflict-free 32-bit load.
+//   * bf16 values (bilateral_rows_kernel): a block is one warpgroup and owns
+//     FR = 2 tiles of 64 query rows; each warp holds 16 rows of each (4 per
+//     thread). Every thread computes the kernel entries at exactly the
+//     positions it holds in the A operand of wgmma.m64nNk16, so P goes from
+//     the CUDA cores to the tensor cores without shared memory; P is rounded
+//     to bf16 only as that operand and the product accumulates in fp32 (the
+//     TPU kernel's value dot_general at default precision). The product is
+//     asynchronous: while the tensor cores multiply the P of one 16-key step
+//     into the value tile (read straight from shared memory, no fragment
+//     loads), the CUDA cores compute the P of the next step into a second
+//     set of registers. One load of a key's features serves four rows, and
+//     each thread runs four independent subtract/FMA/ex2 chains. Tiles are
+//     128 keys, double buffered with cp.async: one barrier pair per 128
+//     keys. The exp is ex2.approx.ftz (MUFU): ~2^-22 relative error,
+//     results below 2^-126 flushed to 0, both far below the bf16 rounding
+//     of P that follows.
+//     The entry first packs the operands into a workspace the caller
+//     allocates with the size depthg_bilateral_workspace_bytes gives:
+//     features [B, 5, NP] times sqrt(log2(e) / 2), so an entry is
+//     ex2(-|f_i - f_j|^2) with the negation riding on the FMA and no
+//     multiply left, and values [B, chunks * CP, NP] (a shared-memory
+//     transpose), both channel-major, NP = N rounded up to the key tile.
+//     Every tile is then whole 16-byte rows. (A version that read [B, N, C]
+//     in place, through registers, took 1.7-2.5x as long on an H100: rows of
+//     C = 54 halves allow no 16-byte copies, and C = 27 no 4-byte ones.) The
+//     value tile sits in shared memory [channel][key] as two halves of 64
+//     keys, 128-byte rows in the 128-byte swizzle (cp.async writes each
+//     16-byte piece to its swizzled place), which is wgmma's K-major B
+//     layout. With mma.sync m16n8k16 and fragment loads in its place the
+//     same loop took 9.5 ms per ds=1 message per image instead of 8.6 ms.
+//   * Degree (K . 1, float32, once per CRF call): the same row-blocked loop
+//     on the packed features with fp32 row sums of the entries in place of
+//     the value product: no value tile, no mma, no bf16 rounding.
 //   * f32 values (the parity mode): one thread per query row, accurate expf
 //     of -d / 2, an FMA loop over the channels; features and values are read
 //     in place and from shared memory as broadcasts.
@@ -50,16 +67,18 @@
 //     the packed copy (bf16): padded channels are zero and never written
 //     out. More than 64 channels take further chunks along grid.y (each
 //     recomputes the kernel entries; the CRF's largest C is 54).
-//   * Ragged edge: the pack step writes zero features and values for keys
-//     j >= n, so their term in the bf16 kernel is exactly 0 * P = 0; the f32
-//     kernel masks its last tile and never visits them; query rows i >= n
-//     compute on zero features and are not written. Nothing past n of the
-//     caller's tensors is read.
-// What bounds it, per entry: ~10 fp32 operations at 128 per clock per SM
-// against one MUFU ex2 at 16 per clock, so the FP32 pipe, then the exp.
-// Later work: the kernel's symmetry (half the exps, needs a second pass or
-// atomics), wgmma + TMA, more query rows per warp (each key feature load
-// serves only two rows now).
+//   * Ragged edge: the pack step writes the feature PAD_FEATURE (1e18) and
+//     zero values for keys j >= n, so their entry is ex2(-1e36) = 0 exactly
+//     (and 0 * 0 in the value product); the f32 kernel masks its last tile
+//     and never visits them; query rows i >= n are not written. Nothing
+//     past n of the caller's tensors is read.
+// What holds it (H100): the degree loop, which is the entries alone, runs at
+// ~66% of the issue bound; the value product adds the bf16x2 packs, the
+// wgmma issue and a tile load six times as large. More rows per thread
+// (FR = 3, 4) or fewer blocks per SM were slower: registers, not loads,
+// limit the number of warps that hide the fp32 and ex2 latencies.
+// Left for later: the kernel's symmetry (half the exps, needs a second pass
+// or atomics), exact tile skipping, a fused kernel that builds the int8 cache.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,9 +88,12 @@
 namespace {
 
 constexpr int NF = 5;          // features per point
-constexpr int BQ = 64;         // query rows per block, bf16 kernel (16 per warp)
-constexpr int BK = 64;         // keys per tile
-constexpr int LDZ = BK + 8;    // padded key stride of the transposed value tile
+constexpr int BK = 64;         // keys per tile, f32 kernel
+constexpr int RK = 128;        // keys per tile, row-blocked kernels
+constexpr int FR = 2;          // m16 fragments (16 query rows) per warp
+constexpr int RQ = 64 * FR;    // query rows per block (4 warps)
+constexpr int MIN_BLOCKS = 4;  // blocks per SM the register budget is set for
+constexpr float PAD_FEATURE = 1e18f;  // packed feature of a key past n: its entries are 0
 constexpr int F_BQ = 128;      // query rows per block, f32 kernel (1 per thread)
 constexpr int PT = 32;         // keys and channels of one pack-kernel tile
 constexpr int MAX_C = PT * 65535;  // channels the pack kernel's grid.y covers
@@ -91,15 +113,6 @@ __device__ __forceinline__ float ex2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -125,8 +138,8 @@ __device__ __forceinline__ void load_key_feats(float (&sF)[NF][BK], const float*
   }
 }
 
-// the bf16 kernel's operands: NP keys (N rounded up to BK), chunks of CP
-// channels (CP = 8 min(8, ceil(C / 8)))
+// the packed operands: NP keys (N rounded up to the key tile RK), chunks of
+// CP channels (CP = 8 min(8, ceil(C / 8)); none for the degree, c = 0)
 struct Packed {
   int np, cp, cpad;  // cpad = chunks * CP
   long long feat_bytes, bytes;
@@ -134,22 +147,31 @@ struct Packed {
 
 Packed packed_layout(int batch, int n, int c) {
   Packed p;
-  p.np = (n + BK - 1) / BK * BK;
+  p.np = (n + RK - 1) / RK * RK;
   p.cp = 8 * min(8, (c + 7) / 8);
-  p.cpad = (c + p.cp - 1) / p.cp * p.cp;
+  p.cpad = c ? (c + p.cp - 1) / p.cp * p.cp : 0;
   p.feat_bytes = static_cast<long long>(batch) * NF * p.np * sizeof(float);
   p.bytes = p.feat_bytes + static_cast<long long>(batch) * p.cpad * p.np * 2;
   return p;
 }
 
-// [B, N, 5] / [B, N, C] -> ft [B, 5, np] times EX2_SCALE and zt [B, cpad, np],
-// zero past n and c. Block (32, 8) transposes a 32-key x 32-channel tile
-// through shared memory; the blocks of the first channel tile also write
-// the features of their keys.
+// [B, N, 5] -> ft [B, 5, np] times EX2_SCALE, PAD_FEATURE past n
 __global__ void __launch_bounds__(256)
-pack_bf16_kernel(const float* __restrict__ feats, const unsigned short* __restrict__ z,
-                 float* __restrict__ ft, unsigned short* __restrict__ zt, Strides sf,
-                 Strides sz, int n, int c, int np, int cpad) {
+pack_feats_kernel(const float* __restrict__ feats, float* __restrict__ ft, Strides sf, int n,
+                  int np) {
+  const int b = blockIdx.y, key = blockIdx.x * 256 + threadIdx.x;
+  if (key >= np) return;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    ft[(static_cast<long long>(b) * NF + f) * np + key] =
+        key < n ? feats[b * sf.b + key * sf.n + f] * EX2_SCALE : PAD_FEATURE;
+}
+
+// [B, N, C] -> zt [B, cpad, np], zero past n and c. Block (32, 8) transposes
+// a 32-key x 32-channel tile through shared memory.
+__global__ void __launch_bounds__(256)
+pack_values_kernel(const unsigned short* __restrict__ z, unsigned short* __restrict__ zt,
+                   Strides sz, int n, int c, int np, int cpad) {
   __shared__ unsigned short tile[PT][PT + 1];
   const int b = blockIdx.z, k0 = blockIdx.x * PT, ch0 = blockIdx.y * PT;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -163,65 +185,198 @@ pack_bf16_kernel(const float* __restrict__ feats, const unsigned short* __restri
     if (ch < cpad)
       zt[(static_cast<long long>(b) * cpad + ch) * np + k0 + tx] = tile[tx][i];
   }
-  if (blockIdx.y == 0)
-    for (int f = ty; f < NF; f += 8) {
-      const int key = k0 + tx;
-      ft[(static_cast<long long>(b) * NF + f) * np + key] =
-          key < n ? feats[b * sf.b + key * sf.n + f] * EX2_SCALE : 0.f;
-    }
 }
 
-// NT n-tiles of 8 channels (CP = 8 NT channels per block). ft: [B, NF, np]
-// scaled features, zt: [B, chunks * CP, np] values, as pack_bf16_kernel
-// writes them.
+// d[64 rows x 8 NT channels] += a[64 rows x 16 keys, registers] . value tile
+// (K-major in shared memory, 128-byte swizzle), asynchronously
 template <int NT>
-__global__ void __launch_bounds__(128)
-bilateral_bf16_kernel(const float* __restrict__ ft,
-                      const __nv_bfloat16* __restrict__ zt,
-                      __nv_bfloat16* __restrict__ out, long long zt_b, int np,
-                      Strides so, int n, int c) {
+__device__ __forceinline__ void wgmma_pz(float (&d)[4 * NT], const uint32_t (&a)[4],
+                                         uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_pz<1>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<2>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<3>(float (&d)[12], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<4>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<5>(float (&d)[20], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<6>(float (&d)[24], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<7>(float (&d)[28], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_pz<8>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups 1024 B apart
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// The row-blocked kernel. The block is one warpgroup; it owns FR tiles of 64
+// query rows, of which each warp holds 16 (rows g and g + 8 of each per
+// thread), so a thread's entries are its part of the A operand of
+// wgmma.m64nNk16. NT n-tiles of 8 channels (CP = 8 NT channels per block);
+// ft: [B, NF, np] scaled features, zt: [B, chunks * CP, np] values, as the
+// pack kernels write them. Dynamic shared memory (rows_smem_bytes): two
+// buffers of [NF][RK] features and of the value tile, [channel][key] in two
+// halves of 64 keys with 128-byte rows in the 128-byte swizzle.
+// DEGREE: no values; out [B, N, 1] float32 = the row sums of the entries.
+constexpr int rows_smem_bytes(int nt, bool degree) {
+  return 1024 + 2 * NF * RK * 4 + (degree ? 0 : 2 * nt * 8 * RK * 2);
+}
+
+template <int NT, bool DEGREE>
+__global__ void __launch_bounds__(128, MIN_BLOCKS)
+bilateral_rows_kernel(const float* __restrict__ ft, const __nv_bfloat16* __restrict__ zt,
+                      void* __restrict__ out, long long zt_b, int np, Strides so, int n,
+                      int c) {
   constexpr int CP = NT * 8;
-  constexpr int F_CHUNKS = NF * BK / 4;  // 16-byte pieces of a feature tile
-  constexpr int Z_CHUNKS = CP * BK / 8;  // 16-byte pieces of a value tile
-  __shared__ __align__(16) float sF[2][NF][BK];
-  __shared__ __align__(16) __nv_bfloat16 sZ[2][CP][LDZ];  // [channel][key]
+  constexpr int F_CHUNKS = NF * RK / 4;               // 16-byte pieces of a feature tile
+  constexpr int Z_CHUNKS = DEGREE ? 0 : CP * RK / 8;  // 16-byte pieces of a value tile
+  constexpr int HALF_BYTES = CP * 128;                // 64 keys of every channel
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: the value tiles start there
+  uint8_t* sz = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float (*sF)[NF][RK] = reinterpret_cast<float (*)[NF][RK]>(sz + (DEGREE ? 0 : 4 * HALF_BYTES));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
   const int b = blockIdx.z, c0 = blockIdx.y * CP;
-  const int cc = min(CP, c - c0);  // real channels of this chunk
   const float* fb = ft + b * (long long)NF * np;
   const __nv_bfloat16* zb = zt + b * zt_b + c0 * (long long)np;
-  const int row0 = blockIdx.x * BQ + warp * 16 + g;  // rows row0 and row0 + 8 (< np)
+  const int row0 = blockIdx.x * RQ + warp * 16 + g;  // rows row0 + 64 fr + 8 r
 
-  float fq[2][NF];
+  float fq[FR][2][NF];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int fr = 0; fr < FR; ++fr)
 #pragma unroll
-    for (int f = 0; f < NF; ++f) fq[r][f] = fb[f * (long long)np + row0 + r * 8];
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + fr * 64 + r * 8;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        fq[fr][r][f] = row < np ? fb[f * (long long)np + row] : PAD_FEATURE;
+    }
 
   // one commit group per tile: its features and values, into buffer `buf`
   auto load_tile = [&](int kt, int buf) {
-    const int k0 = kt * BK;
+    const int k0 = kt * RK;
     for (int i = tid; i < F_CHUNKS + Z_CHUNKS; i += blockDim.x) {
       if (i < F_CHUNKS) {
-        const int f = i / (BK / 4), part = (i % (BK / 4)) * 4;
+        const int f = i / (RK / 4), part = (i % (RK / 4)) * 4;
         cp_async16(&sF[buf][f][part], fb + f * (long long)np + k0 + part);
       } else {
-        const int j = i - F_CHUNKS, ch = j / (BK / 8), part = (j % (BK / 8)) * 8;
-        cp_async16(&sZ[buf][ch][part], zb + ch * (long long)np + k0 + part);
+        // 8 keys of one channel: half kc / 8, 16-byte column kc % 8 swizzled by the row
+        const int j = i - F_CHUNKS, ch = j / (RK / 8), kc = j % (RK / 8);
+        cp_async16(sz + (2 * buf + (kc >> 3)) * HALF_BYTES + ch * 128 +
+                       (((kc & 7) ^ (ch & 7)) << 4),
+                   zb + ch * (long long)np + k0 + kc * 8);
       }
     }
     cp_async_commit();
   };
 
-  float acc[NT][4];
+  float acc[FR][4 * NT];  // value product (unused for the degree): [n-tile][row g: 2, g+8: 2]
+  float rs[FR][2];        // row sums of the entries (the degree)
 #pragma unroll
-  for (int dn = 0; dn < NT; ++dn)
+  for (int fr = 0; fr < FR; ++fr) {
+    rs[fr][0] = rs[fr][1] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+    for (int e = 0; e < 4 * NT; ++e) acc[fr][e] = 0.f;
+  }
 
-  const int n_tiles = (n + BK - 1) / BK;
+  const int n_tiles = np / RK;
   load_tile(0, 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int buf = kt & 1;
@@ -231,13 +386,16 @@ bilateral_bf16_kernel(const float* __restrict__ ft,
     } else {
       cp_async_wait<0>();
     }
+    // the value tile is read by the tensor cores' (asynchronous) path
+    if (!DEGREE) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // tile kt is visible to every warp
+    const uint32_t zdesc = smem_u32(sz + 2 * buf * HALF_BYTES);
 
+    uint32_t pa[2][FR][4];  // P of two consecutive 16-key steps: one feeds the tensor cores
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
+    for (int ks = 0; ks < RK / 16; ++ks) {
       // A fragment: regs 0/1 = rows g/g+8 at keys ks*16 + 2t + {0,1},
       //             regs 2/3 = the same rows at keys ks*16 + 8 + 2t + {0,1}
-      uint32_t pa[4];
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int j = ks * 16 + hi * 8 + t * 2;
@@ -246,42 +404,74 @@ bilateral_bf16_kernel(const float* __restrict__ ft,
         for (int f = 0; f < NF; ++f)
           fk[f] = *reinterpret_cast<const float2*>(&sF[buf][f][j]);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float d0 = 0.f, d1 = 0.f;  // -|f_i - f_j|^2 (scaled) for keys j, j + 1
+        for (int fr = 0; fr < FR; ++fr)
 #pragma unroll
-          for (int f = 0; f < NF; ++f) {
-            const float a0 = fq[r][f] - fk[f].x, a1 = fq[r][f] - fk[f].y;
-            d0 = fmaf(-a0, a0, d0);
-            d1 = fmaf(-a1, a1, d1);
+          for (int r = 0; r < 2; ++r) {
+            float d0 = 0.f, d1 = 0.f;  // -|f_i - f_j|^2 (scaled) for keys j, j + 1
+#pragma unroll
+            for (int f = 0; f < NF; ++f) {
+              const float a0 = fq[fr][r][f] - fk[f].x, a1 = fq[fr][r][f] - fk[f].y;
+              d0 = fmaf(-a0, a0, d0);
+              d1 = fmaf(-a1, a1, d1);
+            }
+            const float p0 = ex2_approx(d0), p1 = ex2_approx(d1);
+            if (DEGREE) rs[fr][r] += p0 + p1;
+            else pa[ks & 1][fr][hi * 2 + r] = pack_bf16(p0, p1);
           }
-          pa[hi * 2 + r] = pack_bf16(ex2_approx(d0), ex2_approx(d1));
-        }
       }
+      if (!DEGREE) {
+        // the product of this step runs while the next step's entries are computed
 #pragma unroll
-      for (int dn = 0; dn < NT; ++dn) {
-        const int ch = dn * 8 + g, j = ks * 16 + t * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&sZ[buf][ch][j]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sZ[buf][ch][j + 8]);
-        mma_bf16(acc[dn], pa, b0, b1);
+        for (int fr = 0; fr < FR; ++fr) fence_regs(acc[fr]);
+        wgmma_fence();
+#pragma unroll
+        for (int fr = 0; fr < FR; ++fr)
+          wgmma_pz<NT>(acc[fr], pa[ks & 1][fr],
+                       smem_desc(zdesc + (ks >> 2) * HALF_BYTES) + 2 * (ks & 3));
+        wgmma_commit();
+        wgmma_wait<1>();  // the step before this one is done with its P registers
       }
+    }
+    if (!DEGREE) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int fr = 0; fr < FR; ++fr) fence_regs(acc[fr]);
     }
     __syncthreads();  // every warp is done with `buf` before it is refilled
   }
 
-  // C fragment: acc[dn][0..1] = row g, channels dn*8 + 2t + {0,1}; [2..3] = row g+8
+  if (DEGREE) {
+    // the four threads of a row group hold disjoint keys of the same rows
+    float* o = static_cast<float*>(out);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row >= n) continue;
-    __nv_bfloat16* orow = out + b * so.b + row * so.n + c0;
+    for (int fr = 0; fr < FR; ++fr)
 #pragma unroll
-    for (int dn = 0; dn < NT; ++dn)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ch = dn * 8 + t * 2 + e;
-        if (ch < cc) orow[ch] = __float2bfloat16_rn(acc[dn][2 * r + e]);
+      for (int r = 0; r < 2; ++r) {
+        float sum = rs[fr][r];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int row = row0 + fr * 64 + r * 8;
+        if (t == 0 && row < n) o[b * so.b + row * so.n] = sum;
       }
+    return;
   }
+  // accumulator: acc[..][4 dn + {0,1}] = row g, channels dn*8 + 2t + {0,1}; [+2, +3] = row g+8
+  const int cc = min(CP, c - c0);  // real channels of this chunk
+#pragma unroll
+  for (int fr = 0; fr < FR; ++fr)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + fr * 64 + r * 8;
+      if (row >= n) continue;
+      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(out) + b * so.b + row * so.n + c0;
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ch = dn * 8 + t * 2 + e;
+          if (ch < cc) orow[ch] = __float2bfloat16_rn(acc[fr][4 * dn + 2 * r + e]);
+        }
+    }
 }
 
 template <int NT>
@@ -344,8 +534,8 @@ bilateral_f32_kernel(const float* __restrict__ feats, const float* __restrict__ 
 template <int NT>
 void launch_bf16(const float* ft, const __nv_bfloat16* zt, __nv_bfloat16* out,
                  const Packed& p, Strides so, int batch, int n, int c, cudaStream_t st) {
-  const dim3 grid(p.np / BQ, p.cpad / p.cp, batch);
-  bilateral_bf16_kernel<NT><<<grid, 128, 0, st>>>(
+  const dim3 grid((p.np + RQ - 1) / RQ, p.cpad / p.cp, batch);
+  bilateral_rows_kernel<NT, false><<<grid, 128, rows_smem_bytes(NT, false), st>>>(
       ft, zt, out, static_cast<long long>(p.cpad) * p.np, p.np, so, n, c);
 }
 
@@ -371,22 +561,39 @@ void launch_f32(const float* feats, const float* z, float* out, Strides sf,
 
 }  // namespace
 
-// Both entries take feats [B, N, 5] float32 and values / out [B, N, C] in
-// one dtype (bf16 or float32), with element strides (x_sb, x_sn) of image
+// The message entries take feats [B, N, 5] float32 and values / out [B, N, C]
+// in one dtype (bf16 or float32), with element strides (x_sb, x_sn) of image
 // and point and a contiguous last axis, and launch on `stream`. The bf16
-// entry also takes a device workspace of depthg_bilateral_workspace_bytes
-// (0 for float32). They return cudaErrorInvalidValue for a shape the grid
-// cannot cover, else cudaGetLastError() (0 = launched). Dtypes, devices and
-// the contiguous last axis are validated by the Python wrapper
+// entry and the degree entry (out [B, N, 1] float32 = K . 1) also take a
+// device workspace of depthg_bilateral_workspace_bytes (mode 0: float32
+// message, none; 1: bf16 message; 2: degree). They return
+// cudaErrorInvalidValue for a shape the grid cannot cover, else
+// cudaGetLastError() (0 = launched). Dtypes, devices and the contiguous last
+// axis are validated by the Python wrapper
 // (depthg_tpu_torch/ops/crf_bilateral.py).
 static bool bad_shape(int batch, int n, int c) {
-  return batch < 1 || batch > 65535 || n < 1 || n > 2147483647 - F_BQ || c < 1 ||
+  return batch < 1 || batch > 65535 || n < 1 || n > 2147483647 - 2 * RQ || c < 1 ||
          c > MAX_C;
 }
 
-extern "C" long long depthg_bilateral_workspace_bytes(int batch, int n, int c,
-                                                      int bf16) {
-  return bf16 && !bad_shape(batch, n, c) ? packed_layout(batch, n, c).bytes : 0;
+extern "C" long long depthg_bilateral_workspace_bytes(int batch, int n, int c, int mode) {
+  if (mode == 0 || bad_shape(batch, n, mode == 2 ? 1 : c)) return 0;
+  return packed_layout(batch, n, mode == 2 ? 0 : c).bytes;
+}
+
+// packs feats (and values, when z is given) into the workspace; returns the values' half
+static const __nv_bfloat16* pack_operands(const void* feats, const void* z, void* workspace,
+                                          const Packed& p, Strides sf, Strides sz, int batch,
+                                          int n, int c, cudaStream_t st) {
+  float* ft = static_cast<float*>(workspace);
+  unsigned short* zt =
+      reinterpret_cast<unsigned short*>(static_cast<char*>(workspace) + p.feat_bytes);
+  pack_feats_kernel<<<dim3((p.np + 255) / 256, batch), 256, 0, st>>>(
+      static_cast<const float*>(feats), ft, sf, n, p.np);
+  if (z)
+    pack_values_kernel<<<dim3(p.np / PT, (p.cpad + PT - 1) / PT, batch), dim3(PT, 8), 0, st>>>(
+        static_cast<const unsigned short*>(z), zt, sz, n, c, p.np, p.cpad);
+  return reinterpret_cast<const __nv_bfloat16*>(zt);
 }
 
 extern "C" int depthg_bilateral_message_bf16(
@@ -397,14 +604,23 @@ extern "C" int depthg_bilateral_message_bf16(
   const Strides sf{f_sb, f_sn}, sz{z_sb, z_sn}, so{o_sb, o_sn};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Packed p = packed_layout(batch, n, c);
-  float* ft = static_cast<float*>(workspace);
-  unsigned short* zt = reinterpret_cast<unsigned short*>(
-      static_cast<char*>(workspace) + p.feat_bytes);
-  pack_bf16_kernel<<<dim3(p.np / PT, (p.cpad + PT - 1) / PT, batch), dim3(PT, 8), 0, st>>>(
-      static_cast<const float*>(feats), static_cast<const unsigned short*>(z), ft, zt,
-      sf, sz, n, c, p.np, p.cpad);
-  DEPTHG_DISPATCH_NT(c, launch_bf16, ft, reinterpret_cast<const __nv_bfloat16*>(zt),
+  const __nv_bfloat16* zt = pack_operands(feats, z, workspace, p, sf, sz, batch, n, c, st);
+  DEPTHG_DISPATCH_NT(c, launch_bf16, static_cast<const float*>(workspace), zt,
                      static_cast<__nv_bfloat16*>(out), p, so, batch, n, c, st)
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int depthg_bilateral_degree(
+    const void* feats, void* out, void* workspace, long long f_sb, long long f_sn,
+    long long o_sb, long long o_sn, int batch, int n, void* stream) {
+  if (bad_shape(batch, n, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sf{f_sb, f_sn}, so{o_sb, o_sn};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Packed p = packed_layout(batch, n, 0);
+  pack_operands(feats, nullptr, workspace, p, sf, sf, batch, n, 0, st);
+  bilateral_rows_kernel<1, true>
+      <<<dim3((p.np + RQ - 1) / RQ, 1, batch), 128, rows_smem_bytes(1, true), st>>>(
+      static_cast<const float*>(workspace), nullptr, out, 0, p.np, so, n, 1);
   return static_cast<int>(cudaGetLastError());
 }
 

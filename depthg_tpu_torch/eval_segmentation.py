@@ -4,7 +4,7 @@ Usage (the CLI surface of ``scripts/eval_segmentation.py``)::
 
     python -m depthg_tpu_torch.eval_segmentation [key=value | --key value] ...
 
-Reads ``depthg_tpu/configs/eval_config.yml`` with overrides (including
+Reads ``depthg_tpu_torch/configs/eval_config.yml`` with overrides (including
 ``operating_point=<name>``), loads each reference Lightning ``.ckpt`` in
 ``model_paths``, runs flip-TTA probes + the dense CRF over the val split on
 ``device`` (default ``cuda``; ``device=cpu`` runs the plain versions of the
@@ -27,9 +27,9 @@ from os.path import join
 import numpy as np
 import torch
 
-from depthg_tpu.config import Config, cli_overrides, load_config
-from depthg_tpu.data import ContrastiveSegDataset, DataLoader, get_transform
-from depthg_tpu.data.datasets import create_cityscapes_colormap, \
+from depthg_tpu_torch.config import Config, cli_overrides, load_config
+from depthg_tpu_torch.data import ContrastiveSegDataset, DataLoader, get_transform
+from depthg_tpu_torch.data.datasets import create_cityscapes_colormap, \
     create_pascal_label_colormap
 from depthg_tpu_torch.inference import Segmenter, ecfg_from_checkpoint, \
     fcfg_from_run_cfg, make_eval_step, make_predict_step, unnormalize_255

@@ -15,7 +15,11 @@ sum clamped at 1e-30 and applied to the output; keys j >= n_valid weigh
 exactly 0 and query rows i >= n_valid come out exactly 0.
 
 What bounds the kernel on an H100 and what its design does about it is in
-the header of ``csrc/attention.cu``. The wrappers here:
+the header of ``csrc/attention.cu`` (bf16: TMA loads, ``wgmma`` products,
+the softmax overlapped with them; float32: a plain FMA kernel). The kernel's
+entry makes its TMA tensor maps from the pointers and strides it is given, so
+a view needs a 16-byte aligned base and positive strides that are multiples
+of 16 bytes. The wrappers here:
 
 * CUDA tensor -> the kernel, or an exception (bad shape, dtype, stride,
   alignment, build or launch). There is no fallback.
@@ -47,13 +51,12 @@ class _AttentionKernel:
 
     def fn(self):
         if self._fn is None:
-            lib = _build.load("attention")
-            f = lib.depthg_attention_fwd
-            f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                          + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                  ctypes.c_void_p])
-            f.restype = ctypes.c_int
-            self._fn = f
+            fn = _build.load("attention").depthg_attention_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                           + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                   ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
         return self._fn
 
 
@@ -107,8 +110,13 @@ def _launch(q, k, v, out, scale: float, nv: int):
         if t.stride(-1) != 1:
             raise ValueError(f"attention kernel needs a contiguous head_dim; "
                              f"{name} has strides {t.stride()}")
+        # the bf16 kernel reads q, k and v through TMA tensor maps: a 16-byte
+        # aligned base and strides that are positive multiples of 16 bytes
         if t.data_ptr() % 16 or any((s * itemsize) % 16 for s in t.stride()[:3]):
             raise ValueError(f"attention kernel needs 16-byte aligned rows; "
+                             f"{name} has strides {t.stride()}")
+        if any(s <= 0 for s in t.stride()[:3]):
+            raise ValueError(f"attention kernel needs positive strides; "
                              f"{name} has strides {t.stride()}")
     b, h, n, _ = q.shape
     if n >= 2 ** 31 // 2:
@@ -120,6 +128,12 @@ def _launch(q, k, v, out, scale: float, nv: int):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], b, h, n, nv, float(scale),
                  int(q.dtype == torch.bfloat16), stream)
+    if err == 10000:
+        raise RuntimeError("attention kernel: libcuda.so.1 has no "
+                           "cuTensorMapEncodeTiled (or could not be loaded)")
+    if err > 10000:
+        raise RuntimeError(f"attention kernel: libcuda refused a tensor map for "
+                           f"shape {tuple(q.shape)} (CUresult {err - 10000})")
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     KERNEL.launches += 1

@@ -40,7 +40,8 @@ import functools
 import numpy as np
 import torch
 
-from depthg_tpu_torch.ops.crf_bilateral import bilateral_message, row_blocks
+from depthg_tpu_torch.ops.crf_bilateral import bilateral_degree, bilateral_message, \
+    row_blocks
 from depthg_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -326,7 +327,7 @@ def _jbu_operator(image: torch.Tensor, ccfg: CRFConfig, ds: int, dt, phases,
             ones_c = torch.ones((b, n_pts, 1), device=dev, dtype=dt)
             deg_c = cached_matmul(kmat, ones_c, dt)
         else:
-            deg_c = bilateral_message(bf, torch.ones((b, n_pts, 1), device=dev))
+            deg_c = bilateral_degree(bf)
         isd_c = deg_c[..., 0].float().clamp_min(1e-20).rsqrt()
 
         def coarse_message(qc):
@@ -375,7 +376,7 @@ def _grid_bilateral(image_d: torch.Tensor, ccfg: CRFConfig, ds: int, dt):
     if kmat is not None:
         deg = cached_matmul(kmat, torch.ones((b, n, 1), device=bf.device, dtype=dt), dt)
     else:
-        deg = bilateral_message(bf, torch.ones((b, n, 1), device=bf.device))
+        deg = bilateral_degree(bf)
     isd = deg[..., 0].float().clamp_min(1e-20).rsqrt().to(dt)[:, None]  # [B, 1, N]
 
     def bilateral(q):

@@ -27,6 +27,9 @@ dtype. With float32 values everything stays float32.
 * CUDA tensor -> the kernel ``csrc/crf_bilateral.cu``, or an exception (bad
   shape, dtype, build or launch). There is no fallback.
 * CPU tensor -> ``bilateral_message_plain``.
+* ``bilateral_degree`` is K @ 1 in float32 (the CRF's normalizer, once per
+  call): the kernel's degree entry on CUDA tensors (row sums of the entries,
+  no value product), the plain version on ones on the CPU.
 * ``KERNEL.launches`` counts kernel launches (one per call, whole batch).
 
 The TPU forms are not ported: the unrolled symmetric diagonals, the
@@ -40,6 +43,7 @@ alone knows).
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -59,19 +63,25 @@ class _BilateralKernel:
         self._fns = None
 
     def fn(self):
-        """(bf16 entry, f32 entry, workspace size) of ``csrc/crf_bilateral.cu``."""
+        """The entries of ``csrc/crf_bilateral.cu``: ``bf16`` and ``f32``
+        messages, ``degree`` and ``workspace_bytes``."""
         if self._fns is None:
             lib = _build.load("crf_bilateral")
-            entries = (lib.depthg_bilateral_message_bf16,
-                       lib.depthg_bilateral_message_f32)
-            for f in entries:
+            fns = types.SimpleNamespace(
+                bf16=lib.depthg_bilateral_message_bf16,
+                f32=lib.depthg_bilateral_message_f32,
+                degree=lib.depthg_bilateral_degree,
+                workspace_bytes=lib.depthg_bilateral_workspace_bytes)
+            for f in (fns.bf16, fns.f32):
                 f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
                               + [ctypes.c_int] * 3 + [ctypes.c_void_p])
                 f.restype = ctypes.c_int
-            ws = lib.depthg_bilateral_workspace_bytes
-            ws.argtypes = [ctypes.c_int] * 4
-            ws.restype = ctypes.c_longlong
-            self._fns = (*entries, ws)
+            fns.degree.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            fns.degree.restype = ctypes.c_int
+            fns.workspace_bytes.argtypes = [ctypes.c_int] * 4
+            fns.workspace_bytes.restype = ctypes.c_longlong
+            self._fns = fns
         return self._fns
 
 
@@ -103,15 +113,19 @@ def bilateral_message_plain(feats: torch.Tensor, values: torch.Tensor) -> torch.
     return out.to(values.dtype)
 
 
-def _check(feats, values):
-    if feats.dim() != 3 or feats.shape[-1] != N_FEATURES:
-        raise ValueError(f"bilateral message needs feats [B, N, {N_FEATURES}], "
+def _check_feats(feats):
+    if feats.dim() != 3 or feats.shape[-1] != N_FEATURES or feats.shape[1] < 1:
+        raise ValueError(f"bilateral message needs feats [B, N >= 1, {N_FEATURES}], "
                          f"got {tuple(feats.shape)}")
+    if feats.dtype != torch.float32:
+        raise ValueError(f"bilateral message needs float32 feats, got {feats.dtype}")
+
+
+def _check(feats, values):
+    _check_feats(feats)
     if values.dim() != 3 or values.shape[:2] != feats.shape[:2]:
         raise ValueError(f"bilateral message needs values [B, N, C] matching "
                          f"feats {tuple(feats.shape)}, got {tuple(values.shape)}")
-    if feats.dtype != torch.float32:
-        raise ValueError(f"bilateral message needs float32 feats, got {feats.dtype}")
     if values.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"bilateral message needs float32 or bfloat16 values, "
                          f"got {values.dtype}")
@@ -120,6 +134,10 @@ def _check(feats, values):
     if values.shape[1] < 1 or values.shape[2] < 1:
         raise ValueError(f"bilateral message needs N >= 1 and C >= 1, got "
                          f"{tuple(values.shape)}")
+
+
+# workspace modes of ``depthg_bilateral_workspace_bytes``
+_WS_NONE, _WS_MESSAGE, _WS_DEGREE = 0, 1, 2
 
 
 def _launch(feats, values, out):
@@ -135,16 +153,17 @@ def _launch(feats, values, out):
     b, n, c = values.shape
     if max(b, n, c) >= 2 ** 31:  # the C entries take int; they check the grid
         raise ValueError(f"shape too large for the kernel: {tuple(values.shape)}")
-    fn_bf16, fn_f32, workspace_bytes = KERNEL.fn()
+    fns = KERNEL.fn()
     bf16 = values.dtype == torch.bfloat16
+    entry = fns.bf16 if bf16 else fns.f32
     # the bf16 kernel's packed operands (their layout is the kernel's own);
     # freed on return, the memory is reused only by work queued after the
     # kernel on this stream
-    ws = torch.empty(workspace_bytes(b, n, c, int(bf16)), dtype=torch.uint8,
-                     device=values.device)
+    ws = torch.empty(fns.workspace_bytes(b, n, c, _WS_MESSAGE if bf16 else _WS_NONE),
+                     dtype=torch.uint8, device=values.device)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = (fn_bf16 if bf16 else fn_f32)(
+        err = entry(
             feats.data_ptr(), values.data_ptr(), out.data_ptr(), ws.data_ptr(),
             *feats.stride()[:2], *values.stride()[:2], *out.stride()[:2],
             b, n, c, stream)
@@ -167,3 +186,28 @@ def bilateral_message(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor
         values = values.contiguous()
     return _launch(feats, values, torch.empty(values.shape, dtype=values.dtype,
                                               device=values.device))
+
+
+def bilateral_degree(feats: torch.Tensor) -> torch.Tensor:
+    """K @ 1 per image, float32: [B, N, 5] float32 -> [B, N, 1]."""
+    _check_feats(feats)
+    b, n, _ = feats.shape
+    if feats.device.type == "cpu":
+        return bilateral_message_plain(feats, torch.ones((b, n, 1)))
+    if feats.stride(-1) != 1:
+        feats = feats.contiguous()
+    if max(b, n) >= 2 ** 31:
+        raise ValueError(f"shape too large for the kernel: {tuple(feats.shape)}")
+    fns = KERNEL.fn()
+    out = torch.empty((b, n, 1), dtype=torch.float32, device=feats.device)
+    ws = torch.empty(fns.workspace_bytes(b, n, 1, _WS_DEGREE), dtype=torch.uint8,
+                     device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = fns.degree(feats.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                         *feats.stride()[:2], *out.stride()[:2], b, n, stream)
+    if err != 0:
+        raise RuntimeError(f"bilateral degree launch failed for {tuple(feats.shape)}: "
+                           f"CUDA error {err}")
+    KERNEL.launches += 1
+    return out

@@ -182,14 +182,18 @@ def test_unported_points_raise(small_scene, overrides):
 
 @pytest.mark.parametrize("overrides", STREAMING_POINTS)
 def test_streaming_points_match_jax(small_scene, overrides, monkeypatch):
-    """No cache: every message goes through ``bilateral_message`` (the plain
-    version on the CPU): 11 calls, the degree and 10 iterations."""
+    """No cache: the degree goes through ``bilateral_degree`` and every
+    message through ``bilateral_message`` (their plain version on the CPU):
+    11 calls, the degree first and then 10 iterations."""
     calls = []
-    real = tcrf.bilateral_message
+    real, real_degree = tcrf.bilateral_message, tcrf.bilateral_degree
     monkeypatch.setattr(tcrf, "bilateral_message",
                         lambda f, v: calls.append(v.shape) or real(f, v))
+    monkeypatch.setattr(tcrf, "bilateral_degree",
+                        lambda f: calls.append((*f.shape[:2], 1)) or real_degree(f))
     _assert_f32_point_close(*_compare_point(small_scene, overrides, "float32"))
-    assert len(calls) == 11 and calls[0][-1] == 1 and calls[1][-1] == 54
+    assert len(calls) == 11 and calls[0][-1] == 1
+    assert all(shape[-1] == 54 for shape in calls[1:])
 
 
 @pytest.mark.parametrize("overrides", OTHER_POINTS + STREAMING_POINTS)

@@ -175,3 +175,31 @@ def test_wrapper_checks_shapes():
         tbil.bilateral_message(feats, torch.zeros(2, 11, 3))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tbil.bilateral_message(feats, torch.zeros(2, 10, 3, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("inputs", ["normal", "scene"])
+def test_degree_matches_float64_and_jax(inputs):
+    """``bilateral_degree`` (K @ 1, float32; on the CPU the plain version on
+    ones) vs float64 numpy and the JAX package's streaming message on ones."""
+    feats, _ = _normal_inputs(300, 1) if inputs == "normal" else _scene_inputs(24, 1)
+    out = tbil.bilateral_degree(torch.from_numpy(feats))
+    assert out.shape == (*feats.shape[:2], 1) and out.dtype == torch.float32
+    f64 = feats.astype(np.float64)
+    d = ((f64[:, :, None] - f64[:, None]) ** 2).sum(-1)
+    ref = np.exp(-0.5 * d).sum(-1, keepdims=True)
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    ones = np.ones((*feats.shape[:2], 1), np.float32)
+    for b in range(feats.shape[0]):
+        jref = np.asarray(jcrf._bilateral_message(jnp.asarray(feats[b]), jnp.asarray(ones[b]),
+                                                  block=128))
+        tol = 1e-5 if inputs == "normal" else 2e-3
+        assert np.abs(out[b].numpy() - jref).max() <= tol * np.abs(jref).max()
+
+
+def test_degree_rejects_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="float32 feats"):
+        tbil.bilateral_degree(torch.zeros(1, 8, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="feats"):
+        tbil.bilateral_degree(torch.zeros(1, 8, 4))
+    with pytest.raises(ValueError, match="feats"):
+        tbil.bilateral_degree(torch.zeros(1, 0, 5))

@@ -49,8 +49,12 @@ def _assert_close(out, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,n_valid,heads", [(1601, 1601, 6), (1664, 1601, 6),
-                                             (200, 130, 6), (77, 77, 3)])
+                                             (200, 130, 6), (77, 77, 3), (128, 128, 6),
+                                             (129, 129, 3), (256, 256, 6), (257, 200, 3),
+                                             (640, 513, 6)])
 def test_attention_kernel_matches_plain(cuda, dtype, n, n_valid, heads):
+    """Whole and ragged last tiles of 128 keys and of the 256-row query
+    blocks (1601 = 12 x 128 + 65), n_valid < N, 3 and 6 heads."""
     gen = torch.Generator().manual_seed(0)
     qkv = torch.randn(2, n, 3 * 64 * heads, generator=gen).to(cuda, dtype)
     before = tatt.KERNEL.launches
@@ -74,6 +78,24 @@ def test_attention_kernel_split_operands(cuda):
     assert torch.all(out[:, :, 250:] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_noncontiguous_batch(cuda, dtype):
+    """Packed qkv as a view of a longer buffer: the batch stride is not
+    N x 3D, and what lies past N (NaN here) is never read."""
+    gen = torch.Generator().manual_seed(3)
+    big = torch.randn(3, 340, 3 * 384, generator=gen).to(cuda, dtype)
+    big[:, 300:] = float("nan")
+    qkv = big[:, :300]
+    assert not qkv.is_contiguous()
+    out = tatt.attention_qkv(qkv, 6, 0.125, 290)
+    ref = tatt.attention_qkv(qkv.contiguous(), 6, 0.125, 290)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    q, k, v = tatt.split_qkv(qkv.contiguous(), 6)
+    plain = tatt.attention_plain(q, k, v, 0.125, 290).permute(0, 2, 1, 3)
+    _assert_close(out, plain.reshape(out.shape), dtype)
+
+
 def test_attention_kernel_ignores_masked_keys(cuda):
     qkv = torch.randn(1, 300, 3 * 128, device=cuda, dtype=torch.bfloat16)
     out = tatt.attention_qkv(qkv, 2, 0.125, 250)
@@ -86,6 +108,18 @@ def test_attention_kernel_rejects_misaligned_rows(cuda):
     qkv = torch.randn(1, 64, 3 * 128 + 1, device=cuda)[..., 1:]  # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
         tatt.attention_qkv(qkv, 2, 0.125)
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_attention_kernel_rejects_misaligned_bf16_views(cuda, offset):
+    """A bf16 view whose base (2- or 8-byte offset) or row stride is not a
+    multiple of 16 bytes cannot take a tensor map: the wrapper raises, and
+    there is no second path."""
+    buf = torch.randn(1, 64, 3 * 128 + offset, device=cuda).bfloat16()
+    before = tatt.KERNEL.launches
+    with pytest.raises(ValueError, match="aligned"):
+        tatt.attention_qkv(buf[..., offset:], 2, 0.125)
+    assert tatt.KERNEL.launches == before
 
 
 # K4: dtype -> limit on the relative error and on max abs error / max |ref|.
@@ -125,6 +159,45 @@ def test_bilateral_kernel_matches_plain(cuda, dtype, b, n, c):
     assert tbil.KERNEL.launches == before + 1
     assert out.dtype == dtype and out.shape == (b, n, c)
     _assert_k4_close(out.cpu(), ref, dtype)
+
+
+@pytest.mark.parametrize("c", [1, 27, 54, 65])
+def test_bilateral_rows_kernel_ragged_scene_size(cuda, c):
+    """The row-blocked bf16 kernel (4 query rows per thread, 128-key tiles,
+    wgmma value product) at the ds=2 scene size with a ragged edge:
+    N = 25,563 read through views of a buffer that is NaN past it."""
+    n, pad = 25_563, 37
+    feats, values = _bilateral_inputs(1, n + pad, c, torch.bfloat16, seed=2)
+    feats[..., :2] *= 12.0  # positions over ~60 sigmas, like a 160 x 160 grid
+    ref = tbil.bilateral_message_plain(feats[:, :n].to(cuda).contiguous(),
+                                       values[:, :n].to(cuda).contiguous())
+    feats, values = feats.to(cuda), values.to(cuda)
+    feats[:, n:], values[:, n:] = float("nan"), float("nan")
+    out = torch.full_like(values, 7.0)
+    before = tbil.KERNEL.launches
+    tbil._launch(feats[:, :n], values[:, :n], out[:, :n])
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.launches == before + 1
+    _assert_k4_close(out[:, :n], ref, torch.bfloat16)
+    assert torch.all(out[:, n:] == 7.0)
+
+
+@pytest.mark.parametrize("b,n", [(2, 1000), (1, 25_563), (2, 128), (1, 129)])
+def test_bilateral_degree_matches_plain(cuda, b, n):
+    """The degree entry (K @ 1 in float32, no value product) vs the plain
+    version on ones; the views' tails (NaN) are not read."""
+    feats, _ = _bilateral_inputs(b, n + 9, 1, torch.float32, seed=4)
+    ref = tbil.bilateral_message_plain(feats[:, :n].contiguous(), torch.ones(b, n, 1))
+    feats = feats.to(cuda)
+    feats[:, n:] = float("nan")
+    before = tbil.KERNEL.launches
+    out = tbil.bilateral_degree(feats[:, :n])
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, n, 1)
+    diff = out.cpu() - ref
+    assert (diff.norm() / ref.norm()).item() <= 5e-5
+    assert diff.abs().max().item() <= 5e-5 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

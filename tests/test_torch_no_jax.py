@@ -1,11 +1,14 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing
 ``depthg_tpu_torch`` (and its fidelity-study module) and running the tiny
 eval step on the CPU at the default point, the ``safe`` point and the
-streaming exact CRF leaves ``jax`` out of ``sys.modules``. The attention
+streaming exact CRF leaves ``jax`` and every module of the JAX package
+(``depthg_tpu``) out of ``sys.modules``, also after importing the eval CLI;
+no source of the port or of ``chip_smoke.py`` imports either. The attention
 and bilateral wrappers raise on an input their kernels cannot take instead
 of falling back to their plain versions."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -22,6 +25,8 @@ import dataclasses
 import sys
 import torch
 import depthg_tpu_torch
+import depthg_tpu_torch.eval_segmentation
+import depthg_tpu_torch.profile_eval
 from depthg_tpu_torch import crf_fidelity_study, inference
 from depthg_tpu_torch.models import featurizer, vit
 from depthg_tpu_torch.ops.crf import crf_config_from_cfg
@@ -45,6 +50,10 @@ for crf in (crf_config_from_cfg({}),
     assert lin.shape == (5, 5) and clu.shape == (7, 5)
     assert int(lin.sum()) <= counted and int(clu.sum()) <= counted
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("depthg_tpu."))
+assert not theirs, theirs
+cfg = depthg_tpu_torch.eval_segmentation.eval_config(["operating_point=safe", "lr=5e-4"])
+assert cfg.lr == 5e-4 and cfg.crf_downsample == 4 and cfg.res == 320
 print("NO_JAX_OK")
 """
 
@@ -58,14 +67,29 @@ def test_port_runs_without_jax():
     assert "NO_JAX_OK" in proc.stdout
 
 
+# an import of jax or of the JAX package (never of depthg_tpu_torch)
+FOREIGN_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|depthg_tpu)(\s|\.|$)|import_module\([\"'](jax|depthg_tpu)[\"'.]",
+    re.MULTILINE)
+
+
 def test_no_jax_import_in_package_sources():
-    pkg = os.path.join(ROOT, "depthg_tpu_torch")
-    for dirpath, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    src = f.read()
-                assert "import jax" not in src and "from jax" not in src, name
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "depthg_tpu_torch")):
+        paths += [os.path.join(dirpath, name) for name in files if name.endswith(".py")]
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert "import jax" not in src and "from jax" not in src, path
+        found = FOREIGN_IMPORT.search(src)
+        assert found is None, (path, found.group(0))
+    for line in ("import depthg_tpu", "from depthg_tpu.config import Config",
+                 "    from depthg_tpu import data", "import jax.numpy as jnp"):
+        assert FOREIGN_IMPORT.search(line), line
+    for line in ("import depthg_tpu_torch", "from depthg_tpu_torch.config import Config",
+                 "# see depthg_tpu/config.py", "from depthg_tpu_torch import data"):
+        assert not FOREIGN_IMPORT.search(line), line
 
 
 def test_kernel_path_raises_instead_of_falling_back():
