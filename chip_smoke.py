@@ -15,7 +15,9 @@ final line):
    and plain; in bf16 also the kernel alone on preallocated views, one
    PyTorch ``scaled_dot_product_attention`` call on the same views as the
    library yardstick (the package never calls it), the host time of a
-   launch and the kernel's bound from the shapes;
+   launch and the kernel's bound from the shapes; then the same comparison,
+   times, library call and bound at the train step's shape (B=32, N=785:
+   224 px, not a multiple of the kernel's 64-row sub-tile or 256-row block);
 4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
    two fidelity scenes: N=25,600 (ds=2), C=54, B=2 in f32 and bf16, a
    ragged N=25,563 read through views of a NaN-padded buffer, and the
@@ -39,7 +41,17 @@ final line):
    the CPU (plain path) for pixel agreement; then the same step at
    ``crf_downsample=1`` (batch 2, 11 K4 launches per batch) and at
    ``operating_point=safe`` (batch 16);
-7. the total time, the kernels JSON line, the card line and the final JSON line.
+7. train path: the same full-width ViT-S/8 (frozen, bf16) under
+   ``train.step.train_step`` at 224 px, batch 32, dim 70, 11 x 11 FPS
+   samples, five negatives, the depth-feature term on, dropout on: one
+   warm-up and five timed steps on one synthetic batch (24 attention
+   launches per step, no K4 launch, finite logs, falling probe losses, the
+   ViT bit-identical and without gradients), FPS alone, then one
+   ``make_validation_step`` batch at 320 px; then one float32 step at batch 4
+   with fixed coordinates and permutations on the card (eager attention, and
+   through the kernel) vs the CPU from the same weights, each loss term
+   within 1e-4 relative, and FPS coordinates equal;
+8. the total time, the kernels JSON line, the card line and the final JSON line.
 """
 
 import copy
@@ -54,6 +66,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 B, N, HEADS, DIM = 16, 1601, 6, 384
+TRAIN_B, TRAIN_RES, TRAIN_STEPS = 32, 224, 5
+TRAIN_N = (TRAIN_RES // 8) ** 2 + 1  # 785 tokens
 SCALE = 64 ** -0.5
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores, float32 outside them (an FMA counts 2, so 33.5e12 instructions/s:
@@ -149,6 +163,8 @@ def compare(out, ref, dtype, what):
 def attention_phase(att, gen):
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        results[f"train_{name}"] = attention_train_shape(att, gen, dtype, name)
         base = torch.randn(B, N, 3 * DIM, device="cuda", generator=gen)
         inputs = [(base + 1e-2 * i).to(dtype) for i in range(3)]
         out = att.attention_qkv(inputs[0], HEADS, SCALE)
@@ -177,27 +193,52 @@ def attention_phase(att, gen):
 
         ms = cuda_time_ms(lambda x: att.attention_qkv(x, HEADS, SCALE), inputs)
         plain_ms = cuda_time_ms(plain, inputs, iters=5, warmup=2)
-        name = "bf16" if dtype == torch.bfloat16 else "f32"
         results[name] = {"max_abs_err": err, "rel_err": rel,
                          "padded_max_abs_err": pad_err, "padded_rel_err": pad_rel,
                          "ms": ms, "plain_ms": plain_ms}
         if dtype == torch.bfloat16:
-            results[name].update(attention_yardsticks(att, inputs))
+            results[name].update(attention_yardsticks(att, inputs, B, N))
         phase("attention", dtype=name, shape=[B, N, HEADS, 64], **results[name])
         del base, inputs, ref, out, pad, out_pad, out_inf
         torch.cuda.empty_cache()
     return results
 
 
-def attention_yardsticks(att, inputs):
-    """bf16 at the eval shape: the kernel alone on a preallocated output,
-    the library call, the host time of a launch (its three tensor maps
+def attention_train_shape(att, gen, dtype, name):
+    """The kernel against its plain version at the shape the train step
+    launches it at: B=32, N=785 (12 x 64 + 17 rows: a ragged sub-tile inside
+    a ragged 256-row block), packed qkv; in bf16 also the library call."""
+    b, n = TRAIN_B, TRAIN_N
+    base = torch.randn(b, n, 3 * DIM, device="cuda", generator=gen)
+    inputs = [(base + 1e-2 * i).to(dtype) for i in range(3)]
+    out = att.attention_qkv(inputs[0], HEADS, SCALE)
+
+    def plain(x):
+        q, k, v = att.split_qkv(x, HEADS)
+        return att.attention_plain(q, k, v, SCALE)
+
+    ref = plain(inputs[0]).permute(0, 2, 1, 3).reshape(b, n, DIM)
+    torch.cuda.synchronize()
+    err, rel = compare(out, ref, dtype, "attention at the train shape")
+    row = {"max_abs_err": err, "rel_err": rel,
+           "ms": cuda_time_ms(lambda x: att.attention_qkv(x, HEADS, SCALE), inputs),
+           "plain_ms": cuda_time_ms(plain, inputs, iters=5, warmup=2)}
+    row["bound_ms"], row["bound_by"] = attention_bound(b, n, HEADS)
+    if dtype == torch.bfloat16:
+        row.update(attention_yardsticks(att, inputs, b, n))
+    phase("attention", dtype=name, shape=[b, n, HEADS, 64], where="train step", **row)
+    return row
+
+
+def attention_yardsticks(att, inputs, b, n):
+    """bf16 at [b, n]: the kernel alone on a preallocated output, the
+    library call, the host time of a launch (its three tensor maps
     included) and the bound."""
-    out = torch.empty(B, N, HEADS, 64, device="cuda", dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    out = torch.empty(b, n, HEADS, 64, device="cuda", dtype=torch.bfloat16).permute(0, 2, 1, 3)
 
     def launch(x):
         q, k, v = att.split_qkv(x, HEADS)
-        return att._launch(q, k, v, out, SCALE, N)
+        return att._launch(q, k, v, out, SCALE, n)
 
     def library(x):
         q, k, v = att.split_qkv(x, HEADS)
@@ -212,13 +253,13 @@ def attention_yardsticks(att, inputs):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
-        att._launch(q, k, v, out, SCALE, N)
+        att._launch(q, k, v, out, SCALE, n)
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
-    bound_ms, bound_by = attention_bound(B, N, HEADS)
+    bound_ms, bound_by = attention_bound(b, n, HEADS)
     return {"kernel_only_ms": kernel_ms, "library_ms": library_ms, "rel_err_vs_library": lib_rel,
             "host_us_per_launch": host_us, "bound_ms": bound_ms, "bound_by": bound_by,
-            "ex2_bound_ms": B * HEADS * N * N / (16 * SMS * clock * 1e6) * 1e3,
+            "ex2_bound_ms": b * HEADS * n * n / (16 * SMS * clock * 1e6) * 1e3,
             "sm_clock_mhz": clock}
 
 
@@ -468,7 +509,7 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
     points = {}
     for name, cfg, b, n_batches, k4_per_batch in (
             ("exact_ds1", {"crf_downsample": 1}, 2, 3, 11),
-            ("safe", crf.EVAL_OPERATING_POINTS["safe"], B, 4, 0)):
+            ("safe", crf.EVAL_OPERATING_POINTS["safe"], B, 3, 0)):
         ccfg = crf.crf_config_from_cfg(cfg)
         step = inference.make_eval_step(inference.EvalConfig(
             n_classes=27, crf=ccfg, backbone_dtype="bfloat16"))
@@ -488,6 +529,148 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
         torch.cuda.empty_cache()
     return {"img_per_s": img_s, "launches": launches, "agreement": agree,
             "points": points}
+
+
+def train_path_phase(att, bil, inference, featurizer, gen):
+    """The train step at full width: one warm-up and TRAIN_STEPS timed steps
+    on one fixed batch, counts of both kernels set to 0 just before and read
+    just after; then FPS alone and one validation batch at 320 px."""
+    from depthg_tpu_torch import profile_train
+    from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth
+    from depthg_tpu_torch.train import losses as loss_lib
+    from depthg_tpu_torch.train import step as step_lib
+
+    fcfg = featurizer.FeaturizerConfig()  # vit_small, patch 8, dim 70, dropout 0.1
+    hp = step_lib.TrainHParams(n_classes=27, backbone_dtype="bfloat16")
+    lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps",
+                                   depth_feat_correlation_loss=True)
+    w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
+    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), "cuda")
+    n_params = {name: sum(p.numel() for g in opt.param_groups for p in g["params"])
+                for name, opt in state.opt.items()}
+    batch = profile_train.synthetic_batch(TRAIN_B, TRAIN_RES, 27, gen)
+    vit_before = [p.detach().clone() for p in state.model.net.model.parameters()]
+
+    def probe_losses():
+        """loss/linear + loss/cluster on the fixed batch with fixed masks."""
+        fixed = torch.Generator(device="cuda").manual_seed(123)
+        with torch.no_grad():
+            logs = step_lib.loss_fn(state.model, batch, hp, lcfg, w, sh, generator=fixed)[1]
+        return float(logs["loss/linear"] + logs["loss/cluster"])
+
+    before = probe_losses()
+    torch.cuda.reset_peak_memory_stats()
+    att.KERNEL.launches = 0
+    bil.KERNEL.launches = 0
+    all_logs = [step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen)]
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        all_logs.append(step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen))
+    stop.record()
+    torch.cuda.synchronize()
+    launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+    step_ms = start.elapsed_time(stop) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = probe_losses()
+
+    per_step = 2 * len(state.model.net.model.blocks)
+    if launches != per_step * (TRAIN_STEPS + 1) or k4 != 0:
+        raise AssertionError(f"train path: {launches} attention launches (expected "
+                             f"{per_step * (TRAIN_STEPS + 1)}) and {k4} K4 launches (expected 0)")
+    for i, logs in enumerate(all_logs):
+        bad = [k for k, v in logs.items() if not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError(f"train step {i}: non-finite {bad}")
+    if not after < before:
+        raise AssertionError(f"loss/linear + loss/cluster did not fall: {before} -> {after}")
+    if state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"step counter {state.step}")
+    for p, old in zip(state.model.net.model.parameters(), vit_before):
+        if p.grad is not None or p.requires_grad or not torch.equal(p, old):
+            raise AssertionError("the frozen ViT changed or received a gradient")
+    del vit_before
+
+    grid = torch.zeros(2 * TRAIN_B, 1, TRAIN_RES // 8, TRAIN_RES // 8, device="cuda")
+    depths = [torch.cat([batch["depth"], batch["depth_pos"]]) * (1 - 0.01 * i) for i in range(3)]
+    fps_ms = cuda_time_ms(lambda d: farthest_point_sampling_depth(grid, d, 11), depths,
+                          iters=5, warmup=1)
+    last = {k: float(v) for k, v in all_logs[-1].items()}
+    phase("train_path", batch=TRAIN_B, res=TRAIN_RES, steps_timed=TRAIN_STEPS, step_ms=step_ms,
+          img_per_s=TRAIN_B / step_ms * 1e3, fps_ms=fps_ms, peak_mem_gb=peak,
+          attention_launches=launches, attention_launches_per_step=per_step, k4_launches=k4,
+          probe_losses_before=before, probe_losses_after=after,
+          optimizer_parameters=n_params, optimizer_parameters_total=sum(n_params.values()),
+          last_logs=last)
+
+    # one validation batch at 320 px (plain float32 forward through the kernel)
+    img, label = make_batches(gen, B, 1)[0]
+    att.KERNEL.launches = 0
+    lin, clu = inference.make_validation_step(27, 0)(state.model, img, label, 320)
+    counted = int(((label >= 0) & (label < 27)).sum())
+    if (int(lin.sum()) != counted or int(clu.sum()) != counted
+            or lin.shape != (27, 27) or att.KERNEL.launches != per_step // 2):
+        raise AssertionError(f"validation step: confusion sums {int(lin.sum())}, "
+                             f"{int(clu.sum())} != {counted} or attention launches "
+                             f"{att.KERNEL.launches} != {per_step // 2}")
+    phase("train_validation", batch=B, res=320, attention_launches=att.KERNEL.launches,
+          labelled_pixels=counted)
+    return {"launches": launches, "k4_launches": k4, "step_ms": step_ms, "fps_ms": fps_ms}
+
+
+def train_card_vs_cpu_phase(att, inference, featurizer):
+    """One float32 train step at batch 4, dropout off, with fixed coordinates
+    (the CPU's FPS picks) and fixed permutations, from the same weights: on
+    the card with eager attention (``precision="float32"``) and through the
+    kernel, each against the CPU."""
+    import dataclasses
+
+    from depthg_tpu_torch import profile_train
+    from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth
+    from depthg_tpu_torch.train import losses as loss_lib
+    from depthg_tpu_torch.train import step as step_lib
+
+    b = 4
+    fcfg = featurizer.FeaturizerConfig(dropout=False, drop_rate=0.0)
+    lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps")
+    w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
+    cpu_gen = torch.Generator().manual_seed(1)
+    model_cpu = inference.Segmenter(fcfg, 27, 27, decoder=True).init_weights(cpu_gen)
+    batch_cpu = profile_train.synthetic_batch(b, TRAIN_RES, 27, cpu_gen)
+    batch = {k: v.cuda() for k, v in batch_cpu.items()}
+    perms = torch.stack([torch.randperm(b, generator=cpu_gen) for _ in range(5)])
+
+    grid = torch.zeros(2 * b, 1, TRAIN_RES // 8, TRAIN_RES // 8)
+    depth2 = torch.cat([batch_cpu["depth"], batch_cpu["depth_pos"]])
+    coords_cpu = farthest_point_sampling_depth(grid, depth2, 11) * 2 - 1
+    coords_card = farthest_point_sampling_depth(grid.cuda(), depth2.cuda(), 11) * 2 - 1
+    if not torch.equal(coords_card.cpu(), coords_cpu):
+        raise AssertionError("FPS coordinates differ between the card and the CPU")
+    coords = (coords_cpu[:b], coords_cpu[b:])
+
+    hp32 = step_lib.TrainHParams(n_classes=27, precision="float32")
+    ref_state = step_lib.state_from_model(copy.deepcopy(model_cpu), hp32)
+    ref = step_lib.train_step(ref_state, batch_cpu, hp32, lcfg, w, sh,
+                              coords_override=coords, neg_perms=perms)
+    worst = {}
+    for name, hp, k1 in (("eager", hp32, 0),
+                         ("kernel", dataclasses.replace(hp32, precision=None), 24)):
+        state = step_lib.state_from_model(copy.deepcopy(model_cpu).cuda(), hp)
+        att.KERNEL.launches = 0
+        logs = step_lib.train_step(state, batch, hp, lcfg, w, sh,
+                                   coords_override=tuple(c.cuda() for c in coords),
+                                   neg_perms=perms.cuda())
+        if att.KERNEL.launches != k1:
+            raise AssertionError(f"{name}: {att.KERNEL.launches} attention launches, expected {k1}")
+        rel = {k: abs(float(logs[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-2)
+               for k in ref}
+        worst[name] = max(rel.values())
+        if worst[name] > 1e-4:
+            raise AssertionError(f"train step on the card ({name}) vs the CPU: {rel}")
+    phase("train_f32_card_vs_cpu", batch=b, fps_coordinates_equal=True,
+          loss_terms=sorted(ref), worst_rel_diff=worst)
+    return worst
 
 
 def main():
@@ -531,6 +714,8 @@ def main():
     crf_phase(fidelity, crf)
     fidelity_rows_phase(study, bil)
     main_res = main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen)
+    train_res = train_path_phase(att, bil, inference, featurizer, gen)
+    train_card_vs_cpu_phase(att, inference, featurizer)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -546,6 +731,7 @@ def main():
                           "depthg_tpu/models/vit.py:160"],
         "shape": f"bf16, B={B}, N={N}, {HEADS} heads x 64, packed qkv",
         "launches": main_res["launches"],
+        "train_path_launches": train_res["launches"],
         "max_abs_err": attn["bf16"]["max_abs_err"],
         "rel_err": attn["bf16"]["rel_err"],
         "ms": attn["bf16"]["ms"], "plain_ms": attn["bf16"]["plain_ms"],
@@ -557,11 +743,24 @@ def main():
         "f32_max_abs_err": attn["f32"]["max_abs_err"],
         "f32_rel_err": attn["f32"]["rel_err"],
         "f32_ms": attn["f32"]["ms"], "f32_plain_ms": attn["f32"]["plain_ms"],
+        "train_shape": f"B={TRAIN_B}, N={TRAIN_N}, {HEADS} heads x 64, packed qkv",
+        "train_ms": attn["train_bf16"]["ms"],
+        "train_kernel_only_ms": attn["train_bf16"]["kernel_only_ms"],
+        "train_plain_ms": attn["train_bf16"]["plain_ms"],
+        "train_bound_ms": attn["train_bf16"]["bound_ms"],
+        "train_bound_by": attn["train_bf16"]["bound_by"],
+        "train_library_ms": attn["train_bf16"]["library_ms"],
+        "train_max_abs_err": attn["train_bf16"]["max_abs_err"],
+        "train_rel_err": attn["train_bf16"]["rel_err"],
+        "train_f32_ms": attn["train_f32"]["ms"],
+        "train_f32_plain_ms": attn["train_f32"]["plain_ms"],
+        "train_f32_max_abs_err": attn["train_f32"]["max_abs_err"],
     }, {
         "name": "crf_bilateral", "route": "cuda",
         "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
         "replaces": "depthg_tpu/ops/crf_pallas.py:66",
         "launches": main_res["points"]["exact_ds1"]["k4_launches"],
+        "train_path_launches": train_res["k4_launches"],
         "shape": "bf16, B=2, N=102400, C=54 (the exact eval step's message); "
                  "n25600: B=2, C=54; degree: B=2, N=102400",
         "max_abs_err": k4_main["max_abs_err"], "rel_err": k4_main["rel_err"],

@@ -202,6 +202,17 @@ class DataLoader:
         self.prefetch = prefetch
         self.collate_fn = collate_fn
         self._epoch = 0
+        self._skip = 0
+
+    def seek(self, n_batches: int) -> None:
+        """Position the next ``__iter__`` as if ``n_batches`` batches had
+        already been drawn since construction: whole epochs are skipped by
+        the epoch counter, the rest by dropping the first index batches of
+        that epoch without loading them. Batches depend on
+        (seed, epoch, index) only, so a resumed run sees what an
+        uninterrupted one would."""
+        per_epoch = len(self)
+        self._epoch, self._skip = divmod(n_batches, per_epoch) if per_epoch else (0, 0)
 
     def __len__(self):
         n = len(self.dataset)
@@ -229,7 +240,8 @@ class DataLoader:
     def __iter__(self):
         epoch = self._epoch
         self._epoch += 1
-        batches = list(self._index_batches(epoch))
+        batches = list(self._index_batches(epoch))[self._skip:]
+        self._skip = 0
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

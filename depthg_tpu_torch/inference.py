@@ -1,5 +1,6 @@
-"""Eval/serve prediction path (``depthg_tpu/inference.py`` and
-``depthg_tpu/utils/checkpoint_io.py``'s config builders).
+"""Eval/serve prediction path and the trainer's validation step
+(``depthg_tpu/inference.py`` and the config functions of
+``depthg_tpu/utils/checkpoint_io.py``).
 
 ``predictions`` runs flip-TTA over the frozen ViT, the projection head, the
 low-resolution linear and cluster probes upsampled to ``label_res``, the
@@ -51,15 +52,19 @@ class EvalConfig:
 
 
 class Segmenter(nn.Module):
-    """The eval modules of the reference Lightning segmenter: ``net``
-    (featurizer), ``linear_probe`` (1x1 conv) and ``cluster_probe``."""
+    """The modules of the reference Lightning segmenter: ``net``
+    (featurizer), ``linear_probe`` (1x1 conv) and ``cluster_probe``; with
+    ``decoder=True`` also the training side's ``decoder`` (1x1 conv
+    dim -> n_feats of the reconstruction loss), under its Lightning key."""
 
     def __init__(self, fcfg: featurizer_lib.FeaturizerConfig, n_classes: int,
-                 n_clusters: int):
+                 n_clusters: int, decoder: bool = False):
         super().__init__()
         self.net = featurizer_lib.DinoFeaturizer(fcfg)
         self.linear_probe = nn.Conv2d(fcfg.dim, n_classes, 1)
         self.cluster_probe = ClusterLookup(fcfg.dim, n_clusters)
+        if decoder:
+            self.decoder = nn.Conv2d(fcfg.dim, fcfg.n_feats, 1)
 
     def init_weights(self, generator: torch.Generator) -> "Segmenter":
         """Random weights from ``generator`` alone (the JAX package's init
@@ -80,9 +85,11 @@ class Segmenter(nn.Module):
 
     @classmethod
     def from_state_dict(cls, sd: dict, fcfg: featurizer_lib.FeaturizerConfig):
-        """Build with the probe sizes of ``sd`` and load it strictly."""
+        """Build with the probe sizes of ``sd`` (and its decoder, if it has
+        one) and load it strictly."""
         model = cls(fcfg, sd["linear_probe.weight"].shape[0],
-                    sd["cluster_probe.clusters"].shape[0])
+                    sd["cluster_probe.clusters"].shape[0],
+                    decoder="decoder.weight" in sd)
         model.load_state_dict(sd, strict=True)
         return model.eval()
 
@@ -170,18 +177,39 @@ def make_predict_step(ecfg: EvalConfig):
     return step
 
 
+def make_validation_step(n_classes: int, extra_clusters: int = 0):
+    """Training-time validation (no TTA, no CRF): (model, img, label,
+    label_res) -> (linear_stats, cluster_stats). Plain float32 forward,
+    upsampled code, argmax of the linear probe and of the cluster inner
+    products, two confusion blocks."""
+
+    @torch.inference_mode()
+    def step(model, img, label, label_res):
+        code = featurizer_lib.featurizer_apply(model.net, img)["code"]
+        code = resize_bilinear(code, (label_res, label_res))
+        linear_preds = model.linear_probe(code).argmax(1)
+        _, cluster_probs = cluster_lookup_apply(model.cluster_probe.clusters, code,
+                                                None, log_probs=False)
+        cluster_preds = cluster_probs.argmax(1)
+        return (confusion_update(linear_preds, label, n_classes, 0),
+                confusion_update(cluster_preds, label, n_classes, extra_clusters))
+
+    return step
+
+
 def fcfg_from_run_cfg(cfg) -> featurizer_lib.FeaturizerConfig:
     """Featurizer config from a reference-style run config."""
     if cfg.get("arch") in ("dino_depth", "feature-pyramid"):
         raise NotImplementedError(
             f"arch={cfg.get('arch')!r}: the depth-fused and feature-pyramid "
-            "featurizers are not ported yet (ROADMAP slice 4)")
+            "featurizers are not ported yet (ROADMAP item 6)")
     return featurizer_lib.FeaturizerConfig(
         arch=cfg.get("model_type", "vit_small"),
         patch_size=int(cfg.get("dino_patch_size", 8)),
         feat_type=cfg.get("dino_feat_type", "feat"),
         projection_type=cfg.get("projection_type", "nonlinear"),
         dim=int(cfg.get("dim", 70)),
+        dropout=bool(cfg.get("dropout", True)),
         attention_impl=str(cfg.get("attention_impl", "auto")),
     )
 

@@ -1,12 +1,16 @@
-"""DINO featurizer: frozen ViT patch features + projection head, eval mode
+"""DINO featurizer: frozen ViT patch features + trainable projection head
 (``depthg_tpu/models/featurizer.py``).
 
 The module tree follows the reference Lightning layout (``net.model.*``,
 ``net.cluster1.0``, ``net.cluster2.{0,2}``) so checkpoints load with
-``strict=True``. Only eval is ported: no dropout, no gradients. The JAX
-package's ``dispatch_apply`` also routes the depth-fused (``dino_depth``)
-and ``feature-pyramid`` featurizers; those are later ROADMAP items, and
-``inference.fcfg_from_run_cfg`` raises ``NotImplementedError`` for them.
+``strict=True``. The backbone never takes part in a backward pass: it runs
+under ``torch.no_grad()``. In train mode ``cluster1`` and ``cluster2`` each
+see an independently Dropout2d-masked copy of the features, and the returned
+``feats`` carry a mask of their own; every mask comes from the caller's
+``torch.Generator``. The JAX package's ``dispatch_apply`` also routes the
+depth-fused (``dino_depth``) and ``feature-pyramid`` featurizers; those are
+later ROADMAP items, and ``inference.fcfg_from_run_cfg`` raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from torch import nn
 from torch.func import functional_call
 
 from depthg_tpu_torch.models import vit as vit_lib
-from depthg_tpu_torch.models.layers import conv1x1
+from depthg_tpu_torch.models.layers import conv1x1, dropout2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +32,8 @@ class FeaturizerConfig:
     feat_type: str = "feat"          # "feat" | "KK"
     projection_type: str | None = "nonlinear"  # "nonlinear" | "linear" | None
     dim: int = 70                    # projection output dim
+    dropout: bool = True             # cfg.dropout: Dropout2d on the returned feats
+    drop_rate: float = 0.1
     vit_config: vit_lib.ViTConfig | None = None  # override (tests)
     # "auto" = the Hopper attention kernel on CUDA when the attention matrix
     # isn't consumed, eager "xla" otherwise; "xla" | "flash" | "fused" force
@@ -57,6 +63,17 @@ class DinoFeaturizer(nn.Module):
                                           conv1x1(nf, fcfg.dim))
 
 
+def bf16_parameters(module: nn.Module) -> dict:
+    """bf16 copies of ``module``'s parameters by name, cast by one
+    multi-tensor copy (a ``.to`` per tensor is one launch each, 150 for a
+    ViT-S, and the forward is bound by the host's launch rate)."""
+    names, params = zip(*module.named_parameters())
+    copies = [torch.empty_like(p, dtype=torch.bfloat16) for p in params]
+    torch._foreach_copy_(copies, list(params))
+    return dict(zip(names, copies))
+
+
+@torch.no_grad()
 def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
                       precision: str | None = None,
                       backbone_dtype: str | None = None):
@@ -78,9 +95,8 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
             "are ported (int8 w8a8 is a later ROADMAP item)")
     impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device)
     if backbone_dtype == "bfloat16":
-        params = {k: p.to(torch.bfloat16) for k, p in net.model.named_parameters()}
         feats, attns, qkvs = functional_call(
-            net.model, params, (img.to(torch.bfloat16),),
+            net.model, bf16_parameters(net.model), (img.to(torch.bfloat16),),
             {"n": 1, "attn_impl": impl})
     else:
         feats, attns, qkvs = net.model(img, n=1, attn_impl=impl)
@@ -101,19 +117,31 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
     return image_feat, attn
 
 
-def project(net: DinoFeaturizer, image_feat: torch.Tensor) -> torch.Tensor:
-    """Eval-mode projection: cluster1(x) [+ cluster2(x)]."""
-    if net.fcfg.projection_type is None:
+def project(net: DinoFeaturizer, image_feat: torch.Tensor, train: bool = False,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """cluster1(drop(x)) [+ cluster2(drop(x))], the two masks independent;
+    no dropout in eval mode."""
+    fcfg = net.fcfg
+    if fcfg.projection_type is None:
         return image_feat
-    code = net.cluster1(image_feat)
-    if net.fcfg.projection_type == "nonlinear":
-        code = code + net.cluster2(image_feat)
+    code = net.cluster1(dropout2d(image_feat, fcfg.drop_rate, train, generator))
+    if fcfg.projection_type == "nonlinear":
+        code = code + net.cluster2(dropout2d(image_feat, fcfg.drop_rate, train,
+                                             generator))
     return code
 
 
 def featurizer_apply(net: DinoFeaturizer, img: torch.Tensor,
                      precision: str | None = None,
-                     backbone_dtype: str | None = None) -> dict:
-    """Eval-mode featurizer: dict(feats, code, attn)."""
+                     backbone_dtype: str | None = None, train: bool = False,
+                     generator: torch.Generator | None = None) -> dict:
+    """dict(feats, code, attn). With ``train=True`` the projection sees
+    dropout-masked features and, under ``fcfg.dropout``, the returned
+    ``feats`` carry their own mask; gradients reach the projection head
+    only."""
     image_feat, attn = backbone_features(net, img, precision, backbone_dtype)
-    return {"feats": image_feat, "code": project(net, image_feat), "attn": attn}
+    code = project(net, image_feat, train, generator)
+    feats = image_feat
+    if net.fcfg.dropout:
+        feats = dropout2d(image_feat, net.fcfg.drop_rate, train, generator)
+    return {"feats": feats, "code": code, "attn": attn}

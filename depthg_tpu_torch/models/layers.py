@@ -23,3 +23,16 @@ class LayerNorm(nn.LayerNorm):
 
 def conv1x1(in_ch: int, out_ch: int) -> nn.Conv2d:
     return nn.Conv2d(in_ch, out_ch, kernel_size=1)
+
+
+def dropout2d(x: torch.Tensor, rate: float, enabled: bool,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """``nn.Dropout2d`` with the mask drawn from ``generator``: zero whole
+    channels of [B, C, H, W] and scale the rest by 1 / (1 - rate)."""
+    if not enabled or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout2d needs the caller's torch.Generator")
+    keep = torch.bernoulli(torch.full(x.shape[:2], 1.0 - rate, device=x.device),
+                           generator=generator)
+    return x * keep[:, :, None, None].to(x.dtype) / (1.0 - rate)

@@ -9,9 +9,8 @@ interpolation matrices.
 
 * bilinear align_corners=False — probe/logit upsampling;
 * bilinear align_corners=True — kept for parity with the JAX signature;
-* bicubic with an explicit ``scale`` — DINO's positional-embedding quirk.
-
-Adaptive pools belong to the training slice and are not ported yet.
+* bicubic with an explicit ``scale`` — DINO's positional-embedding quirk;
+* ``adaptive_avg_pool2d`` — the depth map at feature resolution (FPS).
 """
 
 from __future__ import annotations
@@ -133,3 +132,12 @@ def resized_sq_norm(x: torch.Tensor, size, align_corners: bool = False) -> torch
               for m in _quad_linear_matrices(h, oh, align_corners))
     s = torch.einsum("uh,bhv->buv", a2, g0) + torch.einsum("uh,bhv->buv", ab, g1)
     return s.clamp_min(0.0)  # rounding can leave tiny negatives
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``F.adaptive_avg_pool2d`` for [..., H, W]."""
+    oh, ow = _size2(out_hw)
+    if tuple(x.shape[-2:]) == (oh, ow):
+        return x
+    x4, lead = _as4d(x)
+    return F.adaptive_avg_pool2d(x4, (oh, ow)).reshape(*lead, oh, ow)

@@ -1,0 +1,347 @@
+"""Train the DepthG segmenter with the PyTorch port.
+
+Usage (the CLI surface of ``scripts/train_segmentation.py``)::
+
+    python -m depthg_tpu_torch.train_segmentation [key=value | --key value] ...
+
+Reads ``depthg_tpu_torch/configs/local_config.yml`` with overrides and
+trains on ``device`` (default ``cuda``; it raises when there is no card,
+and only ``device=cpu`` runs on the CPU): contrastive correlation
+distillation with depth guidance, three Adam groups, the decay schedules as
+host functions of the step, validation every ``val_freq`` steps with
+Hungarian-matched metrics, ``best`` / ``last`` / top-k checkpoints monitored
+on ``test/cluster/mIoU`` (Accuracy for potsdam).
+
+The frozen DINO backbone comes from ``pretrained_weights`` (a DINO ``.pth``
+or a Lightning ``.ckpt``); without one it is randomly initialized from the
+seed, with a warning. Batches are staged through pinned host memory two
+ahead of the step. Scalars go to a jsonl log, and to TensorBoard and wandb
+when those are installed and asked for.
+
+Each checkpoint ``<tag>`` is two files: ``<tag>.ckpt``, a
+reference-compatible Lightning checkpoint that the eval CLIs of both
+packages read, and ``<tag>.train_state.pt``, the port's own resumable train
+state for ``resume=`` (``utils.ckpt.save_train_state``). Differences from
+the JAX trainer: no orbax directory and no pickled optax state are written
+or read; the random draws of step k are seeded from (seed, k) and
+``resume=`` also repositions the data loader, so a resumed run repeats an
+uninterrupted one; ``n_devices`` must be 1 or empty; ``lhp``,
+``arch=dino_depth|feature-pyramid`` and ``backbone_dtype=int8`` raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import time
+from datetime import datetime
+from os.path import join
+
+import numpy as np
+import torch
+
+from depthg_tpu_torch.config import cli_overrides, load_config
+from depthg_tpu_torch.data import ContrastiveSegDataset, DataLoader, get_transform
+from depthg_tpu_torch.data.loader import device_prefetch
+from depthg_tpu_torch.data.transforms import GeometricAug, PhotometricAug
+from depthg_tpu_torch.inference import Segmenter, fcfg_from_run_cfg, make_validation_step
+from depthg_tpu_torch.runtime import get_device
+from depthg_tpu_torch.train import decay as decay_lib
+from depthg_tpu_torch.train import losses as loss_lib
+from depthg_tpu_torch.train import step as step_lib
+from depthg_tpu_torch.utils import ckpt as ckpt_lib
+from depthg_tpu_torch.utils.metrics import SegMetrics
+
+STEP_SEED_STRIDE = 1_000_003  # the draws of step k are seeded seed * stride + k
+
+
+def build_datasets(cfg):
+    eval_res = 224 if cfg.model_type == "mae" else 320
+    use_augs = float(cfg.aug_alignment_weight) > 0
+    data_dir = cfg.data_dir
+    train_dataset = ContrastiveSegDataset(
+        data_dir=data_dir, dataset_name=cfg.dataset_name, crop_type=cfg.crop_type,
+        image_set="train",
+        transform=get_transform(cfg.res, False, cfg.loader_crop_type),
+        target_transform=get_transform(cfg.res, True, cfg.loader_crop_type),
+        cfg=cfg,
+        aug_geometric_transform=GeometricAug(cfg.res) if use_augs else None,
+        aug_photometric_transform=PhotometricAug() if use_augs else None,
+        num_neighbors=cfg.num_neighbors, mask=True, pos_images=True, pos_labels=True,
+        return_depth=cfg.use_depth, depth_type=cfg.depth_type)
+
+    val_crop = None if cfg.dataset_name == "voc" else "center"
+    val_dir = join(data_dir, "nyuv2") if cfg.dataset_name == "nyuv2" else data_dir
+    val_dataset = ContrastiveSegDataset(
+        data_dir=val_dir, dataset_name=cfg.dataset_name, crop_type=None,
+        image_set="val",
+        transform=get_transform(eval_res, False, val_crop),
+        target_transform=get_transform(eval_res, True, val_crop),
+        cfg=cfg, mask=True)
+    return train_dataset, val_dataset, eval_res
+
+
+def load_backbone(cfg, model: Segmenter) -> str:
+    """Load the frozen ViT of ``model`` from ``cfg.pretrained_weights`` (a
+    DINO ``.pth`` or a Lightning ``.ckpt``), strictly. Without a file the
+    random init of the seed stays, with a warning. Returns what was used."""
+    path = cfg.get("pretrained_weights")
+    if path and os.path.exists(path):
+        if path.endswith(".ckpt"):
+            sd, _ = ckpt_lib.load_lightning_ckpt(path)
+            vit_sd = {k[len("net.model."):]: v for k, v in sd.items()
+                      if k.startswith("net.model.")}
+        else:
+            vit_sd = ckpt_lib.load_dino_pth(path)
+        model.net.model.load_state_dict(vit_sd, strict=True)
+        return path
+    print("WARNING: pretrained_weights not provided/found. The reference would "
+          "download DINO weights from torch hub; nothing is downloaded here, "
+          "so the backbone is randomly initialized. Pass "
+          "pretrained_weights=/path/to/dino.pth for real runs.")
+    return "random"
+
+
+def _stage_fn(needed, device: torch.device):
+    """Host batch -> dict of device tensors through pinned memory."""
+    def stage(batch: dict) -> dict:
+        out = {}
+        for k in needed:
+            if k not in batch:
+                continue
+            v = np.asarray(batch[k])
+            if v.dtype == np.float64:
+                v = v.astype(np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
+        return out
+    return stage
+
+
+def main(argv=None) -> dict:
+    overrides = cli_overrides(argv if argv is not None else sys.argv[1:])
+    cfg = load_config("local_config.yml", overrides)
+
+    if cfg.arch not in ("dino", "dino_depth", "feature-pyramid"):
+        raise NotImplementedError(f"arch={cfg.arch}")
+    if cfg.get("n_devices") not in (None, 1):
+        raise NotImplementedError(
+            f"n_devices={cfg.n_devices}: the port trains on one device "
+            "(ROADMAP item 7: multi-GPU)")
+    fcfg = fcfg_from_run_cfg(cfg)  # raises for the featurizers not ported
+    step_lib.check_supported(step_lib.hparams_from_cfg(cfg, 0))
+    device = get_device(cfg.get("device", "cuda"))
+
+    if cfg.get("image_cache_mb") is None:
+        # training revisits every image each epoch: decoded-image LRU on
+        from depthg_tpu_torch.data.datasets import IMAGE_CACHE
+        IMAGE_CACHE.configure(512)
+
+    seed = int(cfg.get("seed", 0))
+    np.random.seed(seed)
+
+    name = "{}/{}_{}_date_{}".format(cfg.log_dir, cfg.dataset_name, cfg.experiment_name,
+                                     datetime.now().strftime("%b%d_%H-%M-%S"))
+    checkpoint_dir = join(cfg.output_root, "checkpoints", name.replace("/", "_"))
+    log_path = join(cfg.output_root, "logs", name.replace("/", "_") + ".jsonl")
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "a") as log_file:
+        return _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file)
+
+
+def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
+    seed = int(cfg.get("seed", 0))
+    wandb = None
+    if cfg.get("wandb_logging"):
+        try:
+            import wandb as _wandb
+
+            _wandb.init(project="depthg-torch", name=name, config=dict(cfg),
+                        sync_tensorboard=True)
+            wandb = _wandb
+        except ImportError:
+            print("wandb_logging=True but wandb is not installed; jsonl logs only")
+
+    tb_writer = None
+    tb_dir = join(cfg.output_root, "tb", name.replace("/", "_"))
+    if cfg.get("tensorboard_logging", True):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            tb_writer = SummaryWriter(log_dir=tb_dir)
+        except ImportError:
+            print("tensorboard not available; jsonl logs only")
+
+    train_dataset, val_dataset, eval_res = build_datasets(cfg)
+    n_classes = train_dataset.n_classes
+
+    hp = step_lib.hparams_from_cfg(cfg, n_classes)
+    dcfg = decay_lib.from_cfg(cfg)
+    base_lcfg = loss_lib.from_cfg(cfg)
+
+    model = Segmenter(fcfg, n_classes, n_classes + hp.extra_clusters,
+                      decoder=True).init_weights(torch.Generator().manual_seed(seed))
+    backbone = load_backbone(cfg, model)
+    state = step_lib.state_from_model(model.to(device), hp)
+
+    train_loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True,
+                              num_workers=cfg.num_workers, drop_last=True, seed=seed)
+    val_loader = DataLoader(val_dataset, cfg.batch_size, shuffle=False,
+                            num_workers=cfg.num_workers)
+
+    if cfg.get("resume"):
+        ckpt_lib.load_train_state(cfg.resume, state)
+        train_loader.seek(state.step)
+        print(f"resumed from {cfg.resume} at step {state.step}")
+
+    val_step = make_validation_step(n_classes, hp.extra_clusters)
+    gen = torch.Generator(device=device)
+
+    monitor = "test/cluster/Accuracy" if cfg.dataset_name == "potsdam" else "test/cluster/mIoU"
+    best_monitor = -1.0
+    maxima: dict = {}
+
+    needed = {"img", "img_pos", "label", "depth", "depth_pos"}
+    if cfg.use_true_labels:
+        needed.add("label_pos")
+    if cfg.use_salience:
+        needed |= {"mask", "mask_pos"}
+    if float(cfg.aug_alignment_weight) > 0:
+        needed |= {"img_aug", "coord_aug"}
+    stage = _stage_fn(sorted(needed), device)
+
+    def save_ckpt(tag):
+        if cfg.get("export_torch_ckpt", True):
+            ckpt_lib.export_lightning_ckpt(
+                join(checkpoint_dir, tag + ".ckpt"), step_lib.eval_state_dict(state),
+                cfg=dict(cfg), n_classes=n_classes, global_step=state.step)
+        ckpt_lib.save_train_state(join(checkpoint_dir, tag + ".train_state.pt"), state)
+
+    # save_top_k retention: the best step-tagged checkpoints by the monitor,
+    # beside best and last
+    topk_kept: list = []  # [(monitor value, step, tag)]
+
+    def save_topk(value):
+        tag = f"step{state.step}"
+        save_ckpt(tag)
+        topk_kept.append((value, state.step, tag))
+        topk_kept.sort(key=lambda t: (-t[0], -t[1]))
+        while len(topk_kept) > int(cfg.get("save_top_k", 2)):
+            _, _, old = topk_kept.pop()
+            for suffix in (".ckpt", ".train_state.pt"):
+                p = join(checkpoint_dir, old + suffix)
+                if os.path.exists(p):
+                    os.remove(p)
+
+    def run_validation():
+        linear_m = SegMetrics("test/linear/", n_classes, 0, False)
+        cluster_m = SegMetrics("test/cluster/", n_classes, hp.extra_clusters, True)
+        val_stage = _stage_fn(("img", "label"), device)
+        for batch in val_loader:
+            b = val_stage(batch)
+            ls, cs = val_step(state.model, b["img"], b["label"], eval_res)
+            linear_m.add_stats(ls)
+            cluster_m.add_stats(cs)
+        tb = {**linear_m.compute(), **cluster_m.compute()}
+        for k, v in tb.items():
+            mk = k.replace("test/", "test/Max", 1)
+            if v > maxima.get(mk, -1):
+                maxima[mk] = v
+        tb.update(maxima)
+        tb["step"] = state.step
+        print(json.dumps(tb))
+        log_file.write(json.dumps(tb) + "\n")
+        log_file.flush()
+        if wandb is not None:
+            wandb.log(tb, step=state.step)
+        if tb_writer is not None:
+            for k, v in tb.items():
+                tb_writer.add_scalar(k, v, state.step)
+        return tb
+
+    if tb_writer is not None:
+        hparams = {k: v for k, v in cfg.items() if isinstance(v, (bool, int, float, str))}
+        tb_writer.add_hparams(hparams, {monitor: 0.0}, run_name=".")
+
+    print(f"training {cfg.dataset_name} for {cfg.max_steps} steps (n_classes={n_classes}, "
+          f"device={device}, backbone={backbone})")
+    t_last = time.time()
+    pending_logs = None
+    logs = None
+    while state.step < cfg.max_steps:
+        for batch in device_prefetch(iter(train_loader), stage,
+                                     depth=int(cfg.get("device_prefetch", 2))):
+            if state.step >= cfg.max_steps:
+                break
+            step_num = state.step
+            mode, s = decay_lib.sampling_schedule(dcfg, step_num)
+            w = decay_lib.depth_feat_weight(dcfg, step_num)
+            sh = decay_lib.depth_feat_shift(dcfg, step_num)
+            gen.manual_seed(seed * STEP_SEED_STRIDE + step_num)
+            hist_freq = cfg.get("hist_freq")
+            want_hist = bool(tb_writer is not None and hist_freq and step_num > 0
+                             and step_num % int(hist_freq) == 0)
+            logs = step_lib.train_step(
+                state, batch, dataclasses.replace(hp, log_hist=want_hist),
+                dataclasses.replace(base_lcfg, depth_sampling=mode, feature_samples=s),
+                w, sh, generator=gen)
+            step_num = state.step
+
+            hists = {k: logs.pop(k) for k in list(logs) if k.startswith("hist/")}
+            for key, val in hists.items():
+                tb_writer.add_histogram(key.split("/", 1)[1], val.cpu().numpy(), step_num)
+
+            if step_num % cfg.scalar_log_freq == 0:
+                pending_logs = (step_num, logs)  # fetched lazily, off the hot path
+            if pending_logs and step_num % (cfg.scalar_log_freq * 5) == 0:
+                sn, lg = pending_logs
+                host = {k: float(v) for k, v in lg.items()}
+                host.update({"step": sn, "cfg/depth_feat_weight": w,
+                             "cfg/depth_feat_shift": sh, "cfg/feature_samples": s,
+                             "steps_per_sec": cfg.scalar_log_freq * 5 / (time.time() - t_last)})
+                t_last = time.time()
+                log_file.write(json.dumps(host) + "\n")
+                log_file.flush()
+                if tb_writer is not None:
+                    for k, v in host.items():
+                        tb_writer.add_scalar(k, v, sn)
+                pending_logs = None
+
+            if tb_writer is not None and step_num % 2000 == 0:
+                # a new event file every 2000 steps, as the reference
+                from torch.utils.tensorboard import SummaryWriter
+
+                tb_writer.close()
+                tb_writer = SummaryWriter(log_dir=tb_dir)
+
+            if cfg.get("reset_probe_steps") is not None and step_num == cfg.reset_probe_steps:
+                step_lib.reset_probes(
+                    state, torch.Generator().manual_seed((seed + 1) * STEP_SEED_STRIDE - 1), hp)
+
+            if step_num % cfg.val_freq == 0:
+                tb = run_validation()
+                if tb[monitor] > best_monitor:
+                    best_monitor = tb[monitor]
+                    save_ckpt("best")
+                save_topk(tb[monitor])
+                save_ckpt("last")
+
+    tb = run_validation()
+    save_ckpt("last")
+    if tb_writer is not None:
+        tb_writer.close()
+    print(f"done. best {monitor}: {max(best_monitor, tb[monitor]):.3f}")
+    print(f"checkpoints: {checkpoint_dir}")
+    return {"checkpoint_dir": checkpoint_dir, "log_path": log_path, "step": state.step,
+            "metrics": tb,
+            "last_logs": {k: float(v) for k, v in (logs or {}).items()}}
+
+
+if __name__ == "__main__":
+    main()

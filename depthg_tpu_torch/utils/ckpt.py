@@ -1,13 +1,21 @@
 """Checkpoints for the port: reference Lightning ``.ckpt`` files and the
 weight carry-over from the JAX package (``depthg_tpu/utils/ckpt.py``).
 
-Both end in the reference Lightning key layout (``net.model.*``,
+All end in the reference Lightning key layout (``net.model.*``,
 ``net.cluster1.0.*``, ``net.cluster2.{0,2}.*``, ``linear_probe.*``,
 ``cluster_probe.clusters``), which ``inference.Segmenter`` loads with
 ``strict=True``. ``lightning_state_dict`` (the port's own copy of the
 exporter in ``depthg_tpu/utils/ckpt.py:146-206``) writes that layout from
 the JAX package's parameter tree given as numpy arrays, so random-init
 parity weights and released checkpoints take one path.
+
+The trainer writes two files per checkpoint: a reference-compatible
+Lightning ``.ckpt`` (``export_lightning_ckpt``; both packages' eval loaders
+read it) and the port's own resumable train state
+(``save_train_state``: ``torch.save`` of the trainable tensors, the three
+optimizers' ``state_dict()`` and the step). The JAX trainer's pickled optax
+state and its orbax directories need JAX to read; the port writes neither
+and reads neither.
 """
 
 from __future__ import annotations
@@ -89,9 +97,10 @@ def lightning_state_dict(params: dict) -> dict:
     return sd
 
 
-def state_dict_from_jax(params: dict) -> dict:
+def state_dict_from_jax(params: dict, keep_decoder: bool = False) -> dict:
     """JAX segmenter param tree (numpy or jax leaves) -> the port's eval
-    state dict (float32 torch tensors)."""
+    state dict (float32 torch tensors); ``keep_decoder=True`` keeps the
+    training side's ``decoder.*`` beside it."""
     def host(tree):
         if isinstance(tree, dict):
             return {k: host(v) for k, v in tree.items()}
@@ -99,8 +108,11 @@ def state_dict_from_jax(params: dict) -> dict:
             return [host(v) for v in tree]
         return np.array(tree, np.float32)  # writable host copy
 
-    sd = lightning_state_dict(host(params))
-    return eval_state_dict({k: v.float() for k, v in sd.items()})
+    sd = {k: v.float() for k, v in lightning_state_dict(host(params)).items()}
+    out = eval_state_dict(sd)
+    if keep_decoder:
+        out.update({k: v for k, v in sd.items() if k.startswith("decoder.")})
+    return out
 
 
 def load_lightning_ckpt(path: str):
@@ -113,3 +125,80 @@ def load_lightning_ckpt(path: str):
         cfg = hparams["cfg"]
         hparams = cfg if isinstance(cfg, dict) else {k: cfg[k] for k in cfg}
     return eval_state_dict(blob["state_dict"]), hparams
+
+
+def strip_prefixes(sd: dict, prefixes=("module.", "backbone.")) -> dict:
+    out = {}
+    for k, v in sd.items():
+        for p in prefixes:
+            k = k.replace(p, "")
+        out[k] = v
+    return out
+
+
+def load_dino_pth(path: str) -> dict:
+    """A DINO pretrain ``.pth`` (optionally a {"teacher": ...} wrapper with
+    ``module.`` / ``backbone.`` prefixes) -> the ViT's state dict in DINO's
+    own keys, which are ``models.vit.VisionTransformer``'s; keys of DINO's
+    projection head (``head.*``) are dropped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "teacher" in sd:
+        sd = strip_prefixes(sd["teacher"])
+    return {k: v for k, v in sd.items() if not k.startswith("head.")}
+
+
+def export_lightning_ckpt(path: str, state_dict: dict, cfg: dict | None = None,
+                          n_classes: int | None = None, global_step: int = 0,
+                          epoch: int = 0) -> None:
+    """Write a reference-compatible Lightning ``.ckpt`` from a segmenter
+    state dict in the Lightning layout (``Segmenter.state_dict()``).
+
+    ``cfg`` is the reference-style run config (what the reference's
+    ``save_hyperparameters()`` would have captured); ``n_classes`` defaults
+    to the linear probe's output size."""
+    sd = {k: v.detach().cpu().clone() for k, v in state_dict.items()}
+    if n_classes is None and "linear_probe.weight" in sd:
+        n_classes = int(sd["linear_probe.weight"].shape[0])
+    blob = {
+        "epoch": epoch,
+        "global_step": global_step,
+        "pytorch-lightning_version": "1.9.0",
+        "state_dict": sd,
+        "hyper_parameters": {"n_classes": n_classes, "cfg": dict(cfg or {})},
+        "loops": {},
+        "callbacks": {},
+        "optimizer_states": [],
+        "lr_schedulers": [],
+    }
+    torch.save(blob, path)
+
+
+def _trainable_keys(model) -> list:
+    """State-dict keys outside the frozen backbone."""
+    return [k for k in model.state_dict() if not k.startswith("net.model.")]
+
+
+def save_train_state(path: str, state) -> None:
+    """The port's resumable train state: the trainable tensors, the three
+    optimizers' ``state_dict()`` and the step (the frozen backbone comes
+    from ``pretrained_weights`` or the seed again)."""
+    sd = state.model.state_dict()
+    torch.save({
+        "model": {k: sd[k].detach().cpu().clone() for k in _trainable_keys(state.model)},
+        "opt": {name: opt.state_dict() for name, opt in state.opt.items()},
+        "step": int(state.step),
+    }, path)
+
+
+def load_train_state(path: str, state):
+    """Load ``save_train_state``'s file into ``state`` in place (the
+    optimizer moments land on their parameters' device)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if sorted(blob["model"]) != sorted(_trainable_keys(state.model)):
+        raise ValueError(f"{path}: trainable keys {sorted(blob['model'])} do not "
+                         f"match the model's {sorted(_trainable_keys(state.model))}")
+    state.model.load_state_dict(blob["model"], strict=False)
+    for name, opt in state.opt.items():
+        opt.load_state_dict(blob["opt"][name])
+    state.step = int(blob["step"])
+    return state

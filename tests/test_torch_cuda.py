@@ -16,7 +16,9 @@ bf16 rounding of P and of the output gives a relative error near 3e-3.
 The bilateral message kernel (K4, ``csrc/crf_bilateral.cu``) is held to the
 relative errors 1e-5 (float32) and 5e-3 (bf16), and to a max abs error
 scaled by the largest output (``K4_MAX_TOL``). The int8 CRF product is held
-exactly.
+exactly. The training slice adds the attention kernel at the train step's
+shape (B=32, N=785), depth FPS on the card vs the CPU including exact ties,
+and one float32 train step on the card vs the CPU.
 """
 
 import pytest
@@ -238,3 +240,101 @@ def test_cached_matmul_close_on_card(cuda):
     out = tcrf.cached_matmul(k8.to(cuda), z.to(cuda), torch.float32).cpu()
     assert (out - ref).abs().max() <= 1600 * (1.0 / 127)
     assert (out - ref).abs().mean() <= 1e-3 * ref.abs().mean()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_the_train_shape(cuda, dtype):
+    """B=32, N=785 (224 px): 12 x 64 + 17 rows, so a ragged sub-tile inside a
+    ragged 256-row block, and 6 x 128 + 17 keys."""
+    gen = torch.Generator().manual_seed(4)
+    qkv = torch.randn(32, 785, 3 * 384, generator=gen).to(cuda, dtype)
+    before = tatt.KERNEL.launches
+    out = tatt.attention_qkv(qkv, 6, 0.125)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == before + 1
+    q, k, v = tatt.split_qkv(qkv, 6)
+    ref = tatt.attention_plain(q, k, v, 0.125).permute(0, 2, 1, 3)
+    _assert_close(out, ref.reshape(out.shape), dtype)
+
+
+@pytest.mark.parametrize("case", ["generic", "constant", "duplicated_rows", "plateaus"])
+def test_fps_card_vs_cpu(cuda, case):
+    """Depth FPS picks the same coordinates on the card as on the CPU, also
+    where candidates tie exactly: a constant depth map, a map whose rows
+    repeat, and a map of a few flat plateaus (``argmax`` takes the first
+    maximal index on both). The generic case uses seeded smooth depths."""
+    from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth, fps_indices
+
+    gen = torch.Generator().manual_seed(5)
+    b, hw, s = 6, 28, 11
+    if case == "generic":  # pooled from 224 px, as the train step does
+        low = torch.rand(b, 1, 28, 28, generator=gen)
+        depth = torch.nn.functional.interpolate(low, size=(224, 224), mode="bilinear")
+    elif case == "constant":  # the tie cases at the grid's own size: no pooling
+        depth = torch.full((b, 1, hw, hw), 0.37)
+    elif case == "duplicated_rows":
+        depth = torch.rand(b, 1, 1, hw, generator=gen).expand(b, 1, hw, hw).contiguous()
+    else:
+        depth = torch.randint(0, 3, (b, 1, 4, 4), generator=gen).float() \
+            .repeat_interleave(7, 2).repeat_interleave(7, 3)
+    grid = torch.zeros(b, 1, hw, hw)
+    on_cpu = farthest_point_sampling_depth(grid, depth, s)
+    on_card = farthest_point_sampling_depth(grid.to(cuda), depth.to(cuda), s)
+    assert on_card.shape == (b, s, s, 2)
+    assert torch.equal(on_card.cpu(), on_cpu)
+    if case == "constant":
+        # every distance ties at every step of a flat cloud's first row
+        pts = torch.ones(40, 3)
+        assert fps_indices(pts.to(cuda), 7).tolist() == fps_indices(pts, 7).tolist() == list(range(7))
+
+
+@pytest.mark.parametrize("impl", ["eager", "kernel"])
+def test_train_step_card_vs_cpu(cuda, impl):
+    """One float32 train step (ViT-S/8 cut to 2 blocks, 224 px, batch 4,
+    dropout off, fixed coordinates and permutations) on the card vs the CPU
+    from the same weights: every logged loss within 1e-4 relative (plus
+    1e-6 absolute) and every gradient within 1e-4 of its tensor's largest
+    entry. ``grid_sample``'s backward sums with atomics on the card, so the
+    gradients differ from run to run by float32 rounding; the parameters
+    after the step are not compared, since Adam's first update is
+    +-lr whatever a gradient's size."""
+    import copy
+    import dataclasses
+
+    from depthg_tpu_torch import inference, profile_train
+    from depthg_tpu_torch.models import featurizer, vit
+    from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth
+    from depthg_tpu_torch.train import losses as loss_lib
+    from depthg_tpu_torch.train import step as step_lib
+
+    b = 4
+    fcfg = featurizer.FeaturizerConfig(
+        vit_config=dataclasses.replace(vit.make_config("vit_small", 8), depth=2),
+        dropout=False, drop_rate=0.0)
+    lcfg = loss_lib.CorrLossConfig()
+    gen = torch.Generator().manual_seed(6)
+    model = inference.Segmenter(fcfg, 27, 27, decoder=True).init_weights(gen)
+    batch = profile_train.synthetic_batch(b, 224, 27, gen)
+    perms = torch.stack([torch.randperm(b, generator=gen) for _ in range(5)])
+    both = farthest_point_sampling_depth(
+        torch.zeros(2 * b, 1, 28, 28), torch.cat([batch["depth"], batch["depth_pos"]]), 11) * 2 - 1
+    coords = (both[:b], both[b:])
+    hp_cpu = step_lib.TrainHParams(n_classes=27, precision="float32")
+    hp = hp_cpu if impl == "eager" else dataclasses.replace(hp_cpu, precision=None)
+    ref_state = step_lib.state_from_model(copy.deepcopy(model), hp_cpu)
+    ref = step_lib.train_step(ref_state, batch, hp_cpu, lcfg, 0.19, 0.03,
+                              coords_override=coords, neg_perms=perms)
+    state = step_lib.state_from_model(copy.deepcopy(model).to(cuda), hp)
+    before = tatt.KERNEL.launches
+    logs = step_lib.train_step(state, {k: v.to(cuda) for k, v in batch.items()}, hp, lcfg,
+                               0.19, 0.03, coords_override=tuple(c.to(cuda) for c in coords),
+                               neg_perms=perms.to(cuda))
+    assert tatt.KERNEL.launches - before == (4 if impl == "kernel" else 0)
+    assert sorted(logs) == sorted(ref)
+    for name in ref:
+        torch.testing.assert_close(logs[name].cpu(), ref[name], rtol=1e-4, atol=1e-6, msg=name)
+    for (name, p), q in zip(state.model.named_parameters(), ref_state.model.parameters()):
+        assert (p.grad is None) == (q.grad is None), name
+        if q.grad is not None:
+            scale = float(q.grad.abs().max())
+            assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name

@@ -1,8 +1,9 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing
 ``depthg_tpu_torch`` (and its fidelity-study module) and running the tiny
 eval step on the CPU at the default point, the ``safe`` point and the
-streaming exact CRF leaves ``jax`` and every module of the JAX package
-(``depthg_tpu``) out of ``sys.modules``, also after importing the eval CLI;
+streaming exact CRF, then one train step and a validation step, leaves ``jax`` and every module of the JAX package
+(``depthg_tpu``) out of ``sys.modules``, also after importing the eval and
+train CLIs and both profile modules;
 no source of the port or of ``chip_smoke.py`` imports either. The attention
 and bilateral wrappers raise on an input their kernels cannot take instead
 of falling back to their plain versions."""
@@ -27,6 +28,8 @@ import torch
 import depthg_tpu_torch
 import depthg_tpu_torch.eval_segmentation
 import depthg_tpu_torch.profile_eval
+import depthg_tpu_torch.profile_train
+import depthg_tpu_torch.train_segmentation
 from depthg_tpu_torch import crf_fidelity_study, inference
 from depthg_tpu_torch.models import featurizer, vit
 from depthg_tpu_torch.ops.crf import crf_config_from_cfg
@@ -49,6 +52,18 @@ for crf in (crf_config_from_cfg({}),
     lin, clu = inference.make_eval_step(ecfg)(model, img, label)
     assert lin.shape == (5, 5) and clu.shape == (7, 5)
     assert int(lin.sum()) <= counted and int(clu.sum()) <= counted
+from depthg_tpu_torch.train import decay, losses, step
+hp = step.TrainHParams(n_classes=5, backbone_dtype="bfloat16")
+state = step.init_state(fcfg, hp, torch.Generator().manual_seed(1))
+batch = {"img": img, "img_pos": img.flip(-1), "label": label,
+         "depth": torch.rand(2, 1, 64, 64, generator=gen),
+         "depth_pos": torch.rand(2, 1, 64, 64, generator=gen)}
+logs = step.train_step(state, batch, hp, losses.CorrLossConfig(feature_samples=3, neg_samples=2),
+                       0.19, 0.03, generator=gen)
+assert state.step == 1 and all(bool(torch.isfinite(v).all()) for v in logs.values())
+lin, clu = inference.make_validation_step(5, 0)(state.model, img, label, 64)
+assert lin.shape == (5, 5) and clu.shape == (5, 5)
+assert decay.sampling_schedule(decay.DecayConfig(), 3) == ("fps", 11)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("depthg_tpu."))
 assert not theirs, theirs

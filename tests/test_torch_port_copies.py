@@ -55,6 +55,20 @@ def test_eval_config_file_is_the_ports_own():
         jconfig.load_config("eval_config.yml"))
 
 
+@pytest.mark.parametrize("name", ["local_config.yml", "train_config.yml"])
+def test_train_config_files_held_exactly(name):
+    """The trainer's config files are byte-for-byte copies, and resolve to
+    the same dict with trainer-style overrides."""
+    with open(os.path.join(ROOT, "depthg_tpu", "configs", name), "rb") as f:
+        ref_bytes = f.read()
+    with open(os.path.join(ROOT, "depthg_tpu_torch", "configs", name), "rb") as f:
+        assert f.read() == ref_bytes
+    argv = ["lr=5e-4", "--batch_size", "8", "n_devices=~", "depth_feat_weight=0.19"]
+    ref = jconfig.load_config(name, jconfig.cli_overrides(argv))
+    out = tconfig.load_config(name, tconfig.cli_overrides(argv))
+    assert dict(out) == dict(ref) and out.n_devices is None and out.lr == 5e-4
+
+
 def test_config_attribute_access_and_errors():
     cfg = tconfig.load_config("eval_config.yml", ["a.b=1"])
     assert cfg.a.b == 1 and cfg.get_path("a.b") == 1 and cfg.get_path("a.c", 7) == 7
@@ -117,6 +131,52 @@ def test_state_dict_from_jax_runs_on_the_ports_exporter():
     for key, val in sd.items():
         assert val.dtype == torch.float32 and torch.equal(val, ref[key].float()), key
     assert sd["linear_probe.weight"].dim() == 4
+
+
+def test_state_dict_from_jax_keeps_the_decoder_on_request():
+    """``keep_decoder=True`` (the train state's carry-over) adds exactly the
+    decoder's keys."""
+    tree = _param_tree(2)
+    sd = tckpt.state_dict_from_jax(tree)
+    full = tckpt.state_dict_from_jax(tree, keep_decoder=True)
+    assert set(full) - set(sd) == {"decoder.weight", "decoder.bias"}
+    ref = jckpt.lightning_state_dict(tree)
+    for key, val in full.items():
+        assert torch.equal(val, ref[key].float()), key
+    assert set(tckpt.state_dict_from_jax(_param_tree(2, decoder=False),
+                                         keep_decoder=True)) == set(sd)
+
+
+def test_export_lightning_ckpt_matches_jax_package(tmp_path):
+    """The port's exporter writes the JAX package's blob: same top-level
+    keys, hyper-parameters and state dict."""
+    tree = _param_tree(3)
+    cfg = {"model_type": "vit_small", "dim": 8}
+    jckpt.export_lightning_ckpt(str(tmp_path / "j.ckpt"), tree, cfg=cfg, global_step=7)
+    tckpt.export_lightning_ckpt(str(tmp_path / "t.ckpt"), tckpt.lightning_state_dict(tree),
+                                cfg=cfg, global_step=7)
+    ref = torch.load(str(tmp_path / "j.ckpt"), weights_only=False)
+    out = torch.load(str(tmp_path / "t.ckpt"), weights_only=False)
+    assert list(out) == list(ref)
+    for key in ref:
+        if key != "state_dict":
+            assert out[key] == ref[key], key
+    assert list(out["state_dict"]) == list(ref["state_dict"])
+    for key, val in ref["state_dict"].items():
+        assert torch.equal(out["state_dict"][key], val), key
+
+
+def test_load_dino_pth_matches_jax_package(tmp_path):
+    """A wrapped DINO ``.pth`` read by both loaders gives the same ViT."""
+    tree = _param_tree(4)
+    vit_sd = tckpt.vit_state_dict(tree["net"]["vit"])
+    path = str(tmp_path / "dino.pth")
+    torch.save({"teacher": {"module.backbone." + k: v for k, v in vit_sd.items()}}, path)
+    out = tckpt.load_dino_pth(path)
+    assert sorted(out) == sorted(vit_sd)
+    back = tckpt.vit_state_dict(jckpt.load_dino_pth(path))
+    for key, val in out.items():
+        assert torch.equal(val, vit_sd[key]) and torch.equal(back[key], val), key
 
 
 def _coco_val(root, n=5, size=40):

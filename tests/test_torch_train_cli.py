@@ -1,0 +1,177 @@
+"""The port's trainer CLI on the CPU at a tiny size, on
+``tests/synthetic_data.py``'s dataset: ``model_type=vit_tiny dim=16 res=32
+batch_size=4 device=cpu``. Two steps, a validation, a Lightning ``.ckpt``
+that the port's eval loader and the JAX package's loader read back to the
+same weights, and ``resume=`` continuing at the saved step with the loss an
+uninterrupted run logs at that step (both runs are the same float32 ops on
+the same host: held to 1e-6 relative).
+"""
+
+import json
+import os
+from os.path import join
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from depthg_tpu.utils import ckpt as jckpt
+from depthg_tpu_torch import train_segmentation
+from depthg_tpu_torch.config import load_config
+from depthg_tpu_torch.inference import Segmenter, fcfg_from_run_cfg
+from depthg_tpu_torch.utils import ckpt as tckpt
+from synthetic_data import make_cropped_dataset, make_nns
+
+torch.set_num_threads(1)
+
+
+def _dataset(root):
+    make_cropped_dataset(root, n=8, size=64, splits=("train",))
+    make_nns(root, "vit_tiny", "cocostuff27", "train", "five", 32, n=8)
+    base = join(root, "cocostuff")  # a minimal val split in the Coco layout
+    for sub in ("curated/val2017", "images/val2017", "annotations/val2017"):
+        os.makedirs(join(base, sub), exist_ok=True)
+    rng = np.random.default_rng(0)
+    with open(join(base, "curated/val2017/Coco164kFull_Stuff_Coarse_7.txt"), "w") as f:
+        f.write("v0\nv1")
+    for n in ("v0", "v1"):
+        Image.fromarray(rng.integers(0, 255, (64, 64, 3), np.uint8)).save(
+            join(base, "images/val2017", n + ".jpg"))
+        Image.fromarray(rng.integers(0, 182, (64, 64)).astype(np.uint8)).save(
+            join(base, "annotations/val2017", n + ".png"))
+
+
+def _args(root, out, **kw):
+    args = {"model_type": "vit_tiny", "dim": 16, "res": 32, "batch_size": 4,
+            "num_workers": 1, "feature_samples": 3, "neg_samples": 2, "num_neighbors": 3,
+            "data_dir": root, "output_root": out, "val_freq": 100, "scalar_log_freq": 1,
+            "experiment_name": "cli", "device": "cpu", "tensorboard_logging": False,
+            "depth_feat_weight": 0.19, "depth_feat_shift": 0.03}
+    args.update(kw)
+    return [f"{k}={v}" for k, v in args.items()]
+
+
+@pytest.fixture(scope="module")
+def two_steps(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("data"))
+    _dataset(root)
+    out = str(tmp_path_factory.mktemp("out2"))
+    return root, train_segmentation.main(_args(root, out, max_steps=2, val_freq=2))
+
+
+def test_cli_trains_validates_and_checkpoints(two_steps):
+    _, res = two_steps
+    assert res["step"] == 2
+    assert all(np.isfinite(v) for v in res["last_logs"].values())
+    assert {"loss/total", "loss/linear", "loss/cluster", "loss/pos_intra",
+            "loss/depth_feat"} <= set(res["last_logs"])
+    for key in ("test/cluster/mIoU", "test/linear/Accuracy", "test/Maxcluster/mIoU"):
+        assert np.isfinite(res["metrics"][key]), key
+    with open(res["log_path"]) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows if "test/cluster/mIoU" in r] == [2, 2]
+    files = sorted(os.listdir(res["checkpoint_dir"]))
+    assert files == sorted(f"{tag}{ext}" for tag in ("best", "last", "step2")
+                           for ext in (".ckpt", ".train_state.pt"))
+
+
+def test_ckpt_loads_in_both_packages_to_the_same_weights(two_steps):
+    _, res = two_steps
+    path = join(res["checkpoint_dir"], "last.ckpt")
+    sd, hparams = tckpt.load_lightning_ckpt(path)
+    assert hparams["model_type"] == "vit_tiny" and hparams["dim"] == 16
+    model = Segmenter.from_state_dict(sd, fcfg_from_run_cfg(load_config(
+        "local_config.yml", ["model_type=vit_tiny", "dim=16"])))
+    assert model.linear_probe.weight.shape == (27, 16, 1, 1)
+    params, jhparams = jckpt.load_lightning_ckpt(path)
+    assert jhparams == hparams
+    assert "decoder" in params  # the training side's decoder is kept in the file
+    back = tckpt.state_dict_from_jax(params)  # the JAX tree, exported again
+    assert sorted(back) == sorted(sd)
+    for key in sd:
+        assert torch.equal(back[key], sd[key]), key
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    assert blob["global_step"] == 2 and blob["hyper_parameters"]["n_classes"] == 27
+    assert blob["state_dict"]["decoder.weight"].shape == (192, 16, 1, 1)
+
+
+def test_resume_continues_like_an_uninterrupted_run(two_steps, tmp_path):
+    root, res2 = two_steps
+    straight = train_segmentation.main(_args(root, str(tmp_path / "a"), max_steps=3))
+    resumed = train_segmentation.main(_args(
+        root, str(tmp_path / "b"), max_steps=3,
+        resume=join(res2["checkpoint_dir"], "last.train_state.pt")))
+    assert straight["step"] == resumed["step"] == 3
+    for name, ref in straight["last_logs"].items():
+        np.testing.assert_allclose(resumed["last_logs"][name], ref, rtol=1e-6, atol=1e-8,
+                                   err_msg=name)
+    blob = torch.load(join(resumed["checkpoint_dir"], "last.train_state.pt"),
+                      map_location="cpu", weights_only=False)
+    assert blob["step"] == 3 and sorted(blob["opt"]) == ["cluster", "linear", "net"]
+    assert not any(k.startswith("net.model.") for k in blob["model"])
+    assert blob["opt"]["net"]["state"][0]["step"] == 3
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    root = str(tmp_path)
+    for flag, match in (("n_devices=4", "ROADMAP item 7"), ("arch=dino_depth", "ROADMAP"),
+                        ("lhp=True", "ROADMAP item 6"), ("backbone_dtype=int8", "ROADMAP item 8"),
+                        ("arch=feature-pyramid", "ROADMAP"), ("arch=resnet", "arch=resnet")):
+        with pytest.raises(NotImplementedError, match=match):
+            train_segmentation.main(_args(root, root) + [flag])
+
+
+def test_cli_never_picks_the_cpu_by_itself(tmp_path):
+    """The default device is cuda; without a card the CLI raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    args = [a for a in _args(str(tmp_path), str(tmp_path)) if not a.startswith("device=")]
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        train_segmentation.main(args)
+
+
+def test_load_backbone_reads_a_dino_pth_and_a_lightning_ckpt(tmp_path):
+    cfg = load_config("local_config.yml", ["model_type=vit_tiny", "dim=16"])
+    fcfg = fcfg_from_run_cfg(cfg)
+    src = Segmenter(fcfg, 27, 27, decoder=True).init_weights(torch.Generator().manual_seed(1))
+    vit_sd = src.net.model.state_dict()
+    pth = str(tmp_path / "dino.pth")
+    torch.save({"teacher": {**{"module.backbone." + k: v for k, v in vit_sd.items()},
+                            "module.head.last_layer.weight": torch.zeros(3, 3)}}, pth)
+    ckpt = str(tmp_path / "seg.ckpt")
+    tckpt.export_lightning_ckpt(ckpt, src.state_dict(), cfg=dict(cfg))
+    for path in (pth, ckpt):
+        model = Segmenter(fcfg, 27, 27, decoder=True).init_weights(torch.Generator().manual_seed(2))
+        cfg.pretrained_weights = path
+        assert train_segmentation.load_backbone(cfg, model) == path
+        for k, v in model.net.model.state_dict().items():
+            assert torch.equal(v, vit_sd[k]), k
+    cfg.pretrained_weights = str(tmp_path / "missing.pth")
+    assert train_segmentation.load_backbone(cfg, model) == "random"
+
+
+def test_loader_seek_repeats_an_uninterrupted_stream():
+    from depthg_tpu_torch.data.loader import DataLoader
+
+    class Items:
+        def __len__(self):
+            return 10
+
+        def __getitem__(self, i, rng=None):
+            return {"i": int(i), "r": float(rng.random())}
+
+    def stream(loader, n):
+        out = []
+        while len(out) < n:
+            for b in loader:
+                out.append((b["i"].tolist(), b["r"].tolist()))
+                if len(out) == n:
+                    break
+        return out
+
+    full = stream(DataLoader(Items(), 3, shuffle=True, drop_last=True, seed=4, num_workers=1), 8)
+    for skip in (0, 2, 3, 7):
+        loader = DataLoader(Items(), 3, shuffle=True, drop_last=True, seed=4, num_workers=1)
+        loader.seek(skip)
+        assert stream(loader, 8 - skip) == full[skip:]
