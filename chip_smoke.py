@@ -14,8 +14,10 @@ final line):
    padded rows, masked keys without influence, CUDA-event times of kernel
    and plain; in bf16 also the kernel alone on preallocated views, one
    PyTorch ``scaled_dot_product_attention`` call on the same views as the
-   library yardstick (the package never calls it), the host time of a
-   launch and the kernel's bound from the shapes; then the same comparison,
+   library yardstick (the package never calls it), both also queued behind
+   a long product so that the events see the card's time and not the host's
+   launch rate, the host time of a launch and the kernel's bound from the
+   shapes; then the same comparison,
    times, library call and bound at the train step's shape (B=32, N=785:
    224 px, not a multiple of the kernel's 64-row sub-tile or 256-row block);
 4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
@@ -51,15 +53,48 @@ final line):
    with fixed coordinates and permutations on the card (eager attention, and
    through the kernel) vs the CPU from the same weights, each loss term
    within 1e-4 relative, and FPS coordinates equal;
-8. the total time, the kernels JSON line, the card line and the final JSON line.
+8. attention at the shapes the serving stack and the KNN embedding launch
+   it at: bf16, N=1601, B=1, 2, 4, 8 and 32 (a bucket of b images is b rows
+   with ``fused_tta=False`` and 2b with the serve config's ``fused_tta=True``),
+   and float32 at B=128, N=785 (224 px); kernel vs plain, times, the library
+   call and the bound, as in phase 3;
+9. serve path: the full-width segmenter written as a Lightning ``.ckpt`` and
+   loaded through ``serve.build_service`` from ``serve_config.yml`` (320 px,
+   default CRF point, bf16 backbone, max_batch 16, 10 ms window);
+   ``warmup()``, the time of each bucket, then over HTTP on localhost one
+   request per format, a junk body (400), ``/healthz``, ``/metrics``,
+   ``serve_loadgen.run`` with 1 and with 16 clients, and 16 distinct images
+   posted at once: no errors, K1 launches = 12 per batch (one stacked TTA
+   forward), no K4 launch, every response equal to ``make_predict_step`` on
+   the padded batch it rode in and agreeing with a batch-16 predict on
+   >= 99.5% of pixels; then one request through a second service at
+   ``crf_downsample=1``, ``max_batch=2``, ``fused_tta=False``: 24 K1 and 11
+   K4 launches for its batch;
+10. demo path: ``demo_segmentation.main`` over 10 synthetic JPEGs of mixed
+    sizes with ``batch_size=4`` (batches of 8 and 2) at its config's
+    ``crf_downsample: 2``: 10 + 10 PNGs, each equal to the predict step's
+    labels for that image;
+11. KNN path: ``precompute_knns.main`` over 256 synthetic crops at 224 px
+    (two float32 batches of 128, 12 K1 launches each), ``pooled_features``
+    alone (unit norms, img/s), then ``topk_neighbors(k=30)`` on seeded
+    unit-norm features with N=147,456, C=384 (the key-blocked branch): self
+    at rank 0 and, on 2,048 sampled rows, the neighbours of a one-pass
+    float64 reference except where two similarities lie within 1e-6; TF32
+    still off;
+12. the total time, the kernels JSON line, the card line and the final JSON line.
 """
 
 import copy
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import torch
 
@@ -68,6 +103,10 @@ T0 = time.perf_counter()
 B, N, HEADS, DIM = 16, 1601, 6, 384
 TRAIN_B, TRAIN_RES, TRAIN_STEPS = 32, 224, 5
 TRAIN_N = (TRAIN_RES // 8) ** 2 + 1  # 785 tokens
+# K1 at the serving stack's shapes (bf16, N=1601: a bucket of b images is a
+# batch of b, or of 2b under fused_tta) and at the KNN embedding's (float32)
+SERVE_ATTENTION_B = (1, 2, 4, 8, 32)
+KNN_EMBED_B, KNN_N, KNN_C, KNN_K, KNN_SAMPLED = 128, 147_456, 384, 30, 2048
 SCALE = 64 ** -0.5
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores, float32 outside them (an FMA counts 2, so 33.5e12 instructions/s:
@@ -122,6 +161,25 @@ def cuda_time_ms(fn, inputs, iters=30, warmup=10):
     return start.elapsed_time(stop) / iters
 
 
+def device_time_ms(fn, inputs, iters=50):
+    """Mean device ms per call of ``iters`` calls queued behind one long
+    float32 product: the host enqueues them all while the card is busy, so
+    the events bracket back-to-back kernels and not the host's launch rate
+    (which decides ``cuda_time_ms`` for a kernel shorter than a launch)."""
+    busy = torch.empty(8192, 8192, device="cuda").normal_()
+    for i in range(3):
+        fn(inputs[i % len(inputs)])
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    busy @ busy  # ~20 ms with TF32 off
+    start.record()
+    for i in range(iters):
+        fn(inputs[i % len(inputs)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def sm_clock_mhz() -> float:
     """The SM clock ``nvidia-smi`` reports right now (call it under load)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
@@ -129,12 +187,14 @@ def sm_clock_mhz() -> float:
     return float(out.split()[0])
 
 
-def attention_bound(b, n, h):
+def attention_bound(b, n, h, dtype=torch.bfloat16):
     """Least ms the card could take for one attention call: q, k, v read and
     o written once over the memory rate, or 4 B H N^2 64 operations over the
-    bf16 tensor-core peak, whichever is larger."""
-    bytes_ms = 4 * b * h * n * 64 * 2 / PEAK_HBM * 1e3
-    ops_ms = 4.0 * b * h * n * n * 64 / PEAK_BF16 * 1e3
+    peak of their type (bf16: tensor cores; float32: the FMA pipes),
+    whichever is larger."""
+    bf16 = dtype == torch.bfloat16
+    bytes_ms = 4 * b * h * n * 64 * (2 if bf16 else 4) / PEAK_HBM * 1e3
+    ops_ms = 4.0 * b * h * n * n * 64 / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
 
 
@@ -164,7 +224,10 @@ def attention_phase(att, gen):
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        results[f"train_{name}"] = attention_train_shape(att, gen, dtype, name)
+        # the train step's shape: B=32, N=785 (12 x 64 + 17 rows: a ragged
+        # sub-tile inside a ragged 256-row block)
+        results[f"train_{name}"] = attention_at_shape(att, gen, dtype, name, TRAIN_B, TRAIN_N,
+                                                      "train step")
         base = torch.randn(B, N, 3 * DIM, device="cuda", generator=gen)
         inputs = [(base + 1e-2 * i).to(dtype) for i in range(3)]
         out = att.attention_qkv(inputs[0], HEADS, SCALE)
@@ -204,11 +267,10 @@ def attention_phase(att, gen):
     return results
 
 
-def attention_train_shape(att, gen, dtype, name):
-    """The kernel against its plain version at the shape the train step
-    launches it at: B=32, N=785 (12 x 64 + 17 rows: a ragged sub-tile inside
-    a ragged 256-row block), packed qkv; in bf16 also the library call."""
-    b, n = TRAIN_B, TRAIN_N
+def attention_at_shape(att, gen, dtype, name, b, n, where):
+    """The kernel against its plain version at [b, n, 6 x 64], packed qkv:
+    errors within TOL, CUDA-event times of both, the bound, the kernel
+    alone, the library call and the host time of a launch."""
     base = torch.randn(b, n, 3 * DIM, device="cuda", generator=gen)
     inputs = [(base + 1e-2 * i).to(dtype) for i in range(3)]
     out = att.attention_qkv(inputs[0], HEADS, SCALE)
@@ -219,22 +281,38 @@ def attention_train_shape(att, gen, dtype, name):
 
     ref = plain(inputs[0]).permute(0, 2, 1, 3).reshape(b, n, DIM)
     torch.cuda.synchronize()
-    err, rel = compare(out, ref, dtype, "attention at the train shape")
+    err, rel = compare(out, ref, dtype, f"attention at B={b}, N={n} ({where})")
     row = {"max_abs_err": err, "rel_err": rel,
            "ms": cuda_time_ms(lambda x: att.attention_qkv(x, HEADS, SCALE), inputs),
            "plain_ms": cuda_time_ms(plain, inputs, iters=5, warmup=2)}
-    row["bound_ms"], row["bound_by"] = attention_bound(b, n, HEADS)
-    if dtype == torch.bfloat16:
-        row.update(attention_yardsticks(att, inputs, b, n))
-    phase("attention", dtype=name, shape=[b, n, HEADS, 64], where="train step", **row)
+    row.update(attention_yardsticks(att, inputs, b, n))
+    phase("attention", dtype=name, shape=[b, n, HEADS, 64], where=where, **row)
     return row
 
 
+def attention_serving_shapes(att, gen):
+    """K1 at every shape the serving stack and the KNN embedding launch it
+    at (the eval shape B=16 is in ``attention_phase``)."""
+    rows = []
+    for dtype, name, b, n, where in (
+            [(torch.bfloat16, "bf16", b, N, "serve bucket") for b in SERVE_ATTENTION_B]
+            + [(torch.float32, "f32", KNN_EMBED_B, TRAIN_N, "KNN embedding")]):
+        row = attention_at_shape(att, gen, dtype, name, b, n, where)
+        rows.append({"shape": f"{name}, B={b}, N={n}, {HEADS} heads x 64, packed qkv",
+                     "where": where, **{k: row[k] for k in (
+                         "max_abs_err", "rel_err", "ms", "kernel_only_ms", "kernel_device_ms",
+                         "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                         "host_us_per_launch")}})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def attention_yardsticks(att, inputs, b, n):
-    """bf16 at [b, n]: the kernel alone on a preallocated output, the
-    library call, the host time of a launch (its three tensor maps
-    included) and the bound."""
-    out = torch.empty(b, n, HEADS, 64, device="cuda", dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    """At [b, n] in the inputs' dtype: the kernel alone on a preallocated
+    output, the library call, the host time of a launch (its three tensor
+    maps included) and the bound."""
+    dtype = inputs[0].dtype
+    out = torch.empty(b, n, HEADS, 64, device="cuda", dtype=dtype).permute(0, 2, 1, 3)
 
     def launch(x):
         q, k, v = att.split_qkv(x, HEADS)
@@ -244,20 +322,27 @@ def attention_yardsticks(att, inputs, b, n):
         q, k, v = att.split_qkv(x, HEADS)
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=SCALE)
 
-    kernel_ms = cuda_time_ms(launch, inputs, iters=50)
-    library_ms = cuda_time_ms(library, inputs, iters=50)
+    slow = dtype == torch.float32 and b * n > 50_000  # ~10 ms per call
+    iters = 10 if slow else 50
+    kernel_ms = cuda_time_ms(launch, inputs, iters=iters)
+    library_ms = cuda_time_ms(library, inputs, iters=iters)
+    kernel_device_ms = device_time_ms(launch, inputs, iters=iters)
+    library_device_ms = device_time_ms(library, inputs, iters=iters)
     clock = sm_clock_mhz()
     q, k, v = att.split_qkv(inputs[0], HEADS)
     ref = library(inputs[0]).float()
     lib_rel = ((launch(inputs[0]).float() - ref).norm() / ref.norm()).item()
     torch.cuda.synchronize()
+    reps = 20 if slow else 200
     t0 = time.perf_counter()
-    for _ in range(200):
+    for _ in range(reps):
         att._launch(q, k, v, out, SCALE, n)
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
-    bound_ms, bound_by = attention_bound(b, n, HEADS)
-    return {"kernel_only_ms": kernel_ms, "library_ms": library_ms, "rel_err_vs_library": lib_rel,
+    bound_ms, bound_by = attention_bound(b, n, HEADS, dtype)
+    return {"kernel_only_ms": kernel_ms, "library_ms": library_ms,
+            "kernel_device_ms": kernel_device_ms, "library_device_ms": library_device_ms,
+            "rel_err_vs_library": lib_rel,
             "host_us_per_launch": host_us, "bound_ms": bound_ms, "bound_by": bound_by,
             "ex2_bound_ms": b * HEADS * n * n / (16 * SMS * clock * 1e6) * 1e3,
             "sm_clock_mhz": clock}
@@ -673,6 +758,350 @@ def train_card_vs_cpu_phase(att, inference, featurizer):
     return worst
 
 
+def post(base, body, query="format=npz", timeout=120):
+    req = urllib.request.Request(f"{base}/v1/segment?{query}", data=body, method="POST")
+    return urllib.request.urlopen(req, timeout=timeout).read()
+
+
+def agreement(a, b):
+    return float((a == b).mean())
+
+
+def serve_path_phase(att, bil, inference, featurizer, tmp):
+    """The serving stack at full width over HTTP on localhost."""
+    import numpy as np
+    from PIL import Image
+
+    from depthg_tpu_torch import serve, serve_loadgen
+    from depthg_tpu_torch.config import load_config
+    from depthg_tpu_torch.profile_serve import load_run, synthetic_jpeg
+    from depthg_tpu_torch.utils.ckpt import export_lightning_ckpt
+
+    fcfg = featurizer.FeaturizerConfig()  # vit_small, patch 8, dim 70
+    model = inference.Segmenter(fcfg, 27, 27).init_weights(torch.Generator().manual_seed(0))
+    ckpt = os.path.join(tmp, "segmenter.ckpt")
+    export_lightning_ckpt(ckpt, model.state_dict(), cfg={
+        "model_type": "vit_small", "dino_patch_size": 8, "dim": 70, "n_classes": 27})
+    del model
+
+    cfg = load_config("serve_config.yml", [f"model_path={ckpt}"])
+    t0 = time.perf_counter()
+    svc = serve.build_service(cfg, "cuda")
+    build_s = time.perf_counter() - t0
+    per_batch = len(svc._model.net.model.blocks) * (1 if svc.ecfg.fused_tta else 2)
+    t0 = time.perf_counter()
+    buckets = svc.warmup()
+    warmup_s = time.perf_counter() - t0
+    if buckets != [1, 2, 4, 8, 16] or svc.ecfg.crf.downsample != 8:
+        raise AssertionError(f"serve config: buckets {buckets}, crf {svc.ecfg.crf}")
+
+    bodies = [synthetic_jpeg(100 + i, *((480, 360), (400, 400), (360, 500), (640, 480))[i % 4])
+              for i in range(16)]
+    arrs = [np.asarray(svc._transform(Image.open(io.BytesIO(b)).convert("RGB")), np.float32)
+            for b in bodies]
+
+    # each bucket after its warm-up run: host clock around stage + step + fetch
+    bucket_ms = {}
+    for b in buckets:
+        att.KERNEL.launches = 0
+        times = []
+        for rep in range(4):
+            t0 = time.perf_counter()
+            svc._predict_padded(arrs[rep:rep + b], b)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if att.KERNEL.launches != 4 * per_batch:
+            raise AssertionError(f"bucket {b}: {att.KERNEL.launches} K1 launches in 4 runs")
+        bucket_ms[b] = times
+    phase("serve_buckets", build_service_s=build_s, warmup_s=warmup_s, buckets=buckets,
+          k1_launches_per_batch=per_batch, fused_tta=svc.ecfg.fused_tta,
+          ms_per_bucket_4_runs=bucket_ms,
+          ms_per_image_best={b: min(t) / b for b, t in bucket_ms.items()})
+
+    # record what each dispatched batch held, to hold responses to the step
+    batches_seen = []
+    run_batch = svc.batcher._run_batch
+
+    def recording(items):
+        batches_seen.append(list(items))
+        return run_batch(items)
+
+    svc.batcher._run_batch = recording
+    server = serve.serve_http(svc, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        att.KERNEL.launches = 0
+        bil.KERNEL.launches = 0
+        before = svc.batcher.metrics.snapshot()
+
+        npz = np.load(io.BytesIO(post(base, bodies[0])))
+        js = json.loads(post(base, bodies[0], "format=json"))
+        png = np.asarray(Image.open(io.BytesIO(post(base, bodies[0], "format=png&probe=linear"))))
+        if not (npz["linear"].shape == npz["cluster"].shape == (320, 320)
+                and npz["linear"].dtype == np.int32 and 0 <= npz["cluster"].min()
+                and npz["cluster"].max() < 27
+                and np.array_equal(np.asarray(js["linear"]), npz["linear"])
+                and np.array_equal(np.asarray(js["cluster"]), npz["cluster"])
+                and np.array_equal(png, npz["linear"].astype(np.uint8))):
+            raise AssertionError("the three response formats disagree")
+        try:
+            post(base, b"this is not an image")
+            raise AssertionError("a junk body was answered with 200")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise AssertionError(f"a junk body gave {e.code}, expected 400")
+        health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=30).read())
+        if health["status"] != "ok":
+            raise AssertionError(f"/healthz: {health}")
+
+        load = {}
+        for clients, seconds in ((1, 3.0), (16, 6.0)):
+            k1_0 = att.KERNEL.launches
+            out = load_run(svc, lambda: serve_loadgen.run(base, bodies[1], clients, seconds))
+            out["k1_launches"] = att.KERNEL.launches - k1_0
+            load[clients] = out
+            phase("serve_load", **out)
+            if out["errors"] or not out["completed"]:
+                raise AssertionError(f"load run with {clients} clients: {out}")
+
+        # 16 distinct images posted at once: each response is its own image's
+        n_before = len(batches_seen)
+        outs = [None] * 16
+
+        def one(i):
+            outs[i] = np.load(io.BytesIO(post(base, bodies[i])))
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+        if any(o is None for o in outs):
+            raise AssertionError("a concurrent request got no response")
+        launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+        after = json.loads(urllib.request.urlopen(f"{base}/metrics", timeout=30).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.batcher._run_batch = run_batch
+    n_batches = after["batches"] - before["batches"]
+    if after["errors"] != 0:  # the junk body failed in its decode, before the batcher
+        raise AssertionError(f"server errors: {after}")
+    if launches != per_batch * n_batches or k4 != 0 or n_batches != len(batches_seen):
+        raise AssertionError(f"serve path: {launches} K1 launches over {n_batches} batches "
+                             f"(expected {per_batch} each), {k4} K4 launches (expected 0)")
+
+    # each response against make_predict_step on the padded batch it rode in
+    predict = inference.make_predict_step(svc.ecfg)
+    checked = 0
+    for items in batches_seen[n_before:]:
+        b = serve._bucket(len(items), svc.batcher.max_batch)
+        padded = np.stack(items + [items[0]] * (b - len(items)))
+        lin, clu = (p.cpu().numpy() for p in predict(svc._model, torch.from_numpy(padded).cuda()))
+        for row, item in enumerate(items):
+            (i,) = [j for j, a in enumerate(arrs) if np.array_equal(a, item)]
+            if not (np.array_equal(outs[i]["linear"], lin[row])
+                    and np.array_equal(outs[i]["cluster"], clu[row])):
+                raise AssertionError(f"image {i}: the response differs from the predict "
+                                     f"step on its padded batch of {b}")
+            checked += 1
+    if checked != 16:
+        raise AssertionError(f"{checked} of 16 concurrent responses were matched to a batch")
+    lin16, clu16 = (p.cpu().numpy() for p in predict(svc._model,
+                                                     torch.from_numpy(np.stack(arrs)).cuda()))
+    agree = [min(agreement(outs[i]["linear"], lin16[i]), agreement(outs[i]["cluster"], clu16[i]))
+             for i in range(16)]
+    distinct = len({outs[i]["cluster"].tobytes() for i in range(16)})
+    svc.close()
+    if svc.batcher._thread.is_alive():
+        raise AssertionError("the batcher's dispatcher thread is still alive")
+    phase("serve_path", requests=after["requests"] - before["requests"], batches=n_batches,
+          k1_launches=launches, k1_launches_per_batch=per_batch, k4_launches=k4,
+          errors=after["errors"],
+          concurrent_batch_sizes=[len(b) for b in batches_seen[n_before:]],
+          responses_equal_to_padded_batch_predict=checked,
+          min_agreement_with_batch16_predict=min(agree), distinct_label_maps=distinct,
+          server_latency_ms_p50=after["latency_ms_p50"], server_latency_ms_p99=after["latency_ms_p99"])
+    if min(agree) < 0.995 or distinct != 16:
+        raise AssertionError(f"agreement with a batch-16 predict {agree}; {distinct} distinct maps")
+
+    # the exact CRF through a second service: every message through K4
+    cfg2 = load_config("serve_config.yml", [f"model_path={ckpt}", "crf_downsample=1",
+                                            "max_batch=2", "fused_tta=False"])
+    svc2 = serve.build_service(cfg2, "cuda")
+    server2 = serve.serve_http(svc2, port=0)
+    try:
+        svc2.warmup()
+        att.KERNEL.launches = 0
+        bil.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        exact = np.load(io.BytesIO(post(f"http://127.0.0.1:{server2.server_address[1]}", bodies[2])))
+        exact_ms = (time.perf_counter() - t0) * 1e3
+        k1_exact, k4_exact = att.KERNEL.launches, bil.KERNEL.launches
+    finally:
+        server2.shutdown()
+        server2.server_close()
+        svc2.close()
+    phase("serve_path_exact", cfg={"crf_downsample": 1, "max_batch": 2, "fused_tta": False},
+          k1_launches=k1_exact, k4_launches=k4_exact, request_ms=exact_ms,
+          agreement_with_default_point=agreement(exact["cluster"], outs[2]["cluster"]))
+    if k1_exact != 24 or k4_exact != 11 or exact["cluster"].shape != (320, 320):
+        raise AssertionError(f"exact serve request: {k1_exact} K1 and {k4_exact} K4 launches "
+                             "(expected 24 and 11)")
+    return {"launches": launches, "k4_launches": k4, "batches": n_batches, "per_batch": per_batch,
+            "exact_k4_launches": k4_exact, "bucket_ms": bucket_ms, "load": load, "ckpt": ckpt}
+
+
+def demo_path_phase(att, bil, inference, ckpt, tmp):
+    """``demo_segmentation.main`` over a folder of JPEGs of mixed sizes."""
+    import numpy as np
+    from PIL import Image
+
+    from depthg_tpu_torch import demo_segmentation
+    from depthg_tpu_torch.config import load_config
+    from depthg_tpu_torch.data import get_transform
+    from depthg_tpu_torch.profile_serve import synthetic_jpeg
+    from depthg_tpu_torch.utils.checkpoint_io import load_segmenter
+
+    image_dir = os.path.join(tmp, "demo_images")
+    os.makedirs(image_dir)
+    sizes = ((480, 360), (333, 500), (640, 427), (320, 320), (500, 375))
+    for i in range(10):
+        with open(os.path.join(image_dir, f"img{i:02d}.jpg"), "wb") as f:
+            f.write(synthetic_jpeg(200 + i, *sizes[i % 5]))
+    argv = [f"model_path={ckpt}", f"image_dir={image_dir}", f"output_root={tmp}", "batch_size=4"]
+    torch.cuda.reset_peak_memory_stats()
+    att.KERNEL.launches = 0
+    bil.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    result_dir = demo_segmentation.main(argv)
+    seconds = time.perf_counter() - t0
+    launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    cfg = load_config("demo_config.yml", argv)
+    sd, run_cfg = load_segmenter(ckpt)
+    ecfg = inference.ecfg_from_checkpoint(cfg, sd, run_cfg)
+    if ecfg.crf.downsample != 2:
+        raise AssertionError(f"the demo config's CRF point: {ecfg.crf}")
+    model = inference.Segmenter.from_state_dict(sd, inference.fcfg_from_run_cfg(run_cfg)).cuda()
+    per_batch = len(model.net.model.blocks) * (1 if ecfg.fused_tta else 2)
+    if launches != 2 * per_batch or k4 != 0:
+        raise AssertionError(f"demo path: {launches} K1 launches (expected {2 * per_batch} for "
+                             f"two batches) and {k4} K4 launches (expected 0)")
+    names = sorted(os.listdir(image_dir))
+    transform = get_transform(cfg.res, False, "center")
+    imgs = np.stack([np.asarray(transform(Image.open(os.path.join(image_dir, n)).convert("RGB")),
+                                np.float32) for n in names])
+    predict = inference.make_predict_step(ecfg)
+    for lo, hi in ((0, 8), (8, 10)):
+        lin, clu = (p.cpu().numpy() for p in predict(model, torch.from_numpy(imgs[lo:hi]).cuda()))
+        for j, name in enumerate(names[lo:hi]):
+            for probe, ref in (("linear", lin[j]), ("cluster", clu[j])):
+                png = np.asarray(Image.open(os.path.join(result_dir, probe, name[:-4] + ".png")))
+                if png.dtype != np.uint8 or not np.array_equal(png, ref.astype(np.uint8)):
+                    raise AssertionError(f"demo {probe}/{name}: the PNG differs from the "
+                                         "predict step's labels")
+    for probe in ("linear", "cluster"):
+        if len(os.listdir(os.path.join(result_dir, probe))) != 10:
+            raise AssertionError(f"demo: {probe} does not hold 10 PNGs")
+    phase("demo_path", images=10, batches=[8, 2], crf_downsample=2, seconds=seconds,
+          peak_mem_gb=peak, k1_launches=launches, k4_launches=k4, pngs_equal_predict_step=20)
+    return {"launches": launches, "k4_launches": k4, "seconds": seconds}
+
+
+def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
+    """The KNN CLI on synthetic crops, the embedding alone, and the
+    key-blocked top-k at a dataset's size."""
+    import numpy as np
+
+    from depthg_tpu_torch import precompute_knns
+    from depthg_tpu_torch.parallel import knn
+    from depthg_tpu_torch.profile_serve import synthetic_jpeg
+
+    crop_dir = os.path.join(tmp, "knn_data", "cropped", "cocostuff27_five_crop_0.5")
+    os.makedirs(os.path.join(crop_dir, "img", "train"))  # images alone: no labels needed
+    n_img = 2 * KNN_EMBED_B
+    for i in range(n_img):
+        with open(os.path.join(crop_dir, "img", "train", f"{i}.jpg"), "wb") as f:
+            f.write(synthetic_jpeg(300 + i, 240, 240))
+    att.KERNEL.launches = 0
+    bil.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    written = precompute_knns.main([
+        f"data_dir={os.path.join(tmp, 'knn_data')}", "knn_datasets=[cocostuff27]",
+        "knn_crop_types=[five]", "knn_image_sets=[train]", "num_workers=4"])
+    cli_s = time.perf_counter() - t0
+    launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+    nns = np.load(written[0])["nns"]
+    name = os.path.basename(written[0])
+    if (name != "nns_vit_small_cocostuff27_train_five_224.npz" or nns.shape != (n_img, KNN_K)
+            or nns.dtype != np.int32 or nns.min() < 0 or nns.max() >= n_img
+            or any(len(set(row)) != KNN_K for row in nns.tolist())):
+        raise AssertionError(f"precompute_knns wrote {name}: {nns.shape} {nns.dtype}")
+    if launches != 12 * 2 or k4 != 0:
+        raise AssertionError(f"KNN embedding: {launches} K1 launches (expected 24 for two "
+                             f"batches of {KNN_EMBED_B}) and {k4} K4 launches")
+
+    net = featurizer.DinoFeaturizer(featurizer.FeaturizerConfig())
+    net.model.init_weights(torch.Generator().manual_seed(0))
+    net = net.cuda().eval()
+    imgs = [torch.randn(KNN_EMBED_B, 3, TRAIN_RES, TRAIN_RES, device="cuda", generator=gen)
+            for _ in range(2)]
+    before = att.KERNEL.launches
+    pooled = knn.pooled_features(net, imgs[0])
+    if att.KERNEL.launches != before + 12 or pooled.shape != (KNN_EMBED_B, 384) \
+            or pooled.dtype != torch.float32:
+        raise AssertionError("pooled_features: launches, shape or dtype")
+    norm_err = float((pooled.norm(dim=1) - 1).abs().max())
+    if not norm_err <= 1e-5:
+        raise AssertionError(f"pooled features are not unit vectors: {norm_err}")
+    embed_ms = cuda_time_ms(lambda x: knn.pooled_features(net, x), imgs, iters=4, warmup=1)
+    del net, imgs, pooled
+    torch.cuda.empty_cache()
+
+    if not KNN_N > 2 * knn._KEY_BLOCK:
+        raise AssertionError("N does not reach the key-blocked branch")
+    feats = torch.nn.functional.normalize(
+        torch.randn(KNN_N, KNN_C, device="cuda", generator=gen), dim=1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = knn.topk_neighbors(feats, k=KNN_K, precision="highest")
+    exact_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    idx_bf16 = knn.topk_neighbors(feats, k=KNN_K)
+    bf16_s = time.perf_counter() - t0
+    if idx.shape != (KNN_N, KNN_K) or idx.dtype != np.int32:
+        raise AssertionError(f"topk_neighbors returned {idx.shape} {idx.dtype}")
+    if not ((idx[:, 0] == np.arange(KNN_N)).all() and (idx_bf16[:, 0] == np.arange(KNN_N)).all()):
+        raise AssertionError("rank 0 is not self for every row")
+
+    # a one-pass float64 reference on sampled query rows
+    rows = torch.randperm(KNN_N, device="cuda", generator=gen)[:KNN_SAMPLED]
+    f64 = feats.double()
+    sims = f64[rows] @ f64.t()
+    ref = sims.topk(KNN_K, dim=1).indices
+    got = torch.from_numpy(idx).cuda()[rows].long()
+    differ = got != ref
+    gap = (sims.gather(1, got) - sims.gather(1, ref)).abs()
+    worst_gap = float(gap[differ].max()) if bool(differ.any()) else 0.0
+    if worst_gap > 1e-6:
+        raise AssertionError(f"top-k differs from the float64 reference by {worst_gap} in similarity")
+    bf16_same = float((torch.from_numpy(idx_bf16).cuda()[rows].long() == ref).float().mean())
+    if not runtime.tf32_off():
+        raise AssertionError("TF32 is on after the KNN")
+    phase("knn_path", cli_seconds=cli_s, cli_images=n_img, file=name, k1_launches=launches,
+          k1_launches_per_batch=12, embed_batch=KNN_EMBED_B, embed_ms=embed_ms,
+          embed_img_per_s=KNN_EMBED_B / embed_ms * 1e3, unit_norm_err=norm_err,
+          n=KNN_N, c=KNN_C, k=KNN_K, key_blocks=-(-KNN_N // knn._KEY_BLOCK),
+          topk_highest_s=exact_s, topk_default_bf16_s=bf16_s, peak_mem_gb=peak,
+          sampled_rows=KNN_SAMPLED, entries_differing_from_float64=int(differ.sum()),
+          worst_similarity_gap=worst_gap, bf16_entries_equal_to_float64=bf16_same,
+          tf32_off=True)
+    return {"launches": launches, "embed_ms": embed_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -716,6 +1145,11 @@ def main():
     main_res = main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen)
     train_res = train_path_phase(att, bil, inference, featurizer, gen)
     train_card_vs_cpu_phase(att, inference, featurizer)
+    serve_shapes = attention_serving_shapes(att, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_res = serve_path_phase(att, bil, inference, featurizer, tmp)
+        demo_res = demo_path_phase(att, bil, inference, serve_res["ckpt"], tmp)
+        knn_res = knn_path_phase(att, bil, featurizer, runtime, gen, tmp)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -732,6 +1166,10 @@ def main():
         "shape": f"bf16, B={B}, N={N}, {HEADS} heads x 64, packed qkv",
         "launches": main_res["launches"],
         "train_path_launches": train_res["launches"],
+        "serve_path_launches": serve_res["launches"],
+        "serve_path_batches": serve_res["batches"],
+        "demo_path_launches": demo_res["launches"],
+        "knn_path_launches": knn_res["launches"],
         "max_abs_err": attn["bf16"]["max_abs_err"],
         "rel_err": attn["bf16"]["rel_err"],
         "ms": attn["bf16"]["ms"], "plain_ms": attn["bf16"]["plain_ms"],
@@ -755,12 +1193,17 @@ def main():
         "train_f32_ms": attn["train_f32"]["ms"],
         "train_f32_plain_ms": attn["train_f32"]["plain_ms"],
         "train_f32_max_abs_err": attn["train_f32"]["max_abs_err"],
+        "serve_and_knn_shapes": serve_shapes,
     }, {
         "name": "crf_bilateral", "route": "cuda",
         "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
         "replaces": "depthg_tpu/ops/crf_pallas.py:66",
         "launches": main_res["points"]["exact_ds1"]["k4_launches"],
         "train_path_launches": train_res["k4_launches"],
+        "serve_path_launches": serve_res["k4_launches"],
+        "serve_path_exact_request_launches": serve_res["exact_k4_launches"],
+        "demo_path_launches": demo_res["k4_launches"],
+        "knn_path_launches": 0,
         "shape": "bf16, B=2, N=102400, C=54 (the exact eval step's message); "
                  "n25600: B=2, C=54; degree: B=2, N=102400",
         "max_abs_err": k4_main["max_abs_err"], "rel_err": k4_main["rel_err"],

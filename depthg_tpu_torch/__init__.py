@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of depthg_tpu's eval/serve prediction path and of its
-depth-guided contrastive train step.
+"""PyTorch/CUDA port of depthg_tpu's eval/serve prediction path, of its
+depth-guided contrastive train step, of its serving stack and of its offline
+crop + KNN pipeline.
 
 Module names follow the JAX package (``depthg_tpu``), which stays the
 reference: ``ops.resize``, ``ops.attention`` (+ the hand-written Hopper
@@ -7,9 +8,12 @@ kernel in ``csrc/attention.cu``), ``ops.crf``, ``ops.crf_bilateral`` (+
 ``csrc/crf_bilateral.cu``), ``models.vit``, ``models.featurizer``,
 ``models.probes``, ``utils.metrics``, ``utils.ckpt``, ``inference``, the
 training side (``ops.sampling``, ``ops.depth``, ``ops.correlation``,
-``train.losses``, ``train.decay``, ``train.step``) and the entry modules
-``eval_segmentation``, ``train_segmentation``, ``crf_fidelity_study``,
-``profile_eval`` and ``profile_train``. This package imports torch and never
+``train.losses``, ``train.decay``, ``train.step``), ``serve``,
+``parallel.knn``, ``utils.checkpoint_io`` and the entry modules
+``eval_segmentation``, ``train_segmentation``, ``serve``, ``serve_loadgen``,
+``demo_segmentation``, ``crop_datasets``, ``precompute_knns``,
+``crf_fidelity_study``, ``profile_eval``, ``profile_train``,
+``profile_serve`` and ``profile_knn``. This package imports torch and never
 jax.
 """
 

@@ -11,7 +11,8 @@ Reads ``depthg_tpu_torch/configs/eval_config.yml`` with overrides (including
 kernels) and writes the Hungarian-matched metrics to
 ``<output_root>/eval_metrics.json``. Batches are staged through pinned host
 memory with non-blocking copies. Left for later: orbax checkpoint
-directories (they need JAX), the matplotlib figures and wandb logging;
+directories (``utils.checkpoint_io.load_segmenter`` raises for one), the
+matplotlib figures and wandb logging;
 ``run_prediction`` writes color PNGs of the first batch and the confusion
 matrices.
 """
@@ -34,28 +35,19 @@ from depthg_tpu_torch.data.datasets import create_cityscapes_colormap, \
 from depthg_tpu_torch.inference import Segmenter, ecfg_from_checkpoint, \
     fcfg_from_run_cfg, make_eval_step, make_predict_step, unnormalize_255
 from depthg_tpu_torch.ops.crf import operating_point_overrides
-from depthg_tpu_torch.runtime import get_device
-from depthg_tpu_torch.utils.ckpt import load_lightning_ckpt
+from depthg_tpu_torch.runtime import get_device, to_device
+from depthg_tpu_torch.utils.checkpoint_io import load_segmenter
 from depthg_tpu_torch.utils.metrics import SegMetrics
 
 
 def _stage(batch: dict, device: torch.device):
     """Host batch -> device tensors via pinned memory (non-blocking)."""
-    img = torch.from_numpy(np.ascontiguousarray(batch["img"], np.float32))
-    label = torch.from_numpy(np.ascontiguousarray(batch["label"]))
-    if device.type == "cuda":
-        img, label = img.pin_memory(), label.pin_memory()
-    return (img.to(device, non_blocking=True),
-            label.to(device, non_blocking=True))
+    return (to_device(np.asarray(batch["img"], np.float32), device),
+            to_device(batch["label"], device))
 
 
 def evaluate_checkpoint(model_path: str, cfg: Config, device: torch.device) -> dict:
-    if os.path.isdir(model_path):
-        raise NotImplementedError(
-            f"{model_path}: orbax checkpoint directories need JAX; the port "
-            "loads Lightning .ckpt files (ROADMAP: orbax checkpoints)")
-    sd, hparams = load_lightning_ckpt(model_path)
-    run_cfg = Config(hparams or {})
+    sd, run_cfg = load_segmenter(model_path)
     fcfg = fcfg_from_run_cfg(run_cfg)
     dataset_name = run_cfg.get("dataset_name", "cocostuff27")
     loader_crop = None if dataset_name == "voc" else "center"

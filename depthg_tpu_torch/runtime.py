@@ -13,6 +13,7 @@ digits destroy it the same way the TPU's default bf16 matmul pass did
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,3 +39,19 @@ def get_device(device: str | torch.device = "cuda") -> torch.device:
     configure_numerics()
     return dev
 
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``; on CUDA through pinned memory
+    with a non-blocking copy."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def single_device_only(n_devices, what: str) -> None:
+    """Raise for an ``n_devices`` setting above 1 (empty or 1 pass)."""
+    if n_devices and int(n_devices) != 1:
+        raise NotImplementedError(
+            f"n_devices={n_devices}: {what} runs on one device "
+            "(ROADMAP item 7: multi-GPU)")

@@ -18,7 +18,9 @@ relative errors 1e-5 (float32) and 5e-3 (bf16), and to a max abs error
 scaled by the largest output (``K4_MAX_TOL``). The int8 CRF product is held
 exactly. The training slice adds the attention kernel at the train step's
 shape (B=32, N=785), depth FPS on the card vs the CPU including exact ties,
-and one float32 train step on the card vs the CPU.
+and one float32 train step on the card vs the CPU. The serving slice adds
+the kernel at the serving buckets' and the KNN embedding's shapes, a served
+round trip over HTTP and the KNN's top-k against float64.
 """
 
 import pytest
@@ -338,3 +340,130 @@ def test_train_step_card_vs_cpu(cuda, impl):
         if q.grad is not None:
             scale = float(q.grad.abs().max())
             assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("dtype,b,n", [(torch.bfloat16, 1, 1601), (torch.bfloat16, 2, 1601),
+                                       (torch.bfloat16, 4, 1601), (torch.bfloat16, 8, 1601),
+                                       (torch.bfloat16, 32, 1601), (torch.float32, 128, 785)])
+def test_attention_kernel_at_the_serving_and_knn_shapes(cuda, dtype, b, n):
+    """The batches the serving buckets give the kernel (b images, or 2b under
+    the stacked TTA forward; B=1 is 42 blocks on 132 SMs) and the float32
+    batch of the KNN embedding (128 images at 224 px)."""
+    gen = torch.Generator().manual_seed(7)
+    qkv = torch.randn(b, n, 3 * 384, generator=gen).to(cuda, dtype)
+    before = tatt.KERNEL.launches
+    out = tatt.attention_qkv(qkv, 6, 0.125)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == before + 1
+    q, k, v = tatt.split_qkv(qkv, 6)
+    ref = tatt.attention_plain(q, k, v, 0.125).permute(0, 2, 1, 3)
+    _assert_close(out, ref.reshape(out.shape), dtype)
+
+
+@pytest.mark.parametrize("fused_tta", [True, False])
+def test_service_round_trip_on_the_card(cuda, tmp_path, fused_tta):
+    """A ViT-S/8 cut to 2 blocks, exported as a ``.ckpt`` and served through
+    ``build_service`` at 128 px over HTTP: three images posted at once come
+    back each equal to the predict step on the padded batch they rode in,
+    through the attention kernel on the dispatcher thread (2 or 4 launches
+    per batch) and without a launch of the bilateral kernel."""
+    import dataclasses
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from depthg_tpu_torch import inference, serve
+    from depthg_tpu_torch.config import load_config
+    from depthg_tpu_torch.models import featurizer, vit
+    from depthg_tpu_torch.profile_serve import synthetic_jpeg
+    from depthg_tpu_torch.utils.checkpoint_io import load_segmenter
+    from depthg_tpu_torch.utils.ckpt import export_lightning_ckpt
+
+    fcfg = featurizer.FeaturizerConfig(
+        vit_config=dataclasses.replace(vit.make_config("vit_small", 8), depth=2))
+    model = inference.Segmenter(fcfg, 27, 27).init_weights(torch.Generator().manual_seed(8))
+    ckpt = str(tmp_path / "seg.ckpt")
+    export_lightning_ckpt(ckpt, model.state_dict(), cfg={"model_type": "vit_small", "dim": 70})
+    cfg = load_config("serve_config.yml", [f"model_path={ckpt}", "res=128", "max_batch=4",
+                                           "max_wait_ms=500", f"fused_tta={fused_tta}"])
+    # build_service would read the depth from the run config's model_type, so
+    # the cut model is loaded here and handed to the service with the config's settings
+    sd, run_cfg = load_segmenter(ckpt)
+    model = inference.Segmenter.from_state_dict(sd, fcfg)
+    ecfg = inference.ecfg_from_checkpoint(cfg, sd, run_cfg)
+    svc = serve.SegmentationService(model, ecfg, res=128, max_batch=4, max_wait_ms=500.0,
+                                    device=cuda)
+    seen = []
+    run_batch = svc.batcher._run_batch
+    svc.batcher._run_batch = lambda items: (seen.append(list(items)), run_batch(items))[1]
+    server = serve.serve_http(svc, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        assert svc.warmup() == [1, 2, 4]
+        bodies = [synthetic_jpeg(20 + i, 200, 160) for i in range(3)]
+        outs = [None] * 3
+
+        def post(i):
+            req = urllib.request.Request(f"{base}/v1/segment?format=npz", data=bodies[i],
+                                         method="POST")
+            outs[i] = np.load(io.BytesIO(urllib.request.urlopen(req, timeout=120).read()))
+
+        k1, k4 = tatt.KERNEL.launches, tbil.KERNEL.launches
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert all(o is not None for o in outs)
+        per_batch = 2 if fused_tta else 4
+        assert tatt.KERNEL.launches - k1 == per_batch * len(seen)
+        assert tbil.KERNEL.launches == k4
+        arrs = [np.asarray(svc._transform(Image.open(io.BytesIO(b)).convert("RGB")), np.float32)
+                for b in bodies]
+        predict = inference.make_predict_step(ecfg)
+        matched = 0
+        for items in seen:
+            b = serve._bucket(len(items), 4)
+            padded = torch.from_numpy(np.stack(items + [items[0]] * (b - len(items)))).to(cuda)
+            lin, clu = (p.cpu().numpy() for p in predict(svc._model, padded))
+            for row, item in enumerate(items):
+                (i,) = [j for j, a in enumerate(arrs) if np.array_equal(a, item)]
+                np.testing.assert_array_equal(outs[i]["linear"], lin[row])
+                np.testing.assert_array_equal(outs[i]["cluster"], clu[row])
+                matched += 1
+        assert matched == 3 and outs[0]["cluster"].shape == (128, 128)
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+
+def test_topk_neighbors_on_the_card(cuda, monkeypatch):
+    """Both branches on the card against float64 (index-exact but for
+    near-ties), the default bf16 product returning float32 similarities
+    (self at rank 0), and TF32 still off."""
+    import numpy as np
+
+    from depthg_tpu_torch import runtime
+    from depthg_tpu_torch.parallel import knn
+
+    gen = torch.Generator().manual_seed(9)
+    feats = torch.nn.functional.normalize(torch.randn(5000, 64, generator=gen), dim=1)
+    f64 = feats.double()
+    sims = f64 @ f64.t()
+    ref = sims.topk(10, dim=1).indices
+    one_pass = knn.topk_neighbors(feats, k=10, precision="highest", device=cuda)
+    monkeypatch.setattr(knn, "_KEY_BLOCK", 1024)
+    blocked = knn.topk_neighbors(feats, k=10, precision="highest", device=cuda)
+    low = knn.topk_neighbors(feats, k=10, device=cuda)
+    for out in (one_pass, blocked):
+        assert out.dtype == np.int32 and out.shape == (5000, 10)
+        got = torch.from_numpy(out).long()
+        gap = (sims.gather(1, got) - sims.gather(1, ref)).abs()
+        assert float(gap.max()) <= 1e-6
+    assert (low[:, 0] == np.arange(5000)).all()
+    assert float((torch.from_numpy(low).long() == ref).float().mean()) > 0.9
+    assert runtime.tf32_off()

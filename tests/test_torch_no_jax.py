@@ -3,7 +3,8 @@
 eval step on the CPU at the default point, the ``safe`` point and the
 streaming exact CRF, then one train step and a validation step, leaves ``jax`` and every module of the JAX package
 (``depthg_tpu``) out of ``sys.modules``, also after importing the eval and
-train CLIs and both profile modules;
+train CLIs, both profile modules and the serve, load generator, demo, KNN
+and crop modules (and after a served request and a KNN on the CPU);
 no source of the port or of ``chip_smoke.py`` imports either. The attention
 and bilateral wrappers raise on an input their kernels cannot take instead
 of falling back to their plain versions."""
@@ -30,6 +31,11 @@ import depthg_tpu_torch.eval_segmentation
 import depthg_tpu_torch.profile_eval
 import depthg_tpu_torch.profile_train
 import depthg_tpu_torch.train_segmentation
+import depthg_tpu_torch.crop_datasets
+import depthg_tpu_torch.demo_segmentation
+import depthg_tpu_torch.precompute_knns
+import depthg_tpu_torch.serve
+import depthg_tpu_torch.serve_loadgen
 from depthg_tpu_torch import crf_fidelity_study, inference
 from depthg_tpu_torch.models import featurizer, vit
 from depthg_tpu_torch.ops.crf import crf_config_from_cfg
@@ -69,6 +75,20 @@ theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("dep
 assert not theirs, theirs
 cfg = depthg_tpu_torch.eval_segmentation.eval_config(["operating_point=safe", "lr=5e-4"])
 assert cfg.lr == 5e-4 and cfg.crf_downsample == 4 and cfg.res == 320
+from depthg_tpu_torch.parallel import knn
+feats = torch.nn.functional.normalize(torch.randn(50, 8, generator=gen), dim=1)
+nns = knn.topk_neighbors(feats, k=5, device="cpu")
+assert nns.shape == (50, 5) and nns.dtype.name == "int32" and (nns[:, 0] == range(50)).all()
+assert knn.pooled_features(model.net, img).shape == (2, 128)
+svc = depthg_tpu_torch.serve.SegmentationService(
+    model, inference.EvalConfig(n_classes=5, extra_clusters=2, label_res=64), res=64,
+    max_batch=2, max_wait_ms=1.0, device="cpu")
+lin, clu = svc.batcher.submit(img[0].numpy())
+svc.close()
+assert lin.shape == (64, 64) and clu.shape == (64, 64)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("depthg_tpu."))
+assert not theirs, theirs
 print("NO_JAX_OK")
 """
 

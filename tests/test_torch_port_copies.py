@@ -55,10 +55,12 @@ def test_eval_config_file_is_the_ports_own():
         jconfig.load_config("eval_config.yml"))
 
 
-@pytest.mark.parametrize("name", ["local_config.yml", "train_config.yml"])
+@pytest.mark.parametrize("name", ["local_config.yml", "train_config.yml",
+                                  "serve_config.yml", "demo_config.yml"])
 def test_train_config_files_held_exactly(name):
-    """The trainer's config files are byte-for-byte copies, and resolve to
-    the same dict with trainer-style overrides."""
+    """The trainer's, the server's and the demo's config files are
+    byte-for-byte copies, and resolve to the same dict with trainer-style
+    overrides."""
     with open(os.path.join(ROOT, "depthg_tpu", "configs", name), "rb") as f:
         ref_bytes = f.read()
     with open(os.path.join(ROOT, "depthg_tpu_torch", "configs", name), "rb") as f:
@@ -260,6 +262,54 @@ def test_pack_batch_matches_jax_package():
     np.testing.assert_array_equal(f_out, f_ref)
     np.testing.assert_array_equal(u_out, u_ref)
     assert not hasattr(tloader, "unpack_batch")
+
+
+def _load_script(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"depthg_scripts_{name}", os.path.join(ROOT, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("script,names", [
+    ("serve_loadgen", ["run", "main"]),
+    ("crop_datasets", ["five_crop_np", "random_crops_np", "to_uint8_img",
+                       "process_dataset", "main"]),
+])
+def test_stdlib_and_numpy_scripts_are_carried_over_unchanged(script, names):
+    """The load generator (stdlib only) and the crop CLI (numpy + PIL over
+    the port's own ``data/``) are copies: every function has the source of
+    the JAX package's script."""
+    import importlib
+    import inspect
+
+    ref = _load_script(script)
+    out = importlib.import_module(f"depthg_tpu_torch.{script}")
+    for name in names:
+        assert inspect.getsource(getattr(out, name)) == inspect.getsource(getattr(ref, name)), name
+    functions = {n for n, f in vars(ref).items()
+                 if inspect.isfunction(f) and f.__module__ == ref.__name__}
+    assert functions == set(names)
+    if script == "crop_datasets":
+        assert out.ContrastiveSegDataset.__module__.startswith("depthg_tpu_torch.")
+        assert out.RawTransform.__module__.startswith("depthg_tpu_torch.")
+
+
+def test_serve_batcher_is_carried_over_unchanged():
+    """The batcher, its metrics, the buckets and the HTTP front end are pure
+    Python threading and stdlib: the port's source is the JAX package's."""
+    import inspect
+
+    from depthg_tpu import serve as jserve
+    from depthg_tpu_torch import serve as tserve
+
+    for name in ("_Pending", "BatcherMetrics", "DynamicBatcher", "_encode_response",
+                 "serve_http"):
+        assert inspect.getsource(getattr(tserve, name)) == inspect.getsource(
+            getattr(jserve, name)), name
 
 
 def test_package_never_calls_the_library_attention():
