@@ -1,7 +1,7 @@
 // Masked non-causal softmax attention for Hopper (sm_90a), head_dim 64.
 //
 // Replaces three TPU kernels of depthg_tpu, which all compute
-//     o = softmax(q k^T * scale) v   with keys j >= n_valid weighted 0
+//     o = softmax(q k^T * scale + bias[h]) v   with keys j >= n_valid weighted 0
 // and query rows i >= n_valid written as exact zeros:
 //   * ops/attention.py whole_kv_mha_qkv (_whole_kv_pair_kernel, _attend):
 //     packed [B, N, 3D] qkv in, token-major [B, N, D] out;
@@ -9,6 +9,10 @@
 //   * models/vit.py _flash_mha (the Pallas TPU flash kernel, segment ids).
 // Every operand is addressed through (batch, head, token) strides with a
 // contiguous head_dim, so the packed and the split layouts are both views.
+// The bias is optional (BEiT's relative-position bias, [H, N, N], the same
+// for every image, bf16 or float32): read in its own dtype and added to the
+// float32 logits after the scale, before the n_valid mask and the row max,
+// so keys >= n_valid still weigh exactly 0 whatever it holds there.
 //
 // What bounds it: at the ViT-S/8 eval shape (B=16, N=1601, 6 heads) one
 // call is 63 GFLOP of q.k and p.v products and 2.5e8 exponentials over
@@ -61,7 +65,7 @@
 //     the warp's own 16 rows of the (now free) Q tile and leaves as 16-byte
 //     plain stores; no TMA store touches the edge. Where the block's second
 //     128 rows hold no valid row, both warpgroups walk one sub-tile only.
-//   * Grid (ceil(N / 256), heads, batch) = 7 x 6 x 16 = 672 blocks at the
+//   * Grid (ceil(N / 256), batch, heads) = 7 x 16 x 6 = 672 blocks at the
 //     eval shape, the seventh of each head half as long (65 rows). A block
 //     takes 161 KB of shared memory and 63 K registers, so one fits per SM:
 //     4.7 blocks of work per SM in 5.1 waves, and each block's prologue
@@ -75,10 +79,40 @@
 //     largest part, and a warpgroup's own softmax and products still run
 //     one after the other. Later work: a second S accumulator so a
 //     warpgroup overlaps with itself, the row sum taken from the P V product
-//     (a ones column in V), a persistent block per SM, and an optional
-//     [H, N, N] logit bias added to S before the max (BEiT).
+//     (a ones column in V), a persistent block per SM.
+//   * The bias (template argument BIAS: none, bf16, float32): the step's S
+//     accumulator starts as the bias instead of zero, and the q.k^T wgmma
+//     accumulates onto it, so the add costs no instruction and no register:
+//     S is dead between the packing of P and the next q.k^T. Each thread
+//     loads its own fragment (two rows, 16 pairs of adjacent keys: bf16x2
+//     or float2) with plain loads right after packing P, so the loads'
+//     latency hides behind the rescale of O, the barrier waits and the turn
+//     of the other warpgroup. The loads are branch-free (rows and keys
+//     clamped into the valid range; the -inf mask of the last tile
+//     overrides the keys past n_valid, and rows past it are written as 0).
+//     What the bias costs (NVIDIA H100, 700 W, bf16, B=8, N=769, 16 heads,
+//     calls queued behind a long product): 0.132 ms against 0.078 ms
+//     without it and 0.286 ms for PyTorch's fused attention call with the
+//     bias as its mask. The first version guarded each load with a branch
+//     (0 past n_valid) and took 0.578 ms: the loads no longer overlapped.
+//     Adding the bias after the S wait instead (the loads then have nothing
+//     to hide behind, and 64 more registers spill) took 0.209 ms. The
+//     shared-memory ring stays as it is: a bias tile per step would not fit
+//     beside it. The grid runs the images of one head together, (query
+//     blocks, batch, heads), so a wave of blocks shares a few heads' bias in
+//     L2 (16 x 769 x 769 bf16 is 18.9 MB at the ZoeDepth shape). Against
+//     (query blocks, heads, batch), timed by
+//     depthg_tpu_torch/attention_grid_study.py (NVIDIA H100, 700 W; same
+//     bits; queued; median of 15 rounds): with the bias 1.4-2.3% faster
+//     (bf16 B=8 0.1326 against 0.1346 ms, B=16 0.2345 / 0.2400, f32 B=2
+//     0.4261 / 0.4322), without one level (N=769 B=8 0.0776 / 0.0776, f32
+//     0.3221 / 0.3220; N=1601, 6 heads, B=2 0.0328 / 0.0328, B=16 0.1639 /
+//     0.1640, B=32 0.3224 / 0.3223), so both paths use it. The wrapper
+//     requires head and row strides that are multiples of 8 elements and a
+//     16-byte aligned base, so every pair load is aligned.
 // The float32 variant is a plain FMA kernel (one thread per query row):
 // tensor cores would round the operands, and float32 is the parity mode.
+// It adds bias[h, row, key] to each logit in its key loop.
 
 #include <cuda.h>  // CUtensorMap types only; the encoder is fetched at run time
 #include <cuda_runtime.h>
@@ -99,21 +133,42 @@ struct Strides {
   long long b, h, n;  // element strides of batch, head, token
 };
 
+// the optional [H, N, N] logit bias: element (h, row, key) at p + h sh + row sn + key
+struct Bias {
+  const void* p;
+  long long sh, sn;
+};
+
+// BIAS: 0 = none, 1 = bf16, 2 = float32
+template <int BIAS>
+__device__ __forceinline__ float bias_at(const void* p, long long off) {
+  if (BIAS == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[off]);
+  return static_cast<const float*>(p)[off];
+}
+
+// The grid is (query blocks, batch, heads), x fastest: the images of one
+// head run together, so a wave of blocks shares a few heads' bias in L2.
+__device__ __forceinline__ void head_and_image(int& h, int& b) { h = blockIdx.z; b = blockIdx.y; }
+static dim3 grid_of(int q_blocks, int batch, int heads) { return dim3(q_blocks, batch, heads); }
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <int BIAS>
 __global__ void __launch_bounds__(F_BQ)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
-                Strides sq, Strides sk, Strides sv, Strides so, int n,
+                Strides sq, Strides sk, Strides sv, Strides so, Bias bias, int n,
                 int n_valid, float scale) {
   __shared__ __align__(16) float sK[BK][HD];
   __shared__ __align__(16) float sV[BK][HD];
 
   const int row = blockIdx.x * F_BQ + threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  int h, b;
+  head_and_image(h, b);
+  const long long brow = h * bias.sh + static_cast<long long>(row) * bias.sn;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
   const bool valid = row < n_valid;
@@ -161,7 +216,9 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dot = fmaf(qr[d + 2], kk.z, dot);
           dot = fmaf(qr[d + 3], kk.w, dot);
         }
-        s[j] = (k0 + c0 + j < n_valid) ? dot : -INFINITY;
+        const int key = k0 + c0 + j;
+        if (BIAS && valid && key < n_valid) dot += bias_at<BIAS>(bias.p, brow + key);
+        s[j] = key < n_valid ? dot : -INFINITY;
         mx = fmaxf(mx, s[j]);
       }
       // the first step holds key 0 (valid), so mx is finite from then on
@@ -330,14 +387,45 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
 
 #undef D8
 
+// S of one step starts as this thread's fragment of the bias: rows row0 + g
+// and row0 + g + 8, keys key0 + 8 c + 2 t and + 1 for c < 16 (the layout of
+// the S accumulator), as float32. The loads are branch-free, so all 32 are in
+// flight at once: rows clamp to n_valid - 1 (rows past it are written as 0)
+// and keys to the last even key before n_valid (keys past n_valid, and the
+// odd key after that pair when n_valid is odd, are set to -inf on the last
+// tile). Reading the pair at that even key touches at most column n_valid,
+// which the wrapper checks the bias storage holds.
+template <int BIAS>
+__device__ __forceinline__ void bias_fragment(float (&s)[64], const void* bh, long long sn,
+                                              int row0, int key0, int n_valid, int g, int t) {
+  const int kmax = (n_valid - 1) & ~1;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long off = static_cast<long long>(min(row0 + g + 8 * r, n_valid - 1)) * sn;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int key = min(key0 + c * 8 + t * 2, kmax);
+      float2 x;
+      if (BIAS == 1)
+        x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(bh) + off + key));
+      else
+        x = *reinterpret_cast<const float2*>(static_cast<const float*>(bh) + off + key);
+      s[4 * c + 2 * r] = x.x;
+      s[4 * c + 2 * r + 1] = x.y;
+    }
+  }
+}
+
 // One consumer warpgroup's whole life: U sub-tiles of 64 query rows (rows
 // (NCW u + cw) * 64 of the block's Q tile), each walked over every K/V tile.
 // A step is one (tile, sub-tile) pair; the warpgroups take turns per step,
 // round robin.
-template <int U>
+template <int U, int BIAS>
 __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_v, uint32_t bar_q,
                                         uint32_t bar_k, uint32_t bar_v, uint32_t bar_e,
-                                        __nv_bfloat16* __restrict__ ob, long long o_sn, int q0,
+                                        __nv_bfloat16* __restrict__ ob, long long o_sn,
+                                        const void* bh, long long b_sn, int q0,
                                         int n, int n_valid, int n_tiles, float scale) {
   const int tid = threadIdx.x;
   const int cw = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
@@ -373,13 +461,18 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
     for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
   }
 
+  // first row of this warp's 16 in sub-tile u
+  auto warp_row = [&](int u) { return q0 + (NCW * u + cw) * 64 + warp * 16; };
+
   // the first turn goes to warpgroup 0
   if (cw == NCW - 1) turn_pass(other_turn);
+  if (BIAS) bias_fragment<BIAS>(s, bh, b_sn, warp_row(0), 0, n_valid, g, t);
   mbar_wait(bar_k, 0);
   turn_wait(my_turn);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) wgmma_qk(s, qa[0][ks], smem_desc(s_k) + 2 * ks, ks > 0);
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_qk(s, qa[0][ks], smem_desc(s_k) + 2 * ks, BIAS ? 1 : ks > 0);
   wgmma_commit();
   turn_pass(other_turn);
   wgmma_wait_all();
@@ -422,6 +515,13 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
         pa[c >> 1][(c & 1) * 2] = pack_bf16(p0, p1);
         pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(p2, p3);
       }
+      // S is dead until the next q.k^T: start it as the next step's bias
+      if (BIAS) {
+        if (u + 1 < U)
+          bias_fragment<BIAS>(s, bh, b_sn, warp_row(u + 1), kt * WK, n_valid, g, t);
+        else if (!last_tile)
+          bias_fragment<BIAS>(s, bh, b_sn, warp_row(0), (kt + 1) * WK, n_valid, g, t);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_i[u][r] = l_i[u][r] * alpha[r] + rs[r];
 #pragma unroll
@@ -442,12 +542,13 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
       if (u + 1 < U) {
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          wgmma_qk(s, qa[(u + 1) % U][ks], smem_desc(s_k + st * TILE_BYTES) + 2 * ks, ks > 0);
+          wgmma_qk(s, qa[(u + 1) % U][ks], smem_desc(s_k + st * TILE_BYTES) + 2 * ks,
+                   BIAS ? 1 : ks > 0);
         wgmma_commit();
       } else if (!last_tile) {
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          wgmma_qk(s, qa[0][ks], smem_desc(s_k + st1 * TILE_BYTES) + 2 * ks, ks > 0);
+          wgmma_qk(s, qa[0][ks], smem_desc(s_k + st1 * TILE_BYTES) + 2 * ks, BIAS ? 1 : ks > 0);
         wgmma_commit();
       }
       // the very last turn (last warpgroup, last step) has nobody left to wake
@@ -492,12 +593,13 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
   }
 }
 
+template <int BIAS>
 __global__ void __launch_bounds__(W_THREADS, 1)
 attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
-                       __nv_bfloat16* __restrict__ o, Strides so, int n, int n_valid,
-                       float scale) {
+                       __nv_bfloat16* __restrict__ o, Strides so, Bias bias, int n,
+                       int n_valid, float scale) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
   uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -508,7 +610,9 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t bar_k = bars + 8, bar_v = bar_k + 8 * STAGES, bar_e = bar_v + 8 * STAGES;
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * WQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * WQ;
+  int h, b;
+  head_and_image(h, b);
   const int n_tiles = (n_valid + WK - 1) / WK;  // tiles past n_valid weigh 0
   // sub-tiles per warpgroup in this block: the second round only where it
   // holds a valid row (the turns need the same number of steps from all)
@@ -546,12 +650,15 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- consumer warpgroups ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     __nv_bfloat16* ob = o + b * so.b + h * so.h;
+    // this head's [N, N] bias (bytes: the element size is 2 or 4)
+    const void* bh = BIAS ? static_cast<const char*>(bias.p) + h * bias.sh * (BIAS == 1 ? 2 : 4)
+                          : nullptr;
     if (SUBS == 2 && subs == 2)
-      consume<SUBS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, q0, n, n_valid,
-                    n_tiles, scale);
+      consume<SUBS, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, bh, bias.sn, q0,
+                          n, n_valid, n_tiles, scale);
     else
-      consume<1>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, q0, n, n_valid, n_tiles,
-                 scale);
+      consume<1, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, bh, bias.sn, q0, n,
+                       n_valid, n_tiles, scale);
   }
 }
 
@@ -585,13 +692,39 @@ static CUresult encode_map(CUtensorMap* map, const void* base, const Strides& s,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+template <int BIAS>
+static int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                       void* o, const Strides& so, const Bias& bias, int batch, int heads, int n,
+                       int n_valid, float scale, cudaStream_t st) {
+  // per launch, not once per process: the attribute belongs to the current device
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attn_bf16_wgmma_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attn_bf16_wgmma_kernel<BIAS><<<grid_of((n + WQ - 1) / WQ, batch, heads), W_THREADS, W_SMEM, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, bias, n, n_valid, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BIAS>
+static int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides& sq,
+                      const Strides& sk, const Strides& sv, const Strides& so, const Bias& bias,
+                      int batch, int heads, int n, int n_valid, float scale, cudaStream_t st) {
+  attn_f32_kernel<BIAS><<<grid_of((n + F_BQ - 1) / F_BQ, batch, heads), F_BQ, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sq, sk, sv, so, bias, n, n_valid, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch on `stream`. Returns 0 when launched, cudaGetLastError() when the
 // launch was refused, cudaErrorInvalidValue when an operand's strides are
 // negative (a tensor map cannot express them), 10000 when libcuda has no
 // tensor-map encoder and 10000 + its CUresult when it refuses a map. Pointers,
 // strides and n_valid are validated by the Python wrapper
 // (depthg_tpu_torch/ops/attention.py): head_dim 64, contiguous last axis,
-// 16-byte aligned base and strides, 1 <= n_valid <= n. The bf16 kernel reads
+// 16-byte aligned base and strides, 1 <= n_valid <= n; a bias (bias_kind 1:
+// bf16, 2: float32; 0: none) of shape [heads, n, n] with element strides
+// (bias_sh, bias_sn, 1), both multiples of 8, a 16-byte aligned base.
+// The bf16 kernel reads
 // q, k and v through tensor maps made here from those pointers and strides
 // (a launch, maps included, takes ~30 us of host time; they are not cached).
 extern "C" int depthg_attention_fwd(
@@ -600,10 +733,14 @@ extern "C" int depthg_attention_fwd(
     long long k_sb, long long k_sh, long long k_sn,
     long long v_sb, long long v_sh, long long v_sn,
     long long o_sb, long long o_sh, long long o_sn,
+    const void* bias, long long bias_sh, long long bias_sn, int bias_kind,
     int batch, int heads, int n, int n_valid, float scale, int is_bf16,
     void* stream) {
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
   const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
+  const Bias bs{bias, bias_sh, bias_sn};
+  if (bias_kind < 0 || bias_kind > 2 || (bias_kind != 0 && bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     auto positive = [](const Strides& s) { return s.b > 0 && s.h > 0 && s.n > 0; };
@@ -616,19 +753,15 @@ extern "C" int depthg_attention_fwd(
     if (res == CUDA_SUCCESS) res = encode_map(&mk, k, sk, batch, heads, n_valid, WK);
     if (res == CUDA_SUCCESS) res = encode_map(&mv, v, sv, batch, heads, n_valid, WK);
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
-    // per launch, not once per process: the attribute belongs to the current device
-    const cudaError_t attr = cudaFuncSetAttribute(
-        attn_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const dim3 grid((n + WQ - 1) / WQ, heads, batch);
-    attn_bf16_wgmma_kernel<<<grid, W_THREADS, W_SMEM, st>>>(
-        mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, n, n_valid, scale);
-  } else {
-    const dim3 grid((n + F_BQ - 1) / F_BQ, heads, batch);
-    attn_f32_kernel<<<grid, F_BQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-        n, n_valid, scale);
+    if (bias_kind == 1)
+      return launch_bf16<1>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
+    if (bias_kind == 2)
+      return launch_bf16<2>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
+    return launch_bf16<0>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (bias_kind == 1)
+    return launch_f32<1>(q, k, v, o, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale, st);
+  if (bias_kind == 2)
+    return launch_f32<2>(q, k, v, o, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale, st);
+  return launch_f32<0>(q, k, v, o, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale, st);
 }

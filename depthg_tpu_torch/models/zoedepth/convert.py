@@ -1,0 +1,185 @@
+"""Weights of the depth models carried across, in the released files' own layout.
+
+The port's modules hold the released torch state dicts natively, so loading
+a file is ``load_state_dict(strict=True)``. This module has the inverse of
+the JAX package's converters (``depthg_tpu/models/zoedepth/convert.py
+zoe_params_from_torch``, ``depthg_tpu/models/midas_dpt.py
+midas_dpt_from_torch``): the JAX parameter tree (numpy arrays) -> the
+released layout, so the same random weights reach both packages; the
+loaders of ``ZoeD_M12_N.pt`` and ``dpt_large-midas-2f21e586.pt``; and the
+configurations derived from a state dict's shapes.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from depthg_tpu_torch.models.midas_dpt import MidasDPT, MidasDPTConfig
+from depthg_tpu_torch.models.zoedepth.beit import BEiTConfig
+from depthg_tpu_torch.models.zoedepth.dpt import DPTConfig
+from depthg_tpu_torch.models.zoedepth.model import ZoeConfig, ZoeDepth
+from depthg_tpu_torch.utils.ckpt import _layer_norm_sd, _linear_sd, _torch, vit_state_dict
+
+
+def _conv_sd(out: dict, prefix: str, p: dict) -> None:
+    out[prefix + ".weight"] = _torch(p["w"])
+    if "b" in p:
+        out[prefix + ".bias"] = _torch(p["b"])
+
+
+def beit_state_dict(bp: dict, prefix: str) -> dict:
+    """The JAX BEiT tree -> timm BEiT keys under ``prefix``."""
+    out = {}
+    pw = np.asarray(bp["patch_embed"]["w"])  # [3 ps ps, D], (c, kh, kw) order
+    d = pw.shape[1]
+    ps = int(round((pw.shape[0] // 3) ** 0.5))
+    out[prefix + "patch_embed.proj.weight"] = _torch(pw.T.reshape(d, 3, ps, ps))
+    out[prefix + "patch_embed.proj.bias"] = _torch(bp["patch_embed"]["b"])
+    out[prefix + "cls_token"] = _torch(bp["cls_token"])
+    for i, blk in enumerate(bp["blocks"]):
+        p = f"{prefix}blocks.{i}."
+        _layer_norm_sd(out, p + "norm1", blk["norm1"])
+        out[p + "attn.qkv.weight"] = _torch(np.asarray(blk["qkv_w"]).T)
+        out[p + "attn.q_bias"] = _torch(blk["q_bias"])
+        out[p + "attn.v_bias"] = _torch(blk["v_bias"])
+        _linear_sd(out, p + "attn.proj", blk["proj"])
+        out[p + "attn.relative_position_bias_table"] = _torch(blk["rel_pos_table"])
+        _layer_norm_sd(out, p + "norm2", blk["norm2"])
+        _linear_sd(out, p + "mlp.fc1", blk["fc1"])
+        _linear_sd(out, p + "mlp.fc2", blk["fc2"])
+        out[p + "gamma_1"] = _torch(blk["gamma_1"])
+        out[p + "gamma_2"] = _torch(blk["gamma_2"])
+    return out
+
+
+def dpt_state_dict(dp: dict, pretrained: str, scratch: str) -> dict:
+    """The JAX DPT tree -> ``{pretrained}act_postprocess{i}.*`` and
+    ``{scratch}*`` keys (the readout is absent where the tree holds None)."""
+    out = {}
+    for i in range(4):
+        post = f"{pretrained}act_postprocess{i + 1}"
+        if dp["readout"][i] is not None:
+            _linear_sd(out, post + ".0.project.0", dp["readout"][i])
+        _conv_sd(out, post + ".3", dp["reassemble"][i]["project"])
+        if "resample" in dp["reassemble"][i]:
+            _conv_sd(out, post + ".4", dp["reassemble"][i]["resample"])
+    for i in range(4):
+        _conv_sd(out, f"{scratch}layer{i + 1}_rn", dp["rn"][i])
+    for j, rid in enumerate((4, 3, 2, 1)):
+        fu = dp["fusion"][j]
+        for unit, key in (("resConfUnit1", "rcu1"), ("resConfUnit2", "rcu2")):
+            for conv in ("conv1", "conv2"):
+                _conv_sd(out, f"{scratch}refinenet{rid}.{unit}.{conv}", fu[key][conv])
+        _conv_sd(out, f"{scratch}refinenet{rid}.out_conv", fu["out"])
+    for slot, conv in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
+        _conv_sd(out, f"{scratch}output_conv.{slot}", dp["head"][conv])
+    return out
+
+
+def zoe_state_dict_from_params(params: dict) -> dict:
+    """The JAX package's ZoeDepth tree -> the ``ZoeD_M12_N.pt`` layout."""
+    out = beit_state_dict(params["beit"], "core.core.pretrained.model.")
+    out.update(dpt_state_dict(params["dpt"], "core.core.pretrained.", "core.core.scratch."))
+    _conv_sd(out, "conv2", params["conv2"])
+
+    def mlp2(prefix, convs):
+        for slot, conv in zip((0, 2), convs):
+            _conv_sd(out, f"{prefix}.{slot}", conv)
+
+    mlp2("seed_bin_regressor._net", params["seed_bin_regressor"])
+    mlp2("seed_projector._net", params["seed_projector"])
+    for i, (proj, attr) in enumerate(zip(params["projectors"], params["attractors"])):
+        mlp2(f"projectors.{i}._net", proj)
+        mlp2(f"attractors.{i}._net", attr)
+    mlp2("conditional_log_binomial.mlp", params["conditional_log_binomial"])
+    return out
+
+
+def midas_state_dict_from_params(params: dict) -> dict:
+    """The JAX package's DPT_Large tree -> the torch-hub file's layout."""
+    out = vit_state_dict(params["vit"], prefix="pretrained.model.")
+    out.update(dpt_state_dict(params["dpt"], "pretrained.", "scratch."))
+    return out
+
+
+def _released(blob) -> dict:
+    """The state dict of a released file: its ``model`` entry if it has one,
+    without DataParallel's ``module.`` prefix, timm's
+    ``relative_position_index`` buffers (the port computes them) and the
+    encoder's classifier head (``pretrained.model.head``, never run)."""
+    sd = blob.get("model", blob) if isinstance(blob, dict) else blob
+    sd = {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+    return {k: v for k, v in sd.items()
+            if not k.endswith("relative_position_index") and ".model.head." not in k}
+
+
+def _dpt_config(sd: dict, pretrained: str, scratch: str, embed_dim: int) -> DPTConfig:
+    return DPTConfig(
+        embed_dim=embed_dim,
+        features=sd[f"{scratch}layer1_rn.weight"].shape[0],
+        reassemble_channels=tuple(sd[f"{pretrained}act_postprocess{i}.3.weight"].shape[0]
+                                  for i in range(1, 5)),
+        project_readout=f"{pretrained}act_postprocess1.0.project.0.weight" in sd)
+
+
+def zoe_config_from_state_dict(sd: dict) -> ZoeConfig:
+    """A ZoeConfig from a released-layout state dict's shapes (counterpart
+    of ``zoe_config_from_params``). ``n_midas_out`` is read from the
+    conditional log-binomial's input width (the decoder's 32 output
+    channels), not from ``conv2``."""
+    pre = "core.core.pretrained.model."
+    depth = 1 + max(int(m.group(1)) for k in sd
+                    if (m := re.fullmatch(re.escape(pre) + r"blocks\.(\d+)\.attn\.qkv\.weight", k)))
+    embed_dim = sd[pre + "patch_embed.proj.weight"].shape[0]
+    table = sd[pre + "blocks.0.attn.relative_position_bias_table"]
+    window = (int(round((table.shape[0] - 3) ** 0.5)) + 1) // 2
+    n_stages = 1 + max(int(m.group(1)) for k in sd
+                       if (m := re.fullmatch(r"projectors\.(\d+)\._net\.0\.weight", k)))
+    bin_dim = sd["seed_projector._net.2.weight"].shape[0]
+    clb_in = sd["conditional_log_binomial.mlp.0.weight"].shape[1]
+    return ZoeConfig(
+        n_bins=sd["seed_bin_regressor._net.2.weight"].shape[0], bin_embedding_dim=bin_dim,
+        n_attractors=tuple(sd[f"attractors.{i}._net.2.weight"].shape[0] for i in range(n_stages)),
+        beit=BEiTConfig(embed_dim=embed_dim, depth=depth, num_heads=table.shape[1],
+                        pretrain_window=window,
+                        hooks=(depth // 4 - 1, depth // 2 - 1, 3 * depth // 4 - 1, depth - 1)),
+        dpt=_dpt_config(sd, "core.core.pretrained.", "core.core.scratch.", embed_dim),
+        n_midas_out=clb_in - bin_dim - 1)
+
+
+def load_zoedepth_pt(path: str) -> ZoeDepth:
+    """A released ZoeDepth file (e.g. ``ZoeD_M12_N.pt``) as a float32
+    ``ZoeDepth`` on the CPU, loaded with ``strict=True``."""
+    sd = _released(torch.load(path, map_location="cpu", weights_only=False))
+    model = ZoeDepth(zoe_config_from_state_dict(sd))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def midas_config_from_state_dict(sd: dict) -> MidasDPTConfig:
+    """A MidasDPTConfig from a hub-layout state dict's shapes (as the JAX
+    package's ``load_midas_dpt`` derives it)."""
+    pre = "pretrained.model."
+    depth = 1 + max(int(m.group(1)) for k in sd
+                    if (m := re.fullmatch(re.escape(pre) + r"blocks\.(\d+)\.attn\.qkv\.weight", k)))
+    pw = sd[pre + "patch_embed.proj.weight"]  # [D, 3, ps, ps]
+    d, ps = pw.shape[0], pw.shape[-1]
+    n_pos = sd[pre + "pos_embed"].shape[1] - 1
+    dcfg = _dpt_config(sd, "pretrained.", "scratch.", d)
+    return MidasDPTConfig(
+        patch_size=ps, embed_dim=d, depth=depth, num_heads={768: 12, 1024: 16}.get(d, d // 64),
+        hooks=(depth // 4 - 1, depth // 2 - 1, 3 * depth // 4 - 1, depth - 1),
+        img_size=int(round(n_pos ** 0.5)) * ps, features=dcfg.features,
+        reassemble_channels=dcfg.reassemble_channels, project_readout=dcfg.project_readout)
+
+
+def load_midas_dpt(path: str):
+    """A DPT_Large file (``dpt_large-midas-2f21e586.pt``) as a float32
+    ``MidasDPT`` on the CPU, loaded with ``strict=True``."""
+    sd = _released(torch.load(path, map_location="cpu", weights_only=False))
+    model = MidasDPT(midas_config_from_state_dict(sd))
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -9,26 +9,32 @@ strides and writes token-major [B, N, D] directly, so neither relayout
 exists. ``attention_qkv`` takes any head count, so the split-operand entry
 the TPU needed for odd head counts has no counterpart here.
 
-Contract (``_attend`` of the JAX package): ``softmax(q k^T * scale) v`` with
-q*scale rounded to the input dtype, fp32 logits and accumulation, the row
-sum clamped at 1e-30 and applied to the output; keys j >= n_valid weigh
-exactly 0 and query rows i >= n_valid come out exactly 0.
+Contract (``_attend`` of the JAX package): ``softmax(q k^T * scale + bias) v``
+with q*scale rounded to the input dtype, fp32 logits and accumulation, the
+row sum clamped at 1e-30 and applied to the output; keys j >= n_valid weigh
+exactly 0 and query rows i >= n_valid come out exactly 0. The optional
+``bias`` is one [N, N] logit bias per head ([H, N, N], BEiT's
+relative-position bias, the same for every image), read in its own dtype
+(bf16 or float32) and added in float32 after the scale, before the mask and
+the row max; what it holds at keys or rows >= n_valid is never used.
 
 What bounds the kernel on an H100 and what its design does about it is in
 the header of ``csrc/attention.cu`` (bf16: TMA loads, ``wgmma`` products,
 the softmax overlapped with them; float32: a plain FMA kernel). The kernel's
 entry makes its TMA tensor maps from the pointers and strides it is given, so
 a view needs a 16-byte aligned base and positive strides that are multiples
-of 16 bytes. The wrappers here:
+of 16 bytes. The kernel reads a bias in pairs of adjacent keys, so a bias
+needs a contiguous last axis, head and row strides that are positive
+multiples of 8 elements and a 16-byte aligned base (BEiT builds it as [H, N, round_up(N, 8)]
+and passes the [:, :, :N] view); ``attention_plain`` takes any bias. The
+wrappers here:
 
 * CUDA tensor -> the kernel, or an exception (bad shape, dtype, stride,
   alignment, build or launch). There is no fallback.
 * CPU tensor -> ``attention_plain``, the eager version of the same math.
 * ``KERNEL.launches`` counts kernel launches (one per call, all heads and
-  images), so a run can show that it went through the kernel.
-
-The optional per-head [H, N, N] logit bias of the JAX kernels (BEiT) is not
-ported yet.
+  images, with or without a bias), so a run can show that it went through
+  the kernel; ``KERNEL.bias_launches`` counts those that carried a bias.
 """
 
 from __future__ import annotations
@@ -47,12 +53,15 @@ class _AttentionKernel:
 
     def __init__(self):
         self.launches = 0
+        self.bias_launches = 0
         self._fn = None
 
     def fn(self):
         if self._fn is None:
             fn = _build.load("attention").depthg_attention_fwd
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                           + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                              ctypes.c_int]
                            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                                    ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -64,12 +73,16 @@ KERNEL = _AttentionKernel()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, n_valid: int | None = None) -> torch.Tensor:
-    """Eager reference of the kernel on [B, H, N, HD] -> [B, H, N, HD]."""
+                    scale: float, n_valid: int | None = None,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Eager reference of the kernel on [B, H, N, HD] -> [B, H, N, HD], with
+    an optional [H, N, N] logit bias (any float dtype, any strides)."""
     n = q.shape[2]
     nv = n if n_valid is None else int(n_valid)
     qs = (q.float() * scale).to(q.dtype).float()
     s = torch.einsum("bhnd,bhmd->bhnm", qs, k.float())
+    if bias is not None:
+        s = s + bias.float()
     keep = torch.arange(n, device=q.device) < nv
     s = s.masked_fill(~keep, float("-inf"))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
@@ -80,7 +93,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _check(q, k, v, n_valid):
+def _check(q, k, v, n_valid, bias=None):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention needs q/k/v of one [B, H, N, {HEAD_DIM}] "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -98,13 +111,41 @@ def _check(q, k, v, n_valid):
     nv = n if n_valid is None else int(n_valid)
     if not 1 <= nv <= n:
         raise ValueError(f"n_valid must be in [1, {n}], got {nv}")
+    if bias is not None:
+        h = q.shape[1]
+        if tuple(bias.shape) != (h, n, n):
+            raise ValueError(f"bias must be [{h}, {n}, {n}], got {tuple(bias.shape)}")
+        if bias.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"bias must be float32 or bfloat16, got {bias.dtype}")
+        if bias.device != q.device:
+            raise ValueError(f"bias on {bias.device}, q on {q.device}")
     return nv
 
 
-def _launch(q, k, v, out, scale: float, nv: int):
-    """Launch the kernel on [B, H, N, 64] views (``out`` may be a view)."""
+def _launch(q, k, v, out, scale: float, nv: int, bias=None):
+    """Launch the kernel on [B, H, N, 64] views (``out`` may be a view) with
+    an optional [H, N, N] bias view."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
+    bias_args = (None, 0, 0, 0)
+    if bias is not None:
+        # read in pairs of adjacent keys straight from the caller's view
+        if (bias.stride(-1) != 1 or bias.stride(1) <= 0 or bias.stride(1) % 8
+                or bias.stride(0) <= 0 or bias.stride(0) % 8 or bias.data_ptr() % 16):
+            raise ValueError(f"attention kernel needs a bias with a contiguous last "
+                             f"axis, head and row strides that are positive multiples "
+                             f"of 8 and a 16-byte aligned base; got strides "
+                             f"{bias.stride()}, base {bias.data_ptr() % 16} bytes "
+                             f"past 16")
+        # pairs are read up to column round_up(N, 2) - 1 of the last row
+        h_, n_ = bias.shape[:2]
+        end = (bias.storage_offset() + (h_ - 1) * bias.stride(0)
+               + (n_ - 1) * bias.stride(1) + n_ + n_ % 2)
+        if end * bias.element_size() > bias.untyped_storage().nbytes():
+            raise ValueError("attention kernel needs a bias whose storage holds an even "
+                             "number of columns in its last row (a view of padded rows)")
+        bias_args = (bias.data_ptr(), bias.stride(0), bias.stride(1),
+                     1 if bias.dtype == torch.bfloat16 else 2)
     itemsize = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(-1) != 1:
@@ -126,7 +167,7 @@ def _launch(q, k, v, out, scale: float, nv: int):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], b, h, n, nv, float(scale),
+                 *out.stride()[:3], *bias_args, b, h, n, nv, float(scale),
                  int(q.dtype == torch.bfloat16), stream)
     if err == 10000:
         raise RuntimeError("attention kernel: libcuda.so.1 has no "
@@ -137,6 +178,7 @@ def _launch(q, k, v, out, scale: float, nv: int):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     KERNEL.launches += 1
+    KERNEL.bias_launches += bias is not None
     return out
 
 
@@ -151,20 +193,22 @@ def split_qkv(qkv: torch.Tensor, num_heads: int):
 
 
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
-                  n_valid: int | None = None) -> torch.Tensor:
-    """Packed qkv [B, N, 3D] (K1 ``whole_kv_mha_qkv``) -> token-major [B, N, D].
+                  n_valid: int | None = None,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed qkv [B, N, 3D] (K1 ``whole_kv_mha_qkv``) -> token-major [B, N, D],
+    with an optional [H, N, N] logit bias.
 
     The kernel reads each head straight out of ``qkv`` through strides and
     writes its [N, 64] slice of the [B, N, D] output in place."""
     if qkv.dim() != 3:
         raise ValueError(f"attention_qkv needs [B, N, 3D], got {tuple(qkv.shape)}")
     q, k, v = split_qkv(qkv, num_heads)
-    nv = _check(q, k, v, n_valid)
+    nv = _check(q, k, v, n_valid, bias)
     b, n, d3 = qkv.shape
     if qkv.device.type == "cpu":
-        out = attention_plain(q, k, v, scale, nv)
+        out = attention_plain(q, k, v, scale, nv, bias)
         return out.permute(0, 2, 1, 3).reshape(b, n, d3 // 3)
     out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     _launch(q, k, v, out.view(b, n, num_heads, -1).permute(0, 2, 1, 3),
-            scale, nv)
+            scale, nv, bias)
     return out

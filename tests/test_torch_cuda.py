@@ -20,7 +20,9 @@ exactly. The training slice adds the attention kernel at the train step's
 shape (B=32, N=785), depth FPS on the card vs the CPU including exact ties,
 and one float32 train step on the card vs the CPU. The serving slice adds
 the kernel at the serving buckets' and the KNN embedding's shapes, a served
-round trip over HTTP and the KNN's top-k against float64.
+round trip over HTTP and the KNN's top-k against float64. The depth slice
+adds the per-head logit bias (BEiT) at the ZoeDepth shapes and small
+ZoeDepth and DPT_Large models on the card against the CPU.
 """
 
 import pytest
@@ -124,6 +126,118 @@ def test_attention_kernel_rejects_misaligned_bf16_views(cuda, offset):
     with pytest.raises(ValueError, match="aligned"):
         tatt.attention_qkv(buf[..., offset:], 2, 0.125)
     assert tatt.KERNEL.launches == before
+
+
+def _padded_bias(heads, n, dtype, seed, scale=1.0):
+    """A [heads, n, n] bias view of [heads, n, round_up(n, 8)] storage, as
+    the BEiT module builds it."""
+    gen = torch.Generator().manual_seed(seed)
+    store = torch.randn(heads, n, -(-n // 8) * 8, generator=gen) * scale
+    return store.to("cuda", dtype)[:, :, :n]
+
+
+@pytest.mark.parametrize("dtype,bias_dtype,b,n,n_valid", [
+    (torch.bfloat16, torch.bfloat16, 8, 769, 769), (torch.bfloat16, torch.bfloat16, 16, 769, 769),
+    (torch.bfloat16, torch.float32, 8, 769, 769), (torch.bfloat16, torch.bfloat16, 2, 769, 700),
+    (torch.bfloat16, torch.bfloat16, 1, 1345, 1345), (torch.bfloat16, torch.bfloat16, 3, 77, 77),
+    (torch.float32, torch.float32, 8, 769, 769), (torch.float32, torch.float32, 16, 769, 769),
+    (torch.float32, torch.bfloat16, 2, 769, 700), (torch.float32, torch.float32, 3, 77, 77)])
+def test_attention_kernel_with_bias_matches_plain(cuda, dtype, bias_dtype, b, n, n_valid):
+    """The per-head [H, N, N] logit bias (BEiT) at the ZoeDepth shapes (16
+    heads, N=769 at 384x512, 1345 at its portrait bucket), a bias in either
+    dtype, n_valid < N and a short N: kernel vs plain, a bias that acts, and
+    rows past n_valid exactly 0."""
+    gen = torch.Generator().manual_seed(11)
+    qkv = torch.randn(b, n, 3 * 1024, generator=gen).to(cuda, dtype)
+    bias = _padded_bias(16, n, bias_dtype, 12, scale=2.0)
+    before, before_bias = tatt.KERNEL.launches, tatt.KERNEL.bias_launches
+    out = tatt.attention_qkv(qkv, 16, 0.125, n_valid, bias=bias)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == before + 1
+    assert tatt.KERNEL.bias_launches == before_bias + 1
+    q, k, v = tatt.split_qkv(qkv, 16)
+    ref = tatt.attention_plain(q, k, v, 0.125, n_valid, bias=bias).permute(0, 2, 1, 3)
+    _assert_close(out, ref.reshape(out.shape), dtype)
+    assert torch.all(out[:, n_valid:] == 0)
+    plain = tatt.attention_qkv(qkv, 16, 0.125, n_valid)
+    assert float((plain.float() - out.float()).norm() / out.float().norm()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_ignores_bias_past_n_valid(cuda, dtype):
+    """+1e4 (or NaN) in the bias at keys and rows >= n_valid changes nothing."""
+    gen = torch.Generator().manual_seed(13)
+    qkv = torch.randn(2, 769, 3 * 1024, generator=gen).to(cuda, dtype)
+    bias = _padded_bias(16, 769, dtype, 14)
+    out = tatt.attention_qkv(qkv, 16, 0.125, 700, bias=bias)
+    bias[:, :, 700:] = 1e4
+    bias[:, 700:] = float("nan")
+    torch.testing.assert_close(tatt.attention_qkv(qkv, 16, 0.125, 700, bias=bias), out,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("what", ["odd_stride", "offset_base", "strided_keys",
+                                  "odd_head_stride"])
+def test_attention_kernel_rejects_a_bias_it_cannot_read(cuda, what):
+    qkv = torch.randn(1, 769, 3 * 1024, device=cuda, dtype=torch.bfloat16)
+    if what == "odd_stride":
+        bias = torch.randn(16, 769, 769, device=cuda, dtype=torch.bfloat16)
+    elif what == "offset_base":
+        bias = torch.randn(16, 769, 784, device=cuda, dtype=torch.bfloat16)[:, :, 1:770]
+    elif what == "strided_keys":
+        bias = torch.randn(16, 769, 2 * 776, device=cuda, dtype=torch.bfloat16)[:, :, ::2][:, :, :769]
+    else:  # rows 8-aligned, heads an odd number of elements apart
+        flat = torch.randn(16 * 769 * 776 + 16, device=cuda, dtype=torch.bfloat16)
+        bias = flat.as_strided((16, 769, 769), (769 * 776 + 1, 776, 1))
+    before = tatt.KERNEL.launches
+    with pytest.raises(ValueError, match="bias"):
+        tatt.attention_qkv(qkv, 16, 0.125, bias=bias)
+    assert tatt.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("model_name", ["zoedepth", "midas"])
+def test_tiny_depth_models_card_vs_cpu(cuda, model_name):
+    """A 4-block, 128-wide ZoeDepth (LayerScale 0.1, so attention shows) and
+    DPT_Large in float32 on the card (K1, with the bias for ZoeDepth) vs the
+    CPU's plain path from the same weights: relative error of the depth
+    within 1e-4 (TF32 is off)."""
+    import copy
+
+    from depthg_tpu_torch.models.midas_dpt import MidasDPT, MidasDPTConfig
+    from depthg_tpu_torch.models.zoedepth import ZoeConfig, ZoeDepth, zoedepth_infer
+    from depthg_tpu_torch.models.zoedepth.beit import BEiTConfig
+    from depthg_tpu_torch.models.zoedepth.dpt import DPTConfig
+
+    gen = torch.Generator().manual_seed(21)
+    dpt = dict(features=32, reassemble_channels=(16, 32, 64, 64))
+    x = torch.rand(2, 3, 96, 128, generator=gen)
+    if model_name == "zoedepth":
+        cpu = ZoeDepth(ZoeConfig(
+            n_bins=16, bin_embedding_dim=16, img_size=(96, 128),
+            beit=BEiTConfig(embed_dim=128, depth=4, num_heads=2, pretrain_window=4,
+                            hooks=(0, 1, 2, 3), layer_scale_init=0.1),
+            dpt=DPTConfig(embed_dim=128, **dpt))).init_weights(gen).eval()
+        card = copy.deepcopy(cpu).to(cuda)
+
+        def run(model, inp):
+            return zoedepth_infer(model, inp, attn_impl="fused" if inp.is_cuda else "xla")
+    else:
+        cpu = MidasDPT(MidasDPTConfig(embed_dim=128, depth=4, num_heads=2, hooks=(0, 1, 2, 3),
+                                      img_size=64, **dpt)).init_weights(gen).eval()
+        with torch.no_grad():
+            cpu.scratch.output_conv[4].bias.fill_(0.1)  # a depth that is not all 0
+        card = copy.deepcopy(cpu).to(cuda)
+
+        def run(model, inp):
+            return model(inp, attn_impl="fused" if inp.is_cuda else "xla")[0]
+    before, before_bias = tatt.KERNEL.launches, tatt.KERNEL.bias_launches
+    with torch.no_grad():
+        got = run(card, x.to(cuda)).cpu()
+        ref = run(cpu, x)
+    assert tatt.KERNEL.launches == before + (8 if model_name == "zoedepth" else 4)
+    assert tatt.KERNEL.bias_launches == before_bias + (8 if model_name == "zoedepth" else 0)
+    assert float(ref.abs().max()) > 0
+    assert float((got - ref).norm() / ref.norm()) <= 1e-4
 
 
 # K4: dtype -> limit on the relative error and on max abs error / max |ref|.

@@ -4,10 +4,14 @@ eval step on the CPU at the default point, the ``safe`` point and the
 streaming exact CRF, then one train step and a validation step, leaves ``jax`` and every module of the JAX package
 (``depthg_tpu``) out of ``sys.modules``, also after importing the eval and
 train CLIs, both profile modules and the serve, load generator, demo, KNN
-and crop modules (and after a served request and a KNN on the CPU);
-no source of the port or of ``chip_smoke.py`` imports either. The attention
-and bilateral wrappers raise on an input their kernels cannot take instead
-of falling back to their plain versions."""
+and crop modules (and after a served request and a KNN on the CPU), and
+after the depth slice (``generate_depth``, ZoeDepth, MiDaS, their
+converters, ``native_crf`` and the fidelity study's lattice on a tiny
+ZoeDepth forward with the attention bias, and ``python -m
+depthg_tpu_torch.generate_depth --help``); no source of the port or of
+``chip_smoke.py`` imports either, or reads a file of ``scripts/`` or
+``depthg_tpu/``. The attention and bilateral wrappers raise on an input
+their kernels cannot take instead of falling back to their plain versions."""
 
 import os
 import re
@@ -86,6 +90,22 @@ svc = depthg_tpu_torch.serve.SegmentationService(
 lin, clu = svc.batcher.submit(img[0].numpy())
 svc.close()
 assert lin.shape == (64, 64) and clu.shape == (64, 64)
+import depthg_tpu_torch.generate_depth
+from depthg_tpu_torch import native_crf
+from depthg_tpu_torch.models import midas_dpt
+from depthg_tpu_torch.models.zoedepth import ZoeConfig, ZoeDepth, convert, zoedepth_infer
+from depthg_tpu_torch.models.zoedepth.beit import BEiTConfig
+from depthg_tpu_torch.models.zoedepth.dpt import DPTConfig
+zcfg = ZoeConfig(n_bins=4, bin_embedding_dim=8, n_attractors=(2, 1, 1, 1), img_size=(32, 64),
+                 beit=BEiTConfig(embed_dim=128, depth=4, num_heads=2, pretrain_window=2,
+                                 hooks=(0, 1, 2, 3), attn_impl="fused"),
+                 dpt=DPTConfig(embed_dim=128, features=16, reassemble_channels=(8, 8, 16, 16)))
+zoe = ZoeDepth(zcfg).init_weights(torch.Generator().manual_seed(2)).eval()
+with torch.no_grad():
+    depth = zoedepth_infer(zoe, torch.rand(1, 3, 32, 64, generator=gen))
+assert depth.shape == (1, 1, 32, 64) and bool(torch.isfinite(depth).all())
+scene = crf_fidelity_study.make_scene(64, 27, seed=0)
+assert crf_fidelity_study.lattice_labels([scene], 64)[0].shape == (64, 64)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("depthg_tpu."))
 assert not theirs, theirs
@@ -100,6 +120,46 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def test_depth_cli_help_runs_without_jax():
+    program = (
+        "import runpy, sys\n"
+        "sys.argv = ['generate_depth', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('depthg_tpu_torch.generate_depth', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'depthg_tpu.'))"
+        " or m == 'depthg_tpu')\n"
+        "assert not bad, bad\n"
+        "print('HELP_OK')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", program], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "--allow_random" in proc.stdout and "HELP_OK" in proc.stdout
+
+
+# a path into the JAX side: a module loaded by file, or a join or a Path
+# component naming scripts/ or depthg_tpu/
+FOREIGN_PATH = re.compile(
+    r"spec_from_file_location|join\([^)]*[\"'](scripts|depthg_tpu)[\"']|/\s*[\"'](scripts|depthg_tpu)[\"']")
+
+
+def test_no_port_source_reads_the_jax_side():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "depthg_tpu_torch")):
+        paths += [os.path.join(dirpath, name) for name in files if name.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            found = FOREIGN_PATH.search(f.read())
+        assert found is None, (path, found.group(0))
+    for line in ('os.path.join(ROOT, "scripts", "x.py")', "Path(ROOT) / 'depthg_tpu'",
+                 "importlib.util.spec_from_file_location(name, path)"):
+        assert FOREIGN_PATH.search(line), line
+    assert not FOREIGN_PATH.search('os.path.join(ROOT, "native", "crf")')
 
 
 # an import of jax or of the JAX package (never of depthg_tpu_torch)

@@ -321,3 +321,111 @@ def test_package_never_calls_the_library_attention():
             if name.endswith((".py", ".cu", ".cuh")):
                 with open(os.path.join(dirpath, name)) as f:
                     assert "scaled_dot_product_attention" not in f.read(), name
+
+
+@pytest.mark.parametrize("h,w", [(3, 3), (4, 6), (24, 24), (24, 32), (32, 24)])
+def test_relative_position_index_matches_jax_package(h, w):
+    from depthg_tpu.models.zoedepth.beit import relative_position_index as jindex
+    from depthg_tpu_torch.models.zoedepth.beit import relative_position_index as tindex
+
+    out, ref = tindex(h, w), jindex(h, w)
+    assert out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_prep_size_matches_jax_package():
+    from depthg_tpu.models.zoedepth.model import ZoeConfig as JZoe
+    from depthg_tpu.models.zoedepth.model import prep_size as jprep
+    from depthg_tpu_torch.models.zoedepth.model import ZoeConfig as TZoe
+    from depthg_tpu_torch.models.zoedepth.model import prep_size as tprep
+
+    for h, w in ((384, 512), (466, 608), (608, 466), (466, 466), (480, 640), (1, 1), (1000, 37)):
+        assert tprep(h, w, TZoe()) == jprep(h, w, JZoe()), (h, w)
+
+
+def test_iter_images_matches_the_jax_script(tmp_path):
+    """``generate_depth.iter_images`` over an image folder and over the
+    port's own COCO reader: the same images (pixels) and naming paths as
+    ``scripts/generate_depth.py``'s."""
+    import argparse
+
+    from PIL import Image
+
+    from depthg_tpu_torch import generate_depth as tgd
+
+    ref_mod = _load_script("generate_depth")
+    folder = tmp_path / "folder"
+    rng = np.random.default_rng(5)
+    for sub, n in (("b", 2), ("a", 3)):
+        (folder / sub).mkdir(parents=True)
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 255, (20 + i, 30, 3), np.uint8)).save(
+                folder / sub / f"x{i}.png")
+    (folder / "not_a_dir.txt").write_text("skipped")
+    _coco_val(str(tmp_path / "coco"))
+    for dataset, data_dir, split in (("imagefolder", folder, "val"),
+                                     ("cocostuff", tmp_path / "coco", "val")):
+        args = argparse.Namespace(dataset=dataset, data_dir=str(data_dir), split=split)
+        out, ref = list(tgd.iter_images(args)), list(ref_mod.iter_images(args))
+        assert len(out) == len(ref) > 0
+        for (img, path), (rimg, rpath) in zip(out, ref):
+            assert path == rpath
+            np.testing.assert_array_equal(np.asarray(img), np.asarray(rimg))
+
+
+@pytest.mark.parametrize("size,seed", [(64, 0), (96, 3), (160, 1), (320, 5)])
+def test_fidelity_scene_and_metric_copies_match_the_jax_script(size, seed):
+    """``make_scene`` and ``miou_acc`` of the port's fidelity study are
+    copies of ``scripts/crf_fidelity_study.py``'s: the same arrays and the
+    same mIoU / accuracy floats."""
+    from depthg_tpu_torch import crf_fidelity_study as study
+
+    ref_mod = _load_script("crf_fidelity_study")
+    out, ref = study.make_scene(size, 27, seed=seed), ref_mod.make_scene(size, 27, seed=seed)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    pred = np.random.default_rng(seed).integers(0, 27, out[1].shape)
+    for p in (pred, out[1], out[2].argmax(0).repeat(8, 0).repeat(8, 1)):
+        assert study.miou_acc(p, out[1], 27) == ref_mod.miou_acc(p, ref[1], 27)
+
+
+def test_native_crf_copy_matches_jax_package():
+    """The port's ``native_crf`` gives the JAX package's refined Q on one
+    small scene, exactly."""
+    from depthg_tpu import native_crf as jnative
+    from depthg_tpu_torch import crf_fidelity_study as study
+    from depthg_tpu_torch import native_crf as tnative
+
+    image, _, logits = study.make_scene(64, 27, seed=2)
+    probs = np.exp(logits.repeat(8, 1).repeat(8, 2))
+    probs /= probs.sum(0, keepdims=True)
+    out = tnative.dense_crf_native(image, probs)
+    np.testing.assert_array_equal(out, jnative.dense_crf_native(image, probs))
+    assert out.shape == probs.shape and np.allclose(out.sum(0), 1.0, atol=1e-4)
+
+
+def test_native_crf_builds_its_own_library_when_the_committed_one_fails(tmp_path, monkeypatch):
+    """A committed library that does not load is rebuilt with g++ under the
+    build directory (never under ``native/``), giving the same Q; a failed
+    build raises."""
+    from depthg_tpu_torch import crf_fidelity_study as study
+    from depthg_tpu_torch import native_crf as tnative
+
+    image, _, logits = study.make_scene(64, 27, seed=4)
+    probs = np.exp(logits.repeat(8, 1).repeat(8, 2))
+    probs /= probs.sum(0, keepdims=True)
+    ref = tnative.dense_crf_native(image, probs)
+    broken = tmp_path / "libpermutocrf.so"
+    broken.write_bytes(b"not a shared library")
+    native_before = sorted(os.listdir(os.path.join(ROOT, "native", "crf")))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_LIB_PATH", str(broken))
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    np.testing.assert_array_equal(tnative.dense_crf_native(image, probs), ref)
+    assert os.listdir(tmp_path / "build") == ["libpermutocrf.so"]
+    assert sorted(os.listdir(os.path.join(ROOT, "native", "crf"))) == native_before
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_SRC_DIR", str(tmp_path / "missing"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tnative.dense_crf_native(image, probs)
