@@ -12,12 +12,14 @@ final line):
    (B=16, N=1601, 6 heads x 64, packed qkv) in bf16 and f32, plus
    n_valid=1601 inside N=1664: max abs and relative error, exact-zero
    padded rows, masked keys without influence, CUDA-event times of kernel
-   and plain; in bf16 also the kernel alone on preallocated views, one
+   and plain; in both dtypes also the kernel alone on preallocated views, one
    PyTorch ``scaled_dot_product_attention`` call on the same views as the
    library yardstick (the package never calls it), both also queued behind
    a long product so that the events see the card's time and not the host's
    launch rate, the host time of a launch and the kernel's bound from the
-   shapes; then the same comparison,
+   shapes (float32: the FMA pipes' bound, and beside it the split-TF32
+   kernel's own, three TF32 products at the tensor peak); TF32 still off
+   after the float32 runs; then the same comparison,
    times, library call and bound at the train step's shape (B=32, N=785:
    224 px, not a multiple of the kernel's 64-row sub-tile or 256-row block);
    then K1 with BEiT-L's relative-position bias at ZoeDepth's 384 x 512
@@ -35,9 +37,10 @@ final line):
    and bf16 (the eval step), its degree (the degree entry, and the f32
    C=1 message on ones) and the fidelity row's f32 C=27, plus bf16 at
    B=2, C=27 and at B=1, C=54 and 27 (one image, one or both probes);
-   relative and max abs error, CUDA-event times of kernel and plain, in
-   bf16 the kernel alone on a preallocated output, and the bounds from the
-   shapes;
+   relative and max abs error, CUDA-event times of kernel and plain, the
+   kernel alone on a preallocated output, and the bounds from the shapes
+   (float32: 10 + C FMA-pipe instructions per entry, and the split-TF32
+   kernel's own bound beside it); TF32 still off;
 5. CRF precision: the int8 bilateral cache of a 320 px scene built on the
    card vs float64 on the CPU, then the CRF on the six fidelity scenes
    (the port's copy of ``make_scene``) at the default point: mIoU, accuracy
@@ -45,12 +48,14 @@ final line):
    the CPU), each within 0.2 of the ``docs/CRF_FIDELITY.md`` row (69.67,
    84.08, 98.60%); then the rows exact (ds=1, through K4), ds=2 legacy,
    ds=4 mixed bf16 (``safe``) and quality+, mIoU and accuracy within 0.2 of
-   their rows (their lattice agreement printed);
+   their rows (their lattice agreement printed; the exact row's CRF is
+   float32: 10 float32 K4 messages and the degree per run);
 6. main path: full-width ViT-S/8 at 320 px with random weights from a
    fixed generator, ``make_eval_step`` at the default point (bf16 backbone,
    bf16 CRF state), batch 16, one warm-up and three timed batches; launch
    counts, confusion sums, img/s; then one image in float32 on the card vs
-   the CPU (plain path) for pixel agreement; then the same step at
+   the CPU (plain path) for pixel agreement (24 launches of K1's float32
+   kernel); then the same step at
    ``crf_downsample=1`` (batch 2, 11 K4 launches per batch) and at
    ``operating_point=safe`` (batch 16);
 7. train path: the same full-width ViT-S/8 (frozen, bf16) under
@@ -59,7 +64,8 @@ final line):
    warm-up and five timed steps on one synthetic batch (24 attention
    launches per step, no K4 launch, finite logs, falling probe losses, the
    ViT bit-identical and without gradients), FPS alone, then one
-   ``make_validation_step`` batch at 320 px; then one float32 step at batch 4
+   ``make_validation_step`` batch at 320 px (12 float32 K1 launches); then
+   one float32 step at batch 4 (24 float32 K1 launches through the kernel)
    with fixed coordinates and permutations on the card (eager attention, and
    through the kernel) vs the CPU from the same weights, each loss term
    within 1e-4 relative, and FPS coordinates equal;
@@ -87,7 +93,7 @@ final line):
     ``crf_downsample: 2``: 10 + 10 PNGs, each equal to the predict step's
     labels for that image;
 11. KNN path: ``precompute_knns.main`` over 256 synthetic crops at 224 px
-    (two float32 batches of 128, 12 K1 launches each), ``pooled_features``
+    (two float32 batches of 128, 12 float32 K1 launches each), ``pooled_features``
     alone (unit norms, img/s), then ``topk_neighbors(k=30)`` on seeded
     unit-norm features with N=147,456, C=384 (the key-blocked branch): self
     at rank 0 and, on 2,048 sampled rows, the neighbours of a one-pass
@@ -97,7 +103,9 @@ final line):
     --allow_random --batch_size 8`` (full-width BEiT-L + DPT + metric bins,
     random weights from seed 0, bf16) over 11 synthetic JPEGs in three size
     buckets (8 of 640 x 480 -> one 384 x 512 batch of 8, 2 of 480 x 640, 1
-    of 400 x 400), then the same folder with ``--model midas`` (ViT-L/16
+    of 400 x 400), the same with ``--dtype float32`` (48 launches of K1's
+    float32 kernel per batch, all with the bias), then the same folder with
+    ``--model midas`` (ViT-L/16
     DPT_Large), once with ``--allow_random`` (its seed-0 head ends below
     its ReLU everywhere, so its maps are constant and that is accepted)
     and once from a random file in the hub layout whose head bias is +0.1:
@@ -113,7 +121,9 @@ final line):
     depth, relative error), then one 384 x 512 image in float32 through K1
     on the card vs the CPU's plain path at 4 of the 24 blocks (metric depth
     within 1e-4 relative);
-14. the total time, the kernels JSON line, the card line and the final JSON line.
+14. the total time, the kernels JSON line (each kernel's float32 figures
+    and float32 launches per path among them), the card line and the final
+    JSON line.
 """
 
 import copy
@@ -150,10 +160,10 @@ SERVE_BUCKET1_AGREEMENT = 0.985
 LONE_IMAGE = 3
 KNN_EMBED_B, KNN_N, KNN_C, KNN_K, KNN_SAMPLED = 128, 147_456, 384, 30, 2048
 SCALE = 64 ** -0.5
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
-# cores, float32 outside them (an FMA counts 2, so 33.5e12 instructions/s:
-# 128 lanes x 132 SMs x ~1.98 GHz), HBM3
-PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 and
+# TF32 tensor cores, float32 outside them (an FMA counts 2, so 33.5e12
+# instructions/s: 128 lanes x 132 SMs x ~1.98 GHz), HBM3
+PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_HBM = 989e12, 495e12, 67e12, 3.35e12
 SMS = 132
 # kernel vs plain: dtype -> (max abs error, relative error ||out-ref||/||ref||).
 # Outputs here average ~600 keys (~0.04, max ~0.3), so a max-abs limit alone
@@ -236,6 +246,29 @@ def device_time_ms(fn, inputs, iters=50):
     return start.elapsed_time(stop) / iters
 
 
+def profiled_kernel_ms(fn, inputs, names, iters=10):
+    """Device ms per launch of each kernel that ``fn`` launches whose name
+    holds one of ``names``, read from ``torch.profiler``'s CUDA trace of
+    ``iters`` calls (None for a name the trace holds no launch of): the one
+    way to time two kernels that one C entry launches in turn. The mean is
+    over the launches the trace holds, which can be fewer than ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us, launches = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for evt in prof.key_averages():
+        for name in names:
+            if name in evt.key:
+                us[name] += evt.device_time_total
+                launches[name] += evt.count
+    return {name: us[name] / launches[name] / 1e3 if launches[name] else None for name in names}
+
+
 def sm_clock_mhz() -> float:
     """The SM clock ``nvidia-smi`` reports right now (call it under load)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
@@ -243,26 +276,44 @@ def sm_clock_mhz() -> float:
     return float(out.split()[0])
 
 
-def attention_bound(b, n, h, dtype=torch.bfloat16):
-    """Least ms the card could take for one attention call: q, k, v read and
-    o written once over the memory rate, or 4 B H N^2 64 operations over the
-    peak of their type (bf16: tensor cores; float32: the FMA pipes),
-    whichever is larger."""
+def attention_bound(b, n, h, dtype=torch.bfloat16, bias_bytes=0):
+    """Least ms the card could take for one attention call: q, k, v (and a
+    bias of ``bias_bytes``) read and o written once over the memory rate,
+    or 4 B H N^2 64 operations at the peak of the kernel's arithmetic,
+    whichever is larger. bf16: the tensor cores. float32: split TF32, three
+    TF32 products each (``attention_fma_bound`` is the FMA pipes' figure)."""
     bf16 = dtype == torch.bfloat16
-    bytes_ms = 4 * b * h * n * 64 * (2 if bf16 else 4) / PEAK_HBM * 1e3
-    ops_ms = 4.0 * b * h * n * n * 64 / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
+    bytes_ms = (4 * b * h * n * 64 * (2 if bf16 else 4) + bias_bytes) / PEAK_HBM * 1e3
+    ops = 4.0 * b * h * n * n * 64
+    ops_ms = (ops / PEAK_BF16 if bf16 else 3 * ops / PEAK_TF32) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def attention_fma_bound(b, n, h):
+    """A yardstick for the float32 kernel: its 4 B H N^2 64 operations on
+    the FMA pipes, where a float32 kernel without the tensor cores runs."""
+    return 4.0 * b * h * n * n * 64 / PEAK_F32 * 1e3
 
 
 def bilateral_bound(b, n, c, itemsize):
     """Least ms for one message: feats and values read, the output written
-    once, or the N^2 entries' 10 float32 instructions (5 subtractions, 5 FMAs;
-    the float32 peak counts an FMA as 2) beside their 2 C N^2 tensor-core
-    operations, whichever is largest."""
+    once, or the operations on the N^2 entries, whichever is largest: 10
+    float32 instructions per entry (5 subtractions, 5 FMAs; the float32 peak
+    counts an FMA as 2) beside the 2 C operations of the product, on the
+    bf16 tensor cores or, for float32 values, as split TF32 (three TF32
+    products; ``bilateral_fma_bound`` is the FMA pipes' figure). The degree
+    is c = 0."""
     entries = float(b) * n * n
     bytes_ms = b * n * (20 + 2 * c * itemsize) / PEAK_HBM * 1e3
-    ops_ms = max(entries * 10 / (PEAK_F32 / 2), entries * 2 * c / PEAK_BF16) * 1e3
+    product = 3 * entries * 2 * c / PEAK_TF32 if itemsize == 4 else entries * 2 * c / PEAK_BF16
+    ops_ms = max(entries * 10 / (PEAK_F32 / 2), product) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def bilateral_fma_bound(b, n, c):
+    """A yardstick for the float32 message: 10 + C instructions per entry,
+    all on the FMA pipes."""
+    return float(b) * n * n * (10 + c) / (PEAK_F32 / 2) * 1e3
 
 
 def compare(out, ref, dtype, what):
@@ -276,7 +327,7 @@ def compare(out, ref, dtype, what):
     return err, rel
 
 
-def attention_phase(att, gen):
+def attention_phase(att, gen, runtime):
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -315,11 +366,12 @@ def attention_phase(att, gen):
         results[name] = {"max_abs_err": err, "rel_err": rel,
                          "padded_max_abs_err": pad_err, "padded_rel_err": pad_rel,
                          "ms": ms, "plain_ms": plain_ms}
-        if dtype == torch.bfloat16:
-            results[name].update(attention_yardsticks(att, inputs, B, N))
+        results[name].update(attention_yardsticks(att, inputs, B, N))
         phase("attention", dtype=name, shape=[B, N, HEADS, 64], **results[name])
         del base, inputs, ref, out, pad, out_pad, out_inf
         torch.cuda.empty_cache()
+    if not runtime.tf32_off():
+        raise AssertionError("TF32 is on after the float32 attention runs")
     return results
 
 
@@ -358,7 +410,9 @@ def attention_serving_shapes(att, gen):
                      "where": where, **{k: row[k] for k in (
                          "max_abs_err", "rel_err", "ms", "kernel_only_ms", "kernel_device_ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
-                         "host_us_per_launch")}})
+                         "host_us_per_launch") + (("fma_bound_ms", "pack_device_ms",
+                                                   "attention_kernel_device_ms")
+                                                  if name == "f32" else ())}})
         torch.cuda.empty_cache()
     return rows
 
@@ -396,7 +450,16 @@ def attention_yardsticks(att, inputs, b, n):
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     bound_ms, bound_by = attention_bound(b, n, HEADS, dtype)
-    return {"kernel_only_ms": kernel_ms, "library_ms": library_ms,
+    f32 = {}
+    if dtype == torch.float32:
+        # the pack step and the attention kernel that the float32 entry
+        # launches in turn, each alone
+        split = profiled_kernel_ms(launch, inputs, ("attn_pack_f32_kernel",
+                                                  "attn_f32_wgmma_kernel"))
+        f32 = {"fma_bound_ms": attention_fma_bound(b, n, HEADS),
+               "pack_device_ms": split["attn_pack_f32_kernel"],
+               "attention_kernel_device_ms": split["attn_f32_wgmma_kernel"]}
+    return {**f32, "kernel_only_ms": kernel_ms, "library_ms": library_ms,
             "kernel_device_ms": kernel_device_ms, "library_device_ms": library_device_ms,
             "rel_err_vs_library": lib_rel,
             "host_us_per_launch": host_us, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -404,7 +467,7 @@ def attention_yardsticks(att, inputs, b, n):
             "sm_clock_mhz": clock}
 
 
-def bilateral_phase(bil, crf, fidelity):
+def bilateral_phase(bil, crf, fidelity, runtime):
     """K4 against its plain version on the CRF's own features, at every
     shape the main path and the exact fidelity row launch."""
     import numpy as np
@@ -474,13 +537,19 @@ def bilateral_phase(bil, crf, fidelity):
                 lambda v: bil.bilateral_message_plain(feats, v), inputs,
                 iters=iters[1], warmup=1)
             row["bound_ms"], row["bound_by"] = bilateral_bound(b, n, c, inputs[0].element_size())
-            if dtype == torch.bfloat16:
-                # the kernel alone: no allocation of the output
-                obuf = torch.empty_like(inputs[0])
-                row["kernel_only_ms"] = cuda_time_ms(
-                    lambda v: bil._launch(feats, v, obuf), inputs, iters=iters[0], warmup=2)
-                row["sm_clock_mhz"] = sm_clock_mhz()
-                row["ex2_bound_ms"] = float(b) * n * n / (16 * SMS * row["sm_clock_mhz"] * 1e6) * 1e3
+            if dtype == torch.float32:
+                row["fma_bound_ms"] = bilateral_fma_bound(b, n, c)
+                split = profiled_kernel_ms(lambda v: bil.bilateral_message(feats, v), inputs,
+                                         ("pack_values_f32_kernel",
+                                          "bilateral_f32_rows_kernel"), iters=3)
+                row["pack_device_ms"] = split["pack_values_f32_kernel"]
+                row["message_kernel_device_ms"] = split["bilateral_f32_rows_kernel"]
+            # the kernel alone: no allocation of the output
+            obuf = torch.empty_like(inputs[0])
+            row["kernel_only_ms"] = cuda_time_ms(
+                lambda v: bil._launch(feats, v, obuf), inputs, iters=iters[0], warmup=2)
+            row["sm_clock_mhz"] = sm_clock_mhz()
+            row["ex2_bound_ms"] = float(b) * n * n / (16 * SMS * row["sm_clock_mhz"] * 1e6) * 1e3
             if ones:
                 # the degree entry (what the CRF calls) on the same features
                 deg = bil.bilateral_degree(feats)
@@ -495,6 +564,8 @@ def bilateral_phase(bil, crf, fidelity):
             phase("crf_bilateral", case=label, dtype=name, shape=[b, n, c], **row)
             del base, inputs, out, ref
         torch.cuda.empty_cache()
+    if not runtime.tf32_off():
+        raise AssertionError("TF32 is on after the float32 K4 runs")
     return results
 
 
@@ -564,16 +635,19 @@ def fidelity_rows_phase(study, bil):
     streams through K4 (11 launches per run), the others cache."""
     rows = {}
     for name, k4_per_run in FIDELITY_ROWS:
-        bil.KERNEL.launches = 0
+        bil.KERNEL.launches = bil.KERNEL.f32_launches = 0
         (row,) = [r for r in study.run_rows([name], reps=1) if r["name"] == name]
-        launches = bil.KERNEL.launches
+        launches, f32 = bil.KERNEL.launches, bil.KERNEL.f32_launches
         ref = row["jax"]
         phase("crf_fidelity_row", row=name, miou=row["miou"], accuracy=row["accuracy"],
               lattice_agreement=row["agreement"] * 100, ms_per_image=row["ms_per_image"],
-              jax_row=list(ref), k4_launches=launches)
-        if launches != 2 * k4_per_run:  # the quality run and one timed run
-            raise AssertionError(f"{name}: {launches} K4 launches, expected "
-                                 f"{2 * k4_per_run}")
+              jax_row=list(ref), k4_launches=launches, k4_f32_message_launches=f32)
+        # the quality run and one timed run; the exact row's CRF is float32:
+        # 10 float32 messages and the degree per run
+        if launches != 2 * k4_per_run or f32 != 2 * max(k4_per_run - 1, 0):
+            raise AssertionError(f"{name}: {launches} K4 launches ({f32} float32 messages), "
+                                 f"expected {2 * k4_per_run}")
+        row["k4_f32_message_launches"] = f32
         if not (abs(row["miou"] - ref[0]) <= 0.2 and abs(row["accuracy"] - ref[1]) <= 0.2):
             raise AssertionError(f"{name}: {row['miou']:.2f}/{row['accuracy']:.2f} not "
                                  f"within 0.2 of {ref}")
@@ -641,12 +715,15 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
     predict = inference.make_predict_step(e32)
     img = batches[0][0][:1]
     before = att.KERNEL.launches
+    att.KERNEL.f32_launches = 0
     on_card = [p.cpu() for p in predict(model, img)]
-    if att.KERNEL.launches != before + 24:
-        raise AssertionError("the float32 card run did not go through the kernel")
+    f32_eval_launches = att.KERNEL.f32_launches
+    if att.KERNEL.launches != before + 24 or f32_eval_launches != 24:
+        raise AssertionError("the float32 card run did not go through the float32 kernel")
     on_cpu = predict(model_cpu, img.cpu())
     agree = [float((a == b).float().mean()) for a, b in zip(on_card, on_cpu)]
-    phase("f32_card_vs_cpu", linear_agreement=agree[0], cluster_agreement=agree[1])
+    phase("f32_card_vs_cpu", linear_agreement=agree[0], cluster_agreement=agree[1],
+          k1_f32_launches=f32_eval_launches)
     if min(agree) < 0.995:
         raise AssertionError(f"card vs CPU prediction agreement {agree} < 99.5%")
     del batches
@@ -676,7 +753,7 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
         del batches
         torch.cuda.empty_cache()
     return {"img_per_s": img_s, "launches": launches, "agreement": agree,
-            "points": points}
+            "points": points, "f32_eval_launches": f32_eval_launches}
 
 
 def train_path_phase(att, bil, inference, featurizer, gen):
@@ -754,17 +831,20 @@ def train_path_phase(att, bil, inference, featurizer, gen):
 
     # one validation batch at 320 px (plain float32 forward through the kernel)
     img, label = make_batches(gen, B, 1)[0]
-    att.KERNEL.launches = 0
+    att.KERNEL.launches = att.KERNEL.f32_launches = 0
     lin, clu = inference.make_validation_step(27, 0)(state.model, img, label, 320)
     counted = int(((label >= 0) & (label < 27)).sum())
+    validation_launches = att.KERNEL.f32_launches
     if (int(lin.sum()) != counted or int(clu.sum()) != counted
-            or lin.shape != (27, 27) or att.KERNEL.launches != per_step // 2):
+            or lin.shape != (27, 27) or att.KERNEL.launches != per_step // 2
+            or validation_launches != per_step // 2):
         raise AssertionError(f"validation step: confusion sums {int(lin.sum())}, "
                              f"{int(clu.sum())} != {counted} or attention launches "
                              f"{att.KERNEL.launches} != {per_step // 2}")
     phase("train_validation", batch=B, res=320, attention_launches=att.KERNEL.launches,
-          labelled_pixels=counted)
-    return {"launches": launches, "k4_launches": k4, "step_ms": step_ms, "fps_ms": fps_ms}
+          attention_f32_launches=validation_launches, labelled_pixels=counted)
+    return {"launches": launches, "k4_launches": k4, "step_ms": step_ms, "fps_ms": fps_ms,
+            "validation_launches": validation_launches}
 
 
 def train_card_vs_cpu_phase(att, inference, featurizer):
@@ -801,24 +881,26 @@ def train_card_vs_cpu_phase(att, inference, featurizer):
     ref_state = step_lib.state_from_model(copy.deepcopy(model_cpu), hp32)
     ref = step_lib.train_step(ref_state, batch_cpu, hp32, lcfg, w, sh,
                               coords_override=coords, neg_perms=perms)
-    worst = {}
+    worst, f32_launches = {}, 0
     for name, hp, k1 in (("eager", hp32, 0),
                          ("kernel", dataclasses.replace(hp32, precision=None), 24)):
         state = step_lib.state_from_model(copy.deepcopy(model_cpu).cuda(), hp)
-        att.KERNEL.launches = 0
+        att.KERNEL.launches = att.KERNEL.f32_launches = 0
         logs = step_lib.train_step(state, batch, hp, lcfg, w, sh,
                                    coords_override=tuple(c.cuda() for c in coords),
                                    neg_perms=perms.cuda())
-        if att.KERNEL.launches != k1:
-            raise AssertionError(f"{name}: {att.KERNEL.launches} attention launches, expected {k1}")
+        if att.KERNEL.launches != k1 or att.KERNEL.f32_launches != k1:
+            raise AssertionError(f"{name}: {att.KERNEL.launches} attention launches "
+                                 f"({att.KERNEL.f32_launches} float32), expected {k1}")
+        f32_launches = max(f32_launches, att.KERNEL.f32_launches)
         rel = {k: abs(float(logs[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-2)
                for k in ref}
         worst[name] = max(rel.values())
         if worst[name] > 1e-4:
             raise AssertionError(f"train step on the card ({name}) vs the CPU: {rel}")
     phase("train_f32_card_vs_cpu", batch=b, fps_coordinates_equal=True,
-          loss_terms=sorted(ref), worst_rel_diff=worst)
-    return worst
+          loss_terms=sorted(ref), worst_rel_diff=worst, k1_f32_launches_per_step=f32_launches)
+    return {"worst": worst, "f32_launches": f32_launches}
 
 
 def post(base, body, query="format=npz", timeout=120):
@@ -1106,7 +1188,7 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
     for i in range(n_img):
         with open(os.path.join(crop_dir, "img", "train", f"{i}.jpg"), "wb") as f:
             f.write(synthetic_jpeg(300 + i, 240, 240))
-    att.KERNEL.launches = 0
+    att.KERNEL.launches = att.KERNEL.f32_launches = 0
     bil.KERNEL.launches = 0
     t0 = time.perf_counter()
     written = precompute_knns.main([
@@ -1114,13 +1196,14 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
         "knn_crop_types=[five]", "knn_image_sets=[train]", "num_workers=4"])
     cli_s = time.perf_counter() - t0
     launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+    f32_launches = att.KERNEL.f32_launches
     nns = np.load(written[0])["nns"]
     name = os.path.basename(written[0])
     if (name != "nns_vit_small_cocostuff27_train_five_224.npz" or nns.shape != (n_img, KNN_K)
             or nns.dtype != np.int32 or nns.min() < 0 or nns.max() >= n_img
             or any(len(set(row)) != KNN_K for row in nns.tolist())):
         raise AssertionError(f"precompute_knns wrote {name}: {nns.shape} {nns.dtype}")
-    if launches != 12 * 2 or k4 != 0:
+    if launches != 12 * 2 or f32_launches != launches or k4 != 0:
         raise AssertionError(f"KNN embedding: {launches} K1 launches (expected 24 for two "
                              f"batches of {KNN_EMBED_B}) and {k4} K4 launches")
 
@@ -1181,7 +1264,7 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
           sampled_rows=KNN_SAMPLED, entries_differing_from_float64=int(differ.sum()),
           worst_similarity_gap=worst_gap, bf16_entries_equal_to_float64=bf16_same,
           tf32_off=True)
-    return {"launches": launches, "embed_ms": embed_ms}
+    return {"launches": launches, "f32_launches": f32_launches, "embed_ms": embed_ms}
 
 
 def attention_bias_phase(att, beit, gen):
@@ -1251,11 +1334,7 @@ def attention_bias_phase(att, beit, gen):
         lib_ref = library(inputs[0]).float()
         lib_rel = ((launch(inputs[0]).float() - lib_ref).norm() / lib_ref.norm()).item()
         iters = 10 if dtype == torch.float32 else 50
-        itemsize = inputs[0].element_size()
-        bytes_ms = (4 * b * n * BIAS_DIM * itemsize + h * n * n * bias.element_size()) \
-            / PEAK_HBM * 1e3
-        ops_ms = 4.0 * b * h * n * n * 64 / (PEAK_BF16 if dtype == torch.bfloat16
-                                               else PEAK_F32) * 1e3
+        bound_ms, bound_by = attention_bound(b, n, h, dtype, h * n * n * bias.element_size())
         clock = sm_clock_mhz()
         rows[name] = {
             "max_abs_err": err, "rel_err": rel, "n_valid_max_abs_err": nv_err,
@@ -1272,9 +1351,8 @@ def attention_bias_phase(att, beit, gen):
             "library_ms": cuda_time_ms(library, inputs, iters=iters),
             "library_device_ms": device_time_ms(library, inputs, iters=iters),
             "plain_ms": cuda_time_ms(plain, inputs, iters=3, warmup=1),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "bytes_bound_ms": bytes_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"fma_bound_ms": attention_fma_bound(b, n, h)} if dtype == torch.float32 else {}),
             "ex2_bound_ms": b * h * n * n / (16 * SMS * clock * 1e6) * 1e3,
             "sm_clock_mhz": clock}
         phase("attention_bias", case=name, shape=[b, n, h, 64],
@@ -1324,6 +1402,8 @@ def depth_path_phase(att, bil, tmp):
     try:
         for label, model, per_batch, with_bias, weights in (
                 ("zoedepth", "zoedepth", 48, True, ["--allow_random"]),
+                # the float32 entry: 48 launches of K1's float32 kernel per batch
+                ("zoedepth_f32", "zoedepth", 48, True, ["--allow_random", "--dtype", "float32"]),
                 ("midas_random", "midas", 24, False, ["--allow_random"]),
                 ("midas", "midas", 24, False, ["--weights", midas_file])):
             out_dir = os.path.join(tmp, f"depth_{label}")
@@ -1333,16 +1413,19 @@ def depth_path_phase(att, bil, tmp):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             att.KERNEL.launches = att.KERNEL.bias_launches = bil.KERNEL.launches = 0
+            att.KERNEL.f32_launches = 0
             t0 = time.perf_counter()
             written = generate_depth.main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches, bias_launches, k4 = (att.KERNEL.launches, att.KERNEL.bias_launches,
                                            bil.KERNEL.launches)
+            f32_launches = att.KERNEL.f32_launches
             peak = torch.cuda.max_memory_allocated() / 2**30
             expected = per_batch * DEPTH_BATCHES
             if (written != len(DEPTH_IMAGES) or launches != expected or k4 != 0
-                    or bias_launches != (expected if with_bias else 0)):
+                    or bias_launches != (expected if with_bias else 0)
+                    or f32_launches != (expected if label == "zoedepth_f32" else 0)):
                 raise AssertionError(f"{model}: {written} maps, {launches} K1 launches "
                                      f"({bias_launches} with a bias), {k4} K4 launches; "
                                      f"expected {expected} K1 launches per "
@@ -1370,11 +1453,12 @@ def depth_path_phase(att, bil, tmp):
             if not np.array_equal(png, expect):
                 raise AssertionError(f"{label}: the PNG is not the (inverted for MiDaS) "
                                      "normalized depth")
-            if label == "midas_random":
+            if label in ("midas_random", "zoedepth_f32"):
                 results[label] = {"images": written, "batches": DEPTH_BATCHES,
                                   "k1_launches": launches, "k1_bias_launches": bias_launches,
-                                  "k4_launches": k4, "main_seconds": seconds,
-                                  "constant_maps": sum(constant)}
+                                  "k1_f32_launches": f32_launches, "k4_launches": k4,
+                                  "main_seconds": seconds, "constant_maps": sum(constant),
+                                  "peak_mem_gb": peak}
                 phase("depth_path", model=label, **results[label])
                 del built[model]
                 continue
@@ -1509,14 +1593,14 @@ def main():
     phase("build_all", seconds=time.perf_counter() - t_build)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn = attention_phase(att, gen)
+    attn = attention_phase(att, gen, runtime)
     attn_bias = attention_bias_phase(att, beit, gen)
-    k4 = bilateral_phase(bil, crf, study)
+    k4 = bilateral_phase(bil, crf, study, runtime)
     crf_phase(study, crf)
-    fidelity_rows_phase(study, bil)
+    fidelity = fidelity_rows_phase(study, bil)
     main_res = main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen)
     train_res = train_path_phase(att, bil, inference, featurizer, gen)
-    train_card_vs_cpu_phase(att, inference, featurizer)
+    train_f32 = train_card_vs_cpu_phase(att, inference, featurizer)
     serve_shapes = attention_serving_shapes(att, gen)
     with tempfile.TemporaryDirectory() as tmp:
         serve_res = serve_path_phase(att, bil, inference, featurizer, tmp)
@@ -1585,6 +1669,31 @@ def main():
         "bias_max_abs_err": attn_bias["bf16_b8"]["max_abs_err"],
         "bias_rel_err": attn_bias["bf16_b8"]["rel_err"],
         "bias_cases": attn_bias,
+        # the float32 kernel (split TF32) at the eval shape, then per path
+        "f32_kernel_only_ms": attn["f32"]["kernel_only_ms"],
+        "f32_kernel_device_ms": attn["f32"]["kernel_device_ms"],
+        "f32_library_ms": attn["f32"]["library_ms"],
+        "f32_library_device_ms": attn["f32"]["library_device_ms"],
+        "f32_bound_ms": attn["f32"]["bound_ms"], "f32_bound_by": attn["f32"]["bound_by"],
+        "f32_fma_bound_ms": attn["f32"]["fma_bound_ms"],
+        "f32_pack_device_ms": attn["f32"]["pack_device_ms"],
+        "f32_attention_kernel_device_ms": attn["f32"]["attention_kernel_device_ms"],
+        "train_f32_kernel_device_ms": attn["train_f32"]["kernel_device_ms"],
+        "train_f32_library_ms": attn["train_f32"]["library_ms"],
+        "train_f32_library_device_ms": attn["train_f32"]["library_device_ms"],
+        "train_f32_bound_ms": attn["train_f32"]["bound_ms"],
+        "train_f32_fma_bound_ms": attn["train_f32"]["fma_bound_ms"],
+        "train_f32_pack_device_ms": attn["train_f32"]["pack_device_ms"],
+        "train_f32_attention_kernel_device_ms": attn["train_f32"]["attention_kernel_device_ms"],
+        "train_f32_rel_err": attn["train_f32"]["rel_err"],
+        "f32_launches": {
+            "knn_embedding_per_batch": knn_res["f32_launches"] / 2,
+            "train_validation_batch": train_res["validation_launches"],
+            "f32_eval_predict": main_res["f32_eval_launches"],
+            "f32_train_step": train_f32["f32_launches"],
+            "zoedepth_f32_per_batch": depth_res["zoedepth_f32"]["k1_f32_launches"] / DEPTH_BATCHES,
+            "zoedepth_f32_bias_per_batch":
+                depth_res["zoedepth_f32"]["k1_bias_launches"] / DEPTH_BATCHES},
     }, {
         "name": "crf_bilateral", "route": "cuda",
         "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
@@ -1621,6 +1730,21 @@ def main():
         "degree_bound_ms": k4["n102400_degree_f32"]["degree_entry_bound_ms"],
         "degree_plain_ms": k4["n102400_degree_f32"]["plain_ms"],
         "degree_as_f32_message_ms": k4["n102400_degree_f32"]["ms"],
+        # the float32 message (split TF32) at the exact eval step's shape
+        "f32_kernel_only_ms": k4["n102400_f32"]["kernel_only_ms"],
+        "f32_bound_ms": k4["n102400_f32"]["bound_ms"],
+        "f32_fma_bound_ms": k4["n102400_f32"]["fma_bound_ms"],
+        "f32_pack_device_ms": k4["n102400_f32"]["pack_device_ms"],
+        "f32_message_kernel_device_ms": k4["n102400_f32"]["message_kernel_device_ms"],
+        "f32_rel_err": k4["n102400_f32"]["rel_err"],
+        "f32_max_abs_err": k4["n102400_f32"]["max_abs_err"],
+        "c27_f32_ms": k4["n102400_c27_f32"]["ms"],
+        "c27_f32_fma_bound_ms": k4["n102400_c27_f32"]["fma_bound_ms"],
+        "n25600_f32_kernel_only_ms": k4["n25600_f32"]["kernel_only_ms"],
+        "n25600_f32_fma_bound_ms": k4["n25600_f32"]["fma_bound_ms"],
+        "f32_library_ms": None,
+        "exact_f32_crf_message_launches_per_run":
+            fidelity["exact (ds=1)"]["k4_f32_message_launches"] / 2,
     }]}
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))

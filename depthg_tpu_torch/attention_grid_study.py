@@ -90,7 +90,8 @@ def main(argv=None) -> int:
     from depthg_tpu_torch.models.zoedepth.beit import relative_position_bias
     from depthg_tpu_torch.ops import attention as att
 
-    head_major = att.KERNEL.fn()
+    fns = att.KERNEL.fn()
+    head_major = fns.fwd
     image_major = image_major_library()
     image_major.argtypes, image_major.restype = head_major.argtypes, head_major.restype
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -104,7 +105,7 @@ def main(argv=None) -> int:
         scale = 64 ** -0.5
 
         def call(fn):
-            att.KERNEL._fn = fn
+            fns.fwd = fn
             return att.attention_qkv(qkv, h, scale, bias=bias)
 
         outs = [call(fn) for fn in (head_major, image_major)]
@@ -117,7 +118,7 @@ def main(argv=None) -> int:
             order = (("head_major", head_major), ("image_major", image_major))
             for key, fn in (order if r % 2 == 0 else order[::-1]):
                 times[key].append(queued_ms(lambda fn=fn: call(fn), iters))
-        att.KERNEL._fn = head_major
+        fns.fwd = head_major
         med = {k: statistics.median(v) for k, v in times.items()}
         line = {"case": name, "dtype": str(dtype), "shape": [b, n, h, 64],
                 "bias": list(bias.shape) if with_bias else None,

@@ -110,9 +110,60 @@
 //     0.1640, B=32 0.3224 / 0.3223), so both paths use it. The wrapper
 //     requires head and row strides that are multiples of 8 elements and a
 //     16-byte aligned base, so every pair load is aligned.
-// The float32 variant is a plain FMA kernel (one thread per query row):
-// tensor cores would round the operands, and float32 is the parity mode.
-// It adds bias[h, row, key] to each logit in its key loop.
+//
+// Design of the float32 kernel (attn_f32_wgmma_kernel, split TF32):
+//   * What bounds it: the same 4 B H N^2 64 operations, which the FMA pipes
+//     do at 67 TFLOP/s (1.81 ms at the KNN embedding's B=128, N=785, 6
+//     heads). The tensor cores take float32 only as TF32 (10 mantissa bits:
+//     a product off by ~4e-4, against the 1e-5 the float32 path is held
+//     to), so every operand x is split as hi = tf32(x), lo = tf32(x - hi)
+//     (cvt.rna; |x - hi - lo| <= 2^-21 |x|) and each product is taken as
+//     hi.hi + hi.lo + lo.hi with float32 accumulation ("3xTF32"): three
+//     products at 495 TFLOP/s, an effective 165, 0.73 ms at that shape.
+//     tests/test_torch_f32_split.py emulates this arithmetic on the CPU
+//     (against JAX and float64: ~9e-7 relative at full width, one TF32
+//     product alone 4e-4).
+//   * A pack kernel (attn_pack_f32_kernel) first writes, per key tile of 64
+//     and (image, head), K and V as split TF32 operands into a workspace,
+//     already in the 128-byte swizzle of shared memory: K [key][dim] and V
+//     transposed to [dim][key], since TF32 wgmma takes B only K-major and
+//     TMA does not transpose. Keys >= n_valid are zeros there and are never
+//     read from the caller's tensors. Along each product's K axis the pack
+//     step stores slot t of a group of 8 as element 2 t and slot t + 4 as
+//     element 2 t + 1: the S accumulator holds keys 2 t, 2 t + 1 where a TF32
+//     A fragment wants columns t, t + 4, so P goes from S to the next A
+//     operand without shuffles, and q's fragment is one float2 load.
+//   * The attention kernel keeps the bf16 kernel's shape: one producer warp
+//     brings each 64 KB tile (K hi/lo, V^T hi/lo) with two bulk copies into
+//     a ring of 3 stages; two consumer warpgroups (240 registers) own 64
+//     query rows each, with q * scale split into registers (64), S (32), P
+//     hi/lo (64) and O (32). Per tile: S = 24 x wgmma.m64n64k8.tf32 (the
+//     bias as its starting value, as in bf16), the online softmax with
+//     ex2.approx.ftz and the LOG2E FMA (2 ulp: inside the limits in the
+//     emulation), P split in registers, and the tile's P V as 24 more into
+//     the S registers, from zero, folded in as O = O * alpha + P V (one
+//     FMA). The tensor cores truncate as they accumulate: with O carried in
+//     the wgmma accumulator over all 26 tiles of N=1601, the first version
+//     was 1.19e-5 relative from the plain version (NVIDIA H100 80GB HBM3,
+//     700 W), past the 1e-5 limit. A warpgroup runs its products and its
+//     softmax in turn; the two warpgroups overlap each other's. Keys >=
+//     n_valid get -inf on the last tile, query rows >= n_valid are written
+//     as zeros, and a warpgroup whose rows are all >= n_valid writes its
+//     zeros and leaves.
+//   * Times (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, device ms queued
+//     behind a long product; the one-thread-per-row FMA kernel it replaced
+//     and the library call in brackets): KNN B=128, N=785 1.436-1.464 ms
+//     (6.57-6.61; 3.99), train B=32, N=785 0.384-0.385 (1.84-1.89; 1.04),
+//     eval B=16, N=1601 0.635-0.638 (3.18-3.20 through attention_qkv;
+//     2.06), BEiT-L's bias f32 B=2, N=769 0.102 (0.426; 0.303-0.311).
+//     Its bound is that of its split products, 0.734 ms at the KNN shape,
+//     0.184 train, 0.382 eval (the FMA pipes' 1.81 / 0.45 / 0.94 ms is a
+//     yardstick only): it runs at 50%, 48% and 59% of it. Apart
+//     (torch.profiler in chip_smoke.py), the pack step takes 0.337 / 0.085
+//     / 0.088 ms (K and V read, twice their bytes written: ~0.96 GB at the
+//     KNN shape, near the HBM rate) and the attention kernel 1.126 / 0.292 /
+//     0.564 ms (63-68% of the bound). Converting TMA'd float32 tiles inside
+//     the kernel would save the pack step's 13-23%.
 
 #include <cuda.h>  // CUtensorMap types only; the encoder is fetched at run time
 #include <cuda_runtime.h>
@@ -124,9 +175,6 @@
 namespace {
 
 constexpr int HD = 64;       // head dim
-constexpr int BK = 64;       // keys per tile, f32 kernel
-constexpr int F_BQ = 128;    // query rows per block, f32 kernel (1 per thread)
-constexpr int F_CH = 16;     // keys per online-softmax step, f32 kernel
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
@@ -139,13 +187,6 @@ struct Bias {
   long long sh, sn;
 };
 
-// BIAS: 0 = none, 1 = bf16, 2 = float32
-template <int BIAS>
-__device__ __forceinline__ float bias_at(const void* p, long long off) {
-  if (BIAS == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[off]);
-  return static_cast<const float*>(p)[off];
-}
-
 // The grid is (query blocks, batch, heads), x fastest: the images of one
 // head run together, so a wave of blocks shares a few heads' bias in L2.
 __device__ __forceinline__ void head_and_image(int& h, int& b) { h = blockIdx.z; b = blockIdx.y; }
@@ -155,105 +196,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-template <int BIAS>
-__global__ void __launch_bounds__(F_BQ)
-attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o,
-                Strides sq, Strides sk, Strides sv, Strides so, Bias bias, int n,
-                int n_valid, float scale) {
-  __shared__ __align__(16) float sK[BK][HD];
-  __shared__ __align__(16) float sV[BK][HD];
-
-  const int row = blockIdx.x * F_BQ + threadIdx.x;
-  int h, b;
-  head_and_image(h, b);
-  const long long brow = h * bias.sh + static_cast<long long>(row) * bias.sn;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const bool valid = row < n_valid;
-
-  float qr[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid)
-      x = *reinterpret_cast<const float4*>(q + b * sq.b + h * sq.h + row * sq.n + d);
-    qr[d] = x.x * scale;
-    qr[d + 1] = x.y * scale;
-    qr[d + 2] = x.z * scale;
-    qr[d + 3] = x.w * scale;
-    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  const int n_tiles = (n_valid + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    for (int c = threadIdx.x; c < BK * (HD / 4); c += blockDim.x) {
-      const int r = c / (HD / 4), col = (c % (HD / 4)) * 4, key = k0 + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (key < n_valid) {
-        kv = *reinterpret_cast<const float4*>(kb + key * sk.n + col);
-        vv = *reinterpret_cast<const float4*>(vb + key * sv.n + col);
-      }
-      *reinterpret_cast<float4*>(&sK[r][col]) = kv;
-      *reinterpret_cast<float4*>(&sV[r][col]) = vv;
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < BK; c0 += F_CH) {
-      float s[F_CH];
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < F_CH; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&sK[c0 + j][d]);
-          dot = fmaf(qr[d], kk.x, dot);
-          dot = fmaf(qr[d + 1], kk.y, dot);
-          dot = fmaf(qr[d + 2], kk.z, dot);
-          dot = fmaf(qr[d + 3], kk.w, dot);
-        }
-        const int key = k0 + c0 + j;
-        if (BIAS && valid && key < n_valid) dot += bias_at<BIAS>(bias.p, brow + key);
-        s[j] = key < n_valid ? dot : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      // the first step holds key 0 (valid), so mx is finite from then on
-      const float alpha = expf(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < F_CH; ++j) {
-        const float p = expf(s[j] - mx);
-        l += p;
-#pragma unroll
-        for (int d = 0; d < HD; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(&sV[c0 + j][d]);
-          acc[d] = fmaf(p, vv.x, acc[d]);
-          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-        }
-      }
-      m = mx;
-    }
-  }
-  if (row >= n) return;
-  const float denom = fmaxf(l, 1e-30f);
-  float* orow = o + b * so.b + h * so.h + row * so.n;
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 x = valid ? make_float4(acc[d] / denom, acc[d + 1] / denom,
-                                         acc[d + 2] / denom, acc[d + 3] / denom)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(orow + d) = x;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16: TMA + wgmma, one producer warp and two consumer warpgroups
@@ -385,25 +327,40 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d[64 rows x 64 cols] (+)= a[64 x 8, registers, TF32] . B (a K-major TF32
+// tile in shared memory, 128-byte swizzle); TF32 takes no transpose flag
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
 #undef D8
 
 // S of one step starts as this thread's fragment of the bias: rows row0 + g
-// and row0 + g + 8, keys key0 + 8 c + 2 t and + 1 for c < 16 (the layout of
-// the S accumulator), as float32. The loads are branch-free, so all 32 are in
+// and row0 + g + 8, keys key0 + 8 c + 2 t and + 1 for c < C (the layout of
+// the S accumulator; C = 16 for the bf16 kernel's 128-key tiles, 8 for the
+// float32 kernel's 64-key tiles), as float32. The loads are branch-free, so all 32 are in
 // flight at once: rows clamp to n_valid - 1 (rows past it are written as 0)
 // and keys to the last even key before n_valid (keys past n_valid, and the
 // odd key after that pair when n_valid is odd, are set to -inf on the last
 // tile). Reading the pair at that even key touches at most column n_valid,
 // which the wrapper checks the bias storage holds.
-template <int BIAS>
-__device__ __forceinline__ void bias_fragment(float (&s)[64], const void* bh, long long sn,
+template <int BIAS, int C = 16>
+__device__ __forceinline__ void bias_fragment(float (&s)[4 * C], const void* bh, long long sn,
                                               int row0, int key0, int n_valid, int g, int t) {
   const int kmax = (n_valid - 1) & ~1;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long off = static_cast<long long>(min(row0 + g + 8 * r, n_valid - 1)) * sn;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < C; ++c) {
       const int key = min(key0 + c * 8 + t * 2, kmax);
       float2 x;
       if (BIAS == 1)
@@ -662,6 +619,309 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// float32: split TF32 (3xTF32) on wgmma, one producer warp and two consumer
+// warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int F_BQ = 64 * NCW;                  // query rows per block (one sub-tile per warpgroup)
+constexpr int F_BK = 64;                        // keys per tile
+constexpr int F_STAGES = 3;                     // tiles in flight
+constexpr int F_OPERAND_BYTES = F_BK * HD * 4;  // one split operand of a tile: 16 KB
+constexpr int F_HALF_BYTES = F_OPERAND_BYTES / 2;  // 32 columns of 64 rows: 128-byte rows
+constexpr int F_TILE_BYTES = 4 * F_OPERAND_BYTES;  // K hi, K lo, V^T hi, V^T lo: 64 KB
+constexpr int F_SMEM = 1024 + F_STAGES * F_TILE_BYTES + 128;
+
+// The element a slot of a TF32 operand holds, within its group of 8 along
+// the product's K axis: slot t holds element 2 t and slot t + 4 element
+// 2 t + 1, so the A fragment registers of slots t and t + 4 (columns t and
+// t + 4 of an m64k8 TF32 fragment) are a thread's adjacent pair of S
+// accumulator columns (2 t, 2 t + 1), and a q fragment is one float2 load.
+__device__ __forceinline__ int slot_element(int s) {
+  return (s & ~7) | ((s & 3) << 1) | ((s >> 2) & 1);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// The split of an operand made in registers: hi = tf32(x) rounded to
+// nearest (ties away) by adding half a TF32 ulp to the bits and masking,
+// lo = x - hi (exact), which the tensor cores read truncated to TF32. Two
+// integer operations and an add: cvt.rna would take the conversion pipe,
+// which ex2 shares. |x - hi - tf32_truncate(lo)| < 2^-21 |x|; finite x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One key tile of one (image, head) into its four split operands in the
+// workspace, each two halves of 32 K-axis slots with 128-byte rows in the
+// 128-byte swizzle, exactly as the consumers' descriptors read them: K as
+// [key][dim slot] (hi at 0, lo at 16 KB), V transposed as [dim][key slot]
+// (hi at 32 KB, lo at 48 KB). Keys >= n_valid are zeros and never read.
+__global__ void __launch_bounds__(256)
+attn_pack_f32_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                     uint8_t* __restrict__ ws, Strides sk, Strides sv, int heads, int n_valid,
+                     int n_tiles) {
+  __shared__ float sK[F_BK][HD + 1], sV[F_BK][HD + 1];  // +1: rows fall on other banks
+  const int kt = blockIdx.x;
+  int h, b;
+  head_and_image(h, b);
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  for (int i = threadIdx.x; i < F_BK * HD / 4; i += blockDim.x) {
+    const int r = i / (HD / 4), col = (i % (HD / 4)) * 4, key = kt * F_BK + r;
+    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+    if (key < n_valid) {
+      kx = *reinterpret_cast<const float4*>(kb + key * sk.n + col);
+      vx = *reinterpret_cast<const float4*>(vb + key * sv.n + col);
+    }
+    sK[r][col] = kx.x, sK[r][col + 1] = kx.y, sK[r][col + 2] = kx.z, sK[r][col + 3] = kx.w;
+    sV[r][col] = vx.x, sV[r][col + 1] = vx.y, sV[r][col + 2] = vx.z, sV[r][col + 3] = vx.w;
+  }
+  __syncthreads();
+  uint8_t* tile = ws + ((static_cast<long long>(b) * heads + h) * n_tiles + kt) * F_TILE_BYTES;
+  // 16-byte pieces in memory order: operand, half, row, swizzled piece
+  for (int i = threadIdx.x; i < F_TILE_BYTES / 16; i += blockDim.x) {
+    const int op = i >> 10, half = (i >> 9) & 1, row = (i >> 3) & 63, piece = i & 7;
+    const int s0 = half * 32 + ((piece ^ (row & 7)) << 2);  // the piece's first slot
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int el = slot_element(s0 + e);
+      const float val = op < 2 ? sK[row][el] : sV[el][row];
+      const uint32_t hi = tf32_rna(val);
+      x[e] = __uint_as_float((op & 1) ? tf32_rna(val - __uint_as_float(hi)) : hi);
+    }
+    *reinterpret_cast<float4*>(tile + op * F_OPERAND_BYTES + half * F_HALF_BYTES + row * 128 +
+                               piece * 16) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// One consumer warpgroup: its 64 query rows walked over every key tile.
+// Q * scale lives in registers as split TF32 A fragments; per tile, S =
+// Q K^T (+ bias) is 3 x 8 wgmma.m64n64k8 (hi.hi, hi.lo, lo.hi per k-step),
+// the online softmax turns S into P in the A fragment layout (split into hi
+// and lo), and the tile's P V is 3 x 8 more, folded into O on the CUDA cores.
+template <int BIAS>
+__device__ __forceinline__ void consume_f32(uint32_t s_ring, uint32_t bar_k, uint32_t bar_v,
+                                            uint32_t bar_e, const float* __restrict__ qb,
+                                            long long q_sn, float* __restrict__ ob, long long o_sn,
+                                            const void* bh, long long b_sn, int q0, int n,
+                                            int n_valid, int n_tiles, float scale) {
+  const int tid = threadIdx.x;
+  const int cw = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
+  const int row0 = q0 + cw * 64 + warp * 16;  // this warp's rows: row0 + g and row0 + g + 8
+
+  // k-step ks of Q: slot t = dim 8 ks + 2 t (registers 0/1: rows g/g+8),
+  // slot t + 4 = dim 8 ks + 2 t + 1 (registers 2/3). Rows >= n_valid are 0.
+  uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      float2 x = make_float2(0.f, 0.f);
+      if (row < n_valid) x = *reinterpret_cast<const float2*>(qb + row * q_sn + 8 * ks + 2 * t);
+      split_tf32(x.x * scale, qh[ks][r], ql[ks][r]);
+      split_tf32(x.y * scale, qh[ks][2 + r], ql[ks][2 + r]);
+    }
+  }
+
+  // descriptor of operand op (0 K hi, 1 K lo, 2 V^T hi, 3 V^T lo) of stage st at k-step ks
+  auto desc = [&](int st, int op, int ks) {
+    return smem_desc(s_ring + st * F_TILE_BYTES + op * F_OPERAND_BYTES + (ks >> 2) * F_HALF_BYTES) +
+           2 * (ks & 3);
+  };
+  float s[32];    // S of the current tile, then its P V: [8 key or dim chunks][row g: 2, row g+8: 2]
+  float acc[32];  // O: [8 dim chunks][the same]
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  auto issue_s = [&](int st) {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      wgmma_tf32(s, qh[ks], desc(st, 0, ks), BIAS || ks > 0);
+      wgmma_tf32(s, qh[ks], desc(st, 1, ks), 1);
+      wgmma_tf32(s, ql[ks], desc(st, 0, ks), 1);
+    }
+  };
+
+  if (BIAS) bias_fragment<BIAS, 8>(s, bh, b_sn, row0, 0, n_valid, g, t);
+  mbar_wait(bar_k, 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt % F_STAGES, ph = (kt / F_STAGES) & 1, st1 = (kt + 1) % F_STAGES;
+    const bool last_tile = kt + 1 == n_tiles;
+    if (kt * F_BK + F_BK > n_valid) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (kt * F_BK + (i >> 2) * 8 + t * 2 + (i & 1) >= n_valid) s[i] = -INFINITY;
+    }
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], mlog[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key 0 is valid (n_valid >= 1), so mx is finite from the first tile on
+      alpha[r] = ex2_approx((m_i[r] - mx[r]) * LOG2E);
+      mlog[r] = mx[r] * LOG2E;
+      m_i[r] = mx[r];
+    }
+    uint32_t ph_[8][4], pl_[8][4];  // P as split A fragments: [k-step over keys][register]
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float p0 = ex2_approx(fmaf(s[4 * c], LOG2E, -mlog[0]));      // row g, key 2t
+      const float p1 = ex2_approx(fmaf(s[4 * c + 1], LOG2E, -mlog[0]));  // row g, key 2t + 1
+      const float p2 = ex2_approx(fmaf(s[4 * c + 2], LOG2E, -mlog[1]));  // row g + 8, key 2t
+      const float p3 = ex2_approx(fmaf(s[4 * c + 3], LOG2E, -mlog[1]));  // row g + 8, key 2t + 1
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      split_tf32(p0, ph_[c][0], pl_[c][0]);
+      split_tf32(p2, ph_[c][1], pl_[c][1]);
+      split_tf32(p1, ph_[c][2], pl_[c][2]);
+      split_tf32(p3, ph_[c][3], pl_[c][3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + rs[r];
+
+    // this tile's P V into the S registers (S is dead), from zero: the
+    // tensor cores truncate as they accumulate, so a sum carried over every
+    // key would drift; the tile's part is folded into O on the CUDA cores
+    mbar_wait(bar_v + 8 * st, ph);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      wgmma_tf32(s, ph_[c], desc(st, 2, c), c > 0);
+      wgmma_tf32(s, ph_[c], desc(st, 3, c), 1);
+      wgmma_tf32(s, pl_[c], desc(st, 2, c), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_e + 8 * st);  // this warp is done with stage st
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], s[i]);
+    if (last_tile) break;
+
+    // the next tile's S, from its bias when there is one
+    if (BIAS) bias_fragment<BIAS, 8>(s, bh, b_sn, row0, (kt + 1) * F_BK, n_valid, g, t);
+    mbar_wait(bar_k + 8 * st1, ((kt + 1) / F_STAGES) & 1);
+    fence_regs(s);
+    wgmma_fence();
+    issue_s(st1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+  }
+
+  // normalize (row sum clamped at 1e-30); rows past n_valid -> 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    const bool valid = row < n_valid;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<float2*>(ob + row * o_sn + 8 * c + 2 * t) =
+          valid ? make_float2(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv)
+                : make_float2(0.f, 0.f);
+  }
+}
+
+template <int BIAS>
+__global__ void __launch_bounds__(W_THREADS, 1)
+attn_f32_wgmma_kernel(const float* __restrict__ q, const uint8_t* __restrict__ ws,
+                      float* __restrict__ o, Strides sq, Strides so, Bias bias, int heads, int n,
+                      int n_valid, int n_tiles, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
+  uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t s_ring = smem_u32(smem);
+  const uint32_t bar_k = s_ring + F_STAGES * F_TILE_BYTES;  // then full_v, empty: F_STAGES each
+  const uint32_t bar_v = bar_k + 8 * F_STAGES, bar_e = bar_v + 8 * F_STAGES;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * F_BQ;
+  int h, b;
+  head_and_image(h, b);
+  // consumer warpgroups with a valid row (the other writes zeros and leaves)
+  const int active = q0 + 64 < n_valid ? NCW : 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 4 * active);  // lane 0 of each active consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128 * NCW) {
+    // ---- producer warpgroup: one thread issues every bulk copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 128 * NCW) {
+      const uint8_t* src = ws + (static_cast<long long>(b) * heads + h) * n_tiles * F_TILE_BYTES;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % F_STAGES, ph = (kt / F_STAGES) & 1;
+        const uint32_t dst = s_ring + st * F_TILE_BYTES;
+        mbar_wait(bar_e + 8 * st, ph ^ 1);  // a fresh barrier passes at once
+        mbar_expect_tx(bar_k + 8 * st, 2 * F_OPERAND_BYTES);
+        bulk_load(dst, src + kt * F_TILE_BYTES, 2 * F_OPERAND_BYTES, bar_k + 8 * st);
+        mbar_expect_tx(bar_v + 8 * st, 2 * F_OPERAND_BYTES);
+        bulk_load(dst + 2 * F_OPERAND_BYTES, src + kt * F_TILE_BYTES + 2 * F_OPERAND_BYTES,
+                  2 * F_OPERAND_BYTES, bar_v + 8 * st);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    float* ob = o + b * so.b + h * so.h;
+    const int cw = tid >> 7;
+    if (cw >= active) {  // rows q0 + 64 cw.. are all >= n_valid
+      for (int i = tid & 127; i < 64 * HD / 4; i += 128) {
+        const int row = q0 + cw * 64 + i / (HD / 4);
+        if (row < n)
+          *reinterpret_cast<float4*>(ob + row * so.n + (i % (HD / 4)) * 4) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      return;
+    }
+    const void* bh = BIAS ? static_cast<const char*>(bias.p) + h * bias.sh * (BIAS == 1 ? 2 : 4)
+                          : nullptr;
+    consume_f32<BIAS>(s_ring, bar_k, bar_v, bar_e, q + b * sq.b + h * sq.h, sq.n, ob, so.n, bh,
+                      bias.sn, q0, n, n_valid, n_tiles, scale);
+  }
+}
+
 }  // namespace
 
 // libcuda's tensor-map encoder, fetched from the already loaded library (the
@@ -706,13 +966,32 @@ static int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUten
 }
 
 template <int BIAS>
-static int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides& sq,
-                      const Strides& sk, const Strides& sv, const Strides& so, const Bias& bias,
-                      int batch, int heads, int n, int n_valid, float scale, cudaStream_t st) {
-  attn_f32_kernel<BIAS><<<grid_of((n + F_BQ - 1) / F_BQ, batch, heads), F_BQ, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, sv, so, bias, n, n_valid, scale);
+static int launch_f32(const void* q, const void* k, const void* v, void* o, void* ws,
+                      const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
+                      const Bias& bias, int batch, int heads, int n, int n_valid, float scale,
+                      cudaStream_t st) {
+  const int n_tiles = (n_valid + F_BK - 1) / F_BK;
+  attn_pack_f32_kernel<<<grid_of(n_tiles, batch, heads), 256, 0, st>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), static_cast<uint8_t*>(ws), sk,
+      sv, heads, n_valid, n_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(attn_f32_wgmma_kernel<BIAS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_f32_wgmma_kernel<BIAS><<<grid_of((n + F_BQ - 1) / F_BQ, batch, heads), W_THREADS, F_SMEM,
+                                st>>>(static_cast<const float*>(q), static_cast<const uint8_t*>(ws),
+                                      static_cast<float*>(o), sq, so, bias, heads, n, n_valid,
+                                      n_tiles, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the device workspace the float32 entry needs (0 for bf16): the
+// split TF32 operands of every key tile of every (image, head), 64 KB each.
+extern "C" long long depthg_attention_workspace_bytes(int batch, int heads, int n_valid,
+                                                      int is_bf16) {
+  if (is_bf16 || batch < 1 || heads < 1 || n_valid < 1) return 0;
+  return static_cast<long long>(batch) * heads * ((n_valid + F_BK - 1) / F_BK) * F_TILE_BYTES;
 }
 
 // Launch on `stream`. Returns 0 when launched, cudaGetLastError() when the
@@ -727,6 +1006,9 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, cons
 // The bf16 kernel reads
 // q, k and v through tensor maps made here from those pointers and strides
 // (a launch, maps included, takes ~30 us of host time; they are not cached).
+// The float32 entry takes a device workspace of
+// depthg_attention_workspace_bytes (cudaErrorInvalidValue without one): a
+// pack kernel writes the split K and V there, then the attention kernel runs.
 extern "C" int depthg_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_sn,
@@ -735,7 +1017,7 @@ extern "C" int depthg_attention_fwd(
     long long o_sb, long long o_sh, long long o_sn,
     const void* bias, long long bias_sh, long long bias_sn, int bias_kind,
     int batch, int heads, int n, int n_valid, float scale, int is_bf16,
-    void* stream) {
+    void* workspace, void* stream) {
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
   const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
   const Bias bs{bias, bias_sh, bias_sn};
@@ -759,9 +1041,13 @@ extern "C" int depthg_attention_fwd(
       return launch_bf16<2>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
     return launch_bf16<0>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
   }
+  if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (bias_kind == 1)
-    return launch_f32<1>(q, k, v, o, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale, st);
+    return launch_f32<1>(q, k, v, o, workspace, sq, sk, sv, so, bs, batch, heads, n, n_valid,
+                         scale, st);
   if (bias_kind == 2)
-    return launch_f32<2>(q, k, v, o, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale, st);
-  return launch_f32<0>(q, k, v, o, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale, st);
+    return launch_f32<2>(q, k, v, o, workspace, sq, sk, sv, so, bs, batch, heads, n, n_valid,
+                         scale, st);
+  return launch_f32<0>(q, k, v, o, workspace, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale,
+                       st);
 }

@@ -60,23 +60,52 @@
 //   * Degree (K . 1, float32, once per CRF call): the same row-blocked loop
 //     on the packed features with fp32 row sums of the entries in place of
 //     the value product: no value tile, no mma, no bf16 rounding.
-//   * f32 values (the parity mode): one thread per query row, accurate expf
-//     of -d / 2, an FMA loop over the channels; features and values are read
-//     in place and from shared memory as broadcasts.
-//   * Channels are padded to the mma width (8) in shared memory (f32) or in
-//     the packed copy (bf16): padded channels are zero and never written
-//     out. More than 64 channels take further chunks along grid.y (each
+//   * f32 values (bilateral_f32_rows_kernel, split TF32): the float32
+//     product of C channels per entry would cost C FMAs on the FP32 pipes,
+//     (10 + C) instructions per entry with the distance: 40.1 ms at B=2,
+//     N=102,400, C=54 at 67 TFLOP/s. The tensor cores take float32 only as
+//     TF32 (10 mantissa bits), so entry and value are each split as hi =
+//     tf32(x), lo = tf32(x - hi) (cvt.rna, |x - hi - lo| <= 2^-21 |x|) and
+//     the product is hi.hi + hi.lo + lo.hi in float32 ("3xTF32"): 3 x 2 C
+//     operations per entry at 495 TFLOP/s (13.7 ms there), beside 10
+//     distance instructions, one ex2 and the 3-instruction split on the
+//     CUDA cores. The log-kernel stays a direct float32 distance (TF32
+//     never touches it) on features pre-scaled by sqrt(log2(e) / 2), with
+//     ex2.approx.ftz: tests/test_torch_f32_split.py emulates this
+//     arithmetic on the CPU, 7e-7 relative from float64 on fidelity scenes.
+//     The loop is the bf16 kernel's: entries computed straight into A
+//     fragments (keys 2 t, 2 t + 1 of each 8-key step, the TF32 fragment's
+//     columns t and t + 4, so the pack step stores each group of 8 keys in
+//     that order), 3 x wgmma.m64nNk8.tf32 per step and 64-row tile,
+//     committed in groups of one step (two above 32 channels) while the next
+//     group's entries are computed. Its pack step
+//     (pack_values_f32_kernel) writes the values' hi and lo planes,
+//     channel-major; a tile is 64 keys (the two planes take 4x the bytes of
+//     bf16). The tensor cores truncate as they accumulate (a float32 sum
+//     carried over every key drifts toward zero by up to an ulp per add), so
+//     each tile's product starts from zero and is added into the sum on the
+//     CUDA cores; the second accumulator leaves registers for 2 blocks per SM.
+//   * Channels are padded to the mma width (8) in the packed copy: padded
+//     channels are zero and never written out. More than 64 channels take further chunks along grid.y (each
 //     recomputes the kernel entries; the CRF's largest C is 54).
 //   * Ragged edge: the pack step writes the feature PAD_FEATURE (1e18) and
 //     zero values for keys j >= n, so their entry is ex2(-1e36) = 0 exactly
-//     (and 0 * 0 in the value product); the f32 kernel masks its last tile
-//     and never visits them; query rows i >= n are not written. Nothing
-//     past n of the caller's tensors is read.
+//     (and 0 * 0 in the value product); query rows i >= n are not written.
+//     Nothing past n of the caller's tensors is read.
 // What holds it (H100): the degree loop, which is the entries alone, runs at
 // ~66% of the issue bound; the value product adds the bf16x2 packs, the
 // wgmma issue and a tile load six times as large. More rows per thread
 // (FR = 3, 4) or fewer blocks per SM were slower: registers, not loads,
 // limit the number of warps that hide the fp32 and ex2 latencies.
+// The f32 kernel (NVIDIA H100 80GB HBM3, 700 W, N=102,400; chip_smoke.py):
+// per image ~10.9 ms at C=1, where the entries alone cost twice the degree
+// loop's (the split, 64-key tiles, a wait per step), plus ~0.28 ms per
+// channel, the products at ~45% of the TF32 peak; B=2, C=54 took 51.4-51.9
+// ms with one step per commit group and 46.6 ms with two (against 136.9 ms
+// for the one-thread-per-row FMA kernel it replaced), 3.4x its bound: 13.7
+// ms for its split products (40.1 ms on the FMA pipes is a yardstick only).
+// The pack step is 0.05 ms of it (torch.profiler in chip_smoke.py): the gap
+// to the bound is the message kernel's.
 // Left for later: the kernel's symmetry (half the exps, needs a second pass
 // or atomics), exact tile skipping, a fused kernel that builds the int8 cache.
 
@@ -88,13 +117,13 @@
 namespace {
 
 constexpr int NF = 5;          // features per point
-constexpr int BK = 64;         // keys per tile, f32 kernel
-constexpr int RK = 128;        // keys per tile, row-blocked kernels
+constexpr int RK = 128;        // keys per tile, bf16 and degree kernels
+constexpr int FK = 64;         // keys per tile, f32 kernel
 constexpr int FR = 2;          // m16 fragments (16 query rows) per warp
 constexpr int RQ = 64 * FR;    // query rows per block (4 warps)
 constexpr int MIN_BLOCKS = 4;  // blocks per SM the register budget is set for
+constexpr int F32_MIN_BLOCKS = 2;  // the same, f32 kernel
 constexpr float PAD_FEATURE = 1e18f;  // packed feature of a key past n: its entries are 0
-constexpr int F_BQ = 128;      // query rows per block, f32 kernel (1 per thread)
 constexpr int PT = 32;         // keys and channels of one pack-kernel tile
 constexpr int MAX_C = PT * 65535;  // channels the pack kernel's grid.y covers
 // the bf16 kernel's entry is ex2(-|s f_i - s f_j|^2) = exp(-|f_i - f_j|^2 / 2)
@@ -129,29 +158,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
 }
 
-// features of keys k0 .. k0+BK-1 into sF[feature][key] (zeros past n)
-__device__ __forceinline__ void load_key_feats(float (&sF)[NF][BK], const float* fb,
-                                               Strides sf, int k0, int n) {
-  for (int i = threadIdx.x; i < NF * BK; i += blockDim.x) {
-    const int j = i / NF, f = i - j * NF;
-    sF[f][j] = (k0 + j < n) ? fb[(k0 + j) * sf.n + f] : 0.f;
-  }
-}
-
 // the packed operands: NP keys (N rounded up to the key tile RK), chunks of
-// CP channels (CP = 8 min(8, ceil(C / 8)); none for the degree, c = 0)
+// CP channels (CP = 8 min(8, ceil(C / 8)); none for the degree, c = 0), each
+// value taking value_bytes (bf16: 2; f32: 8, its TF32 hi and lo planes)
 struct Packed {
   int np, cp, cpad;  // cpad = chunks * CP
-  long long feat_bytes, bytes;
+  long long feat_bytes, plane, bytes;  // plane: elements of one value plane
 };
 
-Packed packed_layout(int batch, int n, int c) {
+Packed packed_layout(int batch, int n, int c, int value_bytes) {
   Packed p;
   p.np = (n + RK - 1) / RK * RK;
   p.cp = 8 * min(8, (c + 7) / 8);
   p.cpad = c ? (c + p.cp - 1) / p.cp * p.cp : 0;
   p.feat_bytes = static_cast<long long>(batch) * NF * p.np * sizeof(float);
-  p.bytes = p.feat_bytes + static_cast<long long>(batch) * p.cpad * p.np * 2;
+  p.plane = static_cast<long long>(batch) * p.cpad * p.np;
+  p.bytes = p.feat_bytes + p.plane * value_bytes;
   return p;
 }
 
@@ -184,6 +206,50 @@ pack_values_kernel(const unsigned short* __restrict__ z, unsigned short* __restr
     const int ch = ch0 + i;
     if (ch < cpad)
       zt[(static_cast<long long>(b) * cpad + ch) * np + k0 + tx] = tile[tx][i];
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// The split of an operand made in registers: hi = tf32(x) rounded to
+// nearest (ties away) by adding half a TF32 ulp to the bits and masking,
+// lo = x - hi (exact), which the tensor cores read truncated to TF32. Two
+// integer operations and an add: cvt.rna would take the conversion pipe,
+// which ex2 shares. |x - hi - tf32_truncate(lo)| < 2^-21 |x|; finite x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// [B, N, C] float32 -> zt [B, cpad, np] TF32 hi and, lo_offset elements
+// later, lo; zero past n and c. Within each group of 8 keys slot t holds key
+// 2 t and slot t + 4 key 2 t + 1 (the A fragment columns t, t + 4 of the
+// entries a thread computes for keys 2 t, 2 t + 1). Block (32, 8)
+// transposes a 32-key x 32-channel tile through shared memory.
+__global__ void __launch_bounds__(256)
+pack_values_f32_kernel(const float* __restrict__ z, float* __restrict__ zt, Strides sz, int n,
+                       int c, int np, int cpad, long long lo_offset) {
+  __shared__ float tile[PT][PT + 1];
+  const int b = blockIdx.z, k0 = blockIdx.x * PT, ch0 = blockIdx.y * PT;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int i = ty; i < PT; i += 8) {  // read along channels
+    const int key = k0 + i, ch = ch0 + tx;
+    tile[i][tx] = (key < n && ch < c) ? z[b * sz.b + key * sz.n + ch] : 0.f;
+  }
+  __syncthreads();
+  const int key = (tx & ~7) | ((tx & 3) << 1) | ((tx >> 2) & 1);  // held by slot tx
+  for (int i = ty; i < PT; i += 8) {  // write along keys
+    const int ch = ch0 + i;
+    if (ch < cpad) {
+      const float x = tile[key][i], hi = __uint_as_float(tf32_rna(x));
+      const long long off = (static_cast<long long>(b) * cpad + ch) * np + k0 + tx;
+      zt[off] = hi;
+      zt[lo_offset + off] = __uint_as_float(tf32_rna(x - hi));
+    }
   }
 }
 
@@ -271,6 +337,101 @@ __device__ __forceinline__ void wgmma_pz<8>(float (&d)[32], const uint32_t (&a)[
       "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[64 rows x 8 NT channels] += a[64 rows x 8 keys, registers, TF32] . TF32
+// value tile (K-major in shared memory, 128-byte swizzle), asynchronously;
+// d is overwritten when accumulate is 0
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4 * NT], const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32<1>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<2>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<3>(float (&d)[12], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<4>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<5>(float (&d)[20], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<6>(float (&d)[24], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<7>(float (&d)[28], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -474,61 +635,171 @@ bilateral_rows_kernel(const float* __restrict__ ft, const __nv_bfloat16* __restr
     }
 }
 
+// The f32 kernel: the row-blocked loop of bilateral_rows_kernel on split
+// TF32 operands. A thread computes the entries of keys 2 t and 2 t + 1 of
+// each 8-key step for its 4 rows in float32, splits each into hi + lo in
+// registers (the A fragment columns t and t + 4), and the step's product is
+// 3 x wgmma.m64n(8 NT)k8 per 64-row tile: hi.hi, hi.lo, lo.hi against the
+// value planes zt (hi) and zt + lo_offset (lo) of the f32 pack step. Tiles of
+// FK = 64 keys, double buffered with cp.async; per buffer the values take
+// [plane][half of 32 keys][channel][128 bytes] in the 128-byte swizzle, then
+// the features [NF][FK].
+constexpr int f32_smem_bytes(int nt) { return 1024 + 2 * 4 * nt * 8 * 128 + 2 * NF * FK * 4; }
+
 template <int NT>
-__global__ void __launch_bounds__(F_BQ)
-bilateral_f32_kernel(const float* __restrict__ feats, const float* __restrict__ z,
-                     float* __restrict__ out, Strides sf, Strides sz, Strides so,
-                     int n, int c) {
+__global__ void __launch_bounds__(128, F32_MIN_BLOCKS)
+bilateral_f32_rows_kernel(const float* __restrict__ ft, const float* __restrict__ zt,
+                          float* __restrict__ out, long long zt_b, long long lo_offset, int np,
+                          Strides so, int n, int c) {
   constexpr int CP = NT * 8;
-  __shared__ float sF[NF][BK];
-  __shared__ __align__(16) float sZ[BK][CP];  // [key][channel]
+  constexpr int HALF_BYTES = CP * 128;     // 32 keys of every channel, one plane
+  constexpr int Z_BYTES = 4 * HALF_BYTES;  // a tile's values: two planes, two halves each
+  constexpr int F_CHUNKS = NF * FK / 4;    // 16-byte pieces of a feature tile
+  constexpr int P_CHUNKS = CP * FK / 4;    // 16-byte pieces of one value plane's tile
+  // 8-key steps per wgmma commit group: two above 32 channels, where the
+  // products dominate and fewer waits pay; one below, where the second set
+  // of P registers costs more than it saves (both timed on an H100)
+  constexpr int F_GROUP = NT > 4 ? 2 : 1;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sz = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float (*sF)[NF][FK] = reinterpret_cast<float (*)[NF][FK]>(sz + 2 * Z_BYTES);
 
-  const int row = blockIdx.x * F_BQ + threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
   const int b = blockIdx.z, c0 = blockIdx.y * CP;
-  const int cc = min(CP, c - c0);
-  const float* fb = feats + b * sf.b;
-  const float* zb = z + b * sz.b + c0;
+  const float* fb = ft + b * (long long)NF * np;
+  const float* zb = zt + b * zt_b + c0 * (long long)np;
+  const int row0 = blockIdx.x * RQ + warp * 16 + g;  // rows row0 + 64 fr + 8 r
 
-  float fq[NF], acc[CP];
+  float fq[FR][2][NF];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) fq[f] = row < n ? fb[row * sf.n + f] : 0.f;
+  for (int fr = 0; fr < FR; ++fr)
 #pragma unroll
-  for (int ch = 0; ch < CP; ++ch) acc[ch] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + fr * 64 + r * 8;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        fq[fr][r][f] = row < np ? fb[f * (long long)np + row] : PAD_FEATURE;
+    }
 
-  const int n_tiles = (n + BK - 1) / BK;
+  // one commit group per tile: its features and both value planes, into buffer `buf`
+  auto load_tile = [&](int kt, int buf) {
+    const int k0 = kt * FK;
+    for (int i = tid; i < F_CHUNKS + 2 * P_CHUNKS; i += blockDim.x) {
+      if (i < F_CHUNKS) {
+        const int f = i / (FK / 4), part = (i % (FK / 4)) * 4;
+        cp_async16(&sF[buf][f][part], fb + f * (long long)np + k0 + part);
+      } else {
+        // 4 keys of one channel of one plane: half kc / 8, 16-byte column kc % 8 swizzled by the row
+        const int j = i - F_CHUNKS, plane = j / P_CHUNKS, ch = (j % P_CHUNKS) / (FK / 4);
+        const int kc = j % (FK / 4);
+        cp_async16(sz + buf * Z_BYTES + (2 * plane + (kc >> 3)) * HALF_BYTES + ch * 128 +
+                       (((kc & 7) ^ (ch & 7)) << 4),
+                   zb + plane * lo_offset + ch * (long long)np + k0 + kc * 4);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the tensor cores truncate as they accumulate: each tile's product
+  // starts from zero in `part` and is added into `acc` on the CUDA cores
+  float acc[FR][4 * NT], part[FR][4 * NT];  // [n-tile][row g: 2, g+8: 2]
+#pragma unroll
+  for (int fr = 0; fr < FR; ++fr)
+#pragma unroll
+    for (int e = 0; e < 4 * NT; ++e) acc[fr][e] = 0.f;
+
+  const int n_tiles = np / FK;
+  load_tile(0, 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_key_feats(sF, fb, sf, k0, n);
-    for (int i = threadIdx.x; i < BK * CP; i += blockDim.x) {
-      const int j = i / CP, ch = i - j * CP;
-      sZ[j][ch] = (k0 + j < n && ch < cc) ? zb[(k0 + j) * sz.n + ch] : 0.f;
+    const int buf = kt & 1;
+    if (kt + 1 < n_tiles) {
+      load_tile(kt + 1, buf ^ 1);  // its buffer was released at the end of kt - 1
+      cp_async_wait<1>();          // tile kt has landed, kt + 1 may be in flight
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    const int kn = min(BK, n - k0);  // keys past n are not visited
-    for (int j = 0; j < kn; ++j) {
-      float d = 0.f;
+    // the value tile is read by the tensor cores' (asynchronous) path
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt is visible to every warp
+    const uint32_t zdesc = smem_u32(sz + buf * Z_BYTES);
+    // descriptor of plane pl (0 hi, 1 lo) at k-step ks
+    auto desc = [&](int pl, int ks) {
+      return smem_desc(zdesc + (2 * pl + (ks >> 2)) * HALF_BYTES) + 2 * (ks & 3);
+    };
+
+    // P of two consecutive groups of F_GROUP 8-key steps: one feeds the tensor cores
+    uint32_t pa[2][F_GROUP][FR][2][4];  // [group parity][step][fr][hi, lo][A fragment register]
 #pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const float diff = fq[f] - sF[f][j];
-        d = fmaf(diff, diff, d);
-      }
-      const float p = expf(-0.5f * d);
+    for (int kg = 0; kg < FK / 8 / F_GROUP; ++kg) {
 #pragma unroll
-      for (int ch = 0; ch < CP; ch += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&sZ[j][ch]);
-        acc[ch] = fmaf(p, v.x, acc[ch]);
-        acc[ch + 1] = fmaf(p, v.y, acc[ch + 1]);
-        acc[ch + 2] = fmaf(p, v.z, acc[ch + 2]);
-        acc[ch + 3] = fmaf(p, v.w, acc[ch + 3]);
+      for (int sub = 0; sub < F_GROUP; ++sub) {
+        const int j = (kg * F_GROUP + sub) * 8 + t * 2;
+        float2 fk[NF];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) fk[f] = *reinterpret_cast<const float2*>(&sF[buf][f][j]);
+#pragma unroll
+        for (int fr = 0; fr < FR; ++fr)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float d0 = 0.f, d1 = 0.f;  // -|f_i - f_j|^2 (scaled) for keys j, j + 1
+#pragma unroll
+            for (int f = 0; f < NF; ++f) {
+              const float a0 = fq[fr][r][f] - fk[f].x, a1 = fq[fr][r][f] - fk[f].y;
+              d0 = fmaf(-a0, a0, d0);
+              d1 = fmaf(-a1, a1, d1);
+            }
+            // register r: row g + 8 r at slot t (key 2 t); register 2 + r: slot t + 4 (key 2 t + 1)
+            uint32_t (&p)[2][4] = pa[kg & 1][sub][fr];
+            split_tf32(ex2_approx(d0), p[0][r], p[1][r]);
+            split_tf32(ex2_approx(d1), p[0][2 + r], p[1][2 + r]);
+          }
       }
+      // the products of this group run while the next group's entries are computed
+#pragma unroll
+      for (int fr = 0; fr < FR; ++fr) fence_regs(part[fr]);
+      wgmma_fence();
+#pragma unroll
+      for (int sub = 0; sub < F_GROUP; ++sub) {
+        const int ks = kg * F_GROUP + sub;
+#pragma unroll
+        for (int fr = 0; fr < FR; ++fr) {
+          const uint32_t (&p)[2][4] = pa[kg & 1][sub][fr];
+          wgmma_tf32<NT>(part[fr], p[0], desc(0, ks), ks > 0);
+          wgmma_tf32<NT>(part[fr], p[0], desc(1, ks), 1);
+          wgmma_tf32<NT>(part[fr], p[1], desc(0, ks), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the group before this one is done with its P registers
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int fr = 0; fr < FR; ++fr) {
+      fence_regs(part[fr]);
+#pragma unroll
+      for (int e = 0; e < 4 * NT; ++e) acc[fr][e] += part[fr][e];
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
   }
-  if (row >= n) return;
-  float* orow = out + b * so.b + row * so.n + c0;
+
+  // accumulator: acc[..][4 dn + {0,1}] = row g, channels dn*8 + 2t + {0,1}; [+2, +3] = row g+8
+  const int cc = min(CP, c - c0);  // real channels of this chunk
 #pragma unroll
-  for (int ch = 0; ch < CP; ++ch)
-    if (ch < cc) orow[ch] = acc[ch];
+  for (int fr = 0; fr < FR; ++fr)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + fr * 64 + r * 8;
+      if (row >= n) continue;
+      float* orow = out + b * so.b + row * so.n + c0;
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ch = dn * 8 + t * 2 + e;
+          if (ch < cc) orow[ch] = acc[fr][4 * dn + 2 * r + e];
+        }
+    }
 }
 
 template <int NT>
@@ -540,10 +811,16 @@ void launch_bf16(const float* ft, const __nv_bfloat16* zt, __nv_bfloat16* out,
 }
 
 template <int NT>
-void launch_f32(const float* feats, const float* z, float* out, Strides sf,
-                Strides sz, Strides so, int batch, int n, int c, cudaStream_t st) {
-  const dim3 grid((n + F_BQ - 1) / F_BQ, (c + NT * 8 - 1) / (NT * 8), batch);
-  bilateral_f32_kernel<NT><<<grid, F_BQ, 0, st>>>(feats, z, out, sf, sz, so, n, c);
+void launch_f32(const float* ft, const float* zt, float* out, const Packed& p, Strides so,
+                int batch, int n, int c, cudaStream_t st) {
+  // per launch: the attribute belongs to the current device
+  if (cudaFuncSetAttribute(bilateral_f32_rows_kernel<NT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           f32_smem_bytes(NT)) != cudaSuccess)
+    return;  // the launch below then fails and cudaGetLastError() reports it
+  const dim3 grid((p.np + RQ - 1) / RQ, p.cpad / p.cp, batch);
+  bilateral_f32_rows_kernel<NT><<<grid, 128, f32_smem_bytes(NT), st>>>(
+      ft, zt, out, static_cast<long long>(p.cpad) * p.np, p.plane, p.np, so, n, c);
 }
 
 // NT = min(8, ceil(c / 8)): the channel chunk CP = 8 NT
@@ -563,10 +840,10 @@ void launch_f32(const float* feats, const float* z, float* out, Strides sf,
 
 // The message entries take feats [B, N, 5] float32 and values / out [B, N, C]
 // in one dtype (bf16 or float32), with element strides (x_sb, x_sn) of image
-// and point and a contiguous last axis, and launch on `stream`. The bf16
-// entry and the degree entry (out [B, N, 1] float32 = K . 1) also take a
+// and point and a contiguous last axis, and launch on `stream`. Every
+// entry (the degree entry too: out [B, N, 1] float32 = K . 1) also takes a
 // device workspace of depthg_bilateral_workspace_bytes (mode 0: float32
-// message, none; 1: bf16 message; 2: degree). They return
+// message; 1: bf16 message; 2: degree) for its packed operands. They return
 // cudaErrorInvalidValue for a shape the grid cannot cover, else
 // cudaGetLastError() (0 = launched). Dtypes, devices and the contiguous last
 // axis are validated by the Python wrapper
@@ -577,8 +854,8 @@ static bool bad_shape(int batch, int n, int c) {
 }
 
 extern "C" long long depthg_bilateral_workspace_bytes(int batch, int n, int c, int mode) {
-  if (mode == 0 || bad_shape(batch, n, mode == 2 ? 1 : c)) return 0;
-  return packed_layout(batch, n, mode == 2 ? 0 : c).bytes;
+  if (mode < 0 || mode > 2 || bad_shape(batch, n, mode == 2 ? 1 : c)) return 0;
+  return packed_layout(batch, n, mode == 2 ? 0 : c, mode == 0 ? 8 : 2).bytes;
 }
 
 // packs feats (and values, when z is given) into the workspace; returns the values' half
@@ -603,7 +880,7 @@ extern "C" int depthg_bilateral_message_bf16(
   if (bad_shape(batch, n, c)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sf{f_sb, f_sn}, sz{z_sb, z_sn}, so{o_sb, o_sn};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Packed p = packed_layout(batch, n, c);
+  const Packed p = packed_layout(batch, n, c, 2);
   const __nv_bfloat16* zt = pack_operands(feats, z, workspace, p, sf, sz, batch, n, c, st);
   DEPTHG_DISPATCH_NT(c, launch_bf16, static_cast<const float*>(workspace), zt,
                      static_cast<__nv_bfloat16*>(out), p, so, batch, n, c, st)
@@ -616,7 +893,7 @@ extern "C" int depthg_bilateral_degree(
   if (bad_shape(batch, n, 1)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sf{f_sb, f_sn}, so{o_sb, o_sn};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Packed p = packed_layout(batch, n, 0);
+  const Packed p = packed_layout(batch, n, 0, 2);
   pack_operands(feats, nullptr, workspace, p, sf, sf, batch, n, 0, st);
   bilateral_rows_kernel<1, true>
       <<<dim3((p.np + RQ - 1) / RQ, 1, batch), 128, rows_smem_bytes(1, true), st>>>(
@@ -625,13 +902,18 @@ extern "C" int depthg_bilateral_degree(
 }
 
 extern "C" int depthg_bilateral_message_f32(
-    const void* feats, const void* z, void* out, void* /*workspace*/, long long f_sb,
+    const void* feats, const void* z, void* out, void* workspace, long long f_sb,
     long long f_sn, long long z_sb, long long z_sn, long long o_sb, long long o_sn,
     int batch, int n, int c, void* stream) {
   if (bad_shape(batch, n, c)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sf{f_sb, f_sn}, sz{z_sb, z_sn}, so{o_sb, o_sn};
-  DEPTHG_DISPATCH_NT(c, launch_f32, static_cast<const float*>(feats),
-                     static_cast<const float*>(z), static_cast<float*>(out), sf, sz, so,
-                     batch, n, c, static_cast<cudaStream_t>(stream))
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Packed p = packed_layout(batch, n, c, 8);
+  pack_operands(feats, nullptr, workspace, p, sf, sf, batch, n, 0, st);  // the features
+  float* zt = reinterpret_cast<float*>(static_cast<char*>(workspace) + p.feat_bytes);
+  pack_values_f32_kernel<<<dim3(p.np / PT, (p.cpad + PT - 1) / PT, batch), dim3(PT, 8), 0, st>>>(
+      static_cast<const float*>(z), zt, sz, n, c, p.np, p.cpad, p.plane);
+  DEPTHG_DISPATCH_NT(c, launch_f32, static_cast<const float*>(workspace), zt,
+                     static_cast<float*>(out), p, so, batch, n, c, st)
   return static_cast<int>(cudaGetLastError());
 }

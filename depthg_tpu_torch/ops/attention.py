@@ -20,7 +20,10 @@ the row max; what it holds at keys or rows >= n_valid is never used.
 
 What bounds the kernel on an H100 and what its design does about it is in
 the header of ``csrc/attention.cu`` (bf16: TMA loads, ``wgmma`` products,
-the softmax overlapped with them; float32: a plain FMA kernel). The kernel's
+the softmax overlapped with them; float32: the same shape on split TF32
+operands, hi + lo, three ``wgmma`` products each, after a pack kernel that
+writes k and v split into a workspace the wrapper allocates with the size
+``depthg_attention_workspace_bytes`` gives). The bf16 kernel's
 entry makes its TMA tensor maps from the pointers and strides it is given, so
 a view needs a 16-byte aligned base and positive strides that are multiples
 of 16 bytes. The kernel reads a bias in pairs of adjacent keys, so a bias
@@ -34,12 +37,14 @@ wrappers here:
 * CPU tensor -> ``attention_plain``, the eager version of the same math.
 * ``KERNEL.launches`` counts kernel launches (one per call, all heads and
   images, with or without a bias), so a run can show that it went through
-  the kernel; ``KERNEL.bias_launches`` counts those that carried a bias.
+  the kernel; ``KERNEL.bias_launches`` counts those that carried a bias,
+  ``KERNEL.f32_launches`` those of the float32 kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -54,19 +59,25 @@ class _AttentionKernel:
     def __init__(self):
         self.launches = 0
         self.bias_launches = 0
-        self._fn = None
+        self.f32_launches = 0
+        self._fns = None
 
     def fn(self):
-        if self._fn is None:
-            fn = _build.load("attention").depthg_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                           + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                              ctypes.c_int]
-                           + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                   ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        """The entries of ``csrc/attention.cu``: ``fwd`` and ``workspace_bytes``."""
+        if self._fns is None:
+            lib = _build.load("attention")
+            fwd = lib.depthg_attention_fwd
+            fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                               ctypes.c_int]
+                            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                    ctypes.c_void_p, ctypes.c_void_p])
+            fwd.restype = ctypes.c_int
+            ws = lib.depthg_attention_workspace_bytes
+            ws.argtypes = [ctypes.c_int] * 4
+            ws.restype = ctypes.c_longlong
+            self._fns = types.SimpleNamespace(fwd=fwd, workspace_bytes=ws)
+        return self._fns
 
 
 KERNEL = _AttentionKernel()
@@ -162,13 +173,19 @@ def _launch(q, k, v, out, scale: float, nv: int, bias=None):
     b, h, n, _ = q.shape
     if n >= 2 ** 31 // 2:
         raise ValueError(f"sequence too long for the kernel: {n}")
-    fn = KERNEL.fn()
+    fns = KERNEL.fn()
+    bf16 = q.dtype == torch.bfloat16
+    # the float32 kernel's split k and v (their layout is the kernel's own);
+    # freed on return, the memory is reused only by work queued after the
+    # kernel on this stream
+    ws = torch.empty(fns.workspace_bytes(b, h, nv, int(bf16)), dtype=torch.uint8,
+                     device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], *bias_args, b, h, n, nv, float(scale),
-                 int(q.dtype == torch.bfloat16), stream)
+        err = fns.fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                      *out.stride()[:3], *bias_args, b, h, n, nv, float(scale),
+                      int(bf16), ws.data_ptr() or None, stream)
     if err == 10000:
         raise RuntimeError("attention kernel: libcuda.so.1 has no "
                            "cuTensorMapEncodeTiled (or could not be loaded)")
@@ -179,6 +196,7 @@ def _launch(q, k, v, out, scale: float, nv: int, bias=None):
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     KERNEL.launches += 1
     KERNEL.bias_launches += bias is not None
+    KERNEL.f32_launches += not bf16
     return out
 
 

@@ -22,7 +22,9 @@ carries ~1e-3 of noise per entry that the port does not.
 With bfloat16 values the kernel entries are rounded to bfloat16 as the
 operand of the value product (tensor cores in the kernel; an explicit cast
 in the plain version), as the JAX package's tile is returned in the values'
-dtype. With float32 values everything stays float32.
+dtype. With float32 values the kernel takes the product on the tensor cores
+as split TF32 (entry and value each hi + lo, three products: ~21 bits, held
+to float32's limits), the plain version in float32.
 
 * CUDA tensor -> the kernel ``csrc/crf_bilateral.cu``, or an exception (bad
   shape, dtype, build or launch). There is no fallback.
@@ -30,12 +32,13 @@ dtype. With float32 values everything stays float32.
 * ``bilateral_degree`` is K @ 1 in float32 (the CRF's normalizer, once per
   call): the kernel's degree entry on CUDA tensors (row sums of the entries,
   no value product), the plain version on ones on the CPU.
-* ``KERNEL.launches`` counts kernel launches (one per call, whole batch).
+* ``KERNEL.launches`` counts kernel launches (one per call, whole batch);
+  ``KERNEL.f32_launches`` those of the float32 message.
 
 The TPU forms are not ported: the unrolled symmetric diagonals, the
 +inf/-1e30 padding of the features and the VMEM budget check. Any N is
 taken: the kernels read the caller's [B, N, *] tensors through their
-strides and handle the ragged edge themselves (the bf16 entry packs its
+strides and handle the ragged edge themselves (each entry packs its
 operands into a workspace whose size and layout ``csrc/crf_bilateral.cu``
 alone knows).
 """
@@ -60,6 +63,7 @@ class _BilateralKernel:
 
     def __init__(self):
         self.launches = 0
+        self.f32_launches = 0
         self._fns = None
 
     def fn(self):
@@ -137,7 +141,7 @@ def _check(feats, values):
 
 
 # workspace modes of ``depthg_bilateral_workspace_bytes``
-_WS_NONE, _WS_MESSAGE, _WS_DEGREE = 0, 1, 2
+_WS_F32, _WS_BF16, _WS_DEGREE = 0, 1, 2
 
 
 def _launch(feats, values, out):
@@ -156,10 +160,10 @@ def _launch(feats, values, out):
     fns = KERNEL.fn()
     bf16 = values.dtype == torch.bfloat16
     entry = fns.bf16 if bf16 else fns.f32
-    # the bf16 kernel's packed operands (their layout is the kernel's own);
+    # the kernel's packed operands (their layout is the kernel's own);
     # freed on return, the memory is reused only by work queued after the
     # kernel on this stream
-    ws = torch.empty(fns.workspace_bytes(b, n, c, _WS_MESSAGE if bf16 else _WS_NONE),
+    ws = torch.empty(fns.workspace_bytes(b, n, c, _WS_BF16 if bf16 else _WS_F32),
                      dtype=torch.uint8, device=values.device)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
@@ -171,6 +175,7 @@ def _launch(feats, values, out):
         raise RuntimeError(f"bilateral kernel launch failed for {tuple(values.shape)}: "
                            f"CUDA error {err}")
     KERNEL.launches += 1
+    KERNEL.f32_launches += not bf16
     return out
 
 

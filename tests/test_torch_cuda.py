@@ -22,7 +22,11 @@ and one float32 train step on the card vs the CPU. The serving slice adds
 the kernel at the serving buckets' and the KNN embedding's shapes, a served
 round trip over HTTP and the KNN's top-k against float64. The depth slice
 adds the per-head logit bias (BEiT) at the ZoeDepth shapes and small
-ZoeDepth and DPT_Large models on the card against the CPU.
+ZoeDepth and DPT_Large models on the card against the CPU. The float32
+bodies of both kernels (split TF32 on the tensor cores) are also held to
+the CPU emulation of their arithmetic in ``tests/test_torch_f32_split.py``
+(run here on the card's tensors; that file imports JAX only inside its
+comparisons), within the same limits.
 """
 
 import pytest
@@ -31,6 +35,7 @@ import torch
 from depthg_tpu_torch.ops import attention as tatt
 from depthg_tpu_torch.ops import crf as tcrf
 from depthg_tpu_torch.ops import crf_bilateral as tbil
+from test_torch_f32_split import emulate_attention, emulate_bilateral
 
 pytestmark = pytest.mark.cuda
 
@@ -581,3 +586,116 @@ def test_topk_neighbors_on_the_card(cuda, monkeypatch):
     assert (low[:, 0] == np.arange(5000)).all()
     assert float((torch.from_numpy(low).long() == ref).float().mean()) > 0.9
     assert runtime.tf32_off()
+
+
+# ---------------------------------------------------------------- float32 bodies (split TF32)
+
+
+def _f32_attention_case(b, n, heads, n_valid, seed):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * 64 * heads, generator=gen)
+    qkv[:, n_valid:] = 0.0
+    return qkv
+
+
+@pytest.mark.parametrize("b,n,n_valid", [(2, 1, 1), (2, 77, 77), (2, 769, 769), (2, 785, 785),
+                                         (2, 1601, 1601), (2, 1664, 1601), (3, 785, 700)])
+def test_attention_f32_kernel_matches_plain_and_emulation(cuda, b, n, n_valid):
+    """The float32 kernel at one key (N=1), a short N, the ZoeDepth, train/KNN
+    and eval N, and n_valid < N: against the plain version and against the
+    emulation of its own arithmetic; padded rows exactly 0."""
+    qkv = _f32_attention_case(b, n, 6, n_valid, seed=n).to(cuda)
+    before, before_f32 = tatt.KERNEL.launches, tatt.KERNEL.f32_launches
+    out = tatt.attention_qkv(qkv, 6, 0.125, n_valid)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == before + 1 and tatt.KERNEL.f32_launches == before_f32 + 1
+    q, k, v = tatt.split_qkv(qkv, 6)
+    ref = tatt.attention_plain(q, k, v, 0.125, n_valid).permute(0, 2, 1, 3).reshape(out.shape)
+    _assert_close(out, ref, torch.float32)
+    emu = emulate_attention(q, k, v, 0.125, n_valid).permute(0, 2, 1, 3).reshape(out.shape)
+    _assert_close(out, emu, torch.float32)
+    assert torch.all(out[:, n_valid:] == 0)
+
+
+def test_attention_f32_kernel_strided_operands_and_inf_past_n_valid(cuda):
+    """q, k and v as views of three larger buffers (other batch, head and row
+    strides than the packed layout), inf in k and v past n_valid and NaN in
+    the buffers' unused rows: read through their strides, nothing past
+    n_valid has influence."""
+    gen = torch.Generator().manual_seed(31)
+    bufs = [torch.randn(3, 8, 800, 64, generator=gen).to(cuda) for _ in range(3)]
+    for t in bufs:
+        t[:, :, 770:] = float("nan")
+    q, k, v = (t[:2, 1:7, :769] for t in bufs)
+    out = torch.empty(2, 6, 769, 64, device=cuda)
+    tatt._launch(q, k, v, out, 0.125, 700)
+    ref = tatt.attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), 0.125, 700)
+    _assert_close(out, ref, torch.float32)
+    _assert_close(out, emulate_attention(q, k, v, 0.125, 700), torch.float32)
+    k[:, :, 700:] = float("inf")
+    v[:, :, 700:] = float("inf")
+    again = torch.empty_like(out)
+    tatt._launch(q, k, v, again, 0.125, 700)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(again, out, rtol=0, atol=0)
+    assert torch.all(out[:, :, 700:] == 0)
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_attention_f32_kernel_with_bias_n_valid_700(cuda, bias_dtype):
+    """float32 q/k/v with BEiT's [16, 769, 769] bias in either dtype at
+    n_valid=700: plain version and emulation."""
+    qkv = _f32_attention_case(2, 769, 16, 700, seed=41).to(cuda)
+    bias = _padded_bias(16, 769, bias_dtype, 42, scale=2.0)
+    before = tatt.KERNEL.bias_launches
+    out = tatt.attention_qkv(qkv, 16, 0.125, 700, bias=bias)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.bias_launches == before + 1
+    q, k, v = tatt.split_qkv(qkv, 16)
+    ref = tatt.attention_plain(q, k, v, 0.125, 700, bias=bias).permute(0, 2, 1, 3)
+    _assert_close(out, ref.reshape(out.shape), torch.float32)
+    emu = emulate_attention(q, k, v, 0.125, 700, bias).permute(0, 2, 1, 3)
+    _assert_close(out, emu.reshape(out.shape), torch.float32)
+    assert torch.all(out[:, 700:] == 0)
+
+
+def test_attention_workspace_sizes(cuda):
+    """The float32 entry's workspace: 64 KB per key tile of 64 per (image,
+    head); none for bf16."""
+    fns = tatt.KERNEL.fn()
+    assert fns.workspace_bytes(128, 6, 785, 0) == 128 * 6 * 13 * 65536
+    assert fns.workspace_bytes(2, 16, 700, 0) == 2 * 16 * 11 * 65536
+    assert fns.workspace_bytes(16, 6, 1601, 1) == 0
+
+
+@pytest.mark.parametrize("c", [1, 8, 27, 54, 70])
+def test_bilateral_f32_kernel_matches_plain_and_emulation(cuda, c):
+    """The split-TF32 float32 message at every channel count the CRF uses
+    (C = 70: a second channel chunk), N=1000 (a ragged key tile)."""
+    feats, values = _bilateral_inputs(2, 1000, c, torch.float32, seed=c)
+    feats, values = feats.to(cuda), values.to(cuda)
+    before, before_f32 = tbil.KERNEL.launches, tbil.KERNEL.f32_launches
+    out = tbil.bilateral_message(feats, values)
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.launches == before + 1 and tbil.KERNEL.f32_launches == before_f32 + 1
+    _assert_k4_close(out, tbil.bilateral_message_plain(feats, values), torch.float32)
+    _assert_k4_close(out, emulate_bilateral(feats, values), torch.float32)
+
+
+def test_bilateral_f32_kernel_ragged_scene_size(cuda):
+    """N = 25,563 (the ds=2 scene size with a ragged edge), C=54, through
+    views of buffers that are NaN past N: plain version and emulation, and
+    nothing written past N."""
+    n, pad = 25_563, 37
+    feats, values = _bilateral_inputs(1, n + pad, 54, torch.float32, seed=5)
+    feats[..., :2] *= 12.0  # positions over ~60 sigmas, like a 160 x 160 grid
+    feats, values = feats.to(cuda), values.to(cuda)
+    ref = tbil.bilateral_message_plain(feats[:, :n].contiguous(), values[:, :n].contiguous())
+    emu = emulate_bilateral(feats[:, :n], values[:, :n])
+    feats[:, n:], values[:, n:] = float("nan"), float("nan")
+    out = torch.full_like(values, 7.0)
+    tbil._launch(feats[:, :n], values[:, :n], out[:, :n])
+    torch.cuda.synchronize()
+    _assert_k4_close(out[:, :n], ref, torch.float32)
+    _assert_k4_close(out[:, :n], emu, torch.float32)
+    assert torch.all(out[:, n:] == 7.0)
