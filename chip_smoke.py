@@ -29,7 +29,8 @@ final line):
    past n_valid=700 without influence, an odd row stride refused, times
    through ``attention_qkv``, queued and alone, without the bias, the
    library call with the bias as its ``attn_mask``, the plain version, and
-   the bound with the bias bytes;
+   the bound with the bias bytes; also float32 B=1 at 480 x 640 (N=1201,
+   the bias [16, 1201, 1208]: the fine-tune's validation);
 4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
    two fidelity scenes: N=25,600 (ds=2), C=54, B=2 in f32 and bf16, a
    ragged N=25,563 read through views of a NaN-padded buffer, and the
@@ -121,7 +122,29 @@ final line):
     depth, relative error), then one 384 x 512 image in float32 through K1
     on the card vs the CPU's plain path at 4 of the 24 blocks (metric depth
     within 1e-4 relative);
-14. the total time, the kernels JSON line (each kernel's float32 figures
+14. fine-tune path: ``finetune_zoedepth.main`` at full width (random
+    float32 ZoeDepth from seed 0, TF32 off) on a synthetic NYU layout of 8
+    training and 4 evaluation pairs at 640 x 480: 4 steps at batch 4 (the
+    reference's 16 would hold ~106 GB of eager float32 attention alone),
+    validation after steps 2 and 4 and at the end; no K1 launch in a
+    training step (the kernel has no backward: eager attention), 24 float32
+    K1 launches with the bias per validation image (N=1201), finite
+    losses, the nine metrics, ``latest.pt`` / ``best.pt`` through
+    ``load_zoedepth_pt`` giving the depth of the weights they were written
+    from; ms per step on CUDA events and the host clock, ms per validation
+    image, peak memory; then one float32 loss and backward at 4 of the 24
+    blocks on 2 x 192 x 256 on the card vs the CPU: the loss and all
+    gradients together within 1e-4 relative, every gradient tensor within
+    1e-4 of the CPU's float64
+    gradient beyond the CPU's own float32 error (SILog's gradient nearly
+    cancels in the decoder's output convolutions: any float32 run is
+    ~2.5e-3 off float64 there). Phase 3 holds K1 float32 with the bias
+    at that validation's shape (B=1, N=1201, the bias [16, 1201, 1208]);
+15. NK path: full-width ZoeDepth-NK (``get_config("zoedepth_nk")``,
+    LayerScale 0.1, random weights), one 384 x 512 batch of 2 through K1
+    (24 launches with the bias) vs the eager softmax on the card: bf16
+    within 3e-2, float32 within 1e-4 relative, the same domain both ways;
+16. the total time, the kernels JSON line (each kernel's float32 figures
     and float32 launches per path among them), the card line and the final
     JSON line.
 """
@@ -129,6 +152,7 @@ final line):
 import copy
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -173,10 +197,16 @@ TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 5e-3)}
 CRF_REF = (69.67, 84.08)  # docs/CRF_FIDELITY.md:33 (mIoU, accuracy), +-0.2
 LATTICE_REF = 98.60  # the same row's label agreement with the lattice (%), +-0.2
 # K1 with BEiT-L's relative-position bias at ZoeDepth's 384 x 512 input: a
-# 24 x 32 patch grid plus cls, 16 heads of 64; (dtype, batch) cases: bf16 at
-# the tails' B=1, --batch_size 8 and 16, float32 (the parity mode) at B=2
+# 24 x 32 patch grid plus cls, 16 heads of 64; (dtype, batch, grid) cases:
+# bf16 at the tails' B=1, ZoeDepth-NK's B=2, --batch_size 8 and 16, float32 (the parity mode)
+# at B=2, and float32 B=1 at NYU's 480 x 640 (30 x 40 + 1 = 1201 tokens: the
+# fine-tune's validation, one image at a time; the bias [16, 1201, 1208])
 BIAS_N, BIAS_HEADS, BIAS_DIM, BIAS_GRID = 769, 16, 1024, (24, 32)
-BIAS_CASES = ((torch.bfloat16, 1), (torch.bfloat16, 8), (torch.bfloat16, 16), (torch.float32, 2))
+FT_GRID = (30, 40)
+BIAS_CASES = ((torch.bfloat16, 1, BIAS_GRID), (torch.bfloat16, 2, BIAS_GRID),
+              (torch.bfloat16, 8, BIAS_GRID),
+              (torch.bfloat16, 16, BIAS_GRID), (torch.float32, 2, BIAS_GRID),
+              (torch.float32, 1, FT_GRID))
 BIAS_N_VALID = 700
 # depth generation: 8 images of 640 x 480 (one 384 x 512 bucket, one batch
 # of 8), 2 of 480 x 640 (512 x 384) and 1 of 400 x 400 (384 x 384)
@@ -185,6 +215,17 @@ DEPTH_BATCHES = 3
 # full-width bf16 forward through K1 vs the eager softmax on the card, and
 # float32 on the card vs the CPU (relative error of the metric depth)
 DEPTH_KERNEL_VS_EAGER_TOL, DEPTH_CARD_VS_CPU_TOL = 3e-2, 1e-4
+# ZoeDepth-NK through K1 vs the eager softmax on the card: relative errors of
+# BEiT's four taps and of the metric depth. Set from the readings of a run
+# beside a control that drops the bias (NVIDIA H100 80GB HBM3, 700.00 W):
+# bf16 taps 3.1e-3, 5.2e-3, 6.9e-3, 8.4e-3, the control 1.41e-2, 1.99e-2,
+# 2.42e-2, 2.75e-2 (each limit near the geometric mean of the two); float32
+# taps <= 6.4e-7, the control >= 1.19e-2. The metric depth cannot see the
+# bias in bf16 (7.1e-5 with it, 7.0e-5 without; the limit is the depth
+# phase's 3e-2); in float32 2.3e-8 with it, 5.5e-6 without
+NK_TOL = {"bf16": {"taps": (6.5e-3, 1e-2, 1.3e-2, 1.5e-2),
+                   "metric_depth": DEPTH_KERNEL_VS_EAGER_TOL},
+          "f32": {"taps": (1e-4,) * 4, "metric_depth": 1e-6}}
 # K4 vs plain: dtype -> (relative error, max abs error / max |ref|), as in
 # tests/test_torch_cuda.py; in bf16 both sides round float32 sums to bf16
 # and may land one bf16 step (<= 2^-7 of the value) apart. At
@@ -194,6 +235,13 @@ K4_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-3, 1e-2)}
 K4_TOL_EXACT = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (5e-3, 1e-2)}
 # fidelity rows run besides the default: (name in the port's study, K4
 # launches per run: the exact CRF streams, the others cache)
+# the fine-tune path: 8 training and 4 evaluation pairs at 640 x 480, batch
+# 4 (the reference's 16 would hold ~106 GB of eager float32 attention), 4
+# steps, validation after steps 2 and 4 (validate_every=1.0 of an epoch of
+# 2 steps) and at the end
+FT_TRAIN_IMAGES, FT_EVAL_IMAGES, FT_BATCH, FT_STEPS, FT_VALIDATIONS = 8, 4, 4, 4, 3
+FT_METRICS = ("a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel")
+FT_CARD_VS_CPU_TOL = 1e-4
 FIDELITY_ROWS = [("exact (ds=1)", 11), ("ds=2 legacy", 0), ("ds=4 mixed bf16", 0),
                  ("ds=4 jbu2 sf1.41 bf16 (quality+)", 0)]
 
@@ -1274,14 +1322,17 @@ def attention_bias_phase(att, beit, gen):
     as its ``attn_mask``, the plain version, and the bound."""
     import torch.nn.functional as F
 
-    n, h = BIAS_N, BIAS_HEADS
+    h = BIAS_HEADS
     # a random table through the BEiT module's own builder: the 47 x 47
     # pretraining table resized to the 47 x 63 window, as [16, 769, 776]
+    # (59 x 79 at 480 x 640: [16, 1201, 1208])
     table = torch.randn((2 * 24 - 1) ** 2 + 3, h, device="cuda", generator=gen)
     rows = {}
-    for dtype, b in BIAS_CASES:
-        name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_b{b}"
-        bias = beit.relative_position_bias(table.to(dtype), 24, *BIAS_GRID)
+    for dtype, b, grid in BIAS_CASES:
+        n = grid[0] * grid[1] + 1
+        name = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_b{b}"
+                + ("" if n == BIAS_N else f"_n{n}"))
+        bias = beit.relative_position_bias(table.to(dtype), 24, *grid)
         if bias.shape != (h, n, n) or bias.stride(1) % 8:
             raise AssertionError(f"the BEiT bias builder gave {bias.shape}, {bias.stride()}")
         base = torch.randn(b, n, 3 * BIAS_DIM, device="cuda", generator=gen)
@@ -1305,7 +1356,7 @@ def attention_bias_phase(att, beit, gen):
             raise AssertionError(f"the bias did not act: {moved}")
         # keys and rows past n_valid: +1e4 in the bias there changes nothing
         masked = att.attention_qkv(inputs[0], h, SCALE, BIAS_N_VALID, bias=bias)
-        poisoned = beit.relative_position_bias(table.to(dtype), 24, *BIAS_GRID)
+        poisoned = beit.relative_position_bias(table.to(dtype), 24, *grid)
         poisoned[:, :, BIAS_N_VALID:] = 1e4
         poisoned[:, BIAS_N_VALID:] = 1e4
         torch.cuda.synchronize()
@@ -1558,6 +1609,323 @@ def depth_numerics_phase(att):
     return {"tap_rel_err": tap_err, "depth_rel_err": depth_err, "card_vs_cpu": card_err}
 
 
+def write_nyu_layout(root, n_train, n_eval, hw=(480, 640), seed=0):
+    """A synthetic NYU-layout folder as ``tests/test_zoedepth_data.py``
+    writes one: random RGB PNGs and 16-bit depth PNGs in millimetres
+    (0.5-9 m), ``rgb/i.png gt/i.png 518.8579`` lines; the first ``n_train``
+    pairs listed in ``train.txt``, the next ``n_eval`` in ``eval.txt``."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("rgb", "gt"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    lines = []
+    for i in range(n_train + n_eval):
+        Image.fromarray(rng.integers(0, 255, (*hw, 3), dtype=np.uint8)).save(
+            os.path.join(root, "rgb", f"{i}.png"))
+        depth = rng.uniform(0.5, 9.0, hw) * 1000.0
+        Image.fromarray(depth.astype(np.uint16)).save(os.path.join(root, "gt", f"{i}.png"))
+        lines.append(f"rgb/{i}.png gt/{i}.png 518.8579")
+    files = []
+    for name, part in (("train.txt", lines[:n_train]), ("eval.txt", lines[n_train:])):
+        files.append(os.path.join(root, name))
+        with open(files[-1], "w") as f:
+            f.write("\n".join(part))
+    return files
+
+
+def finetune_path_phase(att, bil, tmp):
+    """``finetune_zoedepth.main`` at full width (random float32 ZoeDepth from
+    seed 0, TF32 off) on a synthetic NYU layout: 4 steps at batch 4 (the
+    reference's 16 would hold ~106 GB of eager float32 attention alone),
+    validation after steps 2 and 4 and at the end on 4 images each. Checks:
+    no K1 launch in a training step (eager attention: the kernel has no
+    backward), 24 float32 K1 launches with the bias per validation image,
+    finite losses, the nine metrics, ``latest.pt`` and ``best.pt`` through
+    ``load_zoedepth_pt`` giving the depth of the model they were saved from.
+    Times: ms per step on CUDA events and the host clock, ms per validation
+    image, peak memory. Then one float32 loss and backward at 4 of the 24
+    blocks on 2 x 192 x 256 from the same weights on the card and the CPU
+    (``finetune_card_vs_cpu``)."""
+    from depthg_tpu_torch import finetune_zoedepth as cli
+    from depthg_tpu_torch.models.zoedepth import finetune
+    from depthg_tpu_torch.models.zoedepth.convert import load_zoedepth_pt
+
+    root = os.path.join(tmp, "nyu")
+    train_file, eval_file = write_nyu_layout(root, FT_TRAIN_IMAGES, FT_EVAL_IMAGES)
+    out_dir = os.path.join(tmp, "finetune_out")
+    seen = {"steps": [], "val_images": 0, "val_launches": [0, 0, 0], "val_ms": 0.0, "depth": {}}
+    init_state, step, validate = finetune.init_state, finetune.finetune_step, cli.validate
+
+    def keep_state(model, ftcfg):
+        seen["state"] = init_state(model, ftcfg)
+        return seen["state"]
+
+    def timed_step(state, batch):
+        before = att.KERNEL.launches
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logs = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        seen["steps"].append({"ms": start.elapsed_time(stop),
+                              "host_ms": (time.perf_counter() - t0) * 1e3,
+                              "k1_launches": att.KERNEL.launches - before,
+                              "loss": float(logs["loss/total"])})
+        return logs
+
+    def timed_validate(model, dcfg, test_set, spec, limit=0):
+        counts = (att.KERNEL.launches, att.KERNEL.bias_launches, att.KERNEL.f32_launches)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = validate(model, dcfg, test_set, spec, limit)
+        stop.record()
+        torch.cuda.synchronize()
+        seen["val_ms"] += start.elapsed_time(stop)
+        seen["val_images"] += min(limit, len(test_set)) if limit else len(test_set)
+        for i, c in enumerate((att.KERNEL.launches, att.KERNEL.bias_launches,
+                               att.KERNEL.f32_launches)):
+            seen["val_launches"][i] += c - counts[i]
+        # the depth of the first evaluation image from the weights of this
+        # validation (a checkpoint written now holds them), eager: no launch
+        seen.setdefault("x", torch.from_numpy(test_set[0]["image"][None]).cuda())
+        with torch.no_grad():
+            seen["depth"][seen["state"].step] = model(seen["x"], attn_impl="xla")[
+                "metric_depth"].cpu()
+        return out
+
+    argv = [f"data_path={root}", f"gt_path={root}", f"data_path_eval={root}",
+            f"gt_path_eval={root}", f"filenames_file={train_file}",
+            f"filenames_file_eval={eval_file}", f"batch_size={FT_BATCH}",
+            f"max_steps={FT_STEPS}", f"eval_limit={FT_EVAL_IMAGES}", "validate_every=1.0",
+            "log_every=1", f"output_dir={out_dir}", "device=cuda", "seed=0"]
+    finetune.init_state, finetune.finetune_step, cli.validate = keep_state, timed_step, timed_validate
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.KERNEL.launches = att.KERNEL.bias_launches = att.KERNEL.f32_launches = 0
+        bil.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (att.KERNEL.launches, att.KERNEL.bias_launches, att.KERNEL.f32_launches,
+                    bil.KERNEL.launches)
+    finally:
+        finetune.init_state, finetune.finetune_step, cli.validate = init_state, step, validate
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = seen["state"]
+    expected = FT_VALIDATIONS * FT_EVAL_IMAGES * 24
+    if (len(seen["steps"]) != FT_STEPS or any(s["k1_launches"] for s in seen["steps"])
+            or seen["val_images"] != FT_VALIDATIONS * FT_EVAL_IMAGES
+            or seen["val_launches"] != [expected] * 3 or launches != (expected,) * 3 + (0,)):
+        raise AssertionError(f"fine-tune: {seen['steps']} steps; validation over "
+                             f"{seen['val_images']} images, K1 launches (all, bias, f32) "
+                             f"{seen['val_launches']}; run {launches}")
+    losses = [s["loss"] for s in seen["steps"]]
+    final = result["final"]
+    if not all(math.isfinite(v) for v in losses) or sorted(final) != sorted(FT_METRICS) or not all(
+            math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"fine-tune: losses {losses}, metrics {final}")
+    # both checkpoints back through the released-layout loader
+    loaded = {}
+    for name in ("latest.pt", "best.pt"):
+        blob = torch.load(os.path.join(out_dir, name), map_location="cpu", weights_only=False,
+                          mmap=True)
+        model = load_zoedepth_pt(os.path.join(out_dir, name)).cuda()
+        with torch.no_grad():
+            depth = model(seen["x"], attn_impl="xla")["metric_depth"].cpu()
+        ref = seen["depth"][blob["step"]]
+        err = ((depth - ref).norm() / ref.norm()).item()
+        loaded[name] = {"step": blob["step"], "rel_err": err}
+        if err > 1e-6:
+            raise AssertionError(f"{name} (step {blob['step']}): depth {err} from the model's")
+        del model
+    if loaded["latest.pt"]["step"] != FT_STEPS:
+        raise AssertionError(f"latest.pt holds step {loaded['latest.pt']['step']}")
+    del state, seen["state"]
+    torch.cuda.empty_cache()
+    steps = seen["steps"][1:]  # the first carries the allocator's growth
+    results = {
+        "batch": FT_BATCH, "res": [480, 640], "tokens": FT_GRID[0] * FT_GRID[1] + 1,
+        "reference_batch": 16, "steps": FT_STEPS, "losses": losses,
+        "step_ms": [s["ms"] for s in steps], "step_host_ms": [s["host_ms"] for s in steps],
+        "first_step_ms": seen["steps"][0]["ms"],
+        "k1_launches_per_step": [s["k1_launches"] for s in seen["steps"]],
+        "validation_images": seen["val_images"],
+        "k1_f32_bias_launches_per_validation_image": seen["val_launches"][1] / seen["val_images"],
+        "validation_ms_per_image": seen["val_ms"] / seen["val_images"],
+        "main_seconds": seconds, "peak_mem_gb": peak, "metrics": final,
+        "checkpoints": loaded}
+    phase("finetune_path", **results)
+    results["card_vs_cpu"] = finetune_card_vs_cpu()
+    return results
+
+
+def finetune_card_vs_cpu():
+    """One float32 fine-tune loss and backward at 4 of the 24 blocks
+    (LayerScale 0.1, so attention shows) on 2 x 192 x 256, from the same
+    weights on the card and on the CPU (eager attention on both), each held
+    to the CPU's float64 gradient: the loss and all gradients as one
+    vector within 1e-4 relative of the CPU's, and each gradient tensor (by
+    norm) within 1e-4 of float64 beyond the CPU's own float32 error. The decoder's output convolutions sum
+    SILog's gradient over every pixel, where it nearly cancels (the loss is
+    scale invariant in log depth): there every float32 run, the CPU's too,
+    is ~2.5e-3 off float64 and two of them ~3e-4 apart."""
+    import dataclasses
+
+    from depthg_tpu_torch.models.zoedepth import ZoeConfig, ZoeDepth
+    from depthg_tpu_torch.models.zoedepth import finetune
+
+    base = ZoeConfig()
+    cfg = dataclasses.replace(base, beit=dataclasses.replace(
+        base.beit, depth=4, hooks=(0, 1, 2, 3), layer_scale_init=0.1))
+    gen = torch.Generator().manual_seed(11)
+    cpu = ZoeDepth(cfg).init_weights(gen)
+    batch = {"image": torch.rand(2, 3, 192, 256, generator=gen),
+             "depth": torch.rand(2, 1, 192, 256, generator=gen) * 8.5 + 0.5,
+             "mask": torch.rand(2, 1, 192, 256, generator=gen) > 0.2}
+    ftcfg = finetune.FinetuneConfig(total_steps=4)
+    losses, grads = {}, {}
+    t0 = time.perf_counter()
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu_f64", "cpu", torch.float64)):
+        model = copy.deepcopy(cpu).to(dev, dtype)
+        loss, _ = finetune.finetune_loss(model, {k: v.to(dev, dtype) if v.is_floating_point()
+                                                 else v.to(dev) for k, v in batch.items()}, ftcfg)
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()
+                       if p.grad is not None}
+        del model
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    exact = grads["cpu_f64"]
+    if not set(grads["card"]) == set(grads["cpu"]) == set(exact):
+        raise AssertionError("the card and the CPU give gradients for different parameters")
+
+    def err(side, k):
+        return ((grads[side][k] - exact[k]).norm() / max(exact[k].norm().item(), 1e-30)).item()
+
+    excess = sorted(((err("card", k) - err("cpu", k), k) for k in exact), reverse=True)
+    worst_card = max((err("card", k), k) for k in exact)
+    worst_cpu = max((err("cpu", k), k) for k in exact)
+    card_vs_cpu = max((((grads["card"][k] - grads["cpu"][k]).norm()
+                        / max(grads["cpu"][k].norm().item(), 1e-30)).item(), k) for k in exact)
+    global_err = math.sqrt(sum(((grads["card"][k] - grads["cpu"][k]) ** 2).sum().item()
+                               for k in exact) / sum((grads["cpu"][k] ** 2).sum().item()
+                                                     for k in exact))
+    phase("finetune_f32_card_vs_cpu", blocks=4, batch=2, res=[192, 256], layer_scale_init=0.1,
+          loss=losses, loss_rel_err=loss_err, worst_card_grad_vs_f64=worst_card,
+          worst_cpu_grad_vs_f64=worst_cpu, worst_card_excess_over_cpu=excess[0],
+          worst_card_vs_cpu=card_vs_cpu, all_grads_card_vs_cpu=global_err, seconds=cpu_s,
+          limit=FT_CARD_VS_CPU_TOL)
+    if (loss_err > FT_CARD_VS_CPU_TOL or excess[0][0] > FT_CARD_VS_CPU_TOL
+            or global_err > FT_CARD_VS_CPU_TOL):
+        raise AssertionError(f"fine-tune step on the card vs the CPU: loss {loss_err}, "
+                             f"gradient {excess[0]} beyond the CPU's float32 error")
+    del cpu, grads
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "worst_card_excess_over_cpu": excess[0][0],
+            "worst_card_vs_cpu": card_vs_cpu[0], "all_grads_card_vs_cpu": global_err}
+
+
+def nk_path_phase(att):
+    """Full-width ZoeDepth-NK (``get_config("zoedepth_nk")``, LayerScale 0.1,
+    random weights, the BEiT bias tables drawn at unit scale as in
+    ``attention_bias`` so that the bias moves each block's attention well
+    past bf16's rounding) on one 384 x 512 batch of 2: through K1 (with the
+    bias, 24 launches per forward) against the eager softmax on the card,
+    bf16 and float32: BEiT's four taps and the metric depth within
+    ``NK_TOL``, the same domain both ways, the relative depth finite (the
+    random MiDaS head ends below its ReLU: zero). A control runs K1 with the
+    bias dropped against the same eager result: it must fail every tap's
+    limit and float32's metric-depth limit, so they can see a kernel that is
+    wrong."""
+    import dataclasses
+
+    from depthg_tpu_torch.models.zoedepth import beit, nk
+    from depthg_tpu_torch.models.zoedepth.config import get_config
+
+    base = get_config("zoedepth_nk")
+    cfg = dataclasses.replace(base, beit=dataclasses.replace(base.beit, layer_scale_init=0.1))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.device("cuda"):
+        model = nk.ZoeDepthNK(cfg).init_weights(gen).eval()
+    encoder = model.core.core.pretrained.model
+    with torch.no_grad():
+        for blk in encoder.blocks:
+            blk.attn.relative_position_bias_table.normal_(generator=gen)
+    x = torch.rand(2, 3, 384, 512, device="cuda", generator=gen) * 2 - 1
+    kernel = beit.attention_qkv
+
+    def without_bias(qkv, num_heads, scale, n_valid=None, bias=None):
+        return kernel(qkv, num_heads, scale, n_valid)
+
+    def run(m, xd, impl):
+        taps = []
+        hook = encoder.register_forward_hook(lambda mod, args, out: taps.extend(out[0]))
+        try:
+            with torch.inference_mode():
+                out = m(xd, attn_impl=impl)
+        finally:
+            hook.remove()
+        return {"taps": [t.float() for t in taps], "rel_depth": out["rel_depth"].float(),
+                "metric_depth": out["metric_depth"].float(),
+                "domain": nk.domain_index(out["domain_logits"])}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def errors(got, ref):
+        return {"taps": [rel(a, b) for a, b in zip(got["taps"], ref["taps"])],
+                "metric_depth": rel(got["metric_depth"], ref["metric_depth"])}
+
+    results, failures = {}, []
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        m = model.to(dtype)
+        xd = x.to(dtype)
+        eager = run(m, xd, "xla")
+        att.KERNEL.launches = att.KERNEL.bias_launches = 0
+        fused = run(m, xd, "fused")
+        launches, bias_launches = att.KERNEL.launches, att.KERNEL.bias_launches
+        beit.attention_qkv = without_bias
+        try:
+            control = run(m, xd, "fused")
+        finally:
+            beit.attention_qkv = kernel
+        tol = NK_TOL[label]
+        err, ctl = errors(fused, eager), errors(control, eager)
+        results[label] = {"errors": err, "control_errors": ctl, "domain": fused["domain"],
+                          "k1_launches": launches, "k1_bias_launches": bias_launches,
+                          "limits": tol}
+        phase("nk_path", case=label, layer_scale_init=0.1, batch=2, res=[384, 512],
+              **results[label])
+        if (launches, bias_launches) != (24, 24):
+            failures.append(f"nk {label}: {launches} K1 launches ({bias_launches} with the "
+                            f"bias) per forward")
+        if (fused["domain"] != eager["domain"] or len(err["taps"]) != len(tol["taps"])
+                or not all(torch.isfinite(fused[k]).all() for k in ("rel_depth", "metric_depth"))
+                or not all(e <= t for e, t in zip(err["taps"], tol["taps"]))
+                or not err["metric_depth"] <= tol["metric_depth"]):
+            failures.append(f"nk {label}: domain {fused['domain']} vs {eager['domain']}, "
+                            f"kernel vs eager {err} (limits {tol})")
+        if (not all(e > t for e, t in zip(ctl["taps"], tol["taps"]))
+                or label == "f32" and not ctl["metric_depth"] > tol["metric_depth"]):
+            failures.append(f"nk {label}: the control without the bias {ctl} passes the "
+                            f"limits {tol}")
+        del eager, fused, control
+    if failures:
+        raise AssertionError("; ".join(failures))
+    del model, m
+    torch.cuda.empty_cache()
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -1608,6 +1976,9 @@ def main():
         knn_res = knn_path_phase(att, bil, featurizer, runtime, gen, tmp)
         depth_res = depth_path_phase(att, bil, tmp)
     depth_numerics_phase(att)
+    with tempfile.TemporaryDirectory() as tmp:
+        ft_res = finetune_path_phase(att, bil, tmp)
+    nk_res = nk_path_phase(att)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -1669,6 +2040,16 @@ def main():
         "bias_max_abs_err": attn_bias["bf16_b8"]["max_abs_err"],
         "bias_rel_err": attn_bias["bf16_b8"]["rel_err"],
         "bias_cases": attn_bias,
+        # float32 with the bias at NYU's 480 x 640 (the fine-tune's validation)
+        "f32_bias_n1201_shape": "f32, B=1, N=1201, 16 heads x 64, packed qkv, bias "
+                                "[16, 1201, 1201] f32 (a view of [16, 1201, 1208])",
+        **{f"f32_bias_n1201_{k}": attn_bias["f32_b1_n1201"][k]
+           for k in ("ms", "device_ms", "kernel_device_ms", "library_ms", "library_device_ms",
+                     "plain_ms", "bound_ms", "bound_by", "max_abs_err", "rel_err")},
+        "finetune_path_train_step_launches": max(ft_res["k1_launches_per_step"]),
+        "finetune_path_validation_launches_per_image":
+            ft_res["k1_f32_bias_launches_per_validation_image"],
+        "nk_path_bias_launches_per_forward": nk_res["f32"]["k1_bias_launches"],
         # the float32 kernel (split TF32) at the eval shape, then per path
         "f32_kernel_only_ms": attn["f32"]["kernel_only_ms"],
         "f32_kernel_device_ms": attn["f32"]["kernel_device_ms"],

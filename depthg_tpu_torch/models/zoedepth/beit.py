@@ -128,13 +128,19 @@ class Attention(nn.Module):
     def rel_pos_bias(self, h: int, w: int) -> torch.Tensor:
         """This block's [heads, N, N] bias for an h x w window; cached by
         size while gradients are off (keyed also on the table's storage and
-        version, so a load or an in-place update rebuilds it)."""
+        version, so a load or an in-place update rebuilds it, and drops the
+        entry of the older version)."""
         table = self.relative_position_bias_table
         if torch.is_grad_enabled():
             return relative_position_bias(table, self.window, h, w)
         key = (h, w, table.data_ptr(), table._version, table.dtype, table.device)
         bias = self._bias_cache.get(key)
         if bias is None:
+            # an in-place update of the table (an optimizer step) leaves the
+            # entries of its older versions dead: drop them
+            for stale in [k for k in self._bias_cache
+                          if k[:3] == key[:3] and k[4:] == key[4:]]:
+                del self._bias_cache[stale]
             bias = relative_position_bias(table, self.window, h, w)
             self._bias_cache[key] = bias
             while len(self._bias_cache) > BIAS_CACHE_SIZES:

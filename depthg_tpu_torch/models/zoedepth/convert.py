@@ -5,9 +5,10 @@ a file is ``load_state_dict(strict=True)``. This module has the inverse of
 the JAX package's converters (``depthg_tpu/models/zoedepth/convert.py
 zoe_params_from_torch``, ``depthg_tpu/models/midas_dpt.py
 midas_dpt_from_torch``): the JAX parameter tree (numpy arrays) -> the
-released layout, so the same random weights reach both packages; the
-loaders of ``ZoeD_M12_N.pt`` and ``dpt_large-midas-2f21e586.pt``; and the
-configurations derived from a state dict's shapes.
+released layout (ZoeDepth, ZoeDepth-NK, DPT_Large), so the same random
+weights reach both packages; the loaders of ``ZoeD_M12_N.pt`` and
+``dpt_large-midas-2f21e586.pt``; and the configurations derived from a
+state dict's shapes.
 """
 
 from __future__ import annotations
@@ -95,6 +96,42 @@ def zoe_state_dict_from_params(params: dict) -> dict:
         mlp2(f"projectors.{i}._net", proj)
         mlp2(f"attractors.{i}._net", attr)
     mlp2("conditional_log_binomial.mlp", params["conditional_log_binomial"])
+    return out
+
+
+def zoe_nk_state_dict_from_params(params: dict) -> dict:
+    """The JAX package's ZoeDepth-NK tree -> the ``ZoeD_M12_NK.pt`` layout
+    (``nk.ZoeDepthNK``'s names). No released NK file is in the repository,
+    and the JAX package has no NK loader, so there is no ``load_`` here."""
+    out = beit_state_dict(params["beit"], "core.core.pretrained.model.")
+    out.update(dpt_state_dict(params["dpt"], "core.core.pretrained.", "core.core.scratch."))
+    _conv_sd(out, "conv2", params["conv2"])
+    router = params["router"]
+    _conv_sd(out, "patch_transformer.embedding_convPxP", router["embed"])
+    for i, layer in enumerate(router["layers"]):
+        p = f"patch_transformer.transformer_encoder.layers.{i}."
+        out[p + "self_attn.in_proj_weight"] = _torch(np.asarray(layer["attn"]["in_proj"]["w"]).T)
+        out[p + "self_attn.in_proj_bias"] = _torch(layer["attn"]["in_proj"]["b"])
+        _linear_sd(out, p + "self_attn.out_proj", layer["attn"]["out_proj"])
+        _linear_sd(out, p + "linear1", layer["fc1"])
+        _linear_sd(out, p + "linear2", layer["fc2"])
+        _layer_norm_sd(out, p + "norm1", layer["norm1"])
+        _layer_norm_sd(out, p + "norm2", layer["norm2"])
+    _linear_sd(out, "mlp_classifier.0", router["cls1"])
+    _linear_sd(out, "mlp_classifier.2", router["cls2"])
+
+    def mlp2(prefix, convs):
+        for slot, conv in zip((0, 2), convs):
+            _conv_sd(out, f"{prefix}.{slot}", conv)
+
+    mlp2("seed_projector._net", params["seed_projector"])
+    for i, proj in enumerate(params["projectors"]):
+        mlp2(f"projectors.{i}._net", proj)
+    for name, dom in params["domains"].items():
+        mlp2(f"seed_bin_regressors.{name}._net", dom["seed_bin_regressor"])
+        for i, attr in enumerate(dom["attractors"]):
+            mlp2(f"attractors.{name}.{i}._net", attr)
+        mlp2(f"conditional_log_binomial.{name}.mlp", dom["clb"])
     return out
 
 

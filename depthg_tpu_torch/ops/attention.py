@@ -35,6 +35,11 @@ wrappers here:
 * CUDA tensor -> the kernel, or an exception (bad shape, dtype, stride,
   alignment, build or launch). There is no fallback.
 * CPU tensor -> ``attention_plain``, the eager version of the same math.
+* The kernel has no backward (the JAX package has none either: its
+  fine-tune trains through the einsum path). On CUDA a call that would
+  need a gradient through it (grad mode on and ``qkv`` or the bias
+  requiring one) raises instead of returning a result without a
+  ``grad_fn``; a caller that trains passes ``attn_impl="xla"``.
 * ``KERNEL.launches`` counts kernel launches (one per call, all heads and
   images, with or without a bias), so a run can show that it went through
   the kernel; ``KERNEL.bias_launches`` counts those that carried a bias,
@@ -138,6 +143,12 @@ def _launch(q, k, v, out, scale: float, nv: int, bias=None):
     an optional [H, N, N] bias view."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {q.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, bias)):
+        raise RuntimeError("attention kernel has no backward (as in the JAX package), so "
+                           "a gradient through it would be lost: run the eager path "
+                           "(attn_impl=\"xla\") with gradients on, or call it under "
+                           "torch.no_grad()")
     bias_args = (None, 0, 0, 0)
     if bias is not None:
         # read in pairs of adjacent keys straight from the caller's view

@@ -10,6 +10,7 @@ interpolation matrices.
 * bilinear align_corners=False — probe/logit upsampling;
 * bilinear align_corners=True — kept for parity with the JAX signature;
 * bicubic with an explicit ``scale`` — DINO's positional-embedding quirk;
+* ``resize_bilinear_array`` — numpy in, numpy out (depth metrics, readers);
 * ``adaptive_avg_pool2d`` — the depth map at feature resolution (FPS).
 """
 
@@ -51,6 +52,12 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False,
     y = F.interpolate(x4, size=(oh, ow), mode="bilinear",
                       align_corners=align_corners)
     return y.reshape(*lead, oh, ow).to(dtype)
+
+
+def resize_bilinear_array(x, size, align_corners: bool = False) -> np.ndarray:
+    """``resize_bilinear`` of a numpy array on the CPU, returned as numpy (the
+    resize of the depth metrics and the eval readers, numpy-only modules)."""
+    return resize_bilinear(torch.from_numpy(np.asarray(x)), size, align_corners).numpy()
 
 
 def resize_bicubic(x: torch.Tensor, size, scale: tuple | None = None) -> torch.Tensor:

@@ -26,7 +26,10 @@ ZoeDepth and DPT_Large models on the card against the CPU. The float32
 bodies of both kernels (split TF32 on the tensor cores) are also held to
 the CPU emulation of their arithmetic in ``tests/test_torch_f32_split.py``
 (run here on the card's tensors; that file imports JAX only inside its
-comparisons), within the same limits.
+comparisons), within the same limits. The fine-tune slice adds the
+kernel's refusal of a gradient it cannot give (it has no backward), float32
+with the bias at NYU's 480 x 640 (N=1201), a small fine-tune step and a
+small ZoeDepth-NK on the card against the CPU.
 """
 
 import pytest
@@ -699,3 +702,126 @@ def test_bilateral_f32_kernel_ragged_scene_size(cuda):
     _assert_k4_close(out[:, :n], ref, torch.float32)
     _assert_k4_close(out[:, :n], emu, torch.float32)
     assert torch.all(out[:, n:] == 7.0)
+
+
+# The fine-tune slice (ZoeDepth fine-tuning and ZoeDepth-NK).
+
+def test_attention_kernel_refuses_a_gradient_it_cannot_give(cuda):
+    """The kernel has no backward: with gradients on, a ``qkv`` or bias that
+    requires a gradient is refused before any launch (not returned without
+    a ``grad_fn``); under ``no_grad``, and with frozen inputs while
+    gradients are on, it launches."""
+    qkv = torch.randn(1, 77, 3 * 128, device=cuda, requires_grad=True)
+    bias = _padded_bias(2, 77, torch.float32, 51)
+    before = tatt.KERNEL.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        tatt.attention_qkv(qkv, 2, 0.125)
+    with pytest.raises(RuntimeError, match="xla"):
+        tatt.attention_qkv(qkv.detach(), 2, 0.125, bias=bias.clone().requires_grad_(True))
+    assert tatt.KERNEL.launches == before
+    with torch.no_grad():
+        out = tatt.attention_qkv(qkv, 2, 0.125, bias=bias)
+    frozen = tatt.attention_qkv(qkv.detach(), 2, 0.125, bias=bias)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == before + 2
+    assert not frozen.requires_grad
+    torch.testing.assert_close(frozen, out, rtol=0, atol=0)
+
+
+def test_attention_f32_kernel_with_bias_at_the_finetune_shape(cuda):
+    """float32 q/k/v with BEiT-L's bias at NYU's 480 x 640 (N = 30 x 40 + 1 =
+    1201, not a multiple of 8: the bias is a [:, :, :1201] view of [16,
+    1201, 1208]), one image as the fine-tune's validation runs it: the
+    plain version at the float32 limits."""
+    qkv = _f32_attention_case(1, 1201, 16, 1201, seed=52).to(cuda)
+    bias = _padded_bias(16, 1201, torch.float32, 53, scale=2.0)
+    assert bias.stride() == (1201 * 1208, 1208, 1)
+    before = (tatt.KERNEL.bias_launches, tatt.KERNEL.f32_launches)
+    out = tatt.attention_qkv(qkv, 16, 0.125, bias=bias)
+    torch.cuda.synchronize()
+    assert (tatt.KERNEL.bias_launches, tatt.KERNEL.f32_launches) == (before[0] + 1, before[1] + 1)
+    q, k, v = tatt.split_qkv(qkv, 16)
+    ref = tatt.attention_plain(q, k, v, 0.125, bias=bias).permute(0, 2, 1, 3)
+    _assert_close(out, ref.reshape(out.shape), torch.float32)
+
+
+def _small_zoe(gen):
+    """ZoeDepth with a 4-block, 128-wide BEiT (2 heads of 64, so the kernel
+    takes it), LayerScale 0.1, float32."""
+    from depthg_tpu_torch.models.zoedepth import ZoeConfig, ZoeDepth
+    from depthg_tpu_torch.models.zoedepth.beit import BEiTConfig
+    from depthg_tpu_torch.models.zoedepth.dpt import DPTConfig
+
+    return ZoeDepth(ZoeConfig(
+        n_bins=16, bin_embedding_dim=16, img_size=(96, 128),
+        beit=BEiTConfig(embed_dim=128, depth=4, num_heads=2, pretrain_window=4,
+                        hooks=(0, 1, 2, 3), layer_scale_init=0.1),
+        dpt=DPTConfig(embed_dim=128, features=32, reassemble_channels=(16, 32, 64, 64)))
+    ).init_weights(gen)
+
+
+def test_finetune_step_card_vs_cpu(cuda):
+    """One float32 fine-tune step of a small ZoeDepth on the card (eager
+    attention: no launch) vs the CPU from the same weights: the loss and
+    every gradient within 1e-4 relative (gradients before the clip, held by
+    norm per tensor); then a validation forward on the card goes through
+    the kernel with the bias (4 launches) and agrees with the CPU's."""
+    import copy
+
+    from depthg_tpu_torch.models.zoedepth import finetune
+
+    gen = torch.Generator().manual_seed(61)
+    cpu = _small_zoe(gen)
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = {"image": torch.rand(2, 3, 96, 128, generator=gen),
+             "depth": torch.rand(2, 1, 96, 128, generator=gen) * 8 + 0.5,
+             "mask": torch.rand(2, 1, 96, 128, generator=gen) > 0.2}
+    cfg = finetune.FinetuneConfig(total_steps=4)
+    before = tatt.KERNEL.launches
+    losses = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        loss, _ = finetune.finetune_loss(model, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        loss.backward()
+        losses[name] = float(loss.detach())
+    assert tatt.KERNEL.launches == before
+    assert abs(losses["card"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+            continue
+        ref = p.grad.double()
+        assert float((q.grad.cpu().double() - ref).norm()) <= 1e-4 * max(float(ref.norm()),
+                                                                         1e-30), name
+    with torch.no_grad():
+        got = card(batch["image"][:1].to(cuda), attn_impl="auto")["metric_depth"].cpu()
+        ref = cpu(batch["image"][:1])["metric_depth"]
+    assert tatt.KERNEL.launches == before + 4
+    assert float((got - ref).norm() / ref.norm()) <= 1e-4
+
+
+def test_small_zoedepth_nk_card_vs_cpu(cuda):
+    """A small ZoeDepth-NK (the BEiT above) in float32 on the card through
+    the kernel with the bias vs the CPU: the same domain, metric depth
+    within 1e-4 relative."""
+    import copy
+
+    from depthg_tpu_torch.models.zoedepth import nk
+
+    gen = torch.Generator().manual_seed(71)
+    base = _small_zoe(torch.Generator().manual_seed(0)).cfg
+    cfg = nk.ZoeNKConfig(bin_confs=(nk.BinConf("nyu", 16, 1e-3, 10.0),
+                                    nk.BinConf("kitti", 16, 1e-3, 80.0)),
+                         bin_embedding_dim=16, router_dim=16, router_heads=2, router_layers=2,
+                         beit=base.beit, dpt=base.dpt)
+    cpu = nk.ZoeDepthNK(cfg).init_weights(gen).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.rand(2, 3, 96, 128, generator=gen)
+    before = tatt.KERNEL.bias_launches
+    with torch.no_grad():
+        got = card(x.to(cuda))
+        ref = cpu(x)
+    assert tatt.KERNEL.bias_launches == before + 4
+    assert nk.domain_index(got["domain_logits"].cpu()) == nk.domain_index(ref["domain_logits"])
+    depth = got["metric_depth"].cpu()
+    assert float((depth - ref["metric_depth"]).norm() / ref["metric_depth"].norm()) <= 1e-4

@@ -8,7 +8,10 @@ and crop modules (and after a served request and a KNN on the CPU), and
 after the depth slice (``generate_depth``, ZoeDepth, MiDaS, their
 converters, ``native_crf`` and the fidelity study's lattice on a tiny
 ZoeDepth forward with the attention bias, and ``python -m
-depthg_tpu_torch.generate_depth --help``); no source of the port or of
+depthg_tpu_torch.generate_depth --help``), and after the fine-tune slice
+(``finetune_zoedepth``, the losses and one ``finetune_step`` on a tiny
+ZoeDepth, the depth metrics, data and reader copies, ``nyuv2_prep`` and a
+tiny ZoeDepth-NK forward); no source of the port or of
 ``chip_smoke.py`` imports either, or reads a file of ``scripts/`` or
 ``depthg_tpu/``. The attention and bilateral wrappers raise on an input
 their kernels cannot take instead of falling back to their plain versions."""
@@ -104,6 +107,25 @@ zoe = ZoeDepth(zcfg).init_weights(torch.Generator().manual_seed(2)).eval()
 with torch.no_grad():
     depth = zoedepth_infer(zoe, torch.rand(1, 3, 32, 64, generator=gen))
 assert depth.shape == (1, 1, 32, 64) and bool(torch.isfinite(depth).all())
+import depthg_tpu_torch.finetune_zoedepth
+from depthg_tpu_torch.data import nyuv2_prep
+from depthg_tpu_torch.models.zoedepth import config as zconfig, data_mono, eval_datasets, finetune, metrics, nk
+tiny = depthg_tpu_torch.finetune_zoedepth.tiny_config()
+state = finetune.init_state(ZoeDepth(tiny).init_weights(torch.Generator().manual_seed(3)),
+                            finetune.FinetuneConfig(total_steps=4))
+logs = finetune.finetune_step(state, {"image": torch.rand(2, 3, 64, 96, generator=gen),
+                                      "depth": torch.rand(2, 1, 64, 96, generator=gen) + 0.5,
+                                      "mask": torch.ones(2, 1, 64, 96, dtype=torch.bool)})
+assert state.step == 1 and bool(torch.isfinite(logs["loss/total"]))
+assert metrics.compute_metrics(torch.rand(48, 64).numpy() + 1, torch.rand(24, 32).numpy() + 1,
+                               eigen_crop=False)["a1"] > 0
+nk_cfg = dataclasses.replace(zconfig.get_config("zoedepth_nk"), bin_embedding_dim=16,
+                             router_dim=16, router_heads=2, router_layers=1,
+                             beit=zcfg.beit, dpt=dataclasses.replace(zcfg.dpt, features=32))
+with torch.no_grad():
+    out = nk.ZoeDepthNK(nk_cfg).init_weights(torch.Generator().manual_seed(4))(
+        torch.rand(1, 3, 32, 64, generator=gen))
+assert out["metric_depth"].shape == (1, 1, 32, 64) and out["domain_logits"].shape == (1, 2)
 scene = crf_fidelity_study.make_scene(64, 27, seed=0)
 assert crf_fidelity_study.lattice_labels([scene], 64)[0].shape == (64, 64)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)

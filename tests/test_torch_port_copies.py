@@ -7,6 +7,7 @@ here against its original on the same inputs, exactly: same resolved config
 dict, same state-dict keys, shapes and values, same first batch.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -429,3 +430,182 @@ def test_native_crf_builds_its_own_library_when_the_committed_one_fails(tmp_path
     monkeypatch.setattr(tnative, "_SRC_DIR", str(tmp_path / "missing"))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         tnative.dense_crf_native(image, probs)
+
+
+# The fine-tune slice's copies: each file equals its original but for the
+# lines named here (the imports that point at the port; the resize of the
+# metrics and the readers is the port's numpy-in, numpy-out wrapper).
+RESIZE_IMPORT = ("from depthg_tpu.ops.resize import resize_bilinear",
+                 "from depthg_tpu_torch.ops.resize import resize_bilinear_array as resize_bilinear")
+ZOE_COPIES = {
+    "models/zoedepth/metrics.py": [RESIZE_IMPORT],
+    "models/zoedepth/eval_datasets.py": [RESIZE_IMPORT],
+    "models/zoedepth/data_mono.py": [
+        ("from depthg_tpu.models.zoedepth.config import",
+         "from depthg_tpu_torch.models.zoedepth.config import")],
+    "models/zoedepth/config.py": [
+        ("from depthg_tpu.models.zoedepth.model import ZoeConfig",
+         "from depthg_tpu_torch.models.zoedepth.model import ZoeConfig"),
+        ("from depthg_tpu.models.zoedepth.nk import", "from depthg_tpu_torch.models.zoedepth.nk import")],
+    "data/nyuv2_prep.py": [],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(ZOE_COPIES))
+def test_zoedepth_copies_equal_their_originals(rel):
+    with open(os.path.join(ROOT, "depthg_tpu", rel)) as f:
+        want = f.read()
+    for old, new in ZOE_COPIES[rel]:
+        assert old in want, (rel, old)
+        want = want.replace(old, new)
+    with open(os.path.join(ROOT, "depthg_tpu_torch", rel)) as f:
+        assert f.read() == want, rel
+
+
+def test_depth_dataset_tables_match_jax_package():
+    """Every ``DepthDatasetSpec`` field by field, the dataset lists, the
+    reference-shaped dicts (with and without a data root), the model
+    blocks and the pretrained URLs (strings only: nothing is fetched)."""
+    from depthg_tpu.models.zoedepth import config as jc
+    from depthg_tpu_torch.models.zoedepth import config as tc
+
+    assert list(tc.DEPTH_DATASETS) == list(jc.DEPTH_DATASETS) and len(tc.DEPTH_DATASETS) == 13
+    for name, spec in jc.DEPTH_DATASETS.items():
+        assert dataclasses.asdict(tc.DEPTH_DATASETS[name]) == dataclasses.asdict(spec), name
+        for root in (None, "/data"):
+            assert tc.datasets_config(name, root) == jc.datasets_config(name, root), name
+    assert (tc.ALL_INDOOR, tc.ALL_OUTDOOR, tc.ALL_EVAL_DATASETS) == (
+        jc.ALL_INDOOR, jc.ALL_OUTDOOR, jc.ALL_EVAL_DATASETS)
+    assert tc.ZOEDEPTH_MODEL_CONFIG == jc.ZOEDEPTH_MODEL_CONFIG
+    assert tc.ZOEDEPTH_NK_MODEL_CONFIG == jc.ZOEDEPTH_NK_MODEL_CONFIG
+    assert tc.PRETRAINED_RESOURCES == jc.PRETRAINED_RESOURCES
+
+
+@pytest.mark.parametrize("model", ["zoedepth", "zoedepth_nk"])
+@pytest.mark.parametrize("mode", ["train", "infer", "eval"])
+@pytest.mark.parametrize("over", [{}, {"n_bins": 32, "img_size": 256, "n_attractors": [8, 4, 2, 1],
+                                       "min_temp": 0.5, "unknown_key": 1}])
+def test_get_config_matches_jax_package(model, mode, over):
+    """Field by field, for both models and all three modes, with and without
+    overrides. Two differences are the port's own: BEiT's ``attn_impl``
+    (the port's "auto", the JAX package's "xla") and ``DPTConfig``'s
+    ``project_readout`` (the port also loads MiDaS files without a readout
+    projection; True is the JAX package's only behaviour)."""
+    from depthg_tpu.models.zoedepth import config as jc
+    from depthg_tpu_torch.models.zoedepth import config as tc
+
+    ref = dataclasses.asdict(jc.get_config(model, mode, **over))
+    got = dataclasses.asdict(tc.get_config(model, mode, **over))
+    assert (ref["beit"].pop("attn_impl"), got["beit"].pop("attn_impl")) == ("xla", "auto")
+    assert got["dpt"].pop("project_readout") is True
+    assert got == ref
+    with pytest.raises(ValueError):
+        tc.get_config(model, "serve")
+
+
+def _zoe_layout(root, n=4, hw=(48, 64), seed=0):
+    from test_zoedepth_data import _make_layout
+
+    return _make_layout(str(root), n=n, hw=hw, seed=seed)
+
+
+@pytest.mark.parametrize("aug", [True, False])
+def test_zoe_data_samples_match_jax_package(tmp_path, aug):
+    """``DataLoadPreprocess`` train samples (rotation, random crop, flip and
+    photometric augmentation drawn from (seed, index)) and online_eval
+    samples equal to the JAX package's, array for array, and the batches of
+    ``batched`` in one permutation."""
+    from depthg_tpu.models.zoedepth import data_mono as jdm
+    from depthg_tpu_torch.models.zoedepth import data_mono as tdm
+
+    fn = _zoe_layout(tmp_path)
+    kw = dict(dataset="nyu", data_path=str(tmp_path), gt_path=str(tmp_path),
+              data_path_eval=str(tmp_path), gt_path_eval=str(tmp_path), filenames_file=fn,
+              filenames_file_eval=fn, input_height=32, input_width=48, degree=2.5, aug=aug,
+              random_crop=True, seed=7)
+    for mode in ("train", "online_eval"):
+        ref = jdm.DataLoadPreprocess(jdm.MonoDepthDataConfig(**kw), mode)
+        got = tdm.DataLoadPreprocess(tdm.MonoDepthDataConfig(**kw), mode)
+        assert len(got) == len(ref) == 4
+        for i in range(4):
+            a, b = got[i], ref[i]
+            assert sorted(a) == sorted(b), (mode, i)
+            for k in b:
+                if isinstance(b[k], np.ndarray):
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=f"{mode} {i} {k}")
+                else:
+                    assert a[k] == b[k], (mode, i, k)
+    order = np.random.default_rng(0).permutation(4)
+    ds_t = tdm.DataLoadPreprocess(tdm.MonoDepthDataConfig(**kw), "train")
+    ds_j = jdm.DataLoadPreprocess(jdm.MonoDepthDataConfig(**kw), "train")
+    for bt, bj in zip(tdm.batched(ds_t, 2, order), jdm.batched(ds_j, 2, order)):
+        np.testing.assert_array_equal(bt["image"], bj["image"])
+        np.testing.assert_array_equal(bt["mask"], bj["mask"])
+    spec = tdm.MonoDepthDataConfig.for_dataset("kitti", "/data", filenames_file="f.txt")
+    assert dataclasses.asdict(spec) == dataclasses.asdict(jdm.MonoDepthDataConfig.for_dataset(
+        "kitti", "/data", filenames_file="f.txt"))
+    assert len(tdm.RepetitiveRoundRobinLoader([1, 2, 3], [4])) == 8
+
+
+def test_zoe_metrics_match_jax_package():
+    """``compute_metrics`` with each crop and clipping (an inf entry)
+    exactly, and with a low-resolution prediction within 1e-5 relative: it
+    is resized by ``F.interpolate``, which forms its source indices in
+    float32, the JAX package by exact weight matrices (~5e-6 apart, enough
+    to move a pixel across a delta threshold: 1 of ~238,000); and
+    ``RunningAverageDict``."""
+    from depthg_tpu.models.zoedepth import metrics as jm
+    from depthg_tpu_torch.models.zoedepth import metrics as tm
+
+    rng = np.random.default_rng(0)
+    gt = rng.uniform(0.5, 9.0, (480, 640)).astype(np.float32)
+    pred = (gt * rng.uniform(0.8, 1.25, gt.shape)).astype(np.float32)
+    low = pred[::2, ::2].copy()
+    pred[:3, :3] = np.inf
+    for kw in ({"eigen_crop": True}, {"garg_crop": True, "eigen_crop": False},
+               {"garg_crop": False, "eigen_crop": True, "dataset": "kitti"},
+               {"eigen_crop": False, "min_depth_eval": 1.0, "max_depth_eval": 8.0}):
+        assert tm.compute_metrics(gt, pred, **kw) == jm.compute_metrics(gt, pred, **kw)
+        got, ref = tm.compute_metrics(gt, low, **kw), jm.compute_metrics(gt, low, **kw)
+        assert sorted(got) == sorted(ref)
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, err_msg=k)
+    r = tm.RunningAverageDict()
+    for v in (1.0, None, 3.0):
+        r.update(None if v is None else {"x": v})
+    assert r.get_value() == {"x": 2.0}
+
+
+def test_zoe_eval_readers_match_jax_package(tmp_path):
+    """The readers' table, and a DIML indoor sample (PNG pair, resized to
+    480 x 640: within 1e-5 absolute on [0, 1] pixels, ``F.interpolate``'s
+    float32 source indices against the JAX package's exact weights) and an
+    iBims sample (masks, exactly) against the JAX package's."""
+    from depthg_tpu.models.zoedepth import eval_datasets as je
+    from depthg_tpu_torch.models.zoedepth import eval_datasets as te
+    from test_zoe_eval_readers import _png
+
+    assert sorted(te.EVAL_READERS) == sorted(je.EVAL_READERS)
+    rng = np.random.default_rng(0)
+    _png(str(tmp_path / "diml" / "LR" / "s1" / "color" / "a_c.png"),
+         rng.integers(0, 255, (96, 128, 3), dtype=np.uint8))
+    _png(str(tmp_path / "diml" / "LR" / "s1" / "depth_filled" / "a_depth_filled.png"),
+         rng.integers(500, 9000, (96, 128)).astype(np.uint16))
+    ib = tmp_path / "ibims"
+    _png(str(ib / "rgb" / "x.png"), rng.integers(0, 255, (24, 32, 3), dtype=np.uint8))
+    _png(str(ib / "depth" / "x.png"), rng.integers(1000, 60000, (24, 32)).astype(np.uint16))
+    _png(str(ib / "mask_invalid" / "x.png"), (rng.random((24, 32)) > 0.2).astype(np.uint8))
+    _png(str(ib / "mask_transp" / "x.png"), (rng.random((24, 32)) > 0.1).astype(np.uint8))
+    (ib / "imagelist.txt").write_text("x\n")
+    for name, root, exact in (("diml_indoor", "diml", False), ("ibims", "ibims", True)):
+        got = te.get_eval_reader(name, str(tmp_path / root))[0]
+        ref = je.get_eval_reader(name, str(tmp_path / root))[0]
+        assert sorted(got) == sorted(ref)
+        for k in ref:
+            if isinstance(ref[k], np.ndarray):
+                if exact:
+                    np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+                else:
+                    np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-5, err_msg=k)
+            else:
+                assert got[k] == ref[k], k
