@@ -144,7 +144,26 @@ final line):
     LayerScale 0.1, random weights), one 384 x 512 batch of 2 through K1
     (24 launches with the bias) vs the eager softmax on the card: bf16
     within 3e-2, float32 within 1e-4 relative, the same domain both ways;
-16. the total time, the kernels JSON line (each kernel's float32 figures
+16. variants path (ROADMAP item 6): ``configs/local_config.yml`` at full
+    width (ViT-S/8, batch 32, 224 px, dim 70, bf16 backbone, random
+    weights from seed 0) through ``train.step.train_step`` with
+    ``arch=dino_depth guidance=cross_attn``, ``guidance=sum``, ``lhp=True``
+    with ``propagation_strategy=depth`` and ``attn``, and
+    ``arch=feature-pyramid model_type=resnet50 granularity=4`` (a random
+    ResNet-50): one warm-up and nine timed steps each, ms per step on CUDA
+    events and the host clock, peak memory, K1 launches per step held to
+    24 / 24 / 24 / 12 / 0, no K4 launch, finite logs, falling probe losses,
+    the frozen ViT / ResNet (running statistics included) / LHP head bit
+    for bit, the pyramid head's BatchNorm statistics moved; one
+    ``dino_depth`` eval step at 320 px, batch 16, default CRF point (24 K1
+    launches); LHP's depth affinity at B=4, 224 px on the card vs the CPU
+    in float32 (zero-pattern flips only within 2e-3 of the threshold, each
+    printed with its distance; the mixed code within 1e-5 relative); the
+    float32 pyramid (granularity 4) on the card vs the CPU within 1e-4
+    relative; ``precompute_knns`` with ``model_type=resnet50`` over 40
+    synthetic crops (a random ResNet-50: no file under ``output_root``),
+    self at rank 0;
+17. the total time, the kernels JSON line (each kernel's float32 figures
     and float32 launches per path among them), the card line and the final
     JSON line.
 """
@@ -242,6 +261,29 @@ K4_TOL_EXACT = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (5e-3, 1e-2)}
 FT_TRAIN_IMAGES, FT_EVAL_IMAGES, FT_BATCH, FT_STEPS, FT_VALIDATIONS = 8, 4, 4, 4, 3
 FT_METRICS = ("a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel")
 FT_CARD_VS_CPU_TOL = 1e-4
+# the variants of ROADMAP item 6 through the train step at the train
+# path's full width (ViT-S/8 or the pyramid's ResNet-50, 224 px, batch 32,
+# dim 70, bf16 backbone): (name, overrides of configs/local_config.yml, K1
+# launches per step: 12 blocks x 2 frozen forwards; LHP "attn" runs the
+# first forward eagerly for its attention maps; the ResNet has no attention)
+VARIANTS = (("dino_depth_cross_attn", ["arch=dino_depth", "guidance=cross_attn"], 24),
+            ("dino_depth_sum", ["arch=dino_depth", "guidance=sum"], 24),
+            ("lhp_depth", ["lhp=True", "propagation_strategy=depth"], 24),
+            ("lhp_attn", ["lhp=True", "propagation_strategy=attn"], 12),
+            ("feature_pyramid", ["arch=feature-pyramid", "model_type=resnet50",
+                                 "granularity=4"], 0))
+# timed, after one warm-up step: ten in all. The pyramid's probe losses first
+# rise (the cluster probe's first Adam step) and, on an H100, fell 2e-2 below
+# their start after ten steps (3.074 -> 3.055), while the head's drift under
+# other negatives moved them by ~7e-3 (3.0755 after four steps in another run)
+VARIANT_STEPS = 9
+DINO_DEPTH_EVAL_LAUNCHES = 24  # per eval step: flip TTA, two [B] forwards
+# LHP's depth affinity on the card vs the CPU (float32, TF32 off): a flip of
+# its zero pattern may only sit next to the threshold, within the
+# expansion's rounding of a normalized distance; the mixed code in relative
+# error. The pyramid's float32 code, card vs CPU, in relative error.
+LHP_FLIP_GAP, LHP_CODE_TOL, PYRAMID_CARD_VS_CPU_TOL = 2e-3, 1e-5, 1e-4
+KNN_CNN_IMAGES = 40
 FIDELITY_ROWS = [("exact (ds=1)", 11), ("ds=2 legacy", 0), ("ds=4 mixed bf16", 0),
                  ("ds=4 jbu2 sf1.41 bf16 (quality+)", 0)]
 
@@ -1926,6 +1968,185 @@ def nk_path_phase(att):
     return results
 
 
+def variants_path_phase(att, bil, inference, crf, gen, tmp):
+    """ROADMAP item 6 on the card: each variant of ``VARIANTS`` through
+    ``train.step.train_step`` (one warm-up and ``VARIANT_STEPS`` timed steps
+    on one synthetic batch, both kernels' counts set to 0 just before and
+    read just after), one ``dino_depth`` eval step, LHP's depth affinity and
+    the pyramid's float32 code on the card vs the CPU, and the KNN CLI over
+    a ResNet-50."""
+    import numpy as np
+
+    from depthg_tpu_torch import precompute_knns, profile_train
+    from depthg_tpu_torch.models import featurizer, lhp, pyramid
+    from depthg_tpu_torch.models.featurizer_depth import DepthFeaturizerConfig
+    from depthg_tpu_torch.profile_serve import synthetic_jpeg
+    from depthg_tpu_torch.train import losses as loss_lib
+    from depthg_tpu_torch.train import step as step_lib
+
+    lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps",
+                                   depth_feat_correlation_loss=True)
+    w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
+    batch = profile_train.synthetic_batch(TRAIN_B, TRAIN_RES, 27, gen)
+    results = {}
+    for name, overrides, per_step in VARIANTS:
+        fcfg, hp = profile_train.variant(
+            overrides, step_lib.TrainHParams(n_classes=27, backbone_dtype="bfloat16"))
+        state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), "cuda")
+        net = state.model.net
+        frozen = {"model." + k: v.clone() for k, v in net.model.state_dict().items()}
+        if state.lhp is not None:
+            frozen.update({"lhp." + k: v.clone() for k, v in state.lhp.state_dict().items()})
+        head_stats = {k: v.clone() for k, v in net.state_dict().items()
+                      if ".running_" in k and not k.startswith("model.")}
+
+        def probe_losses():
+            """loss/linear + loss/cluster on the fixed batch with fixed
+            masks; the pyramid head's running statistics are put back."""
+            stats = {k: v.clone() for k, v in net.named_buffers()}
+            fixed = torch.Generator(device="cuda").manual_seed(123)
+            with torch.no_grad():
+                logs = step_lib.loss_fn(state.model, batch, hp, lcfg, w, sh, generator=fixed,
+                                        lhp=state.lhp)[1]
+                for k, v in net.named_buffers():
+                    v.copy_(stats[k])
+            return float(logs["loss/linear"] + logs["loss/cluster"])
+
+        before = probe_losses()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.KERNEL.launches = 0
+        bil.KERNEL.launches = 0
+        all_logs = [step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen)]
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(VARIANT_STEPS):
+            all_logs.append(step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen))
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / VARIANT_STEPS * 1e3
+        launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+        step_ms = start.elapsed_time(stop) / VARIANT_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after = probe_losses()
+
+        if launches != per_step * (VARIANT_STEPS + 1) or k4 != 0:
+            raise AssertionError(f"{name}: {launches} K1 launches in {VARIANT_STEPS + 1} steps "
+                                 f"(expected {per_step} per step) and {k4} K4 launches")
+        for i, logs in enumerate(all_logs):
+            bad = [k for k, v in logs.items() if not bool(torch.isfinite(v).all())]
+            if bad:
+                raise AssertionError(f"{name} step {i}: non-finite {bad}")
+        if not after < before:
+            raise AssertionError(f"{name}: loss/linear + loss/cluster did not fall: "
+                                 f"{before} -> {after}")
+        now = {"model." + k: v for k, v in net.model.state_dict().items()}
+        if state.lhp is not None:
+            now.update({"lhp." + k: v for k, v in state.lhp.state_dict().items()})
+        changed = [k for k in frozen if not torch.equal(now[k], frozen[k])]
+        if changed or any(p.grad is not None or p.requires_grad for p in net.model.parameters()):
+            raise AssertionError(f"{name}: frozen parameters changed or took a gradient: "
+                                 f"{changed[:5]}")
+        head_moved = [k for k, v in head_stats.items() if not torch.equal(net.state_dict()[k], v)]
+        if len(head_moved) != len(head_stats) or (name == "feature_pyramid") != bool(head_stats):
+            raise AssertionError(f"{name}: head BatchNorm statistics moved: {len(head_moved)} "
+                                 f"of {len(head_stats)}")
+        results[name] = {"step_ms": step_ms, "host_ms": host_ms, "peak_mem_gb": peak,
+                         "k1_launches_per_step": launches / (VARIANT_STEPS + 1)}
+        phase("variants_path", variant=name, overrides=overrides,
+              featurizer=type(fcfg).__name__, lhp=hp.lhp, batch=TRAIN_B, res=TRAIN_RES,
+              steps_timed=VARIANT_STEPS, step_ms=step_ms, host_ms=host_ms,
+              img_per_s=TRAIN_B / step_ms * 1e3, peak_mem_gb=peak, k1_launches=launches,
+              k1_launches_per_step=per_step, k4_launches=k4, probe_losses_before=before,
+              probe_losses_after=after, frozen_tensors_unchanged=len(frozen),
+              head_running_stats_moved=len(head_moved),
+              last_logs={k: float(v) for k, v in all_logs[-1].items()})
+        del state, net, frozen, now, all_logs
+        torch.cuda.empty_cache()
+
+    # one dino_depth eval step at the default point (eval: the no-depth embed)
+    model = inference.Segmenter(DepthFeaturizerConfig(guidance="cross_attn"), 27, 27)
+    model = model.init_weights(torch.Generator().manual_seed(0)).cuda()
+    step = inference.make_eval_step(inference.EvalConfig(
+        n_classes=27, crf=crf.crf_config_from_cfg({}), backbone_dtype="bfloat16"))
+    batches = make_batches(gen, B, 2)  # warm-up + one timed
+    _, eval_img_s, eval_launches, eval_k4 = run_eval_batches(step, model, batches, att, bil)
+    if eval_launches != DINO_DEPTH_EVAL_LAUNCHES * 2 or eval_k4 != 0:
+        raise AssertionError(f"dino_depth eval: {eval_launches} K1 launches in 2 steps "
+                             f"(expected {DINO_DEPTH_EVAL_LAUNCHES} each), {eval_k4} K4")
+    phase("variants_eval", arch="dino_depth", guidance="cross_attn", batch=B, res=320,
+          crf_point="default", img_per_s=eval_img_s,
+          k1_launches_per_step=eval_launches / 2, k4_launches=eval_k4)
+    del model, batches
+    torch.cuda.empty_cache()
+
+    # LHP's depth affinity and mixed code, card vs CPU (float32, TF32 off)
+    cpu_gen = torch.Generator().manual_seed(1)
+    depth = torch.nn.functional.interpolate(torch.rand(4, 1, 28, 28, generator=cpu_gen),
+                                            size=(TRAIN_RES, TRAIN_RES), mode="bilinear")
+    grid = (TRAIN_RES // 8,) * 2
+    ref = lhp._depth_affinity(depth, grid, False)
+    out = lhp._depth_affinity(depth.cuda(), grid, False).cpu()
+    normed, thresh = lhp._depth_normed(depth, grid, False)
+    flips = (out == 0) != (ref == 0)
+    gaps = sorted(float(g) for g in (normed - thresh).abs()[flips])
+    head = lhp.LHP(lhp.LHPConfig()).init_weights(cpu_gen)
+    code = torch.randn(4, 70, *grid, generator=cpu_gen)
+    mixed_ref = lhp.lhp_apply(head, code, depth)
+    mixed = lhp.lhp_apply(head.cuda(), code.cuda(), depth.cuda()).cpu()
+    code_err = float((mixed - mixed_ref).norm() / mixed_ref.norm())
+    value_err = float((out - ref)[~flips].abs().max())
+    phase("variants_lhp_card_vs_cpu", batch=4, res=TRAIN_RES, points=grid[0] * grid[1],
+          zero_pattern_flips=int(flips.sum()), flip_threshold_gaps=gaps[:20],
+          max_abs_diff_elsewhere=value_err, mixed_code_rel_err=code_err)
+    if (gaps and gaps[-1] > LHP_FLIP_GAP) or value_err > LHP_FLIP_GAP or code_err > LHP_CODE_TOL:
+        raise AssertionError(f"LHP card vs CPU: flips at gaps {gaps[-5:]}, values "
+                             f"{value_err}, mixed code {code_err}")
+
+    # the pyramid in float32, card vs CPU (eval: running-stat BatchNorm)
+    fcfg, _ = profile_train.variant(VARIANTS[-1][1], step_lib.TrainHParams(n_classes=27))
+    pyr = pyramid.FeaturePyramidNet(fcfg).init_weights(torch.Generator().manual_seed(2))
+    img = torch.randn(2, 3, TRAIN_RES, TRAIN_RES, generator=cpu_gen)
+    with torch.no_grad():
+        code_cpu = featurizer.dispatch_apply(pyr, img)["code"]
+        code_card = featurizer.dispatch_apply(pyr.cuda(), img.cuda())["code"].cpu()
+    pyr_err = float((code_card - code_cpu).norm() / code_cpu.norm())
+    phase("variants_pyramid_card_vs_cpu", granularity=fcfg.granularity, batch=2,
+          res=TRAIN_RES, code_rel_err=pyr_err)
+    if not pyr_err <= PYRAMID_CARD_VS_CPU_TOL:
+        raise AssertionError(f"pyramid float32 card vs CPU: {pyr_err}")
+    del pyr
+    torch.cuda.empty_cache()
+
+    # the KNN CLI over a random ResNet-50 (no weights file under output_root/data)
+    data = os.path.join(tmp, "knn_cnn")
+    img_dir = os.path.join(data, "cropped", "cocostuff27_five_crop_0.5", "img", "train")
+    os.makedirs(img_dir)
+    for i in range(KNN_CNN_IMAGES):
+        with open(os.path.join(img_dir, f"{i}.jpg"), "wb") as f:
+            f.write(synthetic_jpeg(500 + i, 240, 240))
+    att.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    written = precompute_knns.main([
+        f"data_dir={data}", f"output_root={tmp}", "model_type=resnet50",
+        "knn_datasets=[cocostuff27]", "knn_crop_types=[five]", "knn_image_sets=[train]",
+        "num_workers=4"])
+    knn_s = time.perf_counter() - t0
+    nns = np.load(written[0])["nns"]
+    if (os.path.basename(written[0]) != "nns_resnet50_cocostuff27_train_five_224.npz"
+            or nns.shape != (KNN_CNN_IMAGES, KNN_K)
+            or not (nns[:, 0] == np.arange(KNN_CNN_IMAGES)).all() or att.KERNEL.launches):
+        raise AssertionError(f"precompute_knns over resnet50: {written} {nns.shape}, "
+                             f"{att.KERNEL.launches} K1 launches")
+    phase("variants_knn", model_type="resnet50", images=KNN_CNN_IMAGES, seconds=knn_s,
+          file=os.path.basename(written[0]), self_at_rank_0=True)
+    return {"steps": results, "eval_launches_per_step": eval_launches / 2,
+            "lhp_flips": int(flips.sum()), "lhp_code_rel_err": code_err,
+            "pyramid_card_vs_cpu": pyr_err}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -1979,6 +2200,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         ft_res = finetune_path_phase(att, bil, tmp)
     nk_res = nk_path_phase(att)
+    with tempfile.TemporaryDirectory() as tmp:
+        var_res = variants_path_phase(att, bil, inference, crf, gen, tmp)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -2050,6 +2273,10 @@ def main():
         "finetune_path_validation_launches_per_image":
             ft_res["k1_f32_bias_launches_per_validation_image"],
         "nk_path_bias_launches_per_forward": nk_res["f32"]["k1_bias_launches"],
+        "variants_path_launches_per_step": {
+            name: r["k1_launches_per_step"] for name, r in var_res["steps"].items()},
+        "variants_path_step_ms": {name: r["step_ms"] for name, r in var_res["steps"].items()},
+        "dino_depth_eval_launches_per_step": var_res["eval_launches_per_step"],
         # the float32 kernel (split TF32) at the eval shape, then per path
         "f32_kernel_only_ms": attn["f32"]["kernel_only_ms"],
         "f32_kernel_device_ms": attn["f32"]["kernel_device_ms"],
@@ -2085,6 +2312,7 @@ def main():
         "serve_path_exact_request_launches": serve_res["exact_k4_launches"],
         "demo_path_launches": demo_res["k4_launches"],
         "knn_path_launches": 0,
+        "variants_path_launches": 0,
         "shape": "bf16, B=2, N=102400, C=54 (the exact eval step's message); "
                  "n25600: B=2, C=54; degree: B=2, N=102400",
         "max_abs_err": k4_main["max_abs_err"], "rel_err": k4_main["rel_err"],

@@ -20,6 +20,8 @@ import torch
 from torch import nn
 
 from depthg_tpu_torch.models import featurizer as featurizer_lib
+from depthg_tpu_torch.models.featurizer_depth import DepthFeaturizerConfig
+from depthg_tpu_torch.models.pyramid import PyramidConfig
 from depthg_tpu_torch.models.probes import ClusterLookup, cluster_lookup_apply, \
     cluster_lookup_resized
 from depthg_tpu_torch.ops.crf import CRFConfig, crf_config_from_cfg, \
@@ -57,10 +59,9 @@ class Segmenter(nn.Module):
     ``decoder=True`` also the training side's ``decoder`` (1x1 conv
     dim -> n_feats of the reconstruction loss), under its Lightning key."""
 
-    def __init__(self, fcfg: featurizer_lib.FeaturizerConfig, n_classes: int,
-                 n_clusters: int, decoder: bool = False):
+    def __init__(self, fcfg, n_classes: int, n_clusters: int, decoder: bool = False):
         super().__init__()
-        self.net = featurizer_lib.DinoFeaturizer(fcfg)
+        self.net = featurizer_lib.build(fcfg)
         self.linear_probe = nn.Conv2d(fcfg.dim, n_classes, 1)
         self.cluster_probe = ClusterLookup(fcfg.dim, n_clusters)
         if decoder:
@@ -68,12 +69,13 @@ class Segmenter(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> "Segmenter":
         """Random weights from ``generator`` alone (the JAX package's init
-        distributions): DINO init for the ViT, torch's default uniform
-        bound 1/sqrt(fan_in) for the 1x1 convs, normal cluster centroids."""
-        self.net.model.init_weights(generator)
+        distributions): the featurizer's own (DINO init for the ViT),
+        torch's default uniform bound 1/sqrt(fan_in) for the probe's and
+        the decoder's 1x1 convs, normal cluster centroids."""
+        self.net.init_weights(generator)
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if name.startswith("net.model."):
+                if name.startswith("net."):
                     continue
                 if name == "cluster_probe.clusters":
                     p.normal_(generator=generator)
@@ -105,7 +107,7 @@ def tta_code(net, img: torch.Tensor, precision=None, backbone_dtype=None,
              fused: bool = False) -> torch.Tensor:
     """Flip-TTA averaged projection code (eval: every sample independent)."""
     def forward(x):
-        return featurizer_lib.featurizer_apply(
+        return featurizer_lib.dispatch_apply(
             net, x, precision=precision, backbone_dtype=backbone_dtype)["code"]
 
     flipped = torch.flip(img, dims=[-1])
@@ -185,7 +187,7 @@ def make_validation_step(n_classes: int, extra_clusters: int = 0):
 
     @torch.inference_mode()
     def step(model, img, label, label_res):
-        code = featurizer_lib.featurizer_apply(model.net, img)["code"]
+        code = featurizer_lib.dispatch_apply(model.net, img)["code"]
         code = resize_bilinear(code, (label_res, label_res))
         linear_preds = model.linear_probe(code).argmax(1)
         _, cluster_probs = cluster_lookup_apply(model.cluster_probe.clusters, code,
@@ -197,13 +199,12 @@ def make_validation_step(n_classes: int, extra_clusters: int = 0):
     return step
 
 
-def fcfg_from_run_cfg(cfg) -> featurizer_lib.FeaturizerConfig:
-    """Featurizer config from a reference-style run config."""
-    if cfg.get("arch") in ("dino_depth", "feature-pyramid"):
-        raise NotImplementedError(
-            f"arch={cfg.get('arch')!r}: the depth-fused and feature-pyramid "
-            "featurizers are not ported yet (ROADMAP item 6)")
-    return featurizer_lib.FeaturizerConfig(
+def fcfg_from_run_cfg(cfg):
+    """The featurizer config of a reference-style run config, by ``arch``:
+    ``DepthFeaturizerConfig`` for ``dino_depth`` (so that its eval takes
+    the no-depth embed), ``PyramidConfig`` for ``feature-pyramid``,
+    ``FeaturizerConfig`` otherwise."""
+    kwargs = dict(
         arch=cfg.get("model_type", "vit_small"),
         patch_size=int(cfg.get("dino_patch_size", 8)),
         feat_type=cfg.get("dino_feat_type", "feat"),
@@ -212,6 +213,13 @@ def fcfg_from_run_cfg(cfg) -> featurizer_lib.FeaturizerConfig:
         dropout=bool(cfg.get("dropout", True)),
         attention_impl=str(cfg.get("attention_impl", "auto")),
     )
+    if cfg.get("arch") == "dino_depth":
+        return DepthFeaturizerConfig(guidance=str(cfg.get("guidance", "none")), **kwargs)
+    if cfg.get("arch") == "feature-pyramid":
+        return PyramidConfig(granularity=int(cfg.get("granularity", 1)),
+                             dim=int(cfg.get("dim", 70)),
+                             continuous=bool(cfg.get("continuous", True)))
+    return featurizer_lib.FeaturizerConfig(**kwargs)
 
 
 def ecfg_from_checkpoint(cfg, sd: dict, run_cfg, n_classes: int | None = None,

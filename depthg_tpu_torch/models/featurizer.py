@@ -7,10 +7,11 @@ The module tree follows the reference Lightning layout (``net.model.*``,
 under ``torch.no_grad()``. In train mode ``cluster1`` and ``cluster2`` each
 see an independently Dropout2d-masked copy of the features, and the returned
 ``feats`` carry a mask of their own; every mask comes from the caller's
-``torch.Generator``. The JAX package's ``dispatch_apply`` also routes the
-depth-fused (``dino_depth``) and ``feature-pyramid`` featurizers; those are
-later ROADMAP items, and ``inference.fcfg_from_run_cfg`` raises
-``NotImplementedError`` for them.
+``torch.Generator``. ``dispatch_apply`` routes a config to its
+featurizer: this one, the depth-fused ``dino_depth``
+(``models/featurizer_depth.py``) or the ``feature-pyramid``
+(``models/pyramid.py``); it is the one entry of train, validation and TTA
+eval.
 """
 
 from __future__ import annotations
@@ -62,23 +63,38 @@ class DinoFeaturizer(nn.Module):
             self.cluster2 = nn.Sequential(conv1x1(nf, nf), nn.ReLU(),
                                           conv1x1(nf, fcfg.dim))
 
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DinoFeaturizer":
+        """DINO's init for the ViT, then the projection head's 1x1 convs
+        uniform(+-1/sqrt(in)), all from ``generator``."""
+        self.model.init_weights(generator)
+        for name, p in self.named_parameters():
+            if name.startswith(("cluster1.", "cluster2.")):
+                bound = self.get_submodule(name.rsplit(".", 1)[0]).in_channels ** -0.5
+                p.uniform_(-bound, bound, generator=generator)
+        return self
 
-def bf16_parameters(module: nn.Module) -> dict:
-    """bf16 copies of ``module``'s parameters by name, cast by one
-    multi-tensor copy (a ``.to`` per tensor is one launch each, 150 for a
-    ViT-S, and the forward is bound by the host's launch rate)."""
-    names, params = zip(*module.named_parameters())
+
+def bf16_parameters(module: nn.Module, names=None) -> dict:
+    """bf16 copies of ``module``'s parameters (or of those in ``names``) by
+    name, cast by one multi-tensor copy (a ``.to`` per tensor is one launch
+    each, 150 for a ViT-S, and the forward is bound by the host's launch
+    rate)."""
+    if names is None:
+        names = [n for n, _ in module.named_parameters()]
+    params = [module.get_parameter(n) for n in names]
     copies = [torch.empty_like(p, dtype=torch.bfloat16) for p in params]
-    torch._foreach_copy_(copies, list(params))
+    torch._foreach_copy_(copies, params)
     return dict(zip(names, copies))
 
 
 @torch.no_grad()
 def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
                       precision: str | None = None,
-                      backbone_dtype: str | None = None):
+                      backbone_dtype: str | None = None, need_attn: bool = False):
     """Frozen-backbone dense features [B, C, H/ps, W/ps] (float32) plus the
-    last block's attention (None under the kernel).
+    last block's attention (None under the kernel). ``need_attn`` (LHP's
+    attention propagation) takes the eager path for the whole forward.
 
     ``backbone_dtype="bfloat16"`` runs the ViT with its parameters and the
     image cast to bf16 for this call (the module keeps float32 weights) and
@@ -93,7 +109,8 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
         raise NotImplementedError(
             f"backbone_dtype {backbone_dtype!r}: only float32 and bfloat16 "
             "are ported (int8 w8a8 is a later ROADMAP item)")
-    impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device)
+    impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device,
+                                      need_attn)
     if backbone_dtype == "bfloat16":
         feats, attns, qkvs = functional_call(
             net.model, bf16_parameters(net.model), (img.to(torch.bfloat16),),
@@ -134,14 +151,50 @@ def project(net: DinoFeaturizer, image_feat: torch.Tensor, train: bool = False,
 def featurizer_apply(net: DinoFeaturizer, img: torch.Tensor,
                      precision: str | None = None,
                      backbone_dtype: str | None = None, train: bool = False,
-                     generator: torch.Generator | None = None) -> dict:
+                     generator: torch.Generator | None = None,
+                     need_attn: bool = False) -> dict:
     """dict(feats, code, attn). With ``train=True`` the projection sees
     dropout-masked features and, under ``fcfg.dropout``, the returned
     ``feats`` carry their own mask; gradients reach the projection head
     only."""
-    image_feat, attn = backbone_features(net, img, precision, backbone_dtype)
+    image_feat, attn = backbone_features(net, img, precision, backbone_dtype, need_attn)
     code = project(net, image_feat, train, generator)
     feats = image_feat
     if net.fcfg.dropout:
         feats = dropout2d(image_feat, net.fcfg.drop_rate, train, generator)
     return {"feats": feats, "code": code, "attn": attn}
+
+
+def build(fcfg) -> nn.Module:
+    """The featurizer module of a config: ``FeaturizerConfig``,
+    ``DepthFeaturizerConfig`` or ``PyramidConfig``."""
+    from depthg_tpu_torch.models.featurizer_depth import (DepthFeaturizerConfig,
+                                                          DinoDepthFeaturizer)
+    from depthg_tpu_torch.models.pyramid import FeaturePyramidNet, PyramidConfig
+
+    if isinstance(fcfg, PyramidConfig):
+        return FeaturePyramidNet(fcfg)
+    if isinstance(fcfg, DepthFeaturizerConfig):
+        return DinoDepthFeaturizer(fcfg)
+    return DinoFeaturizer(fcfg)
+
+
+def dispatch_apply(net: nn.Module, img: torch.Tensor, depth: torch.Tensor | None = None,
+                   precision: str | None = None, backbone_dtype: str | None = None,
+                   train: bool = False, generator: torch.Generator | None = None,
+                   need_attn: bool = False) -> dict:
+    """The featurizer forward of ``net``'s config: the pyramid (depth,
+    attention and dropout unused; no ``precision`` knob, float32 or bf16 is
+    the whole choice), the depth-fused forward (without depth in eval: the
+    no-depth embed), or the plain DINO featurizer."""
+    from depthg_tpu_torch.models.featurizer_depth import (DepthFeaturizerConfig,
+                                                          depth_featurizer_apply)
+    from depthg_tpu_torch.models.pyramid import PyramidConfig, pyramid_featurizer_apply
+
+    fcfg = net.fcfg
+    if isinstance(fcfg, PyramidConfig):
+        return pyramid_featurizer_apply(net, img, backbone_dtype, train)
+    if isinstance(fcfg, DepthFeaturizerConfig):
+        return depth_featurizer_apply(net, img, depth, precision, need_attn,
+                                      backbone_dtype, train, generator)
+    return featurizer_apply(net, img, precision, backbone_dtype, train, generator, need_attn)

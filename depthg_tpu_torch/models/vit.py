@@ -56,15 +56,21 @@ def make_config(arch: str, patch_size: int) -> ViTConfig:
     return ViTConfig(patch_size=patch_size, **VIT_PRESETS[arch])
 
 
-def resolve_attn_impl(impl: str, precision: str | None,
-                      device: torch.device) -> str:
+def resolve_attn_impl(impl: str, precision: str | None, device: torch.device,
+                      need_attn: bool = False) -> str:
     """"auto" -> "fused" (the Hopper kernel) on CUDA unless a parity
-    precision is requested; "xla" (eager, returns attention maps) otherwise,
-    and always on the CPU. The JAX version's ``need_attn`` (LHP attention
-    propagation) belongs to a later slice."""
+    precision is requested or the attention maps are consumed
+    (``need_attn``: LHP's attention propagation); "xla" (eager, returns
+    attention maps) otherwise, and always on the CPU. A kernel path that
+    is forced while the maps are needed raises."""
     if impl != "auto":
+        if impl in ("flash", "fused") and need_attn:
+            raise ValueError(
+                f"attention_impl='{impl}' cannot return attention maps, but "
+                "this configuration consumes them (LHP attn propagation): "
+                "use 'auto' or 'xla'")
         return impl
-    if precision is not None or device.type != "cuda":
+    if need_attn or precision is not None or device.type != "cuda":
         return "xla"
     return "fused"
 

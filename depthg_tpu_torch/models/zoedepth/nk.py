@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from depthg_tpu_torch.models.layers import LayerNorm
+from depthg_tpu_torch.models.layers import LayerNorm, MultiheadAttention
 from depthg_tpu_torch.models.zoedepth import heads
 from depthg_tpu_torch.models.zoedepth.beit import BEiT, BEiTConfig
 from depthg_tpu_torch.models.zoedepth.dpt import DPT, DPTConfig
@@ -72,32 +72,12 @@ class ZoeNKConfig:
     dpt: DPTConfig = DPTConfig()
 
 
-class SelfAttention(nn.Module):
-    """``nn.MultiheadAttention``'s parameters on [B, S, D], eager softmax
-    with float32 logits (the JAX package's ``_multihead_attention``)."""
-
-    def __init__(self, d: int, num_heads: int):
-        super().__init__()
-        self.num_heads = num_heads
-        self.in_proj_weight = nn.Parameter(nn.init.xavier_uniform_(torch.empty(3 * d, d)))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
-        self.out_proj = nn.Linear(d, d)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, s, d = x.shape
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        q, k, v = qkv.view(b, s, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d // self.num_heads)
-        out = torch.matmul(logits.softmax(dim=-1).to(x.dtype), v)
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
-
-
 class EncoderLayer(nn.Module):
     """torch ``TransformerEncoderLayer``: post-norm, ReLU feed-forward."""
 
     def __init__(self, d: int, num_heads: int, ff: int = 1024):
         super().__init__()
-        self.self_attn = SelfAttention(d, num_heads)
+        self.self_attn = MultiheadAttention(d, num_heads)
         self.linear1 = nn.Linear(d, ff)
         self.linear2 = nn.Linear(ff, d)
         self.norm1 = LayerNorm(d, eps=1e-5)
@@ -176,8 +156,8 @@ class ZoeDepthNK(nn.Module):
         for child in heads_and_router:
             init_uniform_(child, generator)
             for m in child.modules():
-                if isinstance(m, (nn.Linear, SelfAttention)):
-                    w, b = ((m.in_proj_weight, m.in_proj_bias) if isinstance(m, SelfAttention)
+                if isinstance(m, (nn.Linear, MultiheadAttention)):
+                    w, b = ((m.in_proj_weight, m.in_proj_bias) if isinstance(m, MultiheadAttention)
                             else (m.weight, m.bias))
                     bound = 1.0 / math.sqrt(w.shape[1])
                     w.uniform_(-bound, bound, generator=generator)

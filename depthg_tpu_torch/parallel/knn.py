@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from depthg_tpu_torch.models.featurizer import backbone_features
+from depthg_tpu_torch.models.pyramid import FrozenBackbone, feature_map
 from depthg_tpu_torch.ops.correlation import norm
 from depthg_tpu_torch.runtime import get_device
 
@@ -30,10 +31,15 @@ _KEY_BLOCK = 65536
 
 def pooled_features(net, img: torch.Tensor, precision: str | None = None) -> torch.Tensor:
     """Global image embedding [B, C]: mean-pooled dense features of the
-    frozen backbone of ``net`` (a ``DinoFeaturizer``), L2-normalized
+    frozen backbone of ``net`` (a ``DinoFeaturizer``, or a CNN backbone of
+    ``models.pyramid.load_model``: its map before pooling), L2-normalized
     (reference ``get_feats``, ``src/precompute_knns.py:15-21``). float32
     throughout, as the JAX function."""
-    feats, _ = backbone_features(net, img, precision)
+    if isinstance(net, FrozenBackbone):
+        with torch.no_grad():
+            feats = feature_map(net, img)
+    else:
+        feats, _ = backbone_features(net, img, precision)
     return norm(feats.mean(dim=(2, 3)), dim=1)
 
 

@@ -10,7 +10,12 @@ same format (an int32 ``nns`` array [N, 30]), which the trainer reads. Reads
 ``depthg_tpu_torch/configs/local_config.yml`` with overrides and runs on
 ``device`` (default ``cuda``; it raises when there is no card). The backbone
 runs in float32, as in the JAX script; the last batch runs at its own size.
-ViT backbones only: the other model types raise.
+A ViT ``model_type`` embeds with DINO weights from ``pretrained_weights``;
+the CNN types of ``models.pyramid.load_model`` (``resnet50``,
+``robust_resnet50``, ``mocov2``, ``densecl``, ``densenet121``, ``vgg11``)
+with their file from ``{output_root}/data``, mean-pooled over H and W
+(C = 2048 / 1024 / 512, batch 64). Without weights the backbone is random
+(seed 0), with a warning.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from depthg_tpu_torch.config import cli_overrides, load_config
 from depthg_tpu_torch.data import ContrastiveSegDataset, DataLoader, get_transform
 from depthg_tpu_torch.inference import fcfg_from_run_cfg
 from depthg_tpu_torch.models.featurizer import DinoFeaturizer
+from depthg_tpu_torch.models.pyramid import backbone_for, load_model
 from depthg_tpu_torch.models.vit import VIT_PRESETS
 from depthg_tpu_torch.parallel import knn as knn_lib
 from depthg_tpu_torch.runtime import get_device, single_device_only, to_device
@@ -55,10 +61,6 @@ def main(argv=None):
     overrides = cli_overrides(argv if argv is not None else sys.argv[1:])
     cfg = load_config("local_config.yml", overrides)
     single_device_only(cfg.get("n_devices"), "the port's KNN (the sharded one is not ported)")
-    if cfg.model_type not in VIT_PRESETS:
-        raise NotImplementedError(
-            f"model_type={cfg.model_type}: only the ViT backbones are ported "
-            "(ROADMAP item 6: the other featurizers)")
     device = get_device(cfg.get("device", "cuda"))
 
     data_dir = cfg.data_dir
@@ -73,13 +75,24 @@ def main(argv=None):
     res = int(cfg.get("knn_res", cfg.res))
     batch_size = 128 if cfg.model_type == "vit_small" else 64
 
-    net = DinoFeaturizer(fcfg_from_run_cfg(cfg))
-    if cfg.get("pretrained_weights"):
-        net.model.load_state_dict(load_dino_pth(cfg.pretrained_weights), strict=True)
+    if cfg.model_type not in VIT_PRESETS:
+        # the reference's cut_model path (src/precompute_knns.py:60-64);
+        # an unknown type raises ValueError here
+        try:
+            net, _ = load_model(cfg.model_type, join(cfg.output_root, "data"))
+        except FileNotFoundError as e:
+            print(f"WARNING: {e}; using random backbone weights — neighbor "
+                  "quality will be meaningless.")
+            net, _ = backbone_for(cfg.model_type)
+            net.init_weights(torch.Generator().manual_seed(0))
     else:
-        print("WARNING: no pretrained_weights given; using random backbone "
-              "weights — neighbor quality will be meaningless.")
-        net.model.init_weights(torch.Generator().manual_seed(0))
+        net = DinoFeaturizer(fcfg_from_run_cfg(cfg))
+        if cfg.get("pretrained_weights"):
+            net.model.load_state_dict(load_dino_pth(cfg.pretrained_weights), strict=True)
+        else:
+            print("WARNING: no pretrained_weights given; using random backbone "
+                  "weights — neighbor quality will be meaningless.")
+            net.model.init_weights(torch.Generator().manual_seed(0))
     net = net.to(device).eval()
 
     written = []

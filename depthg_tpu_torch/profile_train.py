@@ -2,12 +2,16 @@
 
     python -m depthg_tpu_torch.profile_train [--steps 20] [--batch 32] [--res 224]
         [--feature_samples 11] [--fused_pair_forward] [--out FILE]
+        [arch=dino|dino_depth|feature-pyramid] [guidance=...] [lhp=True]
+        [propagation_strategy=depth|attn] [model_type=...] [granularity=1..4]
 
 Full-width ViT-S/8 with random weights (``torch.Generator`` seed 0), dim 70,
 synthetic smooth images and depths and random labels made on the card, bf16
 backbone, FPS sampling, five negatives, the depth-feature term on (weight
-0.19, shift 0.03), dropout on. Prints one JSON object (also written to
-``--out``):
+0.19, shift 0.03), dropout on. The ``key=value`` overrides (those six keys
+only, read as ``configs/local_config.yml`` reads them) pick a variant: the
+depth-fused featurizer, LHP, or the feature pyramid over a random
+ResNet-50. Prints one JSON object (also written to ``--out``):
 
 * ``step_ms`` / ``img_per_s``: the whole ``train_step``, CUDA events around
   ``--steps`` back-to-back steps on perturbed batches after a warm-up, with
@@ -15,8 +19,8 @@ backbone, FPS sampling, five negatives, the depth-feature term on (weight
   the same loop up to the last launch (a step is host-bound where the two
   are close);
 * ``parts_ms``: each part on its own over the same number of calls: the two
-  frozen backbone forwards, the bf16 casts of the backbone's parameters
-  (done on every forward), FPS for both images, the loss forward
+  frozen backbone forwards (the ViT, or the pyramid's ResNet), the bf16
+  casts of the backbone's parameters (done on every forward), FPS for both images, the loss forward
   (``loss_fn``, backbone included), backward, the three optimizer steps.
   Parts run one after another with a sync between them, so they need not
   add up to ``step_ms``;
@@ -30,6 +34,7 @@ backbone, FPS sampling, five negatives, the depth-feature term on (weight
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -37,7 +42,11 @@ import time
 import torch
 
 from depthg_tpu_torch import get_device
+from depthg_tpu_torch.config import cli_overrides, load_config
+from depthg_tpu_torch.inference import fcfg_from_run_cfg
 from depthg_tpu_torch.models import featurizer
+from depthg_tpu_torch.models import pyramid
+from depthg_tpu_torch.models.pyramid import FeaturePyramidNet
 from depthg_tpu_torch.ops import attention
 from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth
 from depthg_tpu_torch.profile_eval import TOP, _cuda_ms, _top
@@ -45,6 +54,35 @@ from depthg_tpu_torch.train import losses as loss_lib
 from depthg_tpu_torch.train import step as step_lib
 
 DEPTH_FEAT_WEIGHT, DEPTH_FEAT_SHIFT = 0.19, 0.03
+VARIANT_KEYS = ("arch", "guidance", "lhp", "propagation_strategy", "model_type", "granularity")
+
+
+def variant(overrides: list, hp: step_lib.TrainHParams):
+    """(featurizer config, hparams) of the ``key=value`` overrides: the
+    featurizer as ``fcfg_from_run_cfg`` reads ``local_config.yml``, LHP's
+    switch and strategy into ``hp``; any other key raises."""
+    overrides = cli_overrides(overrides)
+    unknown = sorted({o.split("=", 1)[0] for o in overrides} - set(VARIANT_KEYS))
+    if unknown:
+        raise ValueError(f"profile_train takes only {VARIANT_KEYS} as overrides, got {unknown}")
+    cfg = load_config("local_config.yml", overrides)
+    hp = dataclasses.replace(hp, lhp=bool(cfg.lhp),
+                             lhp_propagation_strategy=str(cfg.propagation_strategy))
+    return fcfg_from_run_cfg(cfg), hp
+
+
+def frozen_forward(net, img: torch.Tensor):
+    """The frozen backbone's bf16 forward alone: the ViT, or the pyramid's
+    ResNet-50."""
+    if isinstance(net, FeaturePyramidNet):
+        return pyramid.backbone_features(net, img, "bfloat16")
+    return featurizer.backbone_features(net, img, backbone_dtype="bfloat16")
+
+
+def bf16_casts(net):
+    if isinstance(net, FeaturePyramidNet):
+        return net.model.conv_weights_bf16()
+    return featurizer.bf16_parameters(net.model)
 
 
 def synthetic_batch(b: int, res: int, n_classes: int, gen: torch.Generator) -> dict:
@@ -77,13 +115,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--feature_samples", type=int, default=11)
     ap.add_argument("--fused_pair_forward", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("overrides", nargs="*", help=f"key=value, key in {VARIANT_KEYS}")
     args = ap.parse_args(argv)
     dev = get_device("cuda")
     b, n = args.batch, args.steps
 
-    fcfg = featurizer.FeaturizerConfig()
-    hp = step_lib.TrainHParams(n_classes=27, backbone_dtype="bfloat16",
-                               fused_pair_forward=args.fused_pair_forward)
+    fcfg, hp = variant(args.overrides, step_lib.TrainHParams(
+        n_classes=27, backbone_dtype="bfloat16", fused_pair_forward=args.fused_pair_forward))
     lcfg = loss_lib.CorrLossConfig(feature_samples=args.feature_samples)
     state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -111,11 +149,11 @@ def main(argv=None) -> dict:
     net = state.model.net
 
     def backbones(i):
-        featurizer.backbone_features(net, batches[i % 4]["img"], backbone_dtype="bfloat16")
-        featurizer.backbone_features(net, batches[i % 4]["img_pos"], backbone_dtype="bfloat16")
+        frozen_forward(net, batches[i % 4]["img"])
+        frozen_forward(net, batches[i % 4]["img_pos"])
 
     def casts(i):
-        return [featurizer.bf16_parameters(net.model) for _ in range(2)]
+        return [bf16_casts(net) for _ in range(2)]
 
     grid = torch.zeros(2 * b, 1, args.res // 8, args.res // 8, device=dev)
     depths = [torch.cat([bt["depth"], bt["depth_pos"]]) for bt in batches]
@@ -124,7 +162,8 @@ def main(argv=None) -> dict:
         return farthest_point_sampling_depth(grid, depths[i % 4], args.feature_samples)
 
     def forward(i):
-        return step_lib.loss_fn(state.model, batches[i % 4], hp, lcfg, w, sh, generator=gen)[0]
+        return step_lib.loss_fn(state.model, batches[i % 4], hp, lcfg, w, sh, generator=gen,
+                                lhp=state.lhp)[0]
 
     def backward_ms():
         """The backward passes alone: events around each ``backward()``,
@@ -176,6 +215,7 @@ def main(argv=None) -> dict:
                     for group in opt.param_groups for p in group["params"])
     result = {
         "card": card, "torch": torch.__version__, "batch": b, "res": args.res,
+        "overrides": args.overrides, "featurizer": type(fcfg).__name__, "lhp": hp.lhp,
         "steps": n, "feature_samples": args.feature_samples,
         "fused_pair_forward": args.fused_pair_forward,
         "step_ms": step_ms, "img_per_s": b / step_ms * 1e3, "host_ms": host_ms,

@@ -11,10 +11,18 @@
   nothing is compiled, so a new value is just a new shape.
 * Every random draw comes from the one ``torch.Generator`` the caller
   passes, on the batch's device.
+* The featurizer is any of ``models.featurizer.dispatch_apply``'s: the
+  DINO one, the depth-fused ``dino_depth`` (its depth pyramid,
+  cross-attention and ``no_depth_embed`` train in the net group) or the
+  ``feature-pyramid`` (its head trains; the head's BatchNorm takes one
+  running-stat update per train-mode forward: img, img_pos, img_aug).
+* ``lhp=True`` adds the LHP head (``models.lhp``): built from the
+  generator, frozen, in no optimizer (``TrainState.lhp``); its code feeds a
+  second correlation loss. The "attn" strategy runs the first forward's
+  backbone eagerly for its attention maps.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-LHP, the ``dino_depth`` and ``feature-pyramid`` featurizers, an int8
-backbone, more than one device.
+Not ported (raises ``NotImplementedError`` naming its ROADMAP item): an
+int8 backbone; more than one device is the trainer's refusal.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import torch
 from depthg_tpu_torch.inference import Segmenter
 from depthg_tpu_torch.models import featurizer as featurizer_lib
 from depthg_tpu_torch.models import probes
+from depthg_tpu_torch.models.lhp import LHP, LHPConfig, lhp_apply
+from depthg_tpu_torch.models.pyramid import PyramidConfig
 from depthg_tpu_torch.ops.correlation import norm, one_hot_feats
 from depthg_tpu_torch.ops.resize import resize_bilinear
 from depthg_tpu_torch.ops.sampling import sample
@@ -49,7 +59,14 @@ class TrainHParams:
     use_true_labels: bool = False
     use_depth_only_intra: bool = False
     extra_clusters: int = 0
-    lhp: bool = False  # not ported: raises
+    # LHP (reference src/train_segmentation.py:202-344); the LHP head is in
+    # no optimizer in the reference and stays at its init here too
+    lhp: bool = False
+    lhp_weight: float = 0.2
+    lhp_depth_weight: float = 1.0
+    lhp_weight_balance: bool = False
+    lhp_original_experiment: bool = False  # experiment_name contains "lhp_original"
+    lhp_propagation_strategy: str = "depth"
     # "float32" forces the eager attention path (parity runs); None lets
     # "auto" take the Hopper kernel on CUDA
     precision: str | None = None
@@ -90,6 +107,11 @@ def hparams_from_cfg(cfg, n_classes: int) -> TrainHParams:
         use_depth_only_intra=bool(cfg.get("use_depth_only_intra", False)),
         extra_clusters=int(cfg.extra_clusters),
         lhp=bool(cfg.get("lhp", False)),
+        lhp_weight=float(cfg.get("lhp_weight", 0.2)),
+        lhp_depth_weight=float(cfg.get("lhp_depth_weight", 1.0)),
+        lhp_weight_balance=bool(cfg.get("lhp_weight_balance", False)),
+        lhp_original_experiment="lhp_original" in str(cfg.get("experiment_name", "")),
+        lhp_propagation_strategy=str(cfg.get("propagation_strategy", "depth")),
         precision=cfg.get("matmul_precision"),
         backbone_dtype=str(cfg.get("backbone_dtype", "bfloat16")),
         fused_pair_forward=bool(cfg.get("fused_pair_forward", False)),
@@ -100,10 +122,6 @@ def hparams_from_cfg(cfg, n_classes: int) -> TrainHParams:
 
 
 def check_supported(hp: TrainHParams) -> None:
-    if hp.lhp:
-        raise NotImplementedError(
-            "lhp=True: the LHP head is not ported yet (ROADMAP item 6: LHP and "
-            "the depth-fused and pyramid featurizers)")
     if hp.backbone_dtype == "int8":
         raise NotImplementedError(
             "backbone_dtype='int8': the w8a8 backbone is not ported yet "
@@ -115,15 +133,18 @@ def check_supported(hp: TrainHParams) -> None:
 @dataclasses.dataclass
 class TrainState:
     """The segmenter (with its decoder), the three optimizers
-    (``net`` / ``linear`` / ``cluster``) and the step counter."""
+    (``net`` / ``linear`` / ``cluster``), the step counter and, with
+    ``lhp=True``, the frozen LHP head."""
     model: Segmenter
     opt: dict
     step: int = 0
+    lhp: LHP | None = None
 
 
 def _net_group(model: Segmenter, hp: TrainHParams) -> list:
-    """The parameters of the net optimizer: the projection head, and the
-    decoder only when the reconstruction loss is on."""
+    """The parameters of the net optimizer: the featurizer's trainable
+    parameters (all but the frozen backbone ``model``), and the decoder only
+    when the reconstruction loss is on."""
     params = [p for name, p in model.net.named_parameters()
               if not name.startswith("model.")]
     if hp.rec_weight > 0:
@@ -140,22 +161,39 @@ def make_optimizers(model: Segmenter, hp: TrainHParams) -> dict:
     }
 
 
-def state_from_model(model: Segmenter, hp: TrainHParams) -> TrainState:
-    """Freeze the ViT of ``model`` (built with ``decoder=True``) and give it
-    fresh optimizers."""
+def state_from_model(model: Segmenter, hp: TrainHParams,
+                     generator: torch.Generator | None = None,
+                     lhp_state_dict: dict | None = None) -> TrainState:
+    """Freeze the backbone of ``model`` (built with ``decoder=True``) and
+    give it fresh optimizers. With ``hp.lhp`` the LHP head takes
+    ``lhp_state_dict`` (``proj.fc{1,2}.*``) or, without one, weights drawn
+    from ``generator`` (a CPU generator)."""
     check_supported(hp)
     model.net.model.requires_grad_(False)
-    return TrainState(model=model, opt=make_optimizers(model, hp), step=0)
+    lhp = None
+    if hp.lhp:
+        lhp = LHP(LHPConfig(dim=model.net.fcfg.dim,
+                            propagation_strategy=hp.lhp_propagation_strategy,
+                            original=hp.lhp_original_experiment))
+        if lhp_state_dict is not None:
+            lhp.load_state_dict(lhp_state_dict, strict=True)
+        elif generator is None:
+            raise ValueError("lhp=True: pass the generator that draws the LHP head "
+                             "or its lhp_state_dict")
+        else:
+            lhp.init_weights(generator)
+        lhp = lhp.requires_grad_(False).to(model.linear_probe.weight.device)
+    return TrainState(model=model, opt=make_optimizers(model, hp), step=0, lhp=lhp)
 
 
-def init_state(fcfg: featurizer_lib.FeaturizerConfig, hp: TrainHParams,
-               generator: torch.Generator,
+def init_state(fcfg, hp: TrainHParams, generator: torch.Generator,
                device: torch.device | str = "cpu") -> TrainState:
     """A random-weight train state from ``generator`` (a CPU generator: the
-    weights are drawn on the host and moved to ``device``)."""
+    weights, and then the LHP head's, are drawn on the host and moved to
+    ``device``). ``fcfg`` is any featurizer config."""
     model = Segmenter(fcfg, hp.n_classes, hp.n_classes + hp.extra_clusters,
                       decoder=True).init_weights(generator).to(device)
-    return state_from_model(model, hp)
+    return state_from_model(model, hp, generator)
 
 
 def cross_entropy_masked(logits: torch.Tensor, labels: torch.Tensor, n_classes: int,
@@ -180,31 +218,45 @@ def cross_entropy_masked(logits: torch.Tensor, labels: torch.Tensor, n_classes: 
 def loss_fn(model: Segmenter, batch: dict, hp: TrainHParams,
             lcfg: loss_lib.CorrLossConfig, depth_feat_weight: float,
             depth_feat_shift: float, generator: torch.Generator | None = None,
-            coords_override=None, neg_perms=None):
+            coords_override=None, neg_perms=None, lhp: LHP | None = None,
+            lhp_coords_override=None, lhp_neg_perms=None):
     """Total loss and logs. ``batch``: img, img_pos, label, depth,
     depth_pos ([B, 1, H, W]) and, by option, label_pos, mask, mask_pos,
     img_aug, coord_aug, all on one device. ``coords_override`` and
-    ``neg_perms`` fix the correlation loss's draws."""
+    ``neg_perms`` fix the correlation loss's draws, ``lhp_coords_override``
+    and ``lhp_neg_perms`` those of the LHP loss; ``lhp`` is the frozen LHP
+    head (``hp.lhp``)."""
     check_supported(hp)
+    if hp.lhp and lhp is None:
+        raise ValueError("lhp=True needs the LHP head (TrainState.lhp)")
     net = model.net
     img, label = batch["img"], batch["label"]
     depth, depth_pos = batch.get("depth"), batch.get("depth_pos")
     bdt = None if hp.backbone_dtype == "float32" else hp.backbone_dtype
+    # only LHP's "attn" strategy reads attention maps, and only the first
+    # forward's: every other forward may take the attention kernel
+    need_attn = hp.lhp and hp.lhp_propagation_strategy == "attn"
 
-    def featurize(x):
-        return featurizer_lib.featurizer_apply(
-            net, x, precision=hp.precision, backbone_dtype=bdt, train=True,
-            generator=generator)
+    def featurize(x, d=None, attn=False):
+        return featurizer_lib.dispatch_apply(
+            net, x, d, precision=hp.precision, backbone_dtype=bdt, train=True,
+            generator=generator, need_attn=attn)
 
-    fuse_pair = hp.fused_pair_forward and hp.correspondence_weight > 0
+    # the stacked pass is not taken where it would change the result: the
+    # attention maps of the first forward alone, the pyramid's BatchNorm
+    # (batch statistics per forward), and depth on one side only
+    fuse_pair = (hp.fused_pair_forward and hp.correspondence_weight > 0
+                 and not need_attn and not isinstance(net.fcfg, PyramidConfig)
+                 and (depth is None) == (depth_pos is None))
     out_pos = None
     if fuse_pair:
         b = img.shape[0]
-        both = featurize(torch.cat([img, batch["img_pos"]]))
-        out = {"feats": both["feats"][:b], "code": both["code"][:b]}
+        depth_both = None if depth is None else torch.cat([depth, depth_pos])
+        both = featurize(torch.cat([img, batch["img_pos"]]), depth_both)
+        out = {"feats": both["feats"][:b], "code": both["code"][:b], "attn": None}
         out_pos = {"feats": both["feats"][b:], "code": both["code"][b:]}
     else:
-        out = featurize(img)
+        out = featurize(img, depth, need_attn)
     feats, code = out["feats"], out["code"]
 
     logs: dict = {}
@@ -212,7 +264,7 @@ def loss_fn(model: Segmenter, batch: dict, hp: TrainHParams,
 
     if hp.correspondence_weight > 0:
         if out_pos is None:
-            out_pos = featurize(batch["img_pos"])
+            out_pos = featurize(batch["img_pos"], depth_pos)
         feats_pos, code_pos = out_pos["feats"], out_pos["code"]
 
         if hp.use_true_labels:
@@ -221,21 +273,21 @@ def loss_fn(model: Segmenter, batch: dict, hp: TrainHParams,
         else:
             signal, signal_pos = feats, feats_pos
 
-        if hp.use_depth_only_intra:
-            corr = loss_lib.depth_contrastive_correlation_loss(
-                lcfg, signal, signal_pos, code, code_pos,
-                depth_aug_feats=feats, depth_aug_feats_pos=feats_pos,
-                salience=batch.get("mask"), salience_pos=batch.get("mask_pos"),
-                coords_override=coords_override, neg_perms=neg_perms,
-                generator=generator)
-        else:
-            corr = loss_lib.contrastive_correlation_loss(
-                lcfg, signal, signal_pos, code, code_pos,
+        def corr_loss(c, c_pos, coords, perms):
+            if hp.use_depth_only_intra:
+                return loss_lib.depth_contrastive_correlation_loss(
+                    lcfg, signal, signal_pos, c, c_pos,
+                    depth_aug_feats=feats, depth_aug_feats_pos=feats_pos,
+                    salience=batch.get("mask"), salience_pos=batch.get("mask_pos"),
+                    coords_override=coords, neg_perms=perms, generator=generator)
+            return loss_lib.contrastive_correlation_loss(
+                lcfg, signal, signal_pos, c, c_pos,
                 depth=depth, depth_pos=depth_pos,
                 salience=batch.get("mask"), salience_pos=batch.get("mask_pos"),
-                coords_override=coords_override, neg_perms=neg_perms,
+                coords_override=coords, neg_perms=perms,
                 depth_feat_shift=depth_feat_shift, generator=generator)
 
+        corr = corr_loss(code, code_pos, coords_override, neg_perms)
         pos_intra = corr["pos_intra_loss"]
         pos_inter = corr["pos_inter_loss"]
         neg_inter = corr["neg_inter_loss"].mean()
@@ -253,11 +305,38 @@ def loss_fn(model: Segmenter, batch: dict, hp: TrainHParams,
         corr_total = (hp.pos_inter_weight * pos_inter
                       + hp.pos_intra_weight * pos_intra
                       + hp.neg_inter_weight * neg_inter)
-        if lcfg.depth_feat_correlation_loss and not hp.use_depth_only_intra:
+        has_df = lcfg.depth_feat_correlation_loss and not hp.use_depth_only_intra
+        if has_df:
             logs["loss/depth_feat"] = corr["depth_feat_loss"]
             logs["cd/depth_feat"] = corr["depth_feat_cd"].mean()
             corr_total = corr_total + depth_feat_weight * corr["depth_feat_loss"]
-        loss = loss + corr_total * hp.correspondence_weight
+
+        if hp.lhp:
+            # the reference's balance and zeroing rules
+            # (src/train_segmentation.py:325-344): the lhp_original zeroing
+            # exists only inside its depth-feature branch
+            balance = hp.lhp_weight if (has_df and hp.lhp_weight_balance) else 0.0
+            lhp_weight = hp.lhp_weight
+            main_scale = (hp.correspondence_weight - balance if has_df
+                          else hp.correspondence_weight)
+            if hp.lhp_original_experiment and has_df:
+                main_scale, lhp_weight = 0.0, 1.0
+            loss = loss + corr_total * main_scale
+
+            # positive side: the projection alone (the reference passes no depth)
+            lhp_corr = corr_loss(lhp_apply(lhp, code, depth, out["attn"]),
+                                 lhp_apply(lhp, code_pos), lhp_coords_override, lhp_neg_perms)
+            lhp_total = (hp.pos_inter_weight * lhp_corr["pos_inter_loss"]
+                         + hp.pos_intra_weight * lhp_corr["pos_intra_loss"]
+                         + hp.neg_inter_weight * lhp_corr["neg_inter_loss"].mean())
+            if has_df:
+                lhp_total = lhp_total + (depth_feat_weight * hp.lhp_depth_weight
+                                         * lhp_corr["depth_feat_loss"])
+            loss = loss + lhp_total * lhp_weight
+            logs["loss/lhp_pos_intra"] = lhp_corr["pos_intra_loss"]
+            logs["loss/lhp_pos_inter"] = lhp_corr["pos_inter_loss"]
+        else:
+            loss = loss + corr_total * hp.correspondence_weight
 
     if hp.rec_weight > 0:
         rec_feats = model.decoder(code)
@@ -300,14 +379,16 @@ def loss_fn(model: Segmenter, batch: dict, hp: TrainHParams,
 def train_step(state: TrainState, batch: dict, hp: TrainHParams,
                lcfg: loss_lib.CorrLossConfig, depth_feat_weight: float,
                depth_feat_shift: float, generator: torch.Generator | None = None,
-               coords_override=None, neg_perms=None) -> dict:
+               coords_override=None, neg_perms=None, lhp_coords_override=None,
+               lhp_neg_perms=None) -> dict:
     """One optimization step in place: one backward over the total loss, then
     the three optimizer steps. Returns the logs as detached tensors on the
     batch's device (nothing here waits for the device)."""
     for opt in state.opt.values():
         opt.zero_grad(set_to_none=True)
     loss, logs = loss_fn(state.model, batch, hp, lcfg, depth_feat_weight,
-                         depth_feat_shift, generator, coords_override, neg_perms)
+                         depth_feat_shift, generator, coords_override, neg_perms,
+                         state.lhp, lhp_coords_override, lhp_neg_perms)
     loss.backward()
     for opt in state.opt.values():
         opt.step()

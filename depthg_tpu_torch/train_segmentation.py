@@ -12,22 +12,26 @@ host functions of the step, validation every ``val_freq`` steps with
 Hungarian-matched metrics, ``best`` / ``last`` / top-k checkpoints monitored
 on ``test/cluster/mIoU`` (Accuracy for potsdam).
 
-The frozen DINO backbone comes from ``pretrained_weights`` (a DINO ``.pth``
-or a Lightning ``.ckpt``); without one it is randomly initialized from the
-seed, with a warning. Batches are staged through pinned host memory two
+``arch`` is ``dino``, ``dino_depth`` (the depth-fused featurizer, with
+``guidance``) or ``feature-pyramid`` (``granularity``, ``continuous``), and
+``lhp=True`` adds the LHP loss (``propagation_strategy``, ``lhp_weight``,
+...). The frozen DINO backbone comes from ``pretrained_weights`` (a DINO
+``.pth`` or a Lightning ``.ckpt``); the pyramid's ResNet-50 from
+``load_model(model_type, {output_root}/data)``. Without a file the backbone
+is randomly initialized from the seed, with a warning. Batches are staged through pinned host memory two
 ahead of the step. Scalars go to a jsonl log, and to TensorBoard and wandb
 when those are installed and asked for.
 
-Each checkpoint ``<tag>`` is two files: ``<tag>.ckpt``, a
-reference-compatible Lightning checkpoint that the eval CLIs of both
-packages read, and ``<tag>.train_state.pt``, the port's own resumable train
-state for ``resume=`` (``utils.ckpt.save_train_state``). Differences from
-the JAX trainer: no orbax directory and no pickled optax state are written
-or read; the random draws of step k are seeded from (seed, k) and
-``resume=`` also repositions the data loader, so a resumed run repeats an
-uninterrupted one; ``n_devices`` must be 1 or empty; ``lhp``,
-``arch=dino_depth|feature-pyramid`` and ``backbone_dtype=int8`` raise
-``NotImplementedError``.
+Each checkpoint ``<tag>`` is ``<tag>.train_state.pt``, the port's own
+resumable train state for ``resume=`` (``utils.ckpt.save_train_state``),
+and for ``arch=dino`` also ``<tag>.ckpt``, a reference-compatible Lightning
+checkpoint that the eval CLIs of both packages read (the JAX trainer
+exports that layout for ``arch=dino`` only too). Differences from the JAX
+trainer: no orbax directory and no pickled optax state are written or
+read; the random draws of step k are seeded from (seed, k) and ``resume=``
+also repositions the data loader, so a resumed run repeats an
+uninterrupted one; ``n_devices`` must be 1 or empty and
+``backbone_dtype=int8`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from depthg_tpu_torch.data import ContrastiveSegDataset, DataLoader, get_transfo
 from depthg_tpu_torch.data.loader import device_prefetch
 from depthg_tpu_torch.data.transforms import GeometricAug, PhotometricAug
 from depthg_tpu_torch.inference import Segmenter, fcfg_from_run_cfg, make_validation_step
+from depthg_tpu_torch.models.pyramid import RESNET50_MODEL_TYPES, load_model
 from depthg_tpu_torch.runtime import get_device
 from depthg_tpu_torch.train import decay as decay_lib
 from depthg_tpu_torch.train import losses as loss_lib
@@ -85,9 +90,27 @@ def build_datasets(cfg):
 
 
 def load_backbone(cfg, model: Segmenter) -> str:
-    """Load the frozen ViT of ``model`` from ``cfg.pretrained_weights`` (a
-    DINO ``.pth`` or a Lightning ``.ckpt``), strictly. Without a file the
-    random init of the seed stays, with a warning. Returns what was used."""
+    """Load the frozen backbone of ``model``, strictly: the ViT from
+    ``cfg.pretrained_weights`` (a DINO ``.pth`` or a Lightning ``.ckpt``);
+    for ``arch=feature-pyramid`` the ResNet-50 of ``load_model(model_type,
+    {output_root}/data)``. Without a file the random init of the seed stays,
+    with a warning. Returns what was used."""
+    if cfg.arch == "feature-pyramid":
+        # the model_type is checked before the filesystem is touched, so a
+        # missing file can never swap model families: the random fallback
+        # is a ResNet-50 (FeaturePyramidNet's channel layout)
+        if cfg.model_type not in RESNET50_MODEL_TYPES:
+            raise ValueError(
+                f"arch=feature-pyramid needs a resnet50-family model_type "
+                f"{sorted(RESNET50_MODEL_TYPES)} (FeaturePyramidNet channel "
+                f"layout, src/modules.py:703); got {cfg.model_type!r}")
+        try:
+            net, _ = load_model(cfg.model_type, join(cfg.output_root, "data"))
+        except FileNotFoundError as e:
+            print(f"WARNING: {e}; the backbone is randomly initialized.")
+            return "random"
+        model.net.model.load_state_dict(net.state_dict(), strict=True)
+        return cfg.model_type
     path = cfg.get("pretrained_weights")
     if path and os.path.exists(path):
         if path.endswith(".ckpt"):
@@ -133,7 +156,7 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"n_devices={cfg.n_devices}: the port trains on one device "
             "(ROADMAP item 7: multi-GPU)")
-    fcfg = fcfg_from_run_cfg(cfg)  # raises for the featurizers not ported
+    fcfg = fcfg_from_run_cfg(cfg)
     step_lib.check_supported(step_lib.hparams_from_cfg(cfg, 0))
     device = get_device(cfg.get("device", "cuda"))
 
@@ -185,10 +208,11 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
     dcfg = decay_lib.from_cfg(cfg)
     base_lcfg = loss_lib.from_cfg(cfg)
 
+    init_gen = torch.Generator().manual_seed(seed)  # the weights, then the LHP head
     model = Segmenter(fcfg, n_classes, n_classes + hp.extra_clusters,
-                      decoder=True).init_weights(torch.Generator().manual_seed(seed))
+                      decoder=True).init_weights(init_gen)
     backbone = load_backbone(cfg, model)
-    state = step_lib.state_from_model(model.to(device), hp)
+    state = step_lib.state_from_model(model.to(device), hp, init_gen)
 
     train_loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True,
                               num_workers=cfg.num_workers, drop_last=True, seed=seed)
@@ -217,7 +241,7 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
     stage = _stage_fn(sorted(needed), device)
 
     def save_ckpt(tag):
-        if cfg.get("export_torch_ckpt", True):
+        if cfg.get("export_torch_ckpt", True) and cfg.arch == "dino":
             ckpt_lib.export_lightning_ckpt(
                 join(checkpoint_dir, tag + ".ckpt"), step_lib.eval_state_dict(state),
                 cfg=dict(cfg), n_classes=n_classes, global_step=state.step)

@@ -9,11 +9,14 @@ exporter in ``depthg_tpu/utils/ckpt.py:146-206``) writes that layout from
 the JAX package's parameter tree given as numpy arrays, so random-init
 parity weights and released checkpoints take one path.
 
-The trainer writes two files per checkpoint: a reference-compatible
-Lightning ``.ckpt`` (``export_lightning_ckpt``; both packages' eval loaders
-read it) and the port's own resumable train state
-(``save_train_state``: ``torch.save`` of the trainable tensors, the three
-optimizers' ``state_dict()`` and the step). The JAX trainer's pickled optax
+``state_dict_from_jax`` also carries the variants' trees: the depth
+featurizer's pyramid, cross-attention and ``no_depth_embed``, the feature
+pyramid's ResNet-50 and head (BatchNorm statistics included) and the LHP
+head. The trainer writes the port's own resumable train state
+(``save_train_state``: ``torch.save`` of the trainable tensors and
+buffers, the three optimizers' ``state_dict()`` and the step) and, for
+``arch=dino`` as the JAX trainer, a reference-compatible Lightning
+``.ckpt`` (``export_lightning_ckpt``; both packages' eval loaders read it). The JAX trainer's pickled optax
 state and its orbax directories need JAX to read; the port writes neither
 and reads neither.
 """
@@ -78,6 +81,17 @@ def vit_state_dict(params: dict, prefix: str = "") -> dict:
     return out
 
 
+def _heads_sd(sd: dict, params: dict) -> None:
+    """The probes and the training side's decoder."""
+    if "linear_probe" in params:
+        _conv1x1_sd(sd, "linear_probe", params["linear_probe"])
+    if "cluster_probe" in params:
+        sd["cluster_probe.clusters"] = _torch(params["cluster_probe"]["clusters"])
+    if "decoder" in params and params["decoder"] is not None:
+        # the inline rec-loss decoder (reference train_segmentation.py:115)
+        _conv1x1_sd(sd, "decoder", params["decoder"])
+
+
 def lightning_state_dict(params: dict) -> dict:
     """Full segmenter parameter tree -> reference Lightning state_dict."""
     net = params["net"]
@@ -87,20 +101,90 @@ def lightning_state_dict(params: dict) -> dict:
     if "cluster2" in net:
         _conv1x1_sd(sd, "net.cluster2.0", net["cluster2"]["fc1"])
         _conv1x1_sd(sd, "net.cluster2.2", net["cluster2"]["fc2"])
-    if "linear_probe" in params:
-        _conv1x1_sd(sd, "linear_probe", params["linear_probe"])
-    if "cluster_probe" in params:
-        sd["cluster_probe.clusters"] = _torch(params["cluster_probe"]["clusters"])
-    if "decoder" in params and params["decoder"] is not None:
-        # the inline rec-loss decoder (reference train_segmentation.py:115)
-        _conv1x1_sd(sd, "decoder", params["decoder"])
+    _heads_sd(sd, params)
+    return sd
+
+
+def _conv_sd(out: dict, prefix: str, p: dict) -> None:
+    """A convolution stored as torch's OIHW (``zoedepth.layers.conv_init``)."""
+    out[prefix + ".weight"] = _torch(p["w"])
+    if "b" in p:
+        out[prefix + ".bias"] = _torch(p["b"])
+
+
+def _bn_sd(out: dict, prefix: str, p: dict) -> None:
+    out[prefix + ".weight"] = _torch(p["g"])
+    out[prefix + ".bias"] = _torch(p["b"])
+    out[prefix + ".running_mean"] = _torch(p["mean"])
+    out[prefix + ".running_var"] = _torch(p["var"])
+    out[prefix + ".num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _resnet50_sd(out: dict, prefix: str, p: dict) -> None:
+    """The JAX package's ResNet-50 tree -> torchvision's keys."""
+    _conv_sd(out, prefix + "conv1", p["conv1"])
+    _bn_sd(out, prefix + "bn1", p["bn1"])
+    for li, layer in enumerate(p["layers"], start=1):
+        for bi, blk in enumerate(layer):
+            q = f"{prefix}layer{li}.{bi}."
+            for ci in (1, 2, 3):
+                _conv_sd(out, f"{q}conv{ci}", blk[f"conv{ci}"])
+                _bn_sd(out, f"{q}bn{ci}", blk[f"bn{ci}"])
+            if "down" in blk:
+                _conv_sd(out, q + "downsample.0", blk["down"]["conv"])
+                _bn_sd(out, q + "downsample.1", blk["down"]["bn"])
+
+
+def _pyramid_sd(net: dict) -> dict:
+    """``arch=feature-pyramid``: the ResNet under ``net.model``, the head's
+    ``cluster*`` and ``conv*`` (``DoubleConv``) with their BatchNorm stats."""
+    sd: dict = {}
+    _resnet50_sd(sd, "net.model.", net["vit"])
+    for name, p in net.items():
+        if name.startswith("cluster"):
+            _conv_sd(sd, f"net.{name}", p)
+        elif name.startswith("conv"):
+            for part in ("conv1", "conv2"):
+                _conv_sd(sd, f"net.{name}.{part}", p[part])
+            for part in ("bn1", "bn2"):
+                _bn_sd(sd, f"net.{name}.{part}", p[part])
+    return sd
+
+
+def _depth_featurizer_sd(sd: dict, net: dict) -> None:
+    """``arch=dino_depth``'s parts beside the DINO featurizer's."""
+    for i, stage in enumerate(net["depth_downscaling"]):
+        w = np.asarray(stage["conv"]["w"])  # [in*4, out], (c, kh, kw) order
+        sd[f"net.depth_downscaling.{i}.conv.weight"] = _torch(
+            w.T.reshape(w.shape[1], w.shape[0] // 4, 2, 2))
+        sd[f"net.depth_downscaling.{i}.conv.bias"] = _torch(stage["conv"]["b"])
+        if "ln" in stage:
+            _layer_norm_sd(sd, f"net.depth_downscaling.{i}.ln", stage["ln"])
+    attn = net["cross_attn"]
+    sd["net.cross_attn.in_proj_weight"] = _torch(np.asarray(attn["in_proj"]["w"]).T)
+    sd["net.cross_attn.in_proj_bias"] = _torch(attn["in_proj"]["b"])
+    _linear_sd(sd, "net.cross_attn.out_proj", attn["out_proj"])
+    sd["net.no_depth_embed"] = _torch(net["no_depth_embed"])
+
+
+def lhp_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's LHP head (``lhp_init``) -> ``models.lhp.LHP``'s
+    state dict (``proj.fc{1,2}.*``)."""
+    sd: dict = {}
+    for name in ("fc1", "fc2"):
+        _conv1x1_sd(sd, f"proj.{name}", {k: np.array(v, np.float32)
+                                          for k, v in params["proj"][name].items()})
     return sd
 
 
 def state_dict_from_jax(params: dict, keep_decoder: bool = False) -> dict:
     """JAX segmenter param tree (numpy or jax leaves) -> the port's eval
-    state dict (float32 torch tensors); ``keep_decoder=True`` keeps the
-    training side's ``decoder.*`` beside it."""
+    state dict (float32 torch tensors; BatchNorm's ``num_batches_tracked``
+    0); ``keep_decoder=True`` keeps the training side's ``decoder.*``
+    beside it. Each featurizer's tree is recognized by its keys: the
+    pyramid's ResNet-50 under ``vit``, the depth featurizer's
+    ``depth_downscaling``. A frozen LHP head under ``net.lhp`` (the JAX
+    trainer's eval tree) comes out as ``lhp.proj.fc{1,2}.*``."""
     def host(tree):
         if isinstance(tree, dict):
             return {k: host(v) for k, v in tree.items()}
@@ -108,10 +192,21 @@ def state_dict_from_jax(params: dict, keep_decoder: bool = False) -> dict:
             return [host(v) for v in tree]
         return np.array(tree, np.float32)  # writable host copy
 
-    sd = {k: v.float() for k, v in lightning_state_dict(host(params)).items()}
+    params = host(params)
+    net = params["net"]
+    if "layers" in net["vit"]:
+        sd = _pyramid_sd(net)
+        _heads_sd(sd, params)
+    else:
+        sd = lightning_state_dict(params)
+        if "depth_downscaling" in net:
+            _depth_featurizer_sd(sd, net)
+    if "lhp" in net:
+        sd.update({"lhp." + k: v for k, v in lhp_state_dict_from_jax(net["lhp"]).items()})
+    sd = {k: v if k.endswith("num_batches_tracked") else v.float() for k, v in sd.items()}
     out = eval_state_dict(sd)
-    if keep_decoder:
-        out.update({k: v for k, v in sd.items() if k.startswith("decoder.")})
+    for prefix in ("lhp.",) + (("decoder.",) if keep_decoder else ()):
+        out.update({k: v for k, v in sd.items() if k.startswith(prefix)})
     return out
 
 

@@ -29,7 +29,12 @@ the CPU emulation of their arithmetic in ``tests/test_torch_f32_split.py``
 comparisons), within the same limits. The fine-tune slice adds the
 kernel's refusal of a gradient it cannot give (it has no backward), float32
 with the bias at NYU's 480 x 640 (N=1201), a small fine-tune step and a
-small ZoeDepth-NK on the card against the CPU.
+small ZoeDepth-NK on the card against the CPU. The variants slice adds
+LHP's depth affinity on the card against the CPU (zero-pattern flips only
+within 2e-3 of the threshold, the mixed code 1e-5 relative), the
+attention kernel's launches in one ``arch=dino_depth`` step, and the
+pyramid in bf16 against float32 on the card (and float32 against the CPU,
+1e-4 relative).
 """
 
 import pytest
@@ -825,3 +830,126 @@ def test_small_zoedepth_nk_card_vs_cpu(cuda):
     assert nk.domain_index(got["domain_logits"].cpu()) == nk.domain_index(ref["domain_logits"])
     depth = got["metric_depth"].cpu()
     assert float((depth - ref["metric_depth"]).norm() / ref["metric_depth"].norm()) <= 1e-4
+
+
+def _lhp_affinity_card_vs_cpu(depth_cpu, device):
+    """The LHP depth affinity on the card and on the CPU from one float32
+    depth batch: (flips, their distance to the threshold, the largest
+    difference elsewhere)."""
+    from depthg_tpu_torch.models import lhp
+
+    hw = (depth_cpu.shape[-2] // 8, depth_cpu.shape[-1] // 8)
+    ref = lhp._depth_affinity(depth_cpu, hw, False)
+    out = lhp._depth_affinity(depth_cpu.to(device), hw, False).cpu()
+    normed, thresh = lhp._depth_normed(depth_cpu, hw, False)
+    flips = (out == 0) != (ref == 0)
+    gap = (normed - thresh).abs()[flips]
+    return flips, gap, float((out - ref)[~flips].abs().max())
+
+
+def test_lhp_depth_affinity_card_vs_cpu(cuda):
+    """B=4 at 224 px (784 points), float32 with TF32 off: the zero pattern
+    equal but for flips next to the threshold (within 2e-3 in the
+    normalized distance, the expansion's rounding), values within 2e-3; the
+    LHP-mixed code within 1e-5 relative."""
+    from depthg_tpu_torch.models import lhp
+
+    gen = torch.Generator().manual_seed(0)
+    low = torch.rand(4, 1, 28, 28, generator=gen)
+    depth = torch.nn.functional.interpolate(low, size=(224, 224), mode="bilinear")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    flips, gap, worst = _lhp_affinity_card_vs_cpu(depth, cuda)
+    assert bool((gap <= 2e-3).all()) and int(flips.sum()) <= 1e-5 * flips.numel()
+    assert worst <= 2e-3
+    head = lhp.LHP(lhp.LHPConfig(dim=70)).init_weights(torch.Generator().manual_seed(1))
+    code = torch.randn(4, 70, 28, 28, generator=gen)
+    ref = lhp.lhp_apply(head, code, depth)
+    out = lhp.lhp_apply(head.to(cuda), code.to(cuda), depth.to(cuda)).cpu()
+    assert float((out - ref).norm() / ref.norm()) <= 1e-5
+
+
+def test_dino_depth_step_launches_k1_24_times(cuda):
+    """One ``arch=dino_depth`` (cross_attn) train step at full ViT-S/8 width
+    (2 blocks here) launches the attention kernel once per block and
+    forward: 2 x blocks; the cross-attention (8 heads of 48) stays eager."""
+    from depthg_tpu_torch.models.featurizer_depth import DepthFeaturizerConfig
+    from depthg_tpu_torch.models.vit import ViTConfig
+    from depthg_tpu_torch.train import losses, step
+
+    fcfg = DepthFeaturizerConfig(guidance="cross_attn", vit_config=ViTConfig(depth=2))
+    hp = step.TrainHParams(n_classes=27, backbone_dtype="bfloat16")
+    state = step.init_state(fcfg, hp, torch.Generator().manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"img": torch.randn(4, 3, 224, 224, device=cuda, generator=gen),
+             "img_pos": torch.randn(4, 3, 224, 224, device=cuda, generator=gen),
+             "label": torch.randint(-1, 27, (4, 224, 224), device=cuda, generator=gen),
+             "depth": torch.rand(4, 1, 224, 224, device=cuda, generator=gen),
+             "depth_pos": torch.rand(4, 1, 224, 224, device=cuda, generator=gen)}
+    before = tatt.KERNEL.launches
+    logs = step.train_step(state, batch, hp, losses.CorrLossConfig(), 0.19, 0.03, generator=gen)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches - before == 2 * 2
+    assert all(bool(torch.isfinite(v).all()) for v in logs.values())
+
+
+def test_pyramid_bf16_vs_float32_on_the_card(cuda):
+    """The pyramid's ResNet-50 in bf16 against float32 on the card (code
+    correlation above 0.99, features float32), and the float32 pyramid on
+    the card against the CPU within 1e-4 relative."""
+    from depthg_tpu_torch.models import featurizer, pyramid
+
+    net = pyramid.FeaturePyramidNet(pyramid.PyramidConfig(granularity=4))
+    net.init_weights(torch.Generator().manual_seed(0))
+    img = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = featurizer.dispatch_apply(net, img)["code"]
+        net = net.to(cuda)
+        out32 = featurizer.dispatch_apply(net, img.to(cuda))["code"]
+        out16 = featurizer.dispatch_apply(net, img.to(cuda), backbone_dtype="bfloat16")["code"]
+    assert out16.dtype == torch.float32
+    assert float((out32.cpu() - ref).norm() / ref.norm()) <= 1e-4
+    corr = torch.corrcoef(torch.stack([out32.flatten(), out16.flatten()]))[0, 1]
+    assert float(corr) > 0.99
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("dino_depth", {"guidance": "none"}),
+    *[("feature-pyramid", {"granularity": g, "continuous": c})
+      for g in (1, 2, 3, 4) for c in (True, False)],
+])
+def test_variant_train_and_eval_steps_on_the_card(cuda, arch, kw):
+    """The variants the smoke run does not time, on the card: one train step
+    (finite logs, the frozen backbone untouched, K1 24 times for the ViT
+    and never for the ResNet) and one eval step at the default CRF point
+    (confusion sums equal to the labelled pixels)."""
+    from depthg_tpu_torch import inference
+    from depthg_tpu_torch.models.featurizer_depth import DepthFeaturizerConfig
+    from depthg_tpu_torch.models.pyramid import PyramidConfig
+    from depthg_tpu_torch.models.vit import ViTConfig
+    from depthg_tpu_torch.train import losses, step
+
+    fcfg = (DepthFeaturizerConfig(vit_config=ViTConfig(depth=2), **kw) if arch == "dino_depth"
+            else PyramidConfig(**kw))
+    hp = step.TrainHParams(n_classes=27, backbone_dtype="bfloat16")
+    state = step.init_state(fcfg, hp, torch.Generator().manual_seed(0), cuda)
+    frozen = {k: v.clone() for k, v in state.model.net.model.state_dict().items()}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"img": torch.randn(2, 3, 224, 224, device=cuda, generator=gen),
+             "img_pos": torch.randn(2, 3, 224, 224, device=cuda, generator=gen),
+             "label": torch.randint(-1, 27, (2, 224, 224), device=cuda, generator=gen),
+             "depth": torch.rand(2, 1, 224, 224, device=cuda, generator=gen),
+             "depth_pos": torch.rand(2, 1, 224, 224, device=cuda, generator=gen)}
+    before = tatt.KERNEL.launches
+    logs = step.train_step(state, batch, hp, losses.CorrLossConfig(feature_samples=5,
+                                                                   neg_samples=2),
+                           0.19, 0.03, generator=gen)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches - before == (4 if arch == "dino_depth" else 0)
+    assert all(bool(torch.isfinite(v).all()) for v in logs.values())
+    for k, v in state.model.net.model.state_dict().items():
+        assert torch.equal(v, frozen[k]), k
+    ecfg = inference.EvalConfig(n_classes=27, crf=tcrf.crf_config_from_cfg({}),
+                                backbone_dtype="bfloat16", label_res=224)
+    lin, clu = inference.make_eval_step(ecfg)(state.model, batch["img"], batch["label"])
+    counted = int(((batch["label"] >= 0) & (batch["label"] < 27)).sum())
+    assert int(lin.sum()) == int(clu.sum()) == counted

@@ -192,8 +192,8 @@ def _run_eval_cli(tmp_path, point, predictions):
 
 def test_config_builders_match_jax(setup):
     """fcfg_from_run_cfg / ecfg_from_checkpoint resolve like the JAX
-    package's (incl. its fused_tta=True and bf16 backbone defaults), and the
-    featurizers that are not ported raise."""
+    package's (incl. its fused_tta=True and bf16 backbone defaults, and the
+    config types of arch=dino_depth and arch=feature-pyramid)."""
     from depthg_tpu.config import Config, load_config
     from depthg_tpu.utils import checkpoint_io as jio
 
@@ -211,9 +211,15 @@ def test_config_builders_match_jax(setup):
     for f in dataclasses.fields(et.crf):
         assert getattr(et.crf, f.name) == getattr(ej.crf, f.name), f.name
     assert et.extra_clusters == 2 and et.fused_tta
+    # the depth-fused and pyramid featurizers resolve to their own config
+    # types, field for field as the JAX package's
     for arch in ("dino_depth", "feature-pyramid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tinf.fcfg_from_run_cfg(Config({"arch": arch}))
+        cfg_arch = Config({"arch": arch, "model_type": "vit_small", "dim": 32,
+                           "guidance": "cross_attn", "granularity": 4, "continuous": False})
+        fj, ft = jio.fcfg_from_run_cfg(cfg_arch), tinf.fcfg_from_run_cfg(cfg_arch)
+        assert type(ft).__name__ == type(fj).__name__ != "FeaturizerConfig"
+        for f in dataclasses.fields(ft):
+            assert getattr(ft, f.name) == getattr(fj, f.name), (arch, f.name)
 
 
 @pytest.mark.parametrize("flags,keys", [

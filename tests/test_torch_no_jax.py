@@ -11,7 +11,12 @@ ZoeDepth forward with the attention bias, and ``python -m
 depthg_tpu_torch.generate_depth --help``), and after the fine-tune slice
 (``finetune_zoedepth``, the losses and one ``finetune_step`` on a tiny
 ZoeDepth, the depth metrics, data and reader copies, ``nyuv2_prep`` and a
-tiny ZoeDepth-NK forward); no source of the port or of
+tiny ZoeDepth-NK forward), and after the variants slice (the trainer's
+config with ``arch=dino_depth`` and ``arch=feature-pyramid`` through
+``fcfg_from_run_cfg`` and ``load_backbone``, an LHP-"attn" train step and
+a validation step on each, ``pooled_features`` of a ResNet-50 and the KNN
+CLI with ``model_type=resnet50``); no source
+of the port or of
 ``chip_smoke.py`` imports either, or reads a file of ``scripts/`` or
 ``depthg_tpu/``. The attention and bilateral wrappers raise on an input
 their kernels cannot take instead of falling back to their plain versions."""
@@ -128,6 +133,35 @@ with torch.no_grad():
 assert out["metric_depth"].shape == (1, 1, 32, 64) and out["domain_logits"].shape == (1, 2)
 scene = crf_fidelity_study.make_scene(64, 27, seed=0)
 assert crf_fidelity_study.lattice_labels([scene], 64)[0].shape == (64, 64)
+import tempfile
+from depthg_tpu_torch.config import load_config
+from depthg_tpu_torch.models import featurizer_depth, lhp, pyramid
+for flags, cls in ((["arch=dino_depth", "guidance=cross_attn"], featurizer_depth.DepthFeaturizerConfig),
+                   (["arch=feature-pyramid", "model_type=resnet50", "granularity=2"],
+                    pyramid.PyramidConfig)):
+    with tempfile.TemporaryDirectory() as out_root:
+        run = load_config("local_config.yml", flags + ["dim=8", f"output_root={out_root}"])
+        vcfg = depthg_tpu_torch.train_segmentation.fcfg_from_run_cfg(run)
+        assert type(vcfg) is cls
+        if cls is featurizer_depth.DepthFeaturizerConfig:
+            vcfg = dataclasses.replace(vcfg, vit_config=vit.ViTConfig(
+                embed_dim=384, depth=1, num_heads=2, img_size=32))
+        vhp = step.TrainHParams(n_classes=5, backbone_dtype="bfloat16", lhp=True,
+                                lhp_propagation_strategy="attn")
+        vstate = step.init_state(vcfg, vhp, torch.Generator().manual_seed(5))
+        assert depthg_tpu_torch.train_segmentation.load_backbone(run, vstate.model) == "random"
+        vlogs = step.train_step(vstate, batch, vhp, losses.CorrLossConfig(feature_samples=3,
+                                                                          neg_samples=2),
+                                0.19, 0.03, generator=gen)
+        assert all(bool(torch.isfinite(v).all()) for v in vlogs.values())
+        lin, clu = inference.make_validation_step(5, 0)(vstate.model, img, label, 64)
+        assert int(lin.sum()) <= counted
+net50, _ = pyramid.backbone_for("resnet50")
+assert knn.pooled_features(net50.init_weights(torch.Generator().manual_seed(6)), img).shape == (2, 2048)
+with tempfile.TemporaryDirectory() as out_root:  # no weights, no data: a random ResNet, nothing written
+    assert depthg_tpu_torch.precompute_knns.main([
+        "model_type=resnet50", f"data_dir={out_root}", f"output_root={out_root}", "device=cpu",
+        "knn_datasets=[cocostuff27]", "knn_crop_types=[five]", "knn_image_sets=[train]"]) == []
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("depthg_tpu."))
 assert not theirs, theirs

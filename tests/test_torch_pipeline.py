@@ -1,10 +1,10 @@
 """The offline pipeline of the port on the synthetic COCO of
 ``tests/test_e2e_pipeline.py``: (a) the port's and the JAX package's
 ``crop_datasets.main`` write the same files, byte for byte; (b) both
-``precompute_knns.main`` from one DINO-style ``.pth`` with
-``matmul_precision=highest`` write the same file name and the same ``nns``
-array (int32 [40, 30]; indices equal except where two similarities lie
-within 1e-5); (c) crop -> knn -> train 3 steps -> eval -> demo -> one served
+``precompute_knns.main`` from one DINO-style ``.pth`` (and from one
+ResNet-50 file) with ``matmul_precision=highest`` write the same file name
+and the same ``nns`` array (int32 [40, 30]; indices equal except where two
+similarities lie within 1e-5); (c) crop -> knn -> train 3 steps -> eval -> demo -> one served
 request, all through the port's mains with ``device=cpu`` in a fresh
 interpreter that never imports ``jax`` or ``depthg_tpu``."""
 
@@ -154,10 +154,52 @@ def test_precompute_knns_writes_the_jax_packages_file(cropped, tmp_path):
     print("nns entries that differ (near-ties):", len(rows), "of", out.size)
 
 
-def test_precompute_knns_refuses_what_is_not_ported(tmp_path):
+def test_precompute_knns_refuses_what_is_not_ported(cropped, tmp_path):
+    """More than one device raises; the CNN backbones are ported:
+    ``model_type=resnet50`` reads ``{output_root}/data`` and writes the JAX
+    script's ``nns`` array from the same file (pooled over H and W;
+    indices equal except where two similarities lie within 1e-5), and
+    ``vgg11`` without its file embeds with a random backbone."""
+    import shutil
+
+    from depthg_tpu_torch.models.pyramid import ResNet50
+
+    data = {who: str(tmp_path / who) for who in cropped}
+    for who, root in cropped.items():
+        shutil.copytree(join(root, "cropped"), join(data[who], "cropped"))
+    os.makedirs(tmp_path / "data")
+    resnet = ResNet50().init_weights(torch.Generator().manual_seed(2))
+    torch.save(resnet.state_dict(), tmp_path / "data" / "resnet50-0676ba61.pth")
+    knn = COMMON + ["knn_datasets=[cocostuff27]", "knn_crop_types=[five]",
+                    "knn_image_sets=[train]", "matmul_precision=highest",
+                    f"output_root={tmp_path}", "model_type=resnet50"]
+    _load_script("precompute_knns").main(knn + [f"data_dir={data['jax']}"])
+    written = tknns.main(knn + [f"data_dir={data['torch']}", "device=cpu"])
+    name = "nns_resnet50_cocostuff27_train_five_32.npz"
+    assert written == [join(data["torch"], "nns", name)]
+    ref = np.load(join(data["jax"], "nns", name))["nns"]
+    out = np.load(written[0])["nns"]
+    assert out.shape == ref.shape == (40, 30) and (out[:, 0] == np.arange(40)).all()
+    rows, cols = np.nonzero(out != ref)
+    if len(rows):  # a near-tie may order either way: hold it to the similarities
+        from depthg_tpu_torch.config import load_config
+        from depthg_tpu_torch.data import ContrastiveSegDataset, get_transform
+
+        cfg = load_config("local_config.yml", knn + [f"data_dir={data['torch']}"])
+        dataset = ContrastiveSegDataset(
+            data_dir=cfg.data_dir, dataset_name="cocostuff27", crop_type="five",
+            image_set="train", transform=get_transform(32, False, "center"),
+            target_transform=get_transform(32, True, "center"), cfg=cfg)
+        feats = tknns.embed_dataset(dataset, resnet.eval(), 64, 1, None, "cpu")
+        feats = feats.astype(np.float64)
+        for r, c in zip(rows, cols):
+            assert abs(feats[r] @ feats[out[r, c]] - feats[r] @ feats[ref[r, c]]) <= 1e-5, (r, c)
+    vgg = tknns.main(knn[:-1] + ["model_type=vgg11", f"data_dir={data['torch']}", "device=cpu"])
+    assert (np.load(vgg[0])["nns"][:, 0] == np.arange(40)).all()
+
     args = COMMON + [f"data_dir={tmp_path}", "device=cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        tknns.main(args + ["model_type=resnet50"])
+    with pytest.raises(ValueError, match="No model: resnet18"):
+        tknns.main(args + ["model_type=resnet18"])
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         tknns.main(args + ["n_devices=4"])
     if not torch.cuda.is_available():

@@ -609,3 +609,32 @@ def test_zoe_eval_readers_match_jax_package(tmp_path):
                     np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-5, err_msg=k)
             else:
                 assert got[k] == ref[k], k
+
+
+def test_variant_copies_equal_their_originals():
+    """The variants slice's copies of numpy-only code: ``neighborhood_mask``
+    (LHP), ``_pyramid_channels`` (the depth pyramid) and ``load_model``'s
+    file table and ResNet-50 family hold the JAX package's source and
+    values exactly."""
+    import inspect
+
+    from depthg_tpu.models import featurizer_depth as jfd
+    from depthg_tpu.models import lhp as jlhp
+    from depthg_tpu.models import pyramid as jpyr
+    from depthg_tpu_torch.models import featurizer_depth as tfd
+    from depthg_tpu_torch.models import lhp as tlhp
+    from depthg_tpu_torch.models import pyramid as tpyr
+
+    for ours, theirs in ((tlhp.neighborhood_mask, jlhp.neighborhood_mask),
+                         (tfd._pyramid_channels, jfd._pyramid_channels)):
+        assert inspect.getsource(ours) == inspect.getsource(theirs), ours.__name__
+    for n in (1, 3, 5):
+        np.testing.assert_array_equal(tlhp.neighborhood_mask(n), jlhp.neighborhood_mask(n))
+    for nf in (64, 384, 768):
+        assert tfd._pyramid_channels(nf) == jfd._pyramid_channels(nf)
+    assert tpyr._MODEL_FILES == jpyr._MODEL_FILES
+    assert tpyr.RESNET50_MODEL_TYPES == jpyr.RESNET50_MODEL_TYPES
+    assert tpyr._R50_LAYERS == jpyr._R50_LAYERS and tpyr._VGG11_CFG == jpyr._VGG11_CFG
+    assert (tpyr._DN121_BLOCKS, tpyr._DN_GROWTH) == (jpyr._DN121_BLOCKS, jpyr._DN_GROWTH)
+    assert dataclasses.asdict(tpyr.PyramidConfig()) == dataclasses.asdict(jpyr.PyramidConfig())
+    assert dataclasses.asdict(tlhp.LHPConfig()) == dataclasses.asdict(jlhp.LHPConfig())

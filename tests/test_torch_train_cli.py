@@ -113,13 +113,54 @@ def test_resume_continues_like_an_uninterrupted_run(two_steps, tmp_path):
     assert blob["opt"]["net"]["state"][0]["step"] == 3
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
+    """More than one device, an int8 backbone and an unknown arch raise.
+    ``arch=dino_depth``, ``lhp=True`` and ``arch=feature-pyramid`` are
+    ported: each trains a step on the synthetic layout, validates and
+    checkpoints (the Lightning ``.ckpt`` for ``arch=dino`` only, as the JAX
+    trainer writes it)."""
     root = str(tmp_path)
-    for flag, match in (("n_devices=4", "ROADMAP item 7"), ("arch=dino_depth", "ROADMAP"),
-                        ("lhp=True", "ROADMAP item 6"), ("backbone_dtype=int8", "ROADMAP item 8"),
-                        ("arch=feature-pyramid", "ROADMAP"), ("arch=resnet", "arch=resnet")):
+    for flag, match in (("n_devices=4", "ROADMAP item 7"), ("backbone_dtype=int8", "ROADMAP item 8"),
+                        ("arch=resnet", "arch=resnet")):
         with pytest.raises(NotImplementedError, match=match):
             train_segmentation.main(_args(root, root) + [flag])
+    data, _ = two_steps
+    for flags, model_type, logged in (
+            (["arch=dino_depth", "guidance=cross_attn"], "vit_small", "loss/depth_feat"),
+            (["lhp=True", "propagation_strategy=attn"], "vit_tiny", "loss/lhp_pos_intra"),
+            (["arch=feature-pyramid", "granularity=2"], "resnet50", "loss/pos_intra")):
+        make_nns(data, model_type, "cocostuff27", "train", "five", 32, n=8)
+        res = train_segmentation.main(_args(data, str(tmp_path / model_type), max_steps=1,
+                                            model_type=model_type) + flags)
+        assert res["step"] == 1 and logged in res["last_logs"], flags
+        assert all(np.isfinite(v) for v in res["last_logs"].values()), flags
+        assert np.isfinite(res["metrics"]["test/cluster/mIoU"]), flags
+        ext = (".ckpt", ".train_state.pt") if flags[0] == "lhp=True" else (".train_state.pt",)
+        assert sorted(os.listdir(res["checkpoint_dir"])) == sorted(
+            "last" + e for e in ext), flags
+
+
+def test_load_backbone_for_the_pyramid(tmp_path):
+    """``arch=feature-pyramid`` reads ``load_model(model_type,
+    {output_root}/data)``; a model_type outside the ResNet-50 family raises
+    before the filesystem is read; without the file the seed's random
+    ResNet-50 stays."""
+    from depthg_tpu_torch.models.pyramid import ResNet50
+
+    cfg = load_config("local_config.yml", ["arch=feature-pyramid", "model_type=resnet50",
+                                           f"output_root={tmp_path}", "dim=8"])
+    model = Segmenter(fcfg_from_run_cfg(cfg), 27, 27).init_weights(torch.Generator().manual_seed(0))
+    seeded = {k: v.clone() for k, v in model.net.model.state_dict().items()}
+    assert train_segmentation.load_backbone(cfg, model) == "random"
+    assert all(torch.equal(v, seeded[k]) for k, v in model.net.model.state_dict().items())
+    src = ResNet50().init_weights(torch.Generator().manual_seed(1)).state_dict()
+    os.makedirs(tmp_path / "data")
+    torch.save(src, tmp_path / "data" / "resnet50-0676ba61.pth")
+    assert train_segmentation.load_backbone(cfg, model) == "resnet50"
+    assert all(torch.equal(v, src[k]) for k, v in model.net.model.state_dict().items())
+    cfg.model_type = "vgg11"
+    with pytest.raises(ValueError, match="resnet50-family"):
+        train_segmentation.load_backbone(cfg, model)
 
 
 def test_cli_never_picks_the_cpu_by_itself(tmp_path):

@@ -301,12 +301,25 @@ def test_hparams_from_cfg_match_jax_and_unported_options_raise():
     assert out.backbone_dtype == "bfloat16" and out.probe_lr == 5e-3
     assert tstep.hparams_from_cfg(tload("local_config.yml"), 27).backbone_dtype == "bfloat16"
     gen = torch.Generator().manual_seed(0)
-    for kw in ({"lhp": True}, {"backbone_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            tstep.init_state(TF, tstep.TrainHParams(n_classes=3, **kw), gen)
-    for arch in ("dino_depth", "feature-pyramid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tinf.fcfg_from_run_cfg(tload("local_config.yml", [f"arch={arch}"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="int8"), gen)
+    # ROADMAP item 6 is ported: lhp=True builds its frozen head, and the
+    # depth-fused and pyramid archs resolve to their config types
+    from depthg_tpu.utils.checkpoint_io import fcfg_from_run_cfg as jfcfg
+    from depthg_tpu_torch.models.featurizer_depth import DepthFeaturizerConfig
+    from depthg_tpu_torch.models.lhp import LHP
+    from depthg_tpu_torch.models.pyramid import PyramidConfig
+
+    state = tstep.init_state(TF, tstep.TrainHParams(n_classes=3, lhp=True), gen)
+    assert isinstance(state.lhp, LHP) and state.lhp.cfg.dim == TF.dim
+    for arch, cls in (("dino_depth", DepthFeaturizerConfig), ("feature-pyramid", PyramidConfig)):
+        flags = [f"arch={arch}", "guidance=sum", "granularity=3"]
+        out = tinf.fcfg_from_run_cfg(tload("local_config.yml", flags))
+        ref = jfcfg(jload("local_config.yml", flags))
+        assert type(out) is cls and type(ref).__name__ == cls.__name__
+        for f in dataclasses.fields(out):
+            if f.name != "vit_config":
+                assert getattr(out, f.name) == getattr(ref, f.name), (arch, f.name)
 
 
 def test_init_state_is_seeded_and_learns_on_a_fixed_batch():
