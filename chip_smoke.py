@@ -164,8 +164,32 @@ final line):
     synthetic crops (a random ResNet-50: no file under ``output_root``),
     self at rank 0;
 17. the total time, the kernels JSON line (each kernel's float32 figures
-    and float32 launches per path among them), the card line and the final
-    JSON line.
+    and float32 launches per path among them, and K1's launches per rank
+    and per replica of phase 18), the card line and the final JSON line;
+18. parallel paths (ROADMAP item 7; run before phase 17's lines): two gloo
+    ranks (``chip_smoke.py --parallel-worker``) and two NCCL probes
+    (``--nccl-probe``) share the card with this process after its timed
+    parts. First, here, the train cell of phase 7 (bf16, 224 px, batch 32)
+    runs twice without a process group and once through the torchrun code
+    path in an NCCL group of one (``parallel.dist.init_from_env``): the first step's
+    logs bit-equal (its forward is deterministic), its gradients no
+    further from the ungrouped run than 4x the two ungrouped runs' own
+    difference (the backward adds with atomics: ``grid_sample``, bilinear
+    resize; parameters are not bit-equal even between two ungrouped runs),
+    the parameters within 1e-6 of their scale plus the Adam gap, 24 K1
+    launches per step, ms per step with and without the group (the
+    collectives' overhead); then the service with two replicas on
+    ``cuda:0`` serves 13 images in bucket 16 (8 rows a replica): every
+    response equal to ``make_predict_step`` on its replica's rows, 12 K1
+    launches per replica, no K4, host ms beside one device's and the two
+    halves in turn. The two ranks (16 rows each of the same batches): three
+    float32 train steps (TF32 off) against one process on the card (logs
+    and step-1 gradients 1e-5 relative, parameters 1e-5 of their scale
+    plus the Adam gap), 24 float32 K1 launches per rank per step; one
+    default-point eval step at global batch 16 (confusion blocks equal,
+    else >= 99.9% of labels, flips printed); ``topk_neighbors`` at
+    N=147,456 with its query rows split (indices equal). The probes print
+    the error NCCL gives for two ranks on one card.
 """
 
 import copy
@@ -1354,7 +1378,8 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
           sampled_rows=KNN_SAMPLED, entries_differing_from_float64=int(differ.sum()),
           worst_similarity_gap=worst_gap, bf16_entries_equal_to_float64=bf16_same,
           tf32_off=True)
-    return {"launches": launches, "f32_launches": f32_launches, "embed_ms": embed_ms}
+    return {"launches": launches, "f32_launches": f32_launches, "k4_launches": k4,
+            "embed_ms": embed_ms}
 
 
 def attention_bias_phase(att, beit, gen):
@@ -2054,7 +2079,8 @@ def variants_path_phase(att, bil, inference, crf, gen, tmp):
             raise AssertionError(f"{name}: head BatchNorm statistics moved: {len(head_moved)} "
                                  f"of {len(head_stats)}")
         results[name] = {"step_ms": step_ms, "host_ms": host_ms, "peak_mem_gb": peak,
-                         "k1_launches_per_step": launches / (VARIANT_STEPS + 1)}
+                         "k1_launches_per_step": launches / (VARIANT_STEPS + 1),
+                         "k4_launches": k4}
         phase("variants_path", variant=name, overrides=overrides,
               featurizer=type(fcfg).__name__, lhp=hp.lhp, batch=TRAIN_B, res=TRAIN_RES,
               steps_timed=VARIANT_STEPS, step_ms=step_ms, host_ms=host_ms,
@@ -2143,8 +2169,415 @@ def variants_path_phase(att, bil, inference, crf, gen, tmp):
     phase("variants_knn", model_type="resnet50", images=KNN_CNN_IMAGES, seconds=knn_s,
           file=os.path.basename(written[0]), self_at_rank_0=True)
     return {"steps": results, "eval_launches_per_step": eval_launches / 2,
+            "k4_launches": sum(r["k4_launches"] for r in results.values()) + eval_k4,
             "lhp_flips": int(flips.sum()), "lhp_code_rel_err": code_err,
             "pyramid_card_vs_cpu": pyr_err}
+
+
+# -- phase 18: the parallel paths -----------------------------------------------
+
+PAR_STEPS = 3  # float32 train steps of the two gloo ranks
+PAR_EVAL_B = 16
+PAR_TIMEOUT = 240  # seconds for the two ranks' processes
+# two gloo ranks on one card vs one process there: each step's logs and the
+# first step's gradients within 1e-5 relative (of the log, of the largest
+# entry of the gradient's tensor); the parameters after three steps within
+# 1e-5 of their tensor's largest entry plus what float64 Adam makes of the
+# two runs' gradient differences (Adam divides by |g| + 1e-8: an entry that
+# cancels to rounding noise moves by up to lr whatever its size)
+PAR_TOL = 1e-5
+PAR_LABEL_AGREEMENT = 0.999
+
+
+def _par_train_setup(featurizer, dtype):
+    from depthg_tpu_torch import profile_train
+    from depthg_tpu_torch.train import losses as loss_lib
+    from depthg_tpu_torch.train import step as step_lib
+
+    hp = step_lib.TrainHParams(n_classes=27, backbone_dtype=dtype)
+    lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps",
+                                   depth_feat_correlation_loss=True)
+    state = step_lib.init_state(featurizer.FeaturizerConfig(), hp,
+                                torch.Generator().manual_seed(0), "cuda")
+    batch = profile_train.synthetic_batch(TRAIN_B, TRAIN_RES, 27,
+                                          torch.Generator(device="cuda").manual_seed(11))
+    return state, batch, hp, lcfg
+
+
+def _par_train_run(featurizer, dtype, steps):
+    """``steps`` steps of the train cell on this rank's rows of one batch,
+    step k's draws seeded from k: logs, every step's gradients and the
+    trainable parameters, on the host."""
+    from depthg_tpu_torch import profile_train
+    from depthg_tpu_torch.parallel import dist
+    from depthg_tpu_torch.train import step as step_lib
+
+    state, batch, hp, lcfg = _par_train_setup(featurizer, dtype)
+    local = {k: dist.shard_rows(v) for k, v in batch.items()}
+    w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
+    logs, grads = [], {}
+    for k in range(steps):
+        gen = torch.Generator(device="cuda").manual_seed(100 + k)
+        out = step_lib.train_step(state, local, hp, lcfg, w, sh, generator=gen)
+        logs.append({name: float(v) for name, v in out.items()})
+        for name, p in state.model.named_parameters():
+            if p.grad is not None:
+                grads.setdefault(name, []).append(p.grad.detach().cpu())
+    params = {k: v.detach().cpu() for k, v in state.model.state_dict().items()
+              if not k.startswith("net.model.")}
+    return {"logs": logs, "grads": grads, "params": params}
+
+
+def _par_eval_setup(inference, featurizer, crf):
+    model = inference.Segmenter(featurizer.FeaturizerConfig(), 27, 27).init_weights(
+        torch.Generator().manual_seed(0)).cuda()
+    ecfg = inference.EvalConfig(n_classes=27, crf=crf.crf_config_from_cfg({}),
+                                backbone_dtype="bfloat16")
+    img, label = make_batches(torch.Generator(device="cuda").manual_seed(21), PAR_EVAL_B, 1)[0]
+    return model, ecfg, img, label
+
+
+def _par_knn_feats():
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    return torch.nn.functional.normalize(
+        torch.randn(KNN_N, KNN_C, device="cuda", generator=gen), dim=1)
+
+
+def parallel_worker(rank, world, port, out_dir):
+    """One of two gloo ranks sharing the card (``chip_smoke.py
+    --parallel-worker RANK WORLD PORT DIR``): the float32 train steps, the
+    default-point eval and predict steps and the top-k, each on its rows,
+    counts of K1 and K4 set to 0 before each and read after."""
+    sys.path.insert(0, ROOT)
+    import depthg_tpu_torch
+    from depthg_tpu_torch import inference
+    from depthg_tpu_torch.models import featurizer
+    from depthg_tpu_torch.ops import _build, crf
+    from depthg_tpu_torch.ops import attention as att
+    from depthg_tpu_torch.ops import crf_bilateral as bil
+    from depthg_tpu_torch.parallel import dist, knn
+
+    depthg_tpu_torch.get_device("cuda")
+    _build.build(["attention", "crf_bilateral"])
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    group = torch.distributed.group.WORLD
+    out = {}
+    att.KERNEL.launches = att.KERNEL.f32_launches = bil.KERNEL.launches = 0
+    out["train"] = _par_train_run(featurizer, "float32", PAR_STEPS)
+    out["train_launches"], out["train_f32_launches"] = att.KERNEL.launches, att.KERNEL.f32_launches
+    out["train_k4"] = bil.KERNEL.launches
+    model, ecfg, img, label = _par_eval_setup(inference, featurizer, crf)
+    att.KERNEL.launches = bil.KERNEL.launches = 0
+    x, y = dist.shard_rows(img), dist.shard_rows(label)
+    out["eval"] = [t.cpu() for t in inference.make_eval_step(ecfg, group)(model, x, y)]
+    out["eval_launches"] = att.KERNEL.launches
+    out["predict"] = [t.cpu() for t in inference.make_predict_step(ecfg, group)(model, x)]
+    out["eval_k4"] = bil.KERNEL.launches  # the eval and the predict step
+    t0 = time.perf_counter()
+    idx = knn.topk_neighbors(_par_knn_feats(), k=KNN_K, precision="highest", group=group)
+    out["knn_s"] = time.perf_counter() - t0
+    if rank == 0:
+        out["knn"] = idx
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_probe(rank, world, port, out_dir):
+    """``--nccl-probe``: NCCL with two ranks on the one card; writes what
+    happened (the error NCCL gives, or that the all-reduce ran)."""
+    import datetime
+
+    torch.cuda.set_device(0)
+    try:
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=30))
+        t = torch.ones(1, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        result = f"all_reduce ran: {float(t)}"
+    except Exception as e:  # the outcome is what this probe reports
+        result = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+        f.write(result)
+    return 0
+
+
+def _spawn(args, tmp, name, n):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = []
+    for r in range(n):
+        log = open(os.path.join(tmp, f"{name}{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), *args(r)],
+                                       cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _wait(procs, timeout):
+    """Wait for every process; kill what outlives ``timeout``. Returns the
+    exit codes (None for a killed one)."""
+    deadline = time.time() + timeout
+    codes = []
+    for p, log in procs:
+        try:
+            codes.append(p.wait(max(deadline - time.time(), 1)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            codes.append(None)
+        log.close()
+    return codes
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _adam_total(grads, lr, b1=0.9, b2=0.999, eps=1e-8):
+    m = v = total = 0
+    for t, g in enumerate(grads, start=1):
+        g = g.double()
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        total = total - lr * (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + eps)
+    return total
+
+
+def _hold_train(got, ref, lr, what, tol=PAR_TOL):
+    """``got`` (a rank's run) against ``ref`` (the single process): worst
+    relative log error, step-1 gradient error, parameter excess over the
+    Adam gap (the parameters held to ``tol`` only)."""
+    log_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-2)
+                  for a, b in zip(got["logs"], ref["logs"]) for k in b)
+    grad_err = max(float((got["grads"][k][0] - g[0]).abs().max())
+                   / max(float(g[0].abs().max()), 1e-12) for k, g in ref["grads"].items())
+    param_err = 0.0
+    for k, r in ref["params"].items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        gap = (_adam_total(got["grads"][k], lr) - _adam_total(ref["grads"][k], lr)).abs() \
+            if k in ref["grads"] else 0.0
+        excess = ((got["params"][k].double() - r.double()).abs() - gap).max()
+        param_err = max(param_err, float(excess) / max(float(r.abs().max()), 1e-12))
+    if not param_err <= tol or (tol == PAR_TOL and not (log_err <= tol and grad_err <= tol)):
+        raise AssertionError(f"{what}: logs {log_err}, step-1 gradients {grad_err}, "
+                             f"parameters {param_err} (limit {tol})")
+    return {"log_rel_err": log_err, "grad_rel_err": grad_err, "param_excess_rel": param_err}
+
+
+def parallel_path_phase(att, bil, inference, featurizer, crf, tmp):
+    """Phase 18: the train cell through the torchrun code path at world size
+    1 (NCCL), two gloo ranks sharing the card (float32 train steps, an eval
+    and a predict step, the top-k), NCCL asked for two ranks on one card,
+    and the service with two replicas on ``cuda:0``."""
+    import numpy as np
+
+    from depthg_tpu_torch import profile_train
+    from depthg_tpu_torch.parallel import dist
+    from depthg_tpu_torch.parallel import knn
+    from depthg_tpu_torch.serve import SegmentationService, _bucket
+    from depthg_tpu_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    # world size 1 through the torchrun code path: the phase-7 train cell
+    # (bf16 backbone), twice without a group and once in an NCCL group of
+    # one; then the same loop timed without a group and in the group
+    w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
+
+    def timed(steps):
+        state, batch, hp, lcfg = _par_train_setup(featurizer, "bfloat16")
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        att.KERNEL.launches = bil.KERNEL.launches = 0
+        for k in range(steps + 1):
+            if k == 1:
+                torch.cuda.synchronize()
+                start.record()
+            gen = torch.Generator(device="cuda").manual_seed(100 + k)
+            step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / steps, att.KERNEL.launches, bil.KERNEL.launches
+
+    ref = _par_train_run(featurizer, "bfloat16", TRAIN_STEPS + 1)
+    again = _par_train_run(featurizer, "bfloat16", TRAIN_STEPS + 1)
+    ref_ms, _, _ = timed(TRAIN_STEPS)
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+    try:
+        if dist.init_from_env() != 1 or torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the torchrun path did not make an NCCL group of one")
+        grouped = _par_train_run(featurizer, "bfloat16", TRAIN_STEPS + 1)
+        group_ms, launches, world1_k4 = timed(TRAIN_STEPS)
+    finally:
+        dist.destroy()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+    again_ms, _, _ = timed(TRAIN_STEPS)
+    per_step = 2 * 12
+    if launches != per_step * (TRAIN_STEPS + 1) or world1_k4 != 0:
+        raise AssertionError(f"world size 1: {launches} K1 launches, expected "
+                             f"{per_step * (TRAIN_STEPS + 1)}; {world1_k4} K4 launches")
+    # the forward of the first step (the same weights) is deterministic:
+    # its logs are bit-equal; the backward adds with atomics (grid_sample,
+    # bilinear resize), so two runs without a group part at the rounding
+    # level, and the group's run may part from them no further
+    logs_equal = ref["logs"][0] == grouped["logs"][0] == again["logs"][0]
+    repeat_equal = all(torch.equal(again["params"][k], v) for k, v in ref["params"].items())
+    grouped_equal = all(torch.equal(grouped["params"][k], v) for k, v in ref["params"].items())
+    grad_excess = 0.0
+    for k, g in ref["grads"].items():
+        pair = float((again["grads"][k][0] - g[0]).abs().max())
+        diff = float((grouped["grads"][k][0] - g[0]).abs().max())
+        grad_excess = max(grad_excess, (diff - 4 * pair) / max(float(g[0].abs().max()), 1e-12))
+    lr = step_lib.TrainHParams(n_classes=27).lr
+    param_err = _hold_train(grouped, ref, lr, "world size 1 (NCCL)", tol=1e-6)
+    if not logs_equal or grad_excess > 1e-6:
+        raise AssertionError(f"world size 1 (NCCL): step-1 logs bit-equal {logs_equal}; "
+                             f"step-1 gradients beyond 4x the two ungrouped runs' difference "
+                             f"by {grad_excess} of their scale")
+    if repeat_equal and not grouped_equal:
+        raise AssertionError("world size 1 (NCCL): two runs without a group are bit-equal, "
+                             "the group's is not")
+    phase("parallel_world1", backend="nccl", batch=TRAIN_B, res=TRAIN_RES,
+          steps=TRAIN_STEPS + 1, step1_logs_bit_equal=logs_equal,
+          params_bit_equal=grouped_equal, repeat_without_group_bit_equal=repeat_equal,
+          step1_grad_excess_over_4x_repeat=grad_excess, vs_without_group=param_err,
+          ms_per_step_without_group=ref_ms, ms_per_step_without_group_again=again_ms,
+          ms_per_step_world1=group_ms, collective_overhead_ms=group_ms - min(ref_ms, again_ms),
+          k1_launches=launches, k1_launches_per_step=per_step, k4_launches=world1_k4)
+
+    # the service with two replicas on one card: a batch of 16 splits 8 + 8
+    model, ecfg, img, _ = _par_eval_setup(inference, featurizer, crf)
+    ecfg = inference.EvalConfig(n_classes=27, crf=crf.crf_config_from_cfg({}),
+                                backbone_dtype="bfloat16", fused_tta=True)
+    one = SegmentationService(copy.deepcopy(model), ecfg, res=320, max_batch=16,
+                              max_wait_ms=10.0, device="cuda")
+    svc = SegmentationService(model, ecfg, res=320, max_batch=16, max_wait_ms=10.0,
+                              devices=["cuda:0", "cuda:0"])
+    imgs = [x.cpu().numpy() for x in img]
+    rows = imgs[:13] + [imgs[0]] * 3
+
+    def host_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    try:
+        svc.warmup([16])
+        one.warmup([16])
+        att.KERNEL.launches = bil.KERNEL.launches = 0
+        served = svc._run_batch(imgs[:13])  # bucket 16: 13 images and 3 pad rows
+        replica_launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+        # host ms of the batch: two replicas at once, one device, the two
+        # halves in turn on one replica (what overlap the threads get)
+        serve_ms = host_ms(lambda: svc._run_batch(imgs[:13]))
+        one_ms = host_ms(lambda: one._run_batch(imgs[:13]))
+        halves_ms = host_ms(lambda: (svc._predict_part(rows[:8], 0),
+                                     svc._predict_part(rows[8:], 0)))
+        predict = inference.make_predict_step(ecfg)
+        mismatched = 0
+        for i in range(2):
+            part = torch.from_numpy(np.stack(rows[8 * i:8 * i + 8])).cuda()
+            lin, clu = (t.cpu().numpy() for t in predict(svc._models[i], part))
+            for j in range(8):
+                if 8 * i + j < 13:
+                    mismatched += int(not (np.array_equal(served[8 * i + j][0], lin[j])
+                                           and np.array_equal(served[8 * i + j][1], clu[j])))
+        # the replicas' weights against the model's: the single-device service
+        # on the same bucket (batch 16 against two of 8: cuBLAS and cuDNN may
+        # pick other algorithms per batch size, hence the agreement floor)
+        one_lin, one_clu = one._predict_padded(imgs[:13], 16)
+        vs_one = [float(np.mean([np.mean(served[j][k] == ref[j]) for j in range(13)]))
+                  for k, ref in enumerate((one_lin, one_clu))]
+        vs_one_flips = [int(sum(np.sum(served[j][k] != ref[j]) for j in range(13)))
+                        for k, ref in enumerate((one_lin, one_clu))]
+    finally:
+        svc.close()
+        one.close()
+    if (_bucket(13, 16, 2) != 16 or mismatched or replica_launches != 2 * 12 or k4 != 0
+            or min(vs_one) < PAR_LABEL_AGREEMENT):
+        raise AssertionError(f"two replicas: {mismatched} responses differ from the predict "
+                             f"step on their replica's rows; labels agree with the single-device "
+                             f"service on {vs_one} of the pixels (limit {PAR_LABEL_AGREEMENT}); "
+                             f"K1 {replica_launches} (expected 24: 12 per replica), K4 {k4}")
+    phase("parallel_serve_replicas", devices=["cuda:0", "cuda:0"], images=13, bucket=16,
+          rows_per_replica=8, ms=serve_ms, one_device_ms=one_ms, halves_in_turn_ms=halves_ms,
+          responses_equal_to_predict=True, label_agreement_with_one_device=vs_one,
+          label_flips_against_one_device=vs_one_flips,
+          k1_launches=replica_launches, k1_launches_per_replica=replica_launches // 2,
+          k4_launches=k4)
+
+    # the two ranks and the NCCL probes start after the timed parts (they
+    # share the card and the host); this process takes the single-process
+    # references while they run
+    port = _free_port()
+    ranks = _spawn(lambda r: ["--parallel-worker", str(r), "2", str(port), tmp], tmp, "rank", 2)
+    nccl_port = _free_port()
+    probes = _spawn(lambda r: ["--nccl-probe", str(r), "2", str(nccl_port), tmp], tmp, "nccl", 2)
+    single = _par_train_run(featurizer, "float32", PAR_STEPS)
+    model, ecfg, img, label = _par_eval_setup(inference, featurizer, crf)
+    eval_ref = [t.cpu() for t in inference.make_eval_step(ecfg)(model, img, label)]
+    pred_ref = [t.cpu() for t in inference.make_predict_step(ecfg)(model, img)]
+    del model
+    knn_ref = knn.topk_neighbors(_par_knn_feats(), k=KNN_K, precision="highest")
+
+    codes = _wait(ranks, PAR_TIMEOUT)
+    if codes != [0, 0]:
+        tails = "".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:] for r in range(2))
+        raise AssertionError(f"the two gloo ranks exited with {codes}:\n{tails}")
+    probe_codes = _wait(probes, 5)
+    nccl = [open(os.path.join(tmp, f"nccl{r}.txt")).read()
+            if os.path.exists(os.path.join(tmp, f"nccl{r}.txt")) else
+            f"no answer (exit code {c}: killed after the ranks were done)"
+            for r, c in enumerate(probe_codes)]
+    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    lr = step_lib.TrainHParams(n_classes=27).lr
+    train_err = [_hold_train(o["train"], single, lr, f"rank {r}") for r, o in enumerate(outs)]
+    if any(o["train_launches"] != per_step * PAR_STEPS
+           or o["train_f32_launches"] != o["train_launches"] or o["train_k4"] or o["eval_k4"]
+           for o in outs):
+        raise AssertionError(f"K1 per rank: {[o['train_launches'] for o in outs]}, expected "
+                             f"{per_step * PAR_STEPS} float32 launches; K4 per rank (train, "
+                             f"eval): {[(o['train_k4'], o['eval_k4']) for o in outs]}, expected 0")
+    blocks_equal = all(torch.equal(a, b) for o in outs for a, b in zip(o["eval"], eval_ref))
+    agree = [float((a == b).float().mean()) for a, b in zip(outs[0]["predict"], pred_ref)]
+    flips = [int((a != b).sum()) for a, b in zip(outs[0]["predict"], pred_ref)]
+    if not blocks_equal and min(agree) < PAR_LABEL_AGREEMENT:
+        raise AssertionError(f"two-rank eval: confusion blocks differ and the labels agree on "
+                             f"{agree} of the pixels (limit {PAR_LABEL_AGREEMENT})")
+    if not np.array_equal(outs[0]["knn"], knn_ref):
+        raise AssertionError("two-rank top-k indices differ from the single process's")
+    phase("parallel_two_ranks", backend="gloo", devices=["cuda:0", "cuda:0"],
+          train={"global_batch": TRAIN_B, "per_rank": TRAIN_B // 2, "steps": PAR_STEPS,
+                 "backbone": "float32", "tf32_off": True, "per_rank_err": train_err,
+                 "tolerance": PAR_TOL},
+          k1_launches_per_rank_per_step=outs[0]["train_launches"] // PAR_STEPS,
+          k4_launches_per_rank={"train": [o["train_k4"] for o in outs],
+                                "eval_and_predict": [o["eval_k4"] for o in outs]},
+          eval={"global_batch": PAR_EVAL_B, "confusion_blocks_equal": blocks_equal,
+                "label_agreement": agree, "label_flips": flips,
+                "k1_launches_per_rank": outs[0]["eval_launches"]},
+          knn={"n": KNN_N, "k": KNN_K, "indices_equal": True,
+               "seconds_per_rank": [o["knn_s"] for o in outs]},
+          nccl_two_ranks_one_card=nccl, seconds=time.perf_counter() - t_phase)
+    return {"world1_launches_per_step": launches // (TRAIN_STEPS + 1),
+            "rank_launches_per_step": outs[0]["train_launches"] // PAR_STEPS,
+            "replica_launches_per_batch": replica_launches // 2,
+            "eval_launches_per_rank": outs[0]["eval_launches"],
+            "k4_launches": {"world1_train": world1_k4, "serve_replicas": k4,
+                            **{f"rank{r}_train": o["train_k4"] for r, o in enumerate(outs)},
+                            **{f"rank{r}_eval": o["eval_k4"] for r, o in enumerate(outs)}}}
 
 
 def main():
@@ -2202,6 +2635,8 @@ def main():
     nk_res = nk_path_phase(att)
     with tempfile.TemporaryDirectory() as tmp:
         var_res = variants_path_phase(att, bil, inference, crf, gen, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        par_res = parallel_path_phase(att, bil, inference, featurizer, crf, tmp)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -2277,6 +2712,12 @@ def main():
             name: r["k1_launches_per_step"] for name, r in var_res["steps"].items()},
         "variants_path_step_ms": {name: r["step_ms"] for name, r in var_res["steps"].items()},
         "dino_depth_eval_launches_per_step": var_res["eval_launches_per_step"],
+        # the parallel paths: per step at world size 1 (NCCL), per rank of two
+        # gloo ranks (float32 train step, eval step), per service replica
+        "parallel_world1_launches_per_step": par_res["world1_launches_per_step"],
+        "parallel_launches_per_rank_per_step": par_res["rank_launches_per_step"],
+        "parallel_eval_launches_per_rank": par_res["eval_launches_per_rank"],
+        "serve_launches_per_replica_per_batch": par_res["replica_launches_per_batch"],
         # the float32 kernel (split TF32) at the eval shape, then per path
         "f32_kernel_only_ms": attn["f32"]["kernel_only_ms"],
         "f32_kernel_device_ms": attn["f32"]["kernel_device_ms"],
@@ -2311,8 +2752,11 @@ def main():
         "serve_path_launches": serve_res["k4_launches"],
         "serve_path_exact_request_launches": serve_res["exact_k4_launches"],
         "demo_path_launches": demo_res["k4_launches"],
-        "knn_path_launches": 0,
-        "variants_path_launches": 0,
+        "knn_path_launches": knn_res["k4_launches"],
+        "variants_path_launches": var_res["k4_launches"],
+        # the parallel paths at the default point (K4 runs at crf_downsample=1)
+        "parallel_path_launches": sum(par_res["k4_launches"].values()),
+        "parallel_path_launches_by_part": par_res["k4_launches"],
         "shape": "bf16, B=2, N=102400, C=54 (the exact eval step's message); "
                  "n25600: B=2, C=54; degree: B=2, N=102400",
         "max_abs_err": k4_main["max_abs_err"], "rel_err": k4_main["rel_err"],
@@ -2365,4 +2809,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] in ("--parallel-worker", "--nccl-probe"):
+        worker = parallel_worker if sys.argv[1] == "--parallel-worker" else nccl_probe
+        sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -9,7 +9,9 @@ kernel in ``csrc/attention.cu``), ``ops.crf``, ``ops.crf_bilateral`` (+
 ``models.probes``, ``utils.metrics``, ``utils.ckpt``, ``inference``, the
 training side (``ops.sampling``, ``ops.depth``, ``ops.correlation``,
 ``train.losses``, ``train.decay``, ``train.step``), ``serve``,
-``parallel.knn``, ``utils.checkpoint_io`` and the entry modules
+``parallel.dist`` (torchrun data parallelism), ``parallel.mesh`` (replicas of
+one process), ``parallel.knn``, ``utils.checkpoint_io`` (with the orbax
+reader), ``utils.figures`` and the entry modules
 ``eval_segmentation``, ``train_segmentation``, ``serve``, ``serve_loadgen``,
 ``demo_segmentation``, ``crop_datasets``, ``precompute_knns``,
 ``crf_fidelity_study``, ``profile_eval``, ``profile_train``,

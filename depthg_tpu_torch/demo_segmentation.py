@@ -9,7 +9,14 @@ Mirrors reference ``src/demo_segmentation.py``: center-crop transform at
 ``depthg_tpu_torch/configs/demo_config.yml`` with overrides and runs on
 ``device`` (default ``cuda``; it raises when there is no card). Batches hold
 ``batch_size * 2`` images; the last one runs at its own size (nothing is
-compiled per shape, so it is not padded).
+compiled per shape, so it is not padded to the full batch).
+
+Data-parallel over N GPUs, one process each::
+
+    torchrun --nproc_per_node N -m depthg_tpu_torch.demo_segmentation n_devices=N ...
+
+Each rank predicts its rows of every batch (the last one padded to divide
+over the ranks), the label maps are gathered, and rank 0 writes the PNGs.
 """
 
 from __future__ import annotations
@@ -19,13 +26,15 @@ import sys
 from os.path import join
 
 import numpy as np
+import torch
 from PIL import Image
 
 from depthg_tpu_torch.config import cli_overrides, load_config
 from depthg_tpu_torch.data import get_transform
 from depthg_tpu_torch.inference import Segmenter, ecfg_from_checkpoint, \
     fcfg_from_run_cfg, make_predict_step
-from depthg_tpu_torch.runtime import get_device, single_device_only, to_device
+from depthg_tpu_torch.parallel import dist
+from depthg_tpu_torch.runtime import get_device, to_device
 from depthg_tpu_torch.utils.checkpoint_io import load_segmenter
 
 
@@ -46,17 +55,21 @@ class UnlabeledImageFolder:
 def main(argv=None):
     overrides = cli_overrides(argv if argv is not None else sys.argv[1:])
     cfg = load_config("demo_config.yml", overrides)
-    single_device_only(cfg.get("n_devices"), "the port's demo")
     device = get_device(cfg.get("device", "cuda"))
+    dist.init_from_env(device=device.type)
+    dist.check_world(cfg.get("n_devices"))
+    device = dist.rank_device(device)
 
     result_dir = join(cfg.output_root, "predictions", cfg.experiment_name)
-    os.makedirs(join(result_dir, "cluster"), exist_ok=True)
-    os.makedirs(join(result_dir, "linear"), exist_ok=True)
+    if dist.is_main():
+        os.makedirs(join(result_dir, "cluster"), exist_ok=True)
+        os.makedirs(join(result_dir, "linear"), exist_ok=True)
 
     sd, run_cfg = load_segmenter(cfg.model_path)
     ecfg = ecfg_from_checkpoint(cfg, sd, run_cfg)
     model = Segmenter.from_state_dict(sd, fcfg_from_run_cfg(run_cfg)).to(device)
-    predict = make_predict_step(ecfg)
+    predict = make_predict_step(
+        ecfg, torch.distributed.group.WORLD if dist.active() else None)
     bs = int(cfg.batch_size) * 2
 
     dataset = UnlabeledImageFolder(cfg.image_dir, get_transform(cfg.res, False, "center"))
@@ -64,7 +77,11 @@ def main(argv=None):
         items = [dataset[i] for i in range(start, min(start + bs, len(dataset)))]
         imgs = np.stack([it[0] for it in items]).astype(np.float32)
         names = [it[1] for it in items]
-        lin, clu = (p.cpu().numpy() for p in predict(model, to_device(imgs, device)))
+        imgs = dist.pad_batch({"img": imgs}, (("img", 0),))["img"]
+        lin, clu = (p.cpu().numpy() for p in predict(
+            model, to_device(dist.shard_rows(imgs), device)))
+        if not dist.is_main():
+            continue
         for j, name in enumerate(names):
             new_name = ".".join(name.split(".")[:-1]) + ".png"
             Image.fromarray(lin[j].astype(np.uint8)).save(join(result_dir, "linear", new_name))

@@ -19,9 +19,11 @@ monitor.
 * Model: ``tiny_model=true`` (a small random ``ZoeConfig``, for tests),
   ``checkpoint=<file.pt>`` (a released-layout ZoeDepth file, e.g.
   ``ZoeD_M12_N.pt``, through ``convert.load_zoedepth_pt``), or full-width
-  random weights (``seed``); min and max depth from the dataset's spec. An
-  orbax directory or a ``.npz`` (the JAX package's native checkpoints)
-  raises ``NotImplementedError`` (ROADMAP item 3).
+  random weights (``seed``); min and max depth from the dataset's spec.
+  ``checkpoint=`` also takes the JAX package's ZoeDepth param tree, as an
+  orbax directory (its fine-tune's checkpoints) or a ``.npz`` of dotted key
+  paths (``convert.load_zoedepth_tree``; the orbax reader needs
+  tensorstore).
 * ``output_dir``: ``latest.pt`` (before each validation and at the end)
   and ``best.pt`` in the released layout, ``{"model": state_dict, "cfg",
   "step", "metrics"}``, which ``load_zoedepth_pt`` reads back (the JAX
@@ -66,7 +68,7 @@ DEFAULTS = {
     "validate_every": 0.25,      # fraction of an epoch
     "log_every": 50,
     # model
-    "checkpoint": None,          # a released-layout ZoeDepth .pt
+    "checkpoint": None,          # a released-layout .pt, orbax directory or .npz
     "tiny_model": False,         # tests: small random ZoeConfig
     "output_dir": "./checkpoints_zoe",
     "max_steps": 0,              # 0 = no cap (tests cap it)
@@ -100,12 +102,13 @@ def build_model(cfg, device: torch.device) -> ZoeDepth:
     if cfg["checkpoint"]:
         path = str(cfg["checkpoint"])
         if os.path.isdir(path) or path.endswith(".npz"):
-            raise NotImplementedError(f"checkpoint={path}: the JAX package's native checkpoints "
-                                      "(orbax directories, .npz) are not read by the port yet "
-                                      "(ROADMAP item 3); pass a released-layout .pt")
-        from depthg_tpu_torch.models.zoedepth.convert import load_zoedepth_pt
+            from depthg_tpu_torch.models.zoedepth.convert import load_zoedepth_tree
 
-        model = load_zoedepth_pt(path)
+            model = load_zoedepth_tree(path)
+        else:
+            from depthg_tpu_torch.models.zoedepth.convert import load_zoedepth_pt
+
+            model = load_zoedepth_pt(path)
         model.cfg = dataclasses.replace(model.cfg, min_depth=spec.min_depth,
                                         max_depth=spec.max_depth)
         return model.to(device)

@@ -1,4 +1,4 @@
-"""Per-image depth PNGs for a dataset with ZoeDepth or MiDaS DPT_Large, on one GPU.
+"""Per-image depth PNGs for a dataset with ZoeDepth or MiDaS DPT_Large, on one GPU or more.
 
     python -m depthg_tpu_torch.generate_depth --data_dir DIR --output_dir OUT \\
         [--model zoedepth|midas] (--weights FILE | --allow_random) \\
@@ -22,7 +22,12 @@ inverted) and writes ``{output_dir}/{parent folder}/{stem}_{model}.png``
   nothing is downloaded) or ``--allow_random`` (full width, random weights
   from seed 0); without either it refuses.
 * ``--device`` defaults to ``cuda`` and raises without a card; the CPU runs
-  only when asked for. One device: more than one is ROADMAP item 7.
+  only when asked for.
+* Data-parallel over N GPUs, one process each: ``torchrun --nproc_per_node
+  N -m depthg_tpu_torch.generate_depth --n_devices N ...``. Every rank
+  walks the same images and buckets; of each dispatch, rank r runs and
+  writes its contiguous share of the images (the JAX script shards each
+  dispatch over its mesh), so every PNG is the single-process run's.
 * ``--dtype int8`` (the JAX package's w8a8 backbone) is ROADMAP item 8.
 * Tails of a bucket run at their own size: the JAX script padded them to a
   power of two to bound its compilations, which changes no output.
@@ -40,6 +45,7 @@ import torch
 from PIL import Image
 
 from depthg_tpu_torch.data.transforms import image_to_array as _image_to_array
+from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.runtime import get_device
 
 def get_args_parser():
@@ -65,6 +71,8 @@ def get_args_parser():
                    help="backbone attention path (auto = the kernel on CUDA); "
                         "zoedepth supports auto|xla|fused")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="the torchrun world size (default: the group's, 1 without torchrun)")
     return p
 
 
@@ -143,14 +151,20 @@ def write_one(args, depth, ow, oh, src, feats=None):
 def run_pipeline(args, infer, device=torch.device("cpu")) -> int:
     """Drive ``infer(x [B, 3, H, W] float32 on device) -> (depth [B, 1, h, w],
     feats)`` over the input images with size-bucketed batches; returns the
-    number of maps written. Split from ``main`` so the batching and the
-    normalization are testable with a stub model."""
+    number of maps written (by every rank together). Split from ``main``
+    so the batching and the normalization are testable with a stub model.
+    Under a process group each rank runs and writes its contiguous share of
+    every dispatch."""
     n = 0
     bs = max(1, args.batch_size)
     buckets = {}  # (bh, bw) -> list of (x [1, 3, bh, bw], (ow, oh, src))
 
     def flush(items):
         nonlocal n
+        per = -(-len(items) // dist.world())
+        items = items[dist.rank() * per:(dist.rank() + 1) * per]
+        if not items:
+            return
         xs = torch.from_numpy(np.concatenate([it[0] for it in items], axis=0)).to(device)
         depth_b, feats_b = infer(xs)
         depth_b = depth_b[:, 0].float().cpu().numpy()
@@ -172,7 +186,9 @@ def run_pipeline(args, infer, device=torch.device("cpu")) -> int:
             flush(buckets.pop((bh, bw)))
     for items in buckets.values():
         flush(items)
-    print(f"done: {n} depth maps -> {args.output_dir}")
+    n = int(dist.all_reduce_sum(torch.tensor(n, device=device)))
+    if dist.is_main():
+        print(f"done: {n} depth maps -> {args.output_dir}")
     return n
 
 
@@ -240,6 +256,9 @@ def main(argv=None, zoe_config=None, midas_config=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                    parents=[get_args_parser()]).parse_args(argv)
     device = get_device(args.device)
+    dist.init_from_env(device=device.type)
+    dist.check_world(args.n_devices)
+    device = dist.rank_device(device)
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     infer, _ = build(args, device, zoe_config, midas_config)

@@ -7,9 +7,12 @@ low-resolution linear and cluster probes upsampled to ``label_res``, the
 dense CRF on both probes and the argmax; ``make_eval_step`` adds the
 [K, C] confusion blocks. Each step is a plain callable under
 ``torch.inference_mode()``; nothing is compiled, and every tensor stays on
-the device of the image it was given. Multi-device sharding, the
-``backbone_sub_batch`` chunking and the ``batch_shards`` CRF hint of the
-JAX package (TPU workarounds) are not ported.
+the device of the image it was given. With a process ``group``
+(``parallel.dist``) each rank runs its rows of the global batch: the eval
+and validation steps all-reduce their confusion blocks and the predict
+step all-gathers its label maps along the batch, as the JAX steps do over
+their mesh. The ``backbone_sub_batch`` chunking and the ``batch_shards``
+CRF hint of the JAX package (TPU workarounds) are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from depthg_tpu_torch.models.probes import ClusterLookup, cluster_lookup_apply, 
 from depthg_tpu_torch.ops.crf import CRFConfig, crf_config_from_cfg, \
     dense_crf_multi_batch
 from depthg_tpu_torch.ops.resize import resize_bilinear
+from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.utils.metrics import confusion_update
 
 
@@ -155,35 +159,50 @@ def predictions(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig):
             cluster_log.argmax(1).to(torch.int32))
 
 
-def make_eval_step(ecfg: EvalConfig):
+def _sum_blocks(blocks, group):
+    """The confusion blocks summed over the ranks of ``group`` (in place)."""
+    if group is not None:
+        for b in blocks:
+            torch.distributed.all_reduce(b, group=group)
+    return blocks
+
+
+def make_eval_step(ecfg: EvalConfig, group=None):
     """(model, img, label) -> (linear_stats, cluster_stats) confusion blocks,
-    on the image's device."""
+    on the image's device. With a process ``group`` the image is this
+    rank's rows and the blocks are summed over the group."""
 
     @torch.inference_mode()
     def step(model, img, label):
         linear_preds, cluster_preds = predictions(model, img, ecfg)
-        return (confusion_update(linear_preds, label, ecfg.n_classes, 0),
-                confusion_update(cluster_preds, label, ecfg.n_classes,
-                                 ecfg.extra_clusters))
+        return _sum_blocks((confusion_update(linear_preds, label, ecfg.n_classes, 0),
+                            confusion_update(cluster_preds, label, ecfg.n_classes,
+                                             ecfg.extra_clusters)), group)
 
     return step
 
 
-def make_predict_step(ecfg: EvalConfig):
-    """(model, img) -> (linear_preds, cluster_preds) for demo output."""
+def make_predict_step(ecfg: EvalConfig, group=None):
+    """(model, img) -> (linear_preds, cluster_preds) for demo output. With
+    a process ``group`` the image is this rank's rows and the label maps
+    of every rank come back in rank order."""
 
     @torch.inference_mode()
     def step(model, img):
-        return predictions(model, img, ecfg)
+        preds = predictions(model, img, ecfg)
+        if group is None:
+            return preds
+        return tuple(dist.all_gather(p, group) for p in preds)
 
     return step
 
 
-def make_validation_step(n_classes: int, extra_clusters: int = 0):
+def make_validation_step(n_classes: int, extra_clusters: int = 0, group=None):
     """Training-time validation (no TTA, no CRF): (model, img, label,
     label_res) -> (linear_stats, cluster_stats). Plain float32 forward,
     upsampled code, argmax of the linear probe and of the cluster inner
-    products, two confusion blocks."""
+    products, two confusion blocks (summed over ``group``, as
+    ``make_eval_step``)."""
 
     @torch.inference_mode()
     def step(model, img, label, label_res):
@@ -193,8 +212,9 @@ def make_validation_step(n_classes: int, extra_clusters: int = 0):
         _, cluster_probs = cluster_lookup_apply(model.cluster_probe.clusters, code,
                                                 None, log_probs=False)
         cluster_preds = cluster_probs.argmax(1)
-        return (confusion_update(linear_preds, label, n_classes, 0),
-                confusion_update(cluster_preds, label, n_classes, extra_clusters))
+        return _sum_blocks((confusion_update(linear_preds, label, n_classes, 0),
+                            confusion_update(cluster_preds, label, n_classes,
+                                             extra_clusters)), group)
 
     return step
 

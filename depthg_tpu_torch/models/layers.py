@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from depthg_tpu_torch.parallel import dist
+
 
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` computed in float32, returned in the input dtype."""
@@ -32,13 +34,16 @@ def conv1x1(in_ch: int, out_ch: int) -> nn.Conv2d:
 def dropout2d(x: torch.Tensor, rate: float, enabled: bool,
               generator: torch.Generator | None = None) -> torch.Tensor:
     """``nn.Dropout2d`` with the mask drawn from ``generator``: zero whole
-    channels of [B, C, H, W] and scale the rest by 1 / (1 - rate)."""
+    channels of [B, C, H, W] and scale the rest by 1 / (1 - rate). Under a
+    process group the mask is drawn at the global batch and sharded
+    (``parallel.dist.draw_rows``)."""
     if not enabled or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout2d needs the caller's torch.Generator")
-    keep = torch.bernoulli(torch.full(x.shape[:2], 1.0 - rate, device=x.device),
-                           generator=generator)
+    keep = dist.draw_rows(lambda n: torch.bernoulli(
+        torch.full((n, x.shape[1]), 1.0 - rate, device=x.device), generator=generator),
+        x.shape[0])
     return x * keep[:, :, None, None].to(x.dtype) / (1.0 - rate)
 
 
@@ -50,8 +55,9 @@ def dropout(x: torch.Tensor, rate: float, enabled: bool,
         return x
     if generator is None:
         raise ValueError("dropout needs the caller's torch.Generator")
-    keep = torch.bernoulli(torch.full(x.shape, 1.0 - rate, device=x.device),
-                           generator=generator)
+    keep = dist.draw_rows(lambda n: torch.bernoulli(
+        torch.full((n, *x.shape[1:]), 1.0 - rate, device=x.device), generator=generator),
+        x.shape[0])
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

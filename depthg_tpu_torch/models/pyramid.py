@@ -35,6 +35,7 @@ from torch import nn
 from depthg_tpu_torch.models.featurizer import bf16_parameters
 from depthg_tpu_torch.models.zoedepth.layers import init_uniform_
 from depthg_tpu_torch.ops.resize import resize_bilinear
+from depthg_tpu_torch.parallel import dist
 
 
 class FrozenBackbone(nn.Module):
@@ -316,12 +317,35 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            x = F.batch_norm(conv(x), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                             train, bn.momentum, bn.eps)
+            if train and dist.world() > 1:
+                x = _batch_norm_global(conv(x), bn)
+            else:
+                x = F.batch_norm(conv(x), bn.running_mean, bn.running_var, bn.weight,
+                                 bn.bias, train, bn.momentum, bn.eps)
             if train:
                 bn.num_batches_tracked.add_(1)
             x = F.relu(x)
         return x
+
+
+def _batch_norm_global(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm over the global batch of a process group, as
+    the JAX step normalizes by the whole batch under jit: the mean, then
+    the biased variance around it, each from an all-reduced sum that
+    carries the gradient; every rank updates the running statistics alike
+    (the unbiased variance, as ``F.batch_norm``)."""
+    dims = (0, 2, 3)
+    count = x.numel() // x.shape[1] * dist.world()
+    mean = dist.sum_with_grad(x.sum(dims)) / count
+    centered = x - mean[None, :, None, None]
+    var = dist.sum_with_grad(centered.square().sum(dims)) / count
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.detach() * (count / (count - 1)), alpha=m)
+    inv = torch.rsqrt(var + bn.eps)
+    return (centered * inv[None, :, None, None] * bn.weight[None, :, None, None]
+            + bn.bias[None, :, None, None])
 
 
 class FeaturePyramidNet(nn.Module):

@@ -196,6 +196,19 @@ def load_zoedepth_pt(path: str) -> ZoeDepth:
     return model
 
 
+def load_zoedepth_tree(path: str) -> ZoeDepth:
+    """The JAX package's ZoeDepth param tree, from an orbax directory (its
+    fine-tune's ``save_native``, ``params`` entry) or a ``.npz`` of dotted
+    key paths, as a float32 ``ZoeDepth`` on the CPU, loaded strictly."""
+    from depthg_tpu_torch.utils.checkpoint_io import read_param_tree
+
+    sd = {k: torch.from_numpy(np.array(v, np.float32))
+          for k, v in zoe_state_dict_from_params(read_param_tree(path)).items()}
+    model = ZoeDepth(zoe_config_from_state_dict(sd))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 def midas_config_from_state_dict(sd: dict) -> MidasDPTConfig:
     """A MidasDPTConfig from a hub-layout state dict's shapes (as the JAX
     package's ``load_midas_dpt`` derives it)."""

@@ -49,6 +49,7 @@ wrappers here:
 from __future__ import annotations
 
 import ctypes
+import threading
 import types
 
 import torch
@@ -66,23 +67,32 @@ class _AttentionKernel:
         self.bias_launches = 0
         self.f32_launches = 0
         self._fns = None
+        # the service's replicas launch from one thread each
+        self._lock = threading.Lock()
+
+    def count(self, bias: bool, bf16: bool) -> None:
+        with self._lock:
+            self.launches += 1
+            self.bias_launches += bias
+            self.f32_launches += not bf16
 
     def fn(self):
         """The entries of ``csrc/attention.cu``: ``fwd`` and ``workspace_bytes``."""
-        if self._fns is None:
-            lib = _build.load("attention")
-            fwd = lib.depthg_attention_fwd
-            fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                               ctypes.c_int]
-                            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                    ctypes.c_void_p, ctypes.c_void_p])
-            fwd.restype = ctypes.c_int
-            ws = lib.depthg_attention_workspace_bytes
-            ws.argtypes = [ctypes.c_int] * 4
-            ws.restype = ctypes.c_longlong
-            self._fns = types.SimpleNamespace(fwd=fwd, workspace_bytes=ws)
-        return self._fns
+        with self._lock:
+            if self._fns is None:
+                lib = _build.load("attention")
+                fwd = lib.depthg_attention_fwd
+                fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                                + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_int]
+                                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                        ctypes.c_void_p, ctypes.c_void_p])
+                fwd.restype = ctypes.c_int
+                ws = lib.depthg_attention_workspace_bytes
+                ws.argtypes = [ctypes.c_int] * 4
+                ws.restype = ctypes.c_longlong
+                self._fns = types.SimpleNamespace(fwd=fwd, workspace_bytes=ws)
+            return self._fns
 
 
 KERNEL = _AttentionKernel()
@@ -205,9 +215,7 @@ def _launch(q, k, v, out, scale: float, nv: int, bias=None):
                            f"shape {tuple(q.shape)} (CUresult {err - 10000})")
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    KERNEL.launches += 1
-    KERNEL.bias_launches += bias is not None
-    KERNEL.f32_launches += not bf16
+    KERNEL.count(bias is not None, bf16)
     return out
 
 

@@ -46,6 +46,7 @@ alone knows).
 from __future__ import annotations
 
 import ctypes
+import threading
 import types
 
 import torch
@@ -65,28 +66,36 @@ class _BilateralKernel:
         self.launches = 0
         self.f32_launches = 0
         self._fns = None
+        # the service's replicas launch from one thread each
+        self._lock = threading.Lock()
+
+    def count(self, bf16: bool = True) -> None:
+        with self._lock:
+            self.launches += 1
+            self.f32_launches += not bf16
 
     def fn(self):
         """The entries of ``csrc/crf_bilateral.cu``: ``bf16`` and ``f32``
         messages, ``degree`` and ``workspace_bytes``."""
-        if self._fns is None:
-            lib = _build.load("crf_bilateral")
-            fns = types.SimpleNamespace(
-                bf16=lib.depthg_bilateral_message_bf16,
-                f32=lib.depthg_bilateral_message_f32,
-                degree=lib.depthg_bilateral_degree,
-                workspace_bytes=lib.depthg_bilateral_workspace_bytes)
-            for f in (fns.bf16, fns.f32):
-                f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-                              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-                f.restype = ctypes.c_int
-            fns.degree.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
-                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-            fns.degree.restype = ctypes.c_int
-            fns.workspace_bytes.argtypes = [ctypes.c_int] * 4
-            fns.workspace_bytes.restype = ctypes.c_longlong
-            self._fns = fns
-        return self._fns
+        with self._lock:
+            if self._fns is None:
+                lib = _build.load("crf_bilateral")
+                fns = types.SimpleNamespace(
+                    bf16=lib.depthg_bilateral_message_bf16,
+                    f32=lib.depthg_bilateral_message_f32,
+                    degree=lib.depthg_bilateral_degree,
+                    workspace_bytes=lib.depthg_bilateral_workspace_bytes)
+                for f in (fns.bf16, fns.f32):
+                    f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                    f.restype = ctypes.c_int
+                fns.degree.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+                                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                fns.degree.restype = ctypes.c_int
+                fns.workspace_bytes.argtypes = [ctypes.c_int] * 4
+                fns.workspace_bytes.restype = ctypes.c_longlong
+                self._fns = fns
+            return self._fns
 
 
 KERNEL = _BilateralKernel()
@@ -174,8 +183,7 @@ def _launch(feats, values, out):
     if err != 0:
         raise RuntimeError(f"bilateral kernel launch failed for {tuple(values.shape)}: "
                            f"CUDA error {err}")
-    KERNEL.launches += 1
-    KERNEL.f32_launches += not bf16
+    KERNEL.count(bf16)
     return out
 
 
@@ -214,5 +222,5 @@ def bilateral_degree(feats: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"bilateral degree launch failed for {tuple(feats.shape)}: "
                            f"CUDA error {err}")
-    KERNEL.launches += 1
+    KERNEL.count()
     return out

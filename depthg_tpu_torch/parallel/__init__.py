@@ -1,1 +1,3 @@
-"""Single-device counterparts of ``depthg_tpu/parallel`` (the mesh is multi-GPU work)."""
+"""Data parallelism of the port: ``dist`` (one process per GPU under
+torchrun), ``mesh`` (one replica per device in one process) and the
+sharded ``knn``."""

@@ -11,8 +11,12 @@ columns, which is exact (the global top-k is a subset of the per-block
 top-ks). The similarity product and the top-k are ``torch.matmul`` and
 ``torch.topk``: the JAX package computes them outside any Pallas kernel too.
 
-One device only: the JAX package's ``mesh`` argument (query rows sharded
-over devices) is multi-GPU work and raises here.
+With a process ``group`` (``parallel.dist``; the JAX package's ``mesh``)
+the query rows are split over the ranks, each rank holding every key, and
+the index rows are all-gathered: every rank returns the whole [N, k]
+array, equal to the single process's. The queries are padded with zero
+rows to a multiple of the world; their rows are dropped, and the keys are
+never padded.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from depthg_tpu_torch.models.featurizer import backbone_features
 from depthg_tpu_torch.models.pyramid import FrozenBackbone, feature_map
 from depthg_tpu_torch.ops.correlation import norm
+from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.runtime import get_device
 
 # keys are processed in blocks of this many rows (see the module docstring)
@@ -43,12 +48,14 @@ def pooled_features(net, img: torch.Tensor, precision: str | None = None) -> tor
     return norm(feats.mean(dim=(2, 3)), dim=1)
 
 
-def topk_neighbors(feats, k: int = 30, chunk: int = 1024, mesh=None,
+def topk_neighbors(feats, k: int = 30, chunk: int = 1024, group=None,
                    precision: str | None = None,
                    device: str | torch.device = "cuda") -> np.ndarray:
     """Top-k cosine neighbors for every row of ``feats`` [N, C] (normalized;
     numpy or torch), self included: [N, k] int32 numpy, the dtype the JAX
-    package writes into ``nns_*.npz``. Runs on ``device``.
+    package writes into ``nns_*.npz``. Runs on ``device``; with a process
+    ``group`` every rank passes the same ``feats`` and computes the top-k of
+    its share of the query rows.
 
     ``precision``: "highest" is a float32 product (TF32 stays off), for
     index-exact parity with a float32 reference. None is the JAX default on
@@ -59,10 +66,9 @@ def topk_neighbors(feats, k: int = 30, chunk: int = 1024, mesh=None,
     before the top-k; on the CPU, where that product does not exist, None is
     the float32 product too. Equal similarities come in ``torch.topk``'s
     order, which is not specified."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "topk_neighbors(mesh=...): the sharded KNN is not ported "
-            "(ROADMAP item 7: multi-GPU)")
+    if group is not None and not dist.active():
+        raise ValueError("topk_neighbors(group=...) needs a process group "
+                         "(parallel.dist.init_from_env)")
     if precision not in (None, "highest"):
         raise ValueError(f"precision must be None or 'highest', got {precision!r}")
     dev = get_device(device)
@@ -72,7 +78,17 @@ def topk_neighbors(feats, k: int = 30, chunk: int = 1024, mesh=None,
     if precision is None and dev.type == "cuda":
         keys = keys.to(torch.bfloat16)
     with torch.inference_mode():
-        return _topk_inner(keys, keys, k, chunk).cpu().numpy()
+        if group is None:
+            return _topk_inner(keys, keys, k, chunk).cpu().numpy()
+        n, w = keys.shape[0], torch.distributed.get_world_size(group)
+        per = -(-n // w)
+        r = torch.distributed.get_rank(group)
+        queries = keys[r * per:(r + 1) * per]
+        if queries.shape[0] < per:
+            queries = torch.cat([queries, queries.new_zeros(
+                (per - queries.shape[0], keys.shape[1]))])
+        idx = dist.all_gather(_topk_inner(queries, keys, k, chunk), group)
+        return idx[:n].cpu().numpy()
 
 
 def _similarities(qb: torch.Tensor, kb: torch.Tensor, base: int,

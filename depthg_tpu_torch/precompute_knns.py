@@ -16,6 +16,15 @@ the CNN types of ``models.pyramid.load_model`` (``resnet50``,
 with their file from ``{output_root}/data``, mean-pooled over H and W
 (C = 2048 / 1024 / 512, batch 64). Without weights the backbone is random
 (seed 0), with a warning.
+
+Data-parallel over N GPUs, one process each::
+
+    torchrun --nproc_per_node N -m depthg_tpu_torch.precompute_knns n_devices=N ...
+
+Each rank embeds its rows of every batch (the last one padded to divide
+over the ranks) and the features are all-gathered; the top-k splits its
+query rows over the ranks (``parallel.knn.topk_neighbors(group=)``);
+rank 0 writes the ``nns`` files, equal to a single process's.
 """
 
 from __future__ import annotations
@@ -33,15 +42,17 @@ from depthg_tpu_torch.inference import fcfg_from_run_cfg
 from depthg_tpu_torch.models.featurizer import DinoFeaturizer
 from depthg_tpu_torch.models.pyramid import backbone_for, load_model
 from depthg_tpu_torch.models.vit import VIT_PRESETS
+from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.parallel import knn as knn_lib
-from depthg_tpu_torch.runtime import get_device, single_device_only, to_device
+from depthg_tpu_torch.runtime import get_device, to_device
 from depthg_tpu_torch.utils.ckpt import load_dino_pth
 
 
 def embed_dataset(dataset, net, batch_size, num_workers, precision=None,
                   device: str | torch.device = "cuda") -> np.ndarray:
     """[N, C] float32 pooled, normalized embeddings of every image of
-    ``dataset``, in its order."""
+    ``dataset``, in its order. Under a process group each rank embeds its
+    rows of each batch and every rank returns them all."""
     dev = get_device(device)
     net = net.to(dev)
     feats = []
@@ -49,10 +60,12 @@ def embed_dataset(dataset, net, batch_size, num_workers, precision=None,
                         drop_last=False)
     n_done = 0
     for batch in loader:
-        img = to_device(np.asarray(batch["img"], np.float32), dev)
-        feats.append(knn_lib.pooled_features(net, img, precision))
-        n_done += img.shape[0]
-        if n_done % (batch_size * 20) == 0:
+        n_real = len(batch["img"])
+        img = dist.pad_batch({"img": np.asarray(batch["img"], np.float32)}, (("img", 0),))
+        img = to_device(dist.shard_rows(img["img"]), dev)
+        feats.append(dist.all_gather(knn_lib.pooled_features(net, img, precision))[:n_real])
+        n_done += n_real
+        if dist.is_main() and n_done % (batch_size * 20) == 0:
             print(f"  embedded {n_done}/{len(dataset)}")
     return torch.cat(feats).cpu().numpy()
 
@@ -60,11 +73,15 @@ def embed_dataset(dataset, net, batch_size, num_workers, precision=None,
 def main(argv=None):
     overrides = cli_overrides(argv if argv is not None else sys.argv[1:])
     cfg = load_config("local_config.yml", overrides)
-    single_device_only(cfg.get("n_devices"), "the port's KNN (the sharded one is not ported)")
     device = get_device(cfg.get("device", "cuda"))
+    dist.init_from_env(device=device.type)
+    dist.check_world(cfg.get("n_devices"))
+    device = dist.rank_device(device)
+    group = torch.distributed.group.WORLD if dist.active() else None
 
     data_dir = cfg.data_dir
-    os.makedirs(join(data_dir, "nns"), exist_ok=True)
+    if dist.is_main():
+        os.makedirs(join(data_dir, "nns"), exist_ok=True)
 
     image_sets = list(cfg.get("knn_image_sets", ["train", "val"]))
     dataset_names = list(cfg.get("knn_datasets", ["cocostuff27", "cityscapes", "potsdam"]))
@@ -118,9 +135,11 @@ def main(argv=None):
                     continue
                 feats = embed_dataset(dataset, net, batch_size, cfg.num_workers,
                                       cfg.get("matmul_precision"), device)
-                nns = knn_lib.topk_neighbors(feats, k=30, device=device)
-                np.savez_compressed(cache, nns=nns)
-                print(f"Saved NNs -> {cache} ({nns.shape})")
+                nns = knn_lib.topk_neighbors(feats, k=30, group=group, device=device)
+                if dist.is_main():
+                    np.savez_compressed(cache, nns=nns)
+                    print(f"Saved NNs -> {cache} ({nns.shape})")
+                dist.barrier()  # every rank sees the file before its next check
                 written.append(cache)
     return written
 

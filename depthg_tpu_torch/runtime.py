@@ -48,10 +48,3 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
 
-
-def single_device_only(n_devices, what: str) -> None:
-    """Raise for an ``n_devices`` setting above 1 (empty or 1 pass)."""
-    if n_devices and int(n_devices) != 1:
-        raise NotImplementedError(
-            f"n_devices={n_devices}: {what} runs on one device "
-            "(ROADMAP item 7: multi-GPU)")

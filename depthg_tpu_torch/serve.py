@@ -18,15 +18,21 @@ step (``depthg_tpu/serve.py`` and ``scripts/serve.py``).
   host buffer that batches are staged through with a non-blocking copy.
   The step runs eagerly (nothing is compiled per bucket); the buckets keep
   the set of batch shapes small and are what ``warmup()`` runs once.
+  ``devices=[d0, d1, ...]`` (``build_service``'s ``n_devices``) keeps one
+  replica per device, as the JAX service shards a batch over its mesh: the
+  buckets are multiples of the device count, each padded batch is split
+  evenly across the replicas, and each replica runs its part on its own
+  thread and CUDA stream, so their launches overlap.
 * ``serve_http``: a stdlib ``ThreadingHTTPServer`` frontend:
   ``POST /v1/segment`` (image bytes in, npz/png/json out), ``GET /healthz``,
   ``GET /metrics`` (request/batch counters, occupancy, latency quantiles).
 
 Contract: a served row equals ``make_predict_step`` on the same padded
-batch (rows past the real ones are copies of row 0) exactly. A GEMM may
-pick another algorithm at another batch size, so the same image served in
-another bucket may differ at a few pixels (``chip_smoke.py`` measures the
-agreement across buckets). One device only: ``n_devices`` above 1 raises.
+batch (rows past the real ones are copies of row 0) exactly; with several
+replicas, on its replica's part of that batch. A GEMM may pick another
+algorithm at another batch size, so the same image served in another
+bucket may differ at a few pixels (``chip_smoke.py`` measures the
+agreement across buckets).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import sys
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Queue
 
 import numpy as np
@@ -228,26 +235,43 @@ class DynamicBatcher:
 class SegmentationService:
     """Image bytes -> (linear, cluster) label maps through the predict step.
 
-    Owns the model on ``device`` and the predict step; all device work
-    funnels through one ``DynamicBatcher``. On a CUDA device the constructor
-    builds both kernels, so no request ever waits for the compiler;
-    ``warmup()`` runs every bucket once so the first real request meets warm
-    allocator pools and loaded libraries.
+    Owns the model on ``device`` (or one replica on each of ``devices``)
+    and the predict step; all device work funnels through one
+    ``DynamicBatcher``. On a CUDA device the constructor builds both
+    kernels, so no request ever waits for the compiler; ``warmup()`` runs
+    every bucket once so the first real request meets warm allocator pools
+    and loaded libraries.
     """
 
     def __init__(self, model, ecfg, res: int, max_batch: int = 16,
-                 max_wait_ms: float = 10.0, device: str | torch.device = "cuda"):
+                 max_wait_ms: float = 10.0, device: str | torch.device = "cuda",
+                 devices=None):
         from depthg_tpu_torch.data import get_transform
         from depthg_tpu_torch.inference import make_predict_step
+        from depthg_tpu_torch.parallel import mesh
         from depthg_tpu_torch.runtime import get_device
 
-        self.device = get_device(device)
+        self.devices = [get_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        # every bucket must split evenly: _bucket emits min_bucket * 2^k
+        # capped at max_batch, so max_batch must be a multiple of the count
+        self._min_bucket = len(self.devices)
+        if max_batch % self._min_bucket:
+            raise ValueError(f"max_batch={max_batch} must be a multiple of the "
+                             f"{self._min_bucket} devices so every batch bucket "
+                             "splits evenly")
         self.res = int(res)
         self.ecfg = ecfg
         self._transform = get_transform(self.res, False, "center")
         self._predict = make_predict_step(ecfg)
-        self._model = model.to(self.device).eval()
-        self._staging: dict[int, torch.Tensor] = {}  # bucket -> host buffer
+        self._models = mesh.replicate(model, self.devices)
+        self._model = self._models[0]
+        # replicas launch on streams of their own (one replica: the current)
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" and len(self.devices) > 1
+                         else None for d in self.devices]
+        self._pool = (ThreadPoolExecutor(len(self.devices), "replica")
+                      if len(self.devices) > 1 else None)
+        self._staging: dict[tuple, torch.Tensor] = {}  # (replica, rows) -> host buffer
         if self.device.type == "cuda":
             from depthg_tpu_torch.ops import _build, attention, crf_bilateral
 
@@ -259,35 +283,49 @@ class SegmentationService:
         self.started = time.time()
 
     # -- device path ------------------------------------------------------
-    def _stage(self, imgs: list[np.ndarray], b: int) -> torch.Tensor:
-        """The real rows, then copies of row 0 up to the bucket, through the
-        bucket's host buffer (pinned on CUDA, so the copy to the device does
-        not block). The buffer is reused: the caller fetches its results
-        before it stages the next batch."""
-        buf = self._staging.get(b)
+    def _stage(self, rows: list[np.ndarray], i: int) -> torch.Tensor:
+        """Replica ``i``'s rows through its host buffer of that size (pinned
+        on CUDA, so the copy to the device does not block). The buffer is
+        reused: the caller fetches its results before it stages the next
+        batch."""
+        dev = self.devices[i]
+        buf = self._staging.get((i, len(rows)))
         if buf is None:
-            buf = torch.empty((b, 3, self.res, self.res), dtype=torch.float32,
-                              pin_memory=self.device.type == "cuda")
-            self._staging[b] = buf
+            buf = torch.empty((len(rows), 3, self.res, self.res), dtype=torch.float32,
+                              pin_memory=dev.type == "cuda")
+            self._staging[(i, len(rows))] = buf
         host = buf.numpy()
-        for i, img in enumerate(imgs):
-            host[i] = img
-        host[len(imgs):] = host[0]
-        return buf.to(self.device, non_blocking=True)
+        for j, img in enumerate(rows):
+            host[j] = img
+        return buf.to(dev, non_blocking=True)
+
+    def _predict_part(self, rows: list[np.ndarray], i: int):
+        """Replica ``i`` on its rows, on its device and stream."""
+        # the dispatcher thread did not build the model: name the device here
+        dev = self.devices[i]
+        on = (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext())
+        stream = (torch.cuda.stream(self._streams[i]) if self._streams[i] is not None
+                  else contextlib.nullcontext())
+        with on, stream:
+            linear, cluster = self._predict(self._models[i], self._stage(rows, i))
+            return linear.cpu().numpy(), cluster.cpu().numpy()
 
     def _predict_padded(self, imgs: list[np.ndarray], b: int):
         """(linear, cluster) numpy label maps [b, res, res] of ``imgs``
-        padded to ``b`` rows."""
-        # the dispatcher thread did not build the model: name the device here
-        on = (torch.cuda.device(self.device) if self.device.type == "cuda"
-              else contextlib.nullcontext())
-        with on:
-            linear, cluster = self._predict(self._model, self._stage(imgs, b))
-            return linear.cpu().numpy(), cluster.cpu().numpy()
+        padded to ``b`` rows with copies of row 0; with several replicas each
+        runs its contiguous ``b / n`` rows."""
+        rows = list(imgs) + [imgs[0]] * (b - len(imgs))
+        if self._pool is None:
+            return self._predict_part(rows, 0)
+        per = b // len(self.devices)
+        parts = list(self._pool.map(self._predict_part,
+                                    [rows[i * per:(i + 1) * per] for i in range(len(self.devices))],
+                                    range(len(self.devices))))
+        return tuple(np.concatenate([p[k] for p in parts]) for k in range(2))
 
     def _run_batch(self, imgs: list[np.ndarray]):
         n = len(imgs)
-        b = _bucket(n, self.batcher.max_batch)
+        b = _bucket(n, self.batcher.max_batch, self._min_bucket)
         self.batcher.metrics.record_batch(n, b)
         linear, cluster = self._predict_padded(imgs, b)
         return [(linear[i], cluster[i]) for i in range(n)]
@@ -296,7 +334,7 @@ class SegmentationService:
         """Run the predict step at each reachable batch bucket (the exact
         set ``_run_batch`` can dispatch); returns them."""
         if buckets is None:
-            buckets = bucket_set(self.batcher.max_batch)
+            buckets = bucket_set(self.batcher.max_batch, self._min_bucket)
         dummy = np.zeros((3, self.res, self.res), np.float32)
         for b in buckets:
             self._predict_padded([dummy], b)
@@ -314,6 +352,8 @@ class SegmentationService:
 
     def close(self) -> None:
         self.batcher.close()
+        if self._pool is not None:
+            self._pool.shutdown()
 
 
 # -- HTTP frontend ---------------------------------------------------------
@@ -424,20 +464,23 @@ def serve_http(service: SegmentationService, host: str = "127.0.0.1",
 
 def build_service(cfg, device: str | torch.device = "cuda") -> SegmentationService:
     """Config (``serve_config.yml`` keys) -> ``SegmentationService`` with the
-    checkpoint of ``cfg.model_path`` on ``device``."""
+    checkpoint of ``cfg.model_path`` on ``device``; ``n_devices`` above 1
+    keeps one replica on each of the first ``n_devices`` CUDA devices (n
+    copies of the CPU for ``device="cpu"``)."""
     from depthg_tpu_torch.inference import (Segmenter, ecfg_from_checkpoint,
                                             fcfg_from_run_cfg)
-    from depthg_tpu_torch.runtime import single_device_only
+    from depthg_tpu_torch.parallel import mesh
     from depthg_tpu_torch.utils.checkpoint_io import load_segmenter
 
-    single_device_only(cfg.get("n_devices"), "the port's server")
+    n = int(cfg.get("n_devices") or 1)
+    devices = mesh.make_devices(n, torch.device(device).type) if n > 1 else None
     sd, run_cfg = load_segmenter(cfg.model_path)
     fcfg = fcfg_from_run_cfg(run_cfg)
     ecfg = ecfg_from_checkpoint(cfg, sd, run_cfg)
     return SegmentationService(
         Segmenter.from_state_dict(sd, fcfg), ecfg, res=int(cfg.res),
         max_batch=int(cfg.max_batch), max_wait_ms=float(cfg.max_wait_ms),
-        device=device)
+        device=device, devices=devices)
 
 
 def main(argv=None):

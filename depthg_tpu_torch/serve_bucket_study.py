@@ -128,13 +128,13 @@ def main(argv=None) -> int:
                 lin.append(lo)
                 clu.append(cl)
                 with torch.inference_mode():
-                    log.append(inference.eval_logits(svc._model, svc._stage(arrs[i:i + b], b),
+                    log.append(inference.eval_logits(svc._model, svc._stage(arrs[i:i + b], 0),
                                                      svc.ecfg, normalized=False)[1].cpu())
             preds[b] = (np.concatenate(lin), np.concatenate(clu))
             logits[b] = torch.cat(log)
         differ, n_calls = batch_dependent_modules(
             svc._model, lambda x: inference.eval_logits(svc._model, x, svc.ecfg, normalized=False),
-            svc._stage(arrs[:1], 1), svc._stage(arrs, IMAGES))
+            svc._stage(arrs[:1], 0), svc._stage(arrs, 0))
         emit(point=point, stage="modules_whose_output_depends_on_the_batch",
              module_calls=n_calls, differ=len(differ), first=differ[:6])
         for b in BUCKETS:

@@ -10,6 +10,12 @@
 * The negatives are a loop over the permutations: ``corr_helper``'s
   pointwise centering takes means per call, so folding them into one batch
   would be a different loss.
+* Under a process group (``parallel.dist``) each rank holds its rows of
+  the global batch and the loss is the single-process one: every
+  batch-shaped draw is made at the global batch and sharded, the
+  negatives' permutations run over the global batch and read the
+  gathered (autograd-aware) features and codes, and the pointwise means
+  are all-reduced. ``coords_override`` and ``neg_perms`` are global.
 
 The sampled coordinate tensors are [B, S, S, 2] with S = ``feature_samples``
 from the decay schedule.
@@ -25,6 +31,7 @@ from depthg_tpu_torch.ops.correlation import norm, tensor_correlation
 from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth, uniform_pixel_coords
 from depthg_tpu_torch.ops.resize import resize_bilinear
 from depthg_tpu_torch.ops.sampling import random_coords, sample, super_perm
+from depthg_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +81,9 @@ def corr_helper(lcfg: CorrLossConfig, f1, f2, c1, c2, shift: float):
     with torch.no_grad():
         fd = tensor_correlation(norm(f1), norm(f2))
         if lcfg.pointwise:
-            old_mean = fd.mean()
+            old_mean = dist.mean(fd.mean())
             fd = fd - fd.mean(dim=(3, 4), keepdim=True)
-            fd = fd - fd.mean() + old_mean
+            fd = fd - dist.mean(fd.mean()) + old_mean
     cd = tensor_correlation(norm(c1), norm(c2))
     return -_clamped(lcfg, cd) * (fd - shift), cd
 
@@ -102,8 +109,9 @@ def _salience_coords(salience: torch.Tensor, coord_shape,
     b, s1, s2, _ = coord_shape
     h, w = salience.shape[-2:]
     nonzero = salience.reshape(b, h * w) > 0
-    weights = (nonzero | ~nonzero.any(dim=1, keepdim=True)).float()
-    idx = torch.multinomial(weights, s1 * s2, replacement=True, generator=generator)
+    weights = dist.all_gather((nonzero | ~nonzero.any(dim=1, keepdim=True)).float())
+    idx = dist.shard_rows(torch.multinomial(weights, s1 * s2, replacement=True,
+                                            generator=generator))
     rows = torch.div(idx, w, rounding_mode="floor").float()
     cols = (idx % w).float()
     coords = torch.stack([rows, cols], dim=-1).reshape(b, s1, s2, 2)
@@ -122,15 +130,16 @@ def select_coords(lcfg: CorrLossConfig, feats, feats_pos, depth, depth_pos,
     if lcfg.use_salience:
         c1_nz = _salience_coords(salience, coord_shape, generator)
         c2_nz = _salience_coords(salience_pos, coord_shape, generator)
-        c1_reg = random_coords(coord_shape, generator)
-        c2_reg = random_coords(coord_shape, generator)
-        mask = (torch.rand(coord_shape[:-1], generator=generator,
-                           device=generator.device) > 0.1)[..., None].float()
+        c1_reg = _random_coords(coord_shape, generator)
+        c2_reg = _random_coords(coord_shape, generator)
+        mask = (dist.draw_rows(lambda n: torch.rand((n, s, s), generator=generator,
+                                                    device=generator.device), b)
+                > 0.1)[..., None].float()
         return c1_nz * mask + c1_reg * (1 - mask), c2_nz * mask + c2_reg * (1 - mask)
     if lcfg.depth_sampling == "simple":
         hw = tuple(feats.shape[-2:])
-        return (uniform_pixel_coords(b, s, hw, generator) * 2 - 1,
-                uniform_pixel_coords(b, s, hw, generator) * 2 - 1)
+        return tuple(dist.draw_rows(lambda n: uniform_pixel_coords(n, s, hw, generator), b)
+                     * 2 - 1 for _ in range(2))
     if lcfg.depth_sampling in ("fps", "fps_depth_feat"):
         # "fps_depth_feat" behaves like "fps": the reference passes
         # include_feats=True to a sampler that ignores it. Both images' FPS
@@ -138,19 +147,27 @@ def select_coords(lcfg: CorrLossConfig, feats, feats_pos, depth, depth_pos,
         both = farthest_point_sampling_depth(
             torch.cat([feats, feats_pos]), torch.cat([depth, depth_pos]), s) * 2 - 1
         return both[:b], both[b:]
-    return random_coords(coord_shape, generator), random_coords(coord_shape, generator)
+    return _random_coords(coord_shape, generator), _random_coords(coord_shape, generator)
+
+
+def _random_coords(shape, generator):
+    """``random_coords`` drawn at the global batch, this rank's rows."""
+    return dist.draw_rows(lambda n: random_coords((n, *shape[1:]), generator), shape[0])
 
 
 def _negatives(lcfg, orig_feats, orig_code, feats, code, coords2, neg_perms, generator):
     """The negatives' (losses, cds, perms), each helper call with its own
-    means: [neg, B, S, S, S, S] twice and [neg, B]."""
+    means: [neg, B, S, S, S, S] twice and [neg, B] (the global batch's
+    permutations; this rank's columns index the gathered rows)."""
     if neg_perms is None:
-        neg_perms = torch.stack([super_perm(orig_feats.shape[0], generator)
+        neg_perms = torch.stack([super_perm(orig_feats.shape[0] * dist.world(), generator)
                                  for _ in range(lcfg.neg_samples)])
+    all_feats, all_code = dist.all_gather(orig_feats), dist.all_gather(orig_code)
+    start, stop = dist.shard_range(neg_perms.shape[1])
     losses, cds = [], []
-    for perm in neg_perms:
-        feats_neg = sample(orig_feats[perm], coords2)
-        code_neg = sample(orig_code[perm], coords2)
+    for perm in neg_perms[:, start:stop]:
+        feats_neg = sample(all_feats[perm], coords2)
+        code_neg = sample(all_code[perm], coords2)
         loss, cd = corr_helper(lcfg, feats, feats_neg, code, code_neg,
                                lcfg.neg_inter_shift)
         losses.append(loss)
@@ -173,7 +190,7 @@ def contrastive_correlation_loss(lcfg: CorrLossConfig,
     ``depth_feat_shift`` (the decay schedule's value) defaults to the
     config's."""
     if coords_override is not None:
-        coords1, coords2 = coords_override
+        coords1, coords2 = (dist.shard_rows(c) for c in coords_override)
     else:
         coords1, coords2 = select_coords(lcfg, orig_feats, orig_feats_pos, depth,
                                          depth_pos, salience, salience_pos, generator)
@@ -219,7 +236,7 @@ def depth_contrastive_correlation_loss(lcfg: CorrLossConfig,
     """The ``use_depth_only_intra`` variant: pos_intra runs on the
     depth-augmented feats; coordinates are random or salience only."""
     if coords_override is not None:
-        coords1, coords2 = coords_override
+        coords1, coords2 = (dist.shard_rows(c) for c in coords_override)
     else:
         rand_cfg = dataclasses.replace(lcfg, depth_sampling="none")
         coords1, coords2 = select_coords(rand_cfg, orig_feats, orig_feats_pos,

@@ -21,8 +21,16 @@
   second correlation loss. The "attn" strategy runs the first forward's
   backbone eagerly for its attention maps.
 
+* Data-parallel under a process group (``parallel.dist``): each rank runs
+  its rows of the global batch, the losses are the single-process ones
+  (``train.losses``; the masked cross-entropy divides by the global count
+  of valid pixels; the pyramid's BatchNorm takes the global batch's
+  statistics), and one all-reduce of a flat buffer averages every
+  gradient before the three Adam steps, so every rank keeps the same
+  weights. The logs are all-reduced. The draws' overrides are global.
+
 Not ported (raises ``NotImplementedError`` naming its ROADMAP item): an
-int8 backbone; more than one device is the trainer's refusal.
+int8 backbone.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from depthg_tpu_torch.models.pyramid import PyramidConfig
 from depthg_tpu_torch.ops.correlation import norm, one_hot_feats
 from depthg_tpu_torch.ops.resize import resize_bilinear
 from depthg_tpu_torch.ops.sampling import sample
+from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.train import losses as loss_lib
 
 
@@ -212,6 +221,10 @@ def cross_entropy_masked(logits: torch.Tensor, labels: torch.Tensor, n_classes: 
     lse = torch.logsumexp(logits, dim=1)
     picked = logits.gather(1, safe[:, None])[:, 0]
     nll = torch.where(mask, lse - picked, torch.zeros_like(lse))
+    if dist.active():
+        # the global mean: this rank's sum over the global count, times the
+        # world, so that the mean over ranks is the single-process loss
+        return nll.sum() * dist.world() / dist.all_reduce_sum(mask.sum()).clamp_min(1)
     return nll.sum() / mask.sum().clamp_min(1)
 
 
@@ -252,7 +265,8 @@ def loss_fn(model: Segmenter, batch: dict, hp: TrainHParams,
     if fuse_pair:
         b = img.shape[0]
         depth_both = None if depth is None else torch.cat([depth, depth_pos])
-        both = featurize(torch.cat([img, batch["img_pos"]]), depth_both)
+        with dist.row_blocks(2):
+            both = featurize(torch.cat([img, batch["img_pos"]]), depth_both)
         out = {"feats": both["feats"][:b], "code": both["code"][:b], "attn": None}
         out_pos = {"feats": both["feats"][b:], "code": both["code"][b:]}
     else:
@@ -390,10 +404,27 @@ def train_step(state: TrainState, batch: dict, hp: TrainHParams,
                          depth_feat_shift, generator, coords_override, neg_perms,
                          state.lhp, lhp_coords_override, lhp_neg_perms)
     loss.backward()
+    dist.average_gradients([p for opt in state.opt.values()
+                            for group in opt.param_groups for p in group["params"]])
     for opt in state.opt.values():
         opt.step()
     state.step += 1
-    return {k: v.detach() for k, v in logs.items()}
+    return _global_logs({k: v.detach() for k, v in logs.items()})
+
+
+def _global_logs(logs: dict) -> dict:
+    """Under a process group: each scalar log the mean over ranks (one
+    all-reduce), each histogram the rows of every rank."""
+    if not dist.active():
+        return logs
+    names = [k for k, v in logs.items() if v.dim() == 0]
+    if names:
+        means = dist.mean(torch.stack([logs[k].float() for k in names]))
+        logs.update(zip(names, means.unbind()))
+    for k, v in logs.items():
+        if v.dim() > 0:
+            logs[k] = dist.all_gather(v)
+    return logs
 
 
 def eval_state_dict(state: TrainState) -> dict:

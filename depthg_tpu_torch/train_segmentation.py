@@ -22,16 +22,32 @@ is randomly initialized from the seed, with a warning. Batches are staged throug
 ahead of the step. Scalars go to a jsonl log, and to TensorBoard and wandb
 when those are installed and asked for.
 
-Each checkpoint ``<tag>`` is ``<tag>.train_state.pt``, the port's own
-resumable train state for ``resume=`` (``utils.ckpt.save_train_state``),
+Each checkpoint ``<tag>`` is ``<tag>.pt`` (``utils.ckpt.save_segmenter``:
+the eval state dict with the frozen backbone, the run config and the
+metrics; the eval, demo and serve entry points read it for every arch, as
+the JAX trainer's orbax directory), ``<tag>.train_state.pt``, the port's
+own resumable train state for ``resume=`` (``utils.ckpt.save_train_state``),
 and for ``arch=dino`` also ``<tag>.ckpt``, a reference-compatible Lightning
 checkpoint that the eval CLIs of both packages read (the JAX trainer
 exports that layout for ``arch=dino`` only too). Differences from the JAX
-trainer: no orbax directory and no pickled optax state are written or
-read; the random draws of step k are seeded from (seed, k) and ``resume=``
-also repositions the data loader, so a resumed run repeats an
-uninterrupted one; ``n_devices`` must be 1 or empty and
-``backbone_dtype=int8`` raises ``NotImplementedError``.
+trainer: no orbax directory and no pickled optax state are written, and a
+pickled optax state cannot be resumed (unpickling it needs JAX); the
+random draws of step k are seeded from (seed, k) and ``resume=`` also
+repositions the data loader, so a resumed run repeats an uninterrupted
+one; ``backbone_dtype=int8`` raises ``NotImplementedError``.
+
+Data-parallel over N GPUs, one process each::
+
+    torchrun --nproc_per_node N -m depthg_tpu_torch.train_segmentation n_devices=N ...
+
+``n_devices`` is the world size (empty: the group's, 1 without torchrun)
+and ``batch_size`` the global batch, which must divide by it. Every rank
+builds the same seeded loader and keeps its rows of each batch, as the
+JAX host feeds the global batch to its mesh, so the run is the
+single-process run (``train.step``); validation is sharded with its
+confusion blocks all-reduced; only rank 0 writes the logs and the
+checkpoints; ``resume=`` loads on every rank. NCCL joins the ranks on CUDA,
+gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -53,6 +69,7 @@ from depthg_tpu_torch.data.loader import device_prefetch
 from depthg_tpu_torch.data.transforms import GeometricAug, PhotometricAug
 from depthg_tpu_torch.inference import Segmenter, fcfg_from_run_cfg, make_validation_step
 from depthg_tpu_torch.models.pyramid import RESNET50_MODEL_TYPES, load_model
+from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.runtime import get_device
 from depthg_tpu_torch.train import decay as decay_lib
 from depthg_tpu_torch.train import losses as loss_lib
@@ -129,13 +146,14 @@ def load_backbone(cfg, model: Segmenter) -> str:
 
 
 def _stage_fn(needed, device: torch.device):
-    """Host batch -> dict of device tensors through pinned memory."""
+    """Host batch -> dict of device tensors through pinned memory: this
+    rank's rows of the global batch."""
     def stage(batch: dict) -> dict:
         out = {}
         for k in needed:
             if k not in batch:
                 continue
-            v = np.asarray(batch[k])
+            v = dist.shard_rows(np.asarray(batch[k]))
             if v.dtype == np.float64:
                 v = v.astype(np.float32)
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -152,13 +170,19 @@ def main(argv=None) -> dict:
 
     if cfg.arch not in ("dino", "dino_depth", "feature-pyramid"):
         raise NotImplementedError(f"arch={cfg.arch}")
-    if cfg.get("n_devices") not in (None, 1):
+    if str(cfg.get("resume") or "").endswith(".pkl"):
         raise NotImplementedError(
-            f"n_devices={cfg.n_devices}: the port trains on one device "
-            "(ROADMAP item 7: multi-GPU)")
+            f"resume={cfg.resume}: the JAX trainer's pickled optax state needs JAX "
+            "to unpickle; resume from the port's <tag>.train_state.pt")
     fcfg = fcfg_from_run_cfg(cfg)
     step_lib.check_supported(step_lib.hparams_from_cfg(cfg, 0))
     device = get_device(cfg.get("device", "cuda"))
+    dist.init_from_env(device=device.type)
+    world = dist.check_world(cfg.get("n_devices"))
+    if int(cfg.batch_size) % world:
+        raise ValueError(f"batch_size={cfg.batch_size} does not divide over "
+                         f"{world} devices")
+    device = dist.rank_device(device)
 
     if cfg.get("image_cache_mb") is None:
         # training revisits every image each epoch: decoded-image LRU on
@@ -168,10 +192,15 @@ def main(argv=None) -> dict:
     seed = int(cfg.get("seed", 0))
     np.random.seed(seed)
 
+    stamp = [datetime.now().strftime("%b%d_%H-%M-%S")]
+    if dist.active():  # one run name for every rank
+        torch.distributed.broadcast_object_list(stamp, src=0)
     name = "{}/{}_{}_date_{}".format(cfg.log_dir, cfg.dataset_name, cfg.experiment_name,
-                                     datetime.now().strftime("%b%d_%H-%M-%S"))
+                                     stamp[0])
     checkpoint_dir = join(cfg.output_root, "checkpoints", name.replace("/", "_"))
     log_path = join(cfg.output_root, "logs", name.replace("/", "_") + ".jsonl")
+    if not dist.is_main():  # only rank 0 writes
+        return _run(cfg, device, fcfg, name, checkpoint_dir, log_path, None)
     os.makedirs(checkpoint_dir, exist_ok=True)
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
     with open(log_path, "a") as log_file:
@@ -180,8 +209,9 @@ def main(argv=None) -> dict:
 
 def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
     seed = int(cfg.get("seed", 0))
+    main_rank = log_file is not None
     wandb = None
-    if cfg.get("wandb_logging"):
+    if main_rank and cfg.get("wandb_logging"):
         try:
             import wandb as _wandb
 
@@ -193,13 +223,18 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
 
     tb_writer = None
     tb_dir = join(cfg.output_root, "tb", name.replace("/", "_"))
-    if cfg.get("tensorboard_logging", True):
+    if main_rank and cfg.get("tensorboard_logging", True):
         try:
             from torch.utils.tensorboard import SummaryWriter
 
             tb_writer = SummaryWriter(log_dir=tb_dir)
         except ImportError:
             print("tensorboard not available; jsonl logs only")
+    # histograms only where rank 0 has a writer; every rank must agree, as
+    # the histograms are gathered
+    hist_on = [tb_writer is not None]
+    if dist.active():
+        torch.distributed.broadcast_object_list(hist_on, src=0)
 
     train_dataset, val_dataset, eval_res = build_datasets(cfg)
     n_classes = train_dataset.n_classes
@@ -224,7 +259,8 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
         train_loader.seek(state.step)
         print(f"resumed from {cfg.resume} at step {state.step}")
 
-    val_step = make_validation_step(n_classes, hp.extra_clusters)
+    val_step = make_validation_step(n_classes, hp.extra_clusters,
+                                    group=torch.distributed.group.WORLD if dist.active() else None)
     gen = torch.Generator(device=device)
 
     monitor = "test/cluster/Accuracy" if cfg.dataset_name == "potsdam" else "test/cluster/mIoU"
@@ -240,7 +276,12 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
         needed |= {"img_aug", "coord_aug"}
     stage = _stage_fn(sorted(needed), device)
 
-    def save_ckpt(tag):
+    def save_ckpt(tag, metrics=None):
+        if not main_rank:
+            return
+        ckpt_lib.save_segmenter(join(checkpoint_dir, tag + ".pt"),
+                                ckpt_lib.eval_state_dict(step_lib.eval_state_dict(state)),
+                                cfg=dict(cfg), metrics=metrics, step=state.step)
         if cfg.get("export_torch_ckpt", True) and cfg.arch == "dino":
             ckpt_lib.export_lightning_ckpt(
                 join(checkpoint_dir, tag + ".ckpt"), step_lib.eval_state_dict(state),
@@ -251,14 +292,14 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
     # beside best and last
     topk_kept: list = []  # [(monitor value, step, tag)]
 
-    def save_topk(value):
+    def save_topk(value, metrics):
         tag = f"step{state.step}"
-        save_ckpt(tag)
+        save_ckpt(tag, metrics)
         topk_kept.append((value, state.step, tag))
         topk_kept.sort(key=lambda t: (-t[0], -t[1]))
-        while len(topk_kept) > int(cfg.get("save_top_k", 2)):
+        while main_rank and len(topk_kept) > int(cfg.get("save_top_k", 2)):
             _, _, old = topk_kept.pop()
-            for suffix in (".ckpt", ".train_state.pt"):
+            for suffix in (".pt", ".ckpt", ".train_state.pt"):
                 p = join(checkpoint_dir, old + suffix)
                 if os.path.exists(p):
                     os.remove(p)
@@ -268,7 +309,7 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
         cluster_m = SegMetrics("test/cluster/", n_classes, hp.extra_clusters, True)
         val_stage = _stage_fn(("img", "label"), device)
         for batch in val_loader:
-            b = val_stage(batch)
+            b = val_stage(dist.pad_batch(batch))
             ls, cs = val_step(state.model, b["img"], b["label"], eval_res)
             linear_m.add_stats(ls)
             cluster_m.add_stats(cs)
@@ -279,6 +320,8 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
                 maxima[mk] = v
         tb.update(maxima)
         tb["step"] = state.step
+        if not main_rank:
+            return tb
         print(json.dumps(tb))
         log_file.write(json.dumps(tb) + "\n")
         log_file.flush()
@@ -309,7 +352,7 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
             sh = decay_lib.depth_feat_shift(dcfg, step_num)
             gen.manual_seed(seed * STEP_SEED_STRIDE + step_num)
             hist_freq = cfg.get("hist_freq")
-            want_hist = bool(tb_writer is not None and hist_freq and step_num > 0
+            want_hist = bool(hist_on[0] and hist_freq and step_num > 0
                              and step_num % int(hist_freq) == 0)
             logs = step_lib.train_step(
                 state, batch, dataclasses.replace(hp, log_hist=want_hist),
@@ -318,12 +361,13 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
             step_num = state.step
 
             hists = {k: logs.pop(k) for k in list(logs) if k.startswith("hist/")}
-            for key, val in hists.items():
-                tb_writer.add_histogram(key.split("/", 1)[1], val.cpu().numpy(), step_num)
+            if tb_writer is not None:
+                for key, val in hists.items():
+                    tb_writer.add_histogram(key.split("/", 1)[1], val.cpu().numpy(), step_num)
 
             if step_num % cfg.scalar_log_freq == 0:
                 pending_logs = (step_num, logs)  # fetched lazily, off the hot path
-            if pending_logs and step_num % (cfg.scalar_log_freq * 5) == 0:
+            if main_rank and pending_logs and step_num % (cfg.scalar_log_freq * 5) == 0:
                 sn, lg = pending_logs
                 host = {k: float(v) for k, v in lg.items()}
                 host.update({"step": sn, "cfg/depth_feat_weight": w,
@@ -352,16 +396,18 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
                 tb = run_validation()
                 if tb[monitor] > best_monitor:
                     best_monitor = tb[monitor]
-                    save_ckpt("best")
-                save_topk(tb[monitor])
-                save_ckpt("last")
+                    save_ckpt("best", tb)
+                save_topk(tb[monitor], tb)
+                save_ckpt("last", tb)
 
     tb = run_validation()
-    save_ckpt("last")
+    save_ckpt("last", tb)
     if tb_writer is not None:
         tb_writer.close()
-    print(f"done. best {monitor}: {max(best_monitor, tb[monitor]):.3f}")
-    print(f"checkpoints: {checkpoint_dir}")
+    if main_rank:
+        print(f"done. best {monitor}: {max(best_monitor, tb[monitor]):.3f}")
+        print(f"checkpoints: {checkpoint_dir}")
+    dist.barrier()  # rank 0's checkpoints are on disk when any rank returns
     return {"checkpoint_dir": checkpoint_dir, "log_path": log_path, "step": state.step,
             "metrics": tb,
             "last_logs": {k: float(v) for k, v in (logs or {}).items()}}

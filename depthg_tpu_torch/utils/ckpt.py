@@ -16,9 +16,12 @@ head. The trainer writes the port's own resumable train state
 (``save_train_state``: ``torch.save`` of the trainable tensors and
 buffers, the three optimizers' ``state_dict()`` and the step) and, for
 ``arch=dino`` as the JAX trainer, a reference-compatible Lightning
-``.ckpt`` (``export_lightning_ckpt``; both packages' eval loaders read it). The JAX trainer's pickled optax
-state and its orbax directories need JAX to read; the port writes neither
-and reads neither.
+``.ckpt`` (``export_lightning_ckpt``; both packages' eval loaders read it),
+and for every arch ``save_segmenter``'s file, the port's counterpart of the
+JAX trainer's orbax directory (the eval state dict with the frozen
+backbone, the run config and the metrics). The JAX trainer's orbax
+directories are read by ``utils.checkpoint_io``; its pickled optax state
+needs JAX to unpickle and is neither written nor read.
 """
 
 from __future__ import annotations
@@ -266,6 +269,38 @@ def export_lightning_ckpt(path: str, state_dict: dict, cfg: dict | None = None,
         "lr_schedulers": [],
     }
     torch.save(blob, path)
+
+
+SEGMENTER_FORMAT = "depthg_tpu_torch.segmenter"
+
+
+def _plain(tree):
+    """Config values as plain dicts and lists (no ``Config`` objects in the
+    pickle)."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree
+
+
+def save_segmenter(path: str, state_dict: dict, cfg: dict | None = None,
+                   metrics: dict | None = None, step: int = 0) -> None:
+    """The trainer's checkpoint for every arch (the counterpart of the JAX
+    trainer's ``save_native``): the eval state dict, frozen backbone
+    included, with the run config and the metrics."""
+    torch.save({"format": SEGMENTER_FORMAT,
+                "state_dict": {k: v.detach().cpu().clone() for k, v in state_dict.items()},
+                "cfg": _plain(dict(cfg or {})), "metrics": _plain(dict(metrics or {})),
+                "step": int(step)}, path)
+
+
+def load_segmenter_file(path: str):
+    """``save_segmenter``'s file -> (eval state dict, cfg dict, metrics)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(blob, dict) or blob.get("format") != SEGMENTER_FORMAT:
+        raise ValueError(f"{path}: not a checkpoint written by save_segmenter")
+    return blob["state_dict"], blob["cfg"], blob["metrics"]
 
 
 def _trainable_keys(model) -> list:

@@ -5,14 +5,14 @@
 because scatter-adds are slow on a TPU). The reference quirk is kept: the
 mask drops ``pred >= n_classes``, so predictions in extra clusters never
 enter the matrix. The Hungarian matching and mIoU/accuracy are host-side
-numpy + scipy.
+numpy + scipy. ``confusion_heatmap_png`` is a copy of the JAX package's
+(PIL only).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
 
 def confusion_update(preds: torch.Tensor, target: torch.Tensor, n_classes: int,
@@ -32,6 +32,8 @@ def confusion_update(preds: torch.Tensor, target: torch.Tensor, n_classes: int,
 def compute_metrics(stats: np.ndarray, n_classes: int, extra_clusters: int,
                     compute_hungarian: bool, prefix: str = ""):
     """Host-side metric computation. Returns (metrics dict, assignments)."""
+    from scipy.optimize import linear_sum_assignment  # seconds to import
+
     stats = np.asarray(stats)
     if compute_hungarian:
         assignments = linear_sum_assignment(stats, maximize=True)
@@ -109,3 +111,21 @@ class SegMetrics:
             self.compute()
         return map_clusters(self.assignments, self.n_classes, self.extra_clusters,
                             np.asarray(clusters))
+
+
+def confusion_heatmap_png(histogram: np.ndarray, path: str, cmap=None,
+                          cell: int = 12):
+    """Save a column-normalized confusion-matrix heatmap as a PNG
+    (reference ``plot_cm``, ``src/eval_segmentation.py:19-42``, without the
+    matplotlib/seaborn dependency)."""
+    from PIL import Image
+
+    hist = np.asarray(histogram, np.float64)
+    hist = hist / np.clip(hist.sum(axis=0, keepdims=True), 1, None)
+    # "Blues"-like ramp: white -> blue
+    v = hist.T  # rows = true labels, like the reference figure
+    rgb = np.stack([1 - 0.75 * v, 1 - 0.45 * v, np.ones_like(v)], axis=-1)
+    img = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+    img = np.kron(img, np.ones((cell, cell, 1), np.uint8))
+    Image.fromarray(img).save(path)
+    return path

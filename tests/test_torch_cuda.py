@@ -34,7 +34,9 @@ LHP's depth affinity on the card against the CPU (zero-pattern flips only
 within 2e-3 of the threshold, the mixed code 1e-5 relative), the
 attention kernel's launches in one ``arch=dino_depth`` step, and the
 pyramid in bf16 against float32 on the card (and float32 against the CPU,
-1e-4 relative).
+1e-4 relative). The parallel slice adds the attention kernel launched from
+two threads on two streams at once (the service's replicas): each output
+equal to the same call alone, the launch count exact.
 """
 
 import pytest
@@ -953,3 +955,35 @@ def test_variant_train_and_eval_steps_on_the_card(cuda, arch, kw):
     lin, clu = inference.make_eval_step(ecfg)(state.model, batch["img"], batch["label"])
     counted = int(((batch["label"] >= 0) & (batch["label"] < 27)).sum())
     assert int(lin.sum()) == int(clu.sum()) == counted
+
+
+def test_attention_from_two_threads_on_two_streams(cuda):
+    """Two threads, each on its own stream, launch the kernel 50 times at
+    once (as the service's replicas do): every output equals the same
+    launch alone and ``KERNEL.launches`` counts all 100."""
+    import threading
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkvs = [torch.randn(8, 1601, 3 * 384, device=cuda, generator=gen).to(torch.bfloat16)
+            for _ in range(2)]
+    alone = [tatt.attention_qkv(q, 6, 64 ** -0.5) for q in qkvs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+
+    def run(i):
+        stream = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(stream):
+            for _ in range(50):
+                outs[i].append(tatt.attention_qkv(qkvs[i], 6, 64 ** -0.5))
+        stream.synchronize()
+
+    before = tatt.KERNEL.launches
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert tatt.KERNEL.launches - before == 100
+    for i in range(2):
+        for out in outs[i]:
+            assert torch.equal(out, alone[i])

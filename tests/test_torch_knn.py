@@ -106,8 +106,8 @@ def test_topk_key_blocking_matches_single_pass(monkeypatch, n):
 
 def test_topk_neighbors_refuses_what_is_not_ported():
     feats = _unit(8, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tknn.topk_neighbors(feats, k=2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs a process group"):
+        tknn.topk_neighbors(feats, k=2, group=object(), device="cpu")
     with pytest.raises(ValueError, match="precision"):
         tknn.topk_neighbors(feats, k=2, precision="bfloat16", device="cpu")
     if not torch.cuda.is_available():

@@ -15,7 +15,10 @@ tiny ZoeDepth-NK forward), and after the variants slice (the trainer's
 config with ``arch=dino_depth`` and ``arch=feature-pyramid`` through
 ``fcfg_from_run_cfg`` and ``load_backbone``, an LHP-"attn" train step and
 a validation step on each, ``pooled_features`` of a ResNet-50 and the KNN
-CLI with ``model_type=resnet50``); no source
+CLI with ``model_type=resnet50``), and after the parallel slice
+(``parallel.dist`` outside a process group and in a gloo group of one,
+``parallel.mesh``'s CPU devices and replicas, and the orbax / ``.npz``
+reader of ``utils.checkpoint_io``); no source
 of the port or of
 ``chip_smoke.py`` imports either, or reads a file of ``scripts/`` or
 ``depthg_tpu/``. The attention and bilateral wrappers raise on an input
@@ -176,6 +179,59 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+PARALLEL_PROGRAM = r"""
+import socket, sys, tempfile, os
+import numpy as np
+import torch
+from depthg_tpu_torch.parallel import dist, mesh
+from depthg_tpu_torch.utils import checkpoint_io
+x = torch.arange(6.0).reshape(3, 2)
+assert not dist.active() and dist.world() == 1 and dist.rank() == 0 and dist.is_main()
+assert dist.all_gather(x) is x and dist.all_reduce_sum(x) is x and dist.mean(x) is x
+assert dist.shard_rows(x) is x[0:3] or torch.equal(dist.shard_rows(x), x)
+assert dist.check_world(None) == 1 and dist.rank_device("cpu").type == "cpu"
+assert mesh.make_devices(2, "cpu") == [torch.device("cpu")] * 2
+reps = mesh.replicate(torch.nn.Linear(2, 2), mesh.make_devices(2, "cpu"))
+assert reps[0] is not reps[1] and torch.equal(reps[0].weight, reps[1].weight)
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                     rank=0, world_size=1)
+assert dist.active() and dist.world() == 1
+assert torch.equal(dist.all_reduce_sum(x), x) and torch.equal(dist.mean(x), x)
+assert torch.equal(dist.all_gather(x), x)
+y = x.clone().requires_grad_(True)
+dist.sum_with_grad(y).sum().backward()
+assert torch.equal(y.grad, torch.ones_like(x))
+dist.average_gradients([y])
+assert torch.equal(y.grad, torch.ones_like(x))
+g = torch.Generator().manual_seed(0)
+assert dist.draw_rows(lambda n: torch.rand((n, 2), generator=g), 3).shape == (3, 2)
+batch = dist.pad_batch({"img": np.zeros((3, 1)), "label": np.zeros((3, 1), np.int64)})
+assert len(batch["img"]) == 3
+torch.distributed.destroy_process_group()
+with tempfile.TemporaryDirectory() as d:
+    np.savez(os.path.join(d, "t.npz"), **{"a.0.w": np.ones(2), "a.1.w": np.zeros(2), "b": np.eye(2)})
+    tree = checkpoint_io.read_npz(os.path.join(d, "t.npz"))
+    assert isinstance(tree["a"], list) and tree["a"][0]["w"].sum() == 2 and tree["b"].shape == (2, 2)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "depthg_tpu."))
+             or m == "depthg_tpu")
+assert not bad, bad
+print("PARALLEL_OK")
+"""
+
+
+def test_parallel_and_checkpoint_reader_run_without_jax():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_PROGRAM], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PARALLEL_OK" in proc.stdout
 
 
 def test_depth_cli_help_runs_without_jax():

@@ -200,7 +200,7 @@ def test_precompute_knns_refuses_what_is_not_ported(cropped, tmp_path):
     args = COMMON + [f"data_dir={tmp_path}", "device=cpu"]
     with pytest.raises(ValueError, match="No model: resnet18"):
         tknns.main(args + ["model_type=resnet18"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
         tknns.main(args + ["n_devices=4"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device requested"):

@@ -611,6 +611,23 @@ def test_zoe_eval_readers_match_jax_package(tmp_path):
                 assert got[k] == ref[k], k
 
 
+def test_figures_and_heatmap_are_copies():
+    """``utils/figures.py`` is the JAX package's file byte for byte, and
+    ``confusion_heatmap_png`` has its original's source; both write the
+    same PNG."""
+    import inspect
+
+    from depthg_tpu.utils import metrics as jmetrics
+    from depthg_tpu_torch.utils import metrics as tmetrics
+
+    with open(os.path.join(ROOT, "depthg_tpu", "utils", "figures.py"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "depthg_tpu_torch", "utils", "figures.py"), "rb") as f:
+        assert f.read() == want
+    assert (inspect.getsource(tmetrics.confusion_heatmap_png)
+            == inspect.getsource(jmetrics.confusion_heatmap_png))
+
+
 def test_variant_copies_equal_their_originals():
     """The variants slice's copies of numpy-only code: ``neighborhood_mask``
     (LHP), ``_pyramid_channels`` (the depth pyramid) and ``load_model``'s

@@ -2,8 +2,11 @@
 tiny ViT: the counterparts of ``tests/test_serve.py`` (coalescing, a full
 batch dispatching at once, per-request errors, ``bucket_set``, quantiles,
 HTTP routes and formats, ``build_service`` from a ``.ckpt`` the port
-exported), what the port refuses (``n_devices`` above 1, an orbax
-directory), the serving contract (a served row equals the predict step on
+exported), what the port refuses (``max_batch`` not a multiple of
+``n_devices``, a directory that is not an orbax checkpoint, an orbax
+directory without tensorstore), replicas on two devices (every response
+that of the single-device service, buckets of multiples of 2), the
+serving contract (a served row equals the predict step on
 the same padded batch; pad rows do not leak into other rows), and parity:
 the same PNG bytes through the JAX ``SegmentationService`` and the port's,
 from carried weights in float32: labels equal without the CRF, and on
@@ -53,6 +56,12 @@ def _tiny_service(run_crf=False, max_batch=8, max_wait_ms=150.0, res=32):
     ecfg = tinf.EvalConfig(n_classes=5, run_crf=run_crf, label_res=res)
     return SegmentationService(_tiny_model(), ecfg, res=res, max_batch=max_batch,
                                max_wait_ms=max_wait_ms, device="cpu")
+
+
+def _png_image(seed=0, size=48):
+    from PIL import Image
+
+    return Image.open(io.BytesIO(_png_bytes(seed, size))).convert("RGB")
 
 
 def _png_bytes(seed=0, size=48):
@@ -363,21 +372,86 @@ def test_build_service_from_exported_checkpoint(tmp_path):
         svc.close()
 
 
-def test_build_service_refuses_what_is_not_ported(tmp_path):
+def test_build_service_refuses_what_is_not_ported(tmp_path, monkeypatch):
     ckpt = tmp_path / "seg.ckpt"
     _export_tiny_ckpt(ckpt, {"model_type": "vit_small", "dim": 16, "n_classes": 5})
     base = [f"model_path={ckpt}", "res=32", "run_crf=False", "max_batch=8"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tserve.build_service(load_config("serve_config.yml", base + ["n_devices=8"]), "cpu")
+    with pytest.raises(ValueError, match="multiple of the 3 devices"):
+        tserve.build_service(load_config("serve_config.yml", base + ["n_devices=3"]), "cpu")
+    if torch.cuda.device_count() < 8:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tserve.build_service(load_config("serve_config.yml", base + ["n_devices=8"]))
     orbax_dir = tmp_path / "native"
     orbax_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
+        tserve.build_service(load_config("serve_config.yml", [f"model_path={orbax_dir}"]), "cpu")
+    monkeypatch.setitem(__import__("sys").modules, "tensorstore", None)
+    with pytest.raises(NotImplementedError, match="tensorstore"):
         tserve.build_service(load_config("serve_config.yml", [f"model_path={orbax_dir}"]), "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device requested"):
             tserve.build_service(load_config("serve_config.yml", base))
     svc = tserve.build_service(load_config("serve_config.yml", base + ["n_devices=1"]), "cpu")
     svc.close()
+
+
+def test_kernel_launch_counters_are_exact_across_threads():
+    """The replicas' threads count their launches through one lock: 8
+    threads x 20,000 counts each lose none."""
+    from depthg_tpu_torch.ops import attention as tatt
+    from depthg_tpu_torch.ops import crf_bilateral as tbil
+
+    before = (tatt.KERNEL.launches, tatt.KERNEL.bias_launches, tatt.KERNEL.f32_launches,
+              tbil.KERNEL.launches)
+
+    def run():
+        for _ in range(20_000):
+            tatt.KERNEL.count(True, False)
+            tbil.KERNEL.count()
+
+    threads = [threading.Thread(target=run) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    after = (tatt.KERNEL.launches, tatt.KERNEL.bias_launches, tatt.KERNEL.f32_launches,
+             tbil.KERNEL.launches)
+    assert [a - b for a, b in zip(after, before)] == [160_000] * 4
+
+
+@pytest.mark.parametrize("run_crf", [False, True])
+def test_two_replicas_serve_what_one_device_serves(run_crf):
+    """``devices=["cpu", "cpu"]``: buckets are multiples of 2, each padded
+    batch is split across the two replicas (each on its own thread), and
+    every response equals the single-device service's; 15 is no multiple
+    of 2."""
+    ecfg = tinf.EvalConfig(n_classes=5, run_crf=run_crf, label_res=32)
+    with pytest.raises(ValueError, match="multiple of the 2 devices"):
+        SegmentationService(_tiny_model(), ecfg, res=32, max_batch=15, devices=["cpu", "cpu"])
+    one = SegmentationService(_tiny_model(), ecfg, res=32, max_batch=8, max_wait_ms=1.0,
+                              device="cpu")
+    two = SegmentationService(_tiny_model(), ecfg, res=32, max_batch=8, max_wait_ms=1.0,
+                              devices=["cpu", "cpu"])
+    try:
+        assert two._min_bucket == 2 and two.warmup() == [2, 4, 8]
+        assert len(two._models) == 2 and two._models[0] is not two._models[1]
+        for k, v in two._models[0].state_dict().items():
+            assert torch.equal(two._models[1].state_dict()[k], v), k
+        for n in (1, 3, 4):  # buckets 2, 4, 4
+            arrs = [np.asarray(two._transform(_png_image(20 + i)), np.float32)
+                    for i in range(n)]
+            b = tserve._bucket(n, 8, 2)
+            got, ref = two._run_batch(arrs), one._predict_padded(arrs, b)
+            for i, (lin, clu) in enumerate(got):
+                np.testing.assert_array_equal(lin, ref[0][i])
+                np.testing.assert_array_equal(clu, ref[1][i])
+        lin, clu = two.segment_bytes(_png_bytes(4))
+        ref = one.segment_bytes(_png_bytes(4))
+        np.testing.assert_array_equal(lin, ref[0])
+        np.testing.assert_array_equal(clu, ref[1])
+    finally:
+        one.close()
+        two.close()
 
 
 @pytest.mark.parametrize("run_crf", [False, True])

@@ -73,7 +73,7 @@ def test_cli_trains_validates_and_checkpoints(two_steps):
     assert [r["step"] for r in rows if "test/cluster/mIoU" in r] == [2, 2]
     files = sorted(os.listdir(res["checkpoint_dir"]))
     assert files == sorted(f"{tag}{ext}" for tag in ("best", "last", "step2")
-                           for ext in (".ckpt", ".train_state.pt"))
+                           for ext in (".pt", ".ckpt", ".train_state.pt"))
 
 
 def test_ckpt_loads_in_both_packages_to_the_same_weights(two_steps):
@@ -114,14 +114,17 @@ def test_resume_continues_like_an_uninterrupted_run(two_steps, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
-    """More than one device, an int8 backbone and an unknown arch raise.
+    """More than one device without torchrun, an int8 backbone and an
+    unknown arch raise.
     ``arch=dino_depth``, ``lhp=True`` and ``arch=feature-pyramid`` are
     ported: each trains a step on the synthetic layout, validates and
     checkpoints (the Lightning ``.ckpt`` for ``arch=dino`` only, as the JAX
-    trainer writes it)."""
+    trainer writes it; ``<tag>.pt`` for every arch)."""
     root = str(tmp_path)
-    for flag, match in (("n_devices=4", "ROADMAP item 7"), ("backbone_dtype=int8", "ROADMAP item 8"),
-                        ("arch=resnet", "arch=resnet")):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
+        train_segmentation.main(_args(root, root) + ["n_devices=4"])
+    for flag, match in (("backbone_dtype=int8", "ROADMAP item 8"), ("arch=resnet", "arch=resnet"),
+                        ("resume=state.pkl", "pickled optax state")):
         with pytest.raises(NotImplementedError, match=match):
             train_segmentation.main(_args(root, root) + [flag])
     data, _ = two_steps
@@ -135,7 +138,8 @@ def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
         assert res["step"] == 1 and logged in res["last_logs"], flags
         assert all(np.isfinite(v) for v in res["last_logs"].values()), flags
         assert np.isfinite(res["metrics"]["test/cluster/mIoU"]), flags
-        ext = (".ckpt", ".train_state.pt") if flags[0] == "lhp=True" else (".train_state.pt",)
+        ext = (".pt", ".ckpt", ".train_state.pt") if flags[0] == "lhp=True" else (
+            ".pt", ".train_state.pt")
         assert sorted(os.listdir(res["checkpoint_dir"])) == sorted(
             "last" + e for e in ext), flags
 

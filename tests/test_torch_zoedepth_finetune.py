@@ -376,13 +376,24 @@ def test_finetune_cli_smoke(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("path", ["weights.npz", "orbax_dir"])
-def test_native_checkpoint_refused(tmp_path, path):
+def test_native_checkpoint_refused(tmp_path, path, monkeypatch):
+    """What the reader of the JAX package's ZoeDepth trees refuses: a
+    ``.npz`` that holds no ZoeDepth tree, and an orbax directory when
+    tensorstore cannot be imported (it names the package). Reading both
+    formats is in ``tests/test_torch_checkpoint_io.py``."""
+    import sys
+
     from depthg_tpu_torch import finetune_zoedepth as tcli
 
     target = tmp_path / path
     if path == "orbax_dir":
         target.mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+        monkeypatch.setitem(sys.modules, "tensorstore", None)
+        error, match = NotImplementedError, "tensorstore"
+    else:
+        np.savez(target, **{"head.w": np.zeros(3, np.float32)})
+        error, match = KeyError, "beit"
+    with pytest.raises(error, match=match):
         tcli.build_model(dict(tcli.DEFAULTS, checkpoint=str(target)), torch.device("cpu"))
 
 
