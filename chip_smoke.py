@@ -164,8 +164,9 @@ final line):
     synthetic crops (a random ResNet-50: no file under ``output_root``),
     self at rank 0;
 17. the total time, the kernels JSON line (each kernel's float32 figures
-    and float32 launches per path among them, and K1's launches per rank
-    and per replica of phase 18), the card line and the final JSON line;
+    and float32 launches per path among them, K1's launches per rank and
+    per replica of phase 18 and per int8 path of phase 19), the card line
+    and the final JSON line;
 18. parallel paths (ROADMAP item 7; run before phase 17's lines): two gloo
     ranks (``chip_smoke.py --parallel-worker``) and two NCCL probes
     (``--nccl-probe``) share the card with this process after its timed
@@ -189,7 +190,29 @@ final line):
     default-point eval step at global batch 16 (confusion blocks equal,
     else >= 99.9% of labels, flips printed); ``topk_neighbors`` at
     N=147,456 with its query rows split (indices equal). The probes print
-    the error NCCL gives for two ranks on one card.
+    the error NCCL gives for two ranks on one card;
+19. the int8 (w8a8) backbone (its linears right after phase 2, its paths
+    before phase 17's lines): ``linear_w8a8`` at every linear shape of the ViT-S/8 eval step
+    (M = 16 x 1,601) and of BEiT-L's 384 x 512 batch of 8 (M = 8 x 769) on
+    the card against the CPU: the weight and activation codes and scales
+    (mismatch counts printed), the int32 sums of 2,048 rows exactly, the
+    bf16 outputs within one bf16 step; CUDA-event times of the linear, its
+    quantize pass, ``torch._int_mm`` and bf16 ``F.linear``, the bounds, and
+    a ``torch.profiler`` split of the int8 product from the other passes,
+    traced first in a process of its own (``--int8-profile``).
+    Then every entry point with ``backbone_dtype=int8``: the default-point
+    eval step at batch 16, 320 px, bf16 and int8 in turns (24 K1 launches
+    per batch, no K4, img/s; every int8 batch forwards through the cached
+    int8 copy's w8a8 linears; the int8 features' cosine to float32 > 0.99);
+    one batch of 16 served through ``serve.build_service`` (12 K1
+    launches); the train cell (224 px, batch 32) one warm-up and 5 + 5
+    steps, bf16 and int8 in turns (24 K1 launches per step, no K4, finite
+    logs, falling probe losses, the frozen ViT bit for bit);
+    ``generate_depth.main --dtype int8 --allow_random`` for ZoeDepth and
+    MiDaS over phase 12's images (48 K1 launches per batch, all with the
+    bias, and 24; 8-bit PNGs of each image's size) and one 384 x 512 batch
+    of 8 beside bf16, in turns; two steps of ``train_crf.main`` on a
+    two-image Coco layout.
 """
 
 import copy
@@ -381,6 +404,31 @@ def profiled_kernel_ms(fn, inputs, names, iters=10):
                 us[name] += evt.device_time_total
                 launches[name] += evt.count
     return {name: us[name] / launches[name] / 1e3 if launches[name] else None for name in names}
+
+
+def profiled_device_ms(fn, inputs, tries=6):
+    """(device ms, kernels) per call of ``fn``, summed over every kernel of
+    a ``torch.profiler`` CUDA trace of one call per input. CUPTI can drop
+    some or all of a trace's records after earlier traces, so a trace
+    counts only when the one before it held as many kernels per call (a
+    whole number); after ``tries`` traces without two such, it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    last = None
+    for _ in range(tries):
+        fn(inputs[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for v in inputs:
+                fn(v)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total > 0]
+        kernels = sum(e.count for e in events)
+        if kernels and kernels % len(inputs) == 0 and kernels == last:
+            return (sum(e.device_time_total for e in events) / len(inputs) / 1e3,
+                    kernels // len(inputs))
+        last = kernels
+    raise AssertionError(f"{tries} profiler traces gave no two equal kernel counts")
 
 
 def sm_clock_mhz() -> float:
@@ -2580,6 +2628,361 @@ def parallel_path_phase(att, bil, inference, featurizer, crf, tmp):
                             **{f"rank{r}_eval": o["eval_k4"] for r, o in enumerate(outs)}}}
 
 
+# phase 19: the int8 (w8a8) backbone. Each linear's rows M on its path and
+# its (in, out) widths: ViT-S/8 at the eval step's backbone batch (16 images
+# of 1,601 tokens per forward) and BEiT-L at ZoeDepth's 384 x 512 batch of 8
+# (769 tokens)
+INT8_LINEARS = (("vit_s8", B * N, ((384, 1152), (384, 384), (384, 1536), (1536, 384))),
+                ("beit_l", 8 * 769, ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))))
+INT8_CPU_ROWS = 2048  # rows of each product also summed on the CPU
+INT8_FEATURE_COSINE = 0.99  # tests/test_int8_backbone.py's bound, int8 vs float32
+PEAK_INT8 = 1979e12  # int8 tensor-core operations/s (H100 SXM data sheet, dense)
+
+
+def int8_linear_bound_ms(m, k, n):
+    """Least ms for one w8a8 linear: the bf16 input, the int8 weight, its
+    scales and bias read and the bf16 output written once over the memory
+    rate, or 2 MNK int8 operations over the int8 peak."""
+    nbytes = 2 * m * k + k * n + 8 * n + 2 * m * n
+    return max(nbytes / PEAK_HBM, 2 * m * n * k / PEAK_INT8) * 1e3
+
+
+def bf16_linear_bound_ms(m, k, n):
+    nbytes = 2 * m * k + 2 * k * n + 2 * n + 2 * m * n
+    return max(nbytes / PEAK_HBM, 2 * m * n * k / PEAK_BF16) * 1e3
+
+
+def _int8_linear_case(m, k, n):
+    """One w8a8 shape's ``nn.Linear`` (torch's default init, on the CPU,
+    seeded by its widths) and bf16 input rows on the card."""
+    torch.manual_seed(k * 7 + n)
+    lin = torch.nn.Linear(k, n)
+    x = torch.randn(m, k, generator=torch.Generator(device="cuda").manual_seed(n),
+                    device="cuda").bfloat16()
+    return lin, x
+
+
+def int8_profile_worker(out_dir):
+    """``chip_smoke.py --int8-profile DIR``: at every shape of
+    ``INT8_LINEARS``, the device time of the whole w8a8 linear and of its
+    int8 product alone, each summed over every kernel of ``torch.profiler``
+    traces, and the linear's kernels per call; written to
+    ``DIR/int8_profile.json``. It runs in a process of its own, whose
+    profiler has traced nothing before, because CUPTI drops records from
+    later traces of a process that has traced much already."""
+    sys.path.insert(0, ROOT)
+    from depthg_tpu_torch.models import layers
+
+    res = {}
+    for model, m, widths in INT8_LINEARS:
+        for k, n in widths:
+            lin, x = _int8_linear_case(m, k, n)
+            q = layers.quantize_linear(lin.cuda())
+            xs = [x, -x, x * 1.5]
+            codes_in = [layers.quantize_rows(v)[0] for v in xs]
+            whole_ms, n_kernels = profiled_device_ms(
+                lambda v: layers.linear_w8a8(v, q.w_q, q.s_w, q.b), xs)
+            mm_ms, _ = profiled_device_ms(lambda c: layers.int8_matmul(c, q.w_q), codes_in)
+            res[f"{model}_{k}x{n}"] = {
+                "profiled_ms": whole_ms, "profiled_int_mm_ms": mm_ms,
+                "profiled_other_ms": whole_ms - mm_ms, "device_kernels_per_linear": n_kernels}
+    with open(os.path.join(out_dir, "int8_profile.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def int8_linear_phase():
+    """``linear_w8a8`` at every linear shape of the ViT-S/8 eval step and of
+    BEiT-L's depth batch, on the card against the CPU: the weight codes and
+    scales, the activation codes and scales (mismatch counts), the int32
+    sums exactly (on the first ``INT8_CPU_ROWS`` rows), the bf16 output;
+    CUDA-event times of the whole linear, of its quantize pass, of
+    ``torch._int_mm`` and of bf16 ``F.linear``, and the profiler's device
+    times of the linear and of its int8 product (``int8_profile_worker``,
+    run first and alone on the card)."""
+    import torch.nn.functional as F
+
+    from depthg_tpu_torch.models import layers
+
+    with tempfile.TemporaryDirectory() as tmp:
+        code, = _wait(_spawn(lambda r: ["--int8-profile", tmp], tmp, "int8_profile", 1), 300)
+        if code != 0:
+            raise AssertionError(f"the int8 profiler process exited with {code}:\n"
+                                 + open(os.path.join(tmp, "int8_profile0.log")).read()[-3000:])
+        with open(os.path.join(tmp, "int8_profile.json")) as f:
+            profiled = json.load(f)
+    results = {}
+    for model, m, widths in INT8_LINEARS:
+        for k, n in widths:
+            name = f"{model}_{k}x{n}"
+            lin, x = _int8_linear_case(m, k, n)
+            q_cpu, q = layers.quantize_linear(lin), layers.quantize_linear(lin.cuda())
+            codes, s_x = layers.quantize_rows(x)
+            codes_cpu, s_x_cpu = layers.quantize_rows(x.cpu())
+            mism = {"weight_codes": int((q.w_q.cpu() != q_cpu.w_q).sum()),
+                    "weight_scales": int((q.s_w.cpu() != q_cpu.s_w).sum()),
+                    "activation_codes": int((codes.cpu() != codes_cpu).sum()),
+                    "activation_scales": int((s_x.cpu() != s_x_cpu).sum())}
+            rows = slice(0, INT8_CPU_ROWS)
+            sums = layers.int8_matmul(codes, q.w_q)
+            if not torch.equal(sums[rows].cpu(),
+                               layers.int8_matmul(codes[rows].cpu(), q.w_q.cpu())):
+                raise AssertionError(f"{name}: int32 sums differ from the CPU's")
+            out = layers.linear_w8a8(x, q.w_q, q.s_w, q.b)
+            ref = layers.linear_w8a8(x[rows].cpu(), q_cpu.w_q, q_cpu.s_w, q_cpu.b).float()
+            got = out[rows].float().cpu()
+            # one bf16 step (the rescale may round its float32 product apart)
+            bad = int(((got - ref).abs() > 2.0 ** -7 * ref.abs() + 1e-6).sum())
+            if bad or out.dtype != torch.bfloat16 or out.shape != (m, n):
+                raise AssertionError(f"{name}: {bad} outputs off the CPU's by more than "
+                                     "a bf16 step")
+            xs = [x, -x, x * 1.5]
+            w_bf16, b_bf16 = lin.weight.bfloat16(), lin.bias.bfloat16()
+            codes_in = [layers.quantize_rows(v)[0] for v in xs]
+            row = {"m": m, "k": k, "n": n, "mismatches": mism,
+                   "max_rel_err": float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max()),
+                   "ms": cuda_time_ms(lambda v: layers.linear_w8a8(v, q.w_q, q.s_w, q.b), xs),
+                   "quantize_ms": cuda_time_ms(lambda v: layers.quantize_rows(v)[0], xs),
+                   "int_mm_ms": cuda_time_ms(lambda c: layers.int8_matmul(c, q.w_q), codes_in),
+                   "bf16_linear_ms": cuda_time_ms(lambda v: F.linear(v, w_bf16, b_bf16), xs),
+                   "bound_ms": int8_linear_bound_ms(m, k, n),
+                   "bf16_bound_ms": bf16_linear_bound_ms(m, k, n)}
+            row.update(profiled[name])
+            results[name] = row
+            phase("int8_linear", linear=name, **row)
+            del x, xs, codes_in, sums, out
+    return results
+
+
+def int8_path_phase(att, bil, inference, featurizer, crf, gen, tmp, card):
+    """The int8 backbone through every entry point at full width:
+    eval (batch 16, 320 px, default point; bf16 and int8 in turns, features'
+    cosine to float32), one served batch in bucket 16 (``build_service``),
+    five train steps at the train cell (bf16 and int8 in turns), depth
+    generation for ZoeDepth and MiDaS (``generate_depth.main --dtype int8``,
+    one 384 x 512 batch of 8 timed beside bf16), two steps of the CRF
+    playground."""
+    import numpy as np
+    from PIL import Image
+
+    from depthg_tpu_torch import generate_depth, profile_train, serve, train_crf
+    from depthg_tpu_torch.config import load_config
+    from depthg_tpu_torch.models import layers
+    from depthg_tpu_torch.models import vit as vit_lib
+    from depthg_tpu_torch.profile_serve import synthetic_jpeg
+    from depthg_tpu_torch.train import losses as loss_lib
+    from depthg_tpu_torch.train import step as step_lib
+    from depthg_tpu_torch.utils.ckpt import export_lightning_ckpt
+
+    out = {"card": card}
+    fcfg = featurizer.FeaturizerConfig()  # vit_small, patch 8, dim 70
+    model = inference.Segmenter(fcfg, 27, 27).init_weights(
+        torch.Generator().manual_seed(0)).cuda()
+    per_batch = 2 * len(model.net.model.blocks)
+
+    # the eval step, bf16 and int8 in turns (bf16, int8, int8, bf16)
+    steps = {d: inference.make_eval_step(inference.EvalConfig(
+        n_classes=27, crf=crf.crf_config_from_cfg({}), backbone_dtype=d))
+        for d in ("bfloat16", "int8")}
+    img_s = {"bfloat16": [], "int8": []}
+    int8_launches = int8_k4 = 0
+    # the int8 step must run the ViT's cached int8 copy: count the forwards
+    # of its first w8a8 linear (one per backbone forward)
+    copy8 = vit_lib.int8_copy(model.net.model)
+    if not all(isinstance(lin, layers.W8A8Linear) for blk in copy8.blocks
+               for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)):
+        raise AssertionError("the int8 copy's block linears are not all W8A8Linear")
+    w8a8_forwards = []
+    hook = copy8.blocks[0].attn.qkv.register_forward_hook(
+        lambda *_: w8a8_forwards.append(1))
+    for d in ("bfloat16", "int8", "int8", "bfloat16"):
+        batches = make_batches(gen, B, 4)
+        _, rate, launches, k4 = run_eval_batches(steps[d], model, batches, att, bil)
+        if launches != per_batch * 4 or k4:
+            raise AssertionError(f"{d} eval: {launches} K1 launches in 4 batches, {k4} K4")
+        img_s[d].append(rate)
+        if d == "int8":
+            int8_launches, int8_k4 = int8_launches + launches, int8_k4 + k4
+    hook.remove()
+    forwards = per_batch // len(copy8.blocks) * 8  # K1 launches once a block a forward
+    if len(w8a8_forwards) != forwards or vit_lib.int8_copy(model.net.model) is not copy8:
+        raise AssertionError(f"int8 eval: {len(w8a8_forwards)} forwards through the int8 "
+                             f"copy's w8a8 linears in 8 batches, expected {forwards}")
+    img = make_batches(gen, B, 1)[0][0]
+    with torch.no_grad():
+        f8, _ = featurizer.backbone_features(model.net, img, backbone_dtype="int8")
+        f32, _ = featurizer.backbone_features(model.net, img)
+    cos = float((f8 * f32).sum() / (f8.norm() * f32.norm()))
+    if not cos > INT8_FEATURE_COSINE:
+        raise AssertionError(f"int8 features' cosine to float32 {cos}")
+    out["eval"] = {"batch": B, "res": 320, "img_per_s": img_s,
+                   "k1_launches_per_batch": int8_launches / 8, "k4_launches": int8_k4,
+                   "w8a8_forwards_per_batch": len(w8a8_forwards) / 8,
+                   "feature_cosine_to_f32": cos}
+    phase("int8_eval", **out["eval"])
+
+    # one served batch in bucket 16
+    ckpt = os.path.join(tmp, "int8_segmenter.ckpt")
+    export_lightning_ckpt(ckpt, model.cpu().state_dict(), cfg={
+        "model_type": "vit_small", "dino_patch_size": 8, "dim": 70, "n_classes": 27})
+    svc = serve.build_service(load_config("serve_config.yml", [
+        f"model_path={ckpt}", "backbone_dtype=int8"]), "cuda")
+    try:
+        arrs = [np.asarray(svc._transform(Image.open(io.BytesIO(synthetic_jpeg(
+            700 + i, 480, 360))).convert("RGB")), np.float32) for i in range(16)]
+        svc._predict_padded(arrs, 16)  # warm-up
+        att.KERNEL.launches = bil.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        lin, clu = svc._predict_padded(arrs, 16)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+        if (svc.ecfg.backbone_dtype != "int8" or launches != len(model.net.model.blocks)
+                or k4 or len(lin) != 16 or lin[0].shape != (320, 320)):
+            raise AssertionError(f"int8 service: {svc.ecfg.backbone_dtype}, {launches} K1 "
+                                 f"launches, {k4} K4 launches")
+    finally:
+        svc.close()
+    out["serve"] = {"bucket": 16, "k1_launches_per_batch": launches, "k4_launches": k4,
+                    "host_ms": serve_ms}
+    phase("int8_serve", **out["serve"])
+    del svc, model
+    torch.cuda.empty_cache()
+
+    # five train steps at the train cell, bf16 and int8 in turns
+    lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps",
+                                   depth_feat_correlation_loss=True)
+    w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
+    batch = profile_train.synthetic_batch(TRAIN_B, TRAIN_RES, 27, gen)
+    runs = {}
+    for d in ("bfloat16", "int8"):
+        hp = step_lib.TrainHParams(n_classes=27, backbone_dtype=d)
+        state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), "cuda")
+        vit = [p.detach().clone() for p in state.model.net.model.parameters()]
+        runs[d] = {"hp": hp, "state": state, "vit": vit, "ms": [], "logs": []}
+
+    def probe_losses(run):
+        fixed = torch.Generator(device="cuda").manual_seed(123)
+        with torch.no_grad():
+            logs = step_lib.loss_fn(run["state"].model, batch, run["hp"], lcfg, w, sh,
+                                    generator=fixed)[1]
+        return float(logs["loss/linear"] + logs["loss/cluster"])
+
+    before = probe_losses(runs["int8"])
+    att.KERNEL.launches = bil.KERNEL.launches = 0
+    for d in ("bfloat16", "int8"):  # warm-up
+        runs[d]["logs"].append(step_lib.train_step(runs[d]["state"], batch, runs[d]["hp"],
+                                                   lcfg, w, sh, generator=gen))
+    int8_launches = 0
+    for d in ("bfloat16", "int8", "int8", "bfloat16"):
+        run = runs[d]
+        first = att.KERNEL.launches
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            run["logs"].append(step_lib.train_step(run["state"], batch, run["hp"], lcfg, w, sh,
+                                                   generator=gen))
+        stop.record()
+        torch.cuda.synchronize()
+        run["ms"].append(start.elapsed_time(stop) / TRAIN_STEPS)
+        if att.KERNEL.launches - first != per_batch * TRAIN_STEPS:
+            raise AssertionError(f"{d} train: {att.KERNEL.launches - first} K1 launches "
+                                 f"in {TRAIN_STEPS} steps")
+        int8_launches += (att.KERNEL.launches - first) if d == "int8" else 0
+    after = probe_losses(runs["int8"])
+    train_k4 = bil.KERNEL.launches
+    if train_k4 or not after < before:
+        raise AssertionError(f"int8 train: {bil.KERNEL.launches} K4 launches, probe losses "
+                             f"{before} -> {after}")
+    for d, run in runs.items():
+        for i, logs in enumerate(run["logs"]):
+            if not all(bool(torch.isfinite(v).all()) for v in logs.values()):
+                raise AssertionError(f"{d} train step {i}: non-finite logs")
+        for p, old in zip(run["state"].model.net.model.parameters(), run["vit"]):
+            if p.grad is not None or p.requires_grad or not torch.equal(p, old):
+                raise AssertionError(f"{d} train: the frozen ViT changed")
+    out["train"] = {"batch": TRAIN_B, "res": TRAIN_RES, "steps": 1 + 2 * TRAIN_STEPS,
+                    "step_ms": {d: r["ms"] for d, r in runs.items()},
+                    "k1_launches_per_step": int8_launches / (2 * TRAIN_STEPS),
+                    "k4_launches": train_k4, "probe_losses_before": before,
+                    "probe_losses_after": after,
+                    "last_logs": {k: float(v) for k, v in runs["int8"]["logs"][-1].items()}}
+    phase("int8_train", **out["train"])
+    del runs, batch
+    torch.cuda.empty_cache()
+
+    # depth generation, int8, over phase 12's images; one batch of 8 at
+    # 384 x 512 timed beside the bf16 model, in turns
+    image_dir = os.path.join(tmp, "int8_depth_images", "val")
+    os.makedirs(image_dir)
+    for i, (w_, h_) in enumerate(DEPTH_IMAGES):
+        with open(os.path.join(image_dir, f"img{i:02d}.jpg"), "wb") as f:
+            f.write(synthetic_jpeg(400 + i, w_, h_))
+    out["depth"] = {}
+    for model_name, expect, with_bias in (("zoedepth", 48, True), ("midas", 24, False)):
+        argv = ["--data_dir", os.path.dirname(image_dir), "--model", model_name,
+                "--batch_size", "8", "--allow_random"]
+        out_dir = os.path.join(tmp, f"int8_depth_{model_name}")
+        att.KERNEL.launches = att.KERNEL.bias_launches = bil.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        written = generate_depth.main(argv + ["--output_dir", out_dir, "--dtype", "int8"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, bias_launches = att.KERNEL.launches, att.KERNEL.bias_launches
+        depth_k4 = bil.KERNEL.launches
+        if (written != len(DEPTH_IMAGES) or launches != expect * DEPTH_BATCHES
+                or bias_launches != (launches if with_bias else 0) or depth_k4):
+            raise AssertionError(f"int8 {model_name}: {written} maps, {launches} K1 launches "
+                                 f"({bias_launches} with a bias)")
+        for name, (w_, h_) in zip(sorted(os.listdir(image_dir)), DEPTH_IMAGES):
+            png = np.asarray(Image.open(os.path.join(out_dir, "val",
+                                                     f"{name[:-4]}_{model_name}.png")))
+            # MiDaS's seed-0 head ends below its ReLU: constant maps (phase 12)
+            if png.dtype != np.uint8 or png.shape != (h_, w_) or (
+                    model_name == "zoedepth" and png.min() == png.max()):
+                raise AssertionError(f"int8 {model_name} {name}: PNG {png.dtype} {png.shape}")
+        infers = {d: generate_depth.build(generate_depth.get_args_parser().parse_args(
+            argv + ["--dtype", d]), torch.device("cuda"))[0] for d in ("bfloat16", "int8")}
+        x = torch.rand(8, 3, 384, 512, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(5))
+        xs = [x, x.flip(-1), 1 - x]
+        ms = {"bfloat16": [], "int8": []}
+        for d in ("bfloat16", "int8", "int8", "bfloat16"):
+            ms[d].append(cuda_time_ms(lambda v: infers[d](v)[0], xs, iters=3, warmup=1))
+        out["depth"][model_name] = {
+            "images": written, "batches": DEPTH_BATCHES,
+            "k1_launches_per_batch": launches / DEPTH_BATCHES,
+            "k1_bias_launches_per_batch": bias_launches / DEPTH_BATCHES,
+            "k4_launches": depth_k4,
+            "main_seconds": seconds, "batch8_384x512_ms": ms}
+        phase("int8_depth", model=model_name, **out["depth"][model_name])
+        del infers, x, xs
+        torch.cuda.empty_cache()
+
+    # two steps of the CRF playground on a two-image Coco layout at 224 px
+    base = os.path.join(tmp, "crf_data", "cocostuff")
+    for sub in ("curated/val2017", "images/val2017", "annotations/val2017"):
+        os.makedirs(os.path.join(base, sub))
+    with open(os.path.join(base, "curated/val2017/Coco164kFull_Stuff_Coarse_7.txt"), "w") as f:
+        f.write("v0\nv1")
+    rng = np.random.default_rng(0)
+    for name in ("v0", "v1"):
+        with open(os.path.join(base, "images/val2017", name + ".jpg"), "wb") as f:
+            f.write(synthetic_jpeg(800 + len(name), 320, 240))
+        Image.fromarray(rng.integers(0, 182, (240, 320)).astype(np.uint8)).save(
+            os.path.join(base, "annotations/val2017", name + ".png"))
+    t0 = time.perf_counter()
+    res = train_crf.main([f"data_dir={os.path.dirname(base)}", f"output_root={tmp}",
+                          "image_set=val", "n_images=2", "epochs=2", "res=224",
+                          "device=cuda"])
+    if not (np.isfinite(res["loss"]) and len(os.listdir(res["out_dir"])) == 4):
+        raise AssertionError(f"train_crf: {res}")
+    out["train_crf"] = {"steps": res["steps"], "loss": res["loss"], "crf": res["crf"],
+                        "seconds": time.perf_counter() - t0}
+    phase("train_crf", **out["train_crf"])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -2614,6 +3017,7 @@ def main():
                      if "registers" in ln or "spill" in ln])
     phase("build_all", seconds=time.perf_counter() - t_build)
 
+    int8_linear_phase()
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = attention_phase(att, gen, runtime)
     attn_bias = attention_bias_phase(att, beit, gen)
@@ -2637,6 +3041,8 @@ def main():
         var_res = variants_path_phase(att, bil, inference, crf, gen, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         par_res = parallel_path_phase(att, bil, inference, featurizer, crf, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        int8_res = int8_path_phase(att, bil, inference, featurizer, crf, gen, tmp, card)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")
@@ -2718,6 +3124,14 @@ def main():
         "parallel_launches_per_rank_per_step": par_res["rank_launches_per_step"],
         "parallel_eval_launches_per_rank": par_res["eval_launches_per_rank"],
         "serve_launches_per_replica_per_batch": par_res["replica_launches_per_batch"],
+        # the int8 (w8a8) backbone's paths (phase 19): K1 in bf16 behind the
+        # int8 linears, per eval batch, served batch, train step, depth batch
+        "int8_eval_launches_per_batch": int8_res["eval"]["k1_launches_per_batch"],
+        "int8_serve_launches_per_batch": int8_res["serve"]["k1_launches_per_batch"],
+        "int8_train_launches_per_step": int8_res["train"]["k1_launches_per_step"],
+        "int8_zoedepth_bias_launches_per_batch":
+            int8_res["depth"]["zoedepth"]["k1_bias_launches_per_batch"],
+        "int8_midas_launches_per_batch": int8_res["depth"]["midas"]["k1_launches_per_batch"],
         # the float32 kernel (split TF32) at the eval shape, then per path
         "f32_kernel_only_ms": attn["f32"]["kernel_only_ms"],
         "f32_kernel_device_ms": attn["f32"]["kernel_device_ms"],
@@ -2757,6 +3171,10 @@ def main():
         # the parallel paths at the default point (K4 runs at crf_downsample=1)
         "parallel_path_launches": sum(par_res["k4_launches"].values()),
         "parallel_path_launches_by_part": par_res["k4_launches"],
+        "int8_path_launches": sum([int8_res["eval"]["k4_launches"],
+                                   int8_res["serve"]["k4_launches"],
+                                   int8_res["train"]["k4_launches"],
+                                   *(r["k4_launches"] for r in int8_res["depth"].values())]),
         "shape": "bf16, B=2, N=102400, C=54 (the exact eval step's message); "
                  "n25600: B=2, C=54; degree: B=2, N=102400",
         "max_abs_err": k4_main["max_abs_err"], "rel_err": k4_main["rel_err"],
@@ -2809,6 +3227,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--int8-profile":
+        sys.exit(int8_profile_worker(sys.argv[2]))
     if len(sys.argv) == 6 and sys.argv[1] in ("--parallel-worker", "--nccl-probe"):
         worker = parallel_worker if sys.argv[1] == "--parallel-worker" else nccl_probe
         sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))

@@ -188,6 +188,15 @@ class DataLoader:
     Shuffling reshuffles each epoch from ``seed``; ``__iter__`` may be called
     repeatedly (epoch counter advances). Batches are numpy; feed to device
     with ``torch.from_numpy(...).to(device)``.
+
+    Each batch is this rank's rows of the global batch of ``batch_size``
+    (under a process group, ``parallel.dist``; the whole batch without
+    one), and only those items are loaded. A global batch that does not
+    divide over the world (an epoch's tail) is padded to divide, as
+    ``dist.pad_batch`` pads it: zero images and labels -1 (other keys keep
+    the real rows only). Every batch carries the global batch's count of
+    real items under ``n_real``. A rank whose share is all padding loads
+    the global batch's first item once for the shapes of its rows.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -237,6 +246,18 @@ class DataLoader:
         except TypeError:
             return getitem(int(idx))
 
+    def _load(self, epoch: int, batch_idx, pool) -> dict:
+        """This rank's rows of the global batch ``batch_idx``, collated."""
+        from depthg_tpu_torch.parallel import dist
+
+        local = dist.rank_share(batch_idx)
+        real = local[local >= 0]
+        fetch = real if len(real) else np.asarray(batch_idx[:1])
+        batch = self.collate_fn(list(pool.map(lambda i: self._fetch(epoch, i), fetch)))
+        batch = dist.pad_rows({k: v[:len(real)] for k, v in batch.items()}, len(local))
+        batch["n_real"] = len(batch_idx)
+        return batch
+
     def __iter__(self):
         epoch = self._epoch
         self._epoch += 1
@@ -251,9 +272,7 @@ class DataLoader:
                     for batch_idx in batches:
                         if stop.is_set():
                             break
-                        items = list(pool.map(lambda i: self._fetch(epoch, i),
-                                              batch_idx))
-                        if not _put_or_stop(out_q, self.collate_fn(items), stop):
+                        if not _put_or_stop(out_q, self._load(epoch, batch_idx, pool), stop):
                             return
                 _put_or_stop(out_q, None, stop)
             except BaseException as e:  # forward: a dead producer must not

@@ -15,8 +15,9 @@ Data-parallel over N GPUs, one process each::
 
     torchrun --nproc_per_node N -m depthg_tpu_torch.demo_segmentation n_devices=N ...
 
-Each rank predicts its rows of every batch (the last one padded to divide
-over the ranks), the label maps are gathered, and rank 0 writes the PNGs.
+Each rank loads and predicts only its rows of every batch (the last one
+padded to divide over the ranks), the label maps are gathered, and rank 0
+writes the PNGs.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from PIL import Image
 
 from depthg_tpu_torch.config import cli_overrides, load_config
-from depthg_tpu_torch.data import get_transform
+from depthg_tpu_torch.data import DataLoader, get_transform
 from depthg_tpu_torch.inference import Segmenter, ecfg_from_checkpoint, \
     fcfg_from_run_cfg, make_predict_step
 from depthg_tpu_torch.parallel import dist
@@ -50,6 +51,20 @@ class UnlabeledImageFolder:
     def __getitem__(self, index):
         img = Image.open(join(self.root, self.images[index])).convert("RGB")
         return self.transform(img), self.images[index]
+
+
+class _Items:
+    """``UnlabeledImageFolder``'s items as the dicts ``DataLoader`` collates."""
+
+    def __init__(self, folder):
+        self.folder = folder
+
+    def __len__(self):
+        return len(self.folder)
+
+    def __getitem__(self, index, rng=None):
+        img, name = self.folder[index]
+        return {"img": img, "name": name}
 
 
 def main(argv=None):
@@ -73,13 +88,12 @@ def main(argv=None):
     bs = int(cfg.batch_size) * 2
 
     dataset = UnlabeledImageFolder(cfg.image_dir, get_transform(cfg.res, False, "center"))
-    for start in range(0, len(dataset), bs):
-        items = [dataset[i] for i in range(start, min(start + bs, len(dataset)))]
-        imgs = np.stack([it[0] for it in items]).astype(np.float32)
-        names = [it[1] for it in items]
-        imgs = dist.pad_batch({"img": imgs}, (("img", 0),))["img"]
-        lin, clu = (p.cpu().numpy() for p in predict(
-            model, to_device(dist.shard_rows(imgs), device)))
+    loader = DataLoader(_Items(dataset), bs, shuffle=False, num_workers=cfg.num_workers)
+    for b, batch in enumerate(loader):
+        start = b * bs
+        names = dataset.images[start:start + batch["n_real"]]
+        imgs = np.asarray(batch["img"], np.float32)  # this rank's rows only
+        lin, clu = (p.cpu().numpy() for p in predict(model, to_device(imgs, device)))
         if not dist.is_main():
             continue
         for j, name in enumerate(names):

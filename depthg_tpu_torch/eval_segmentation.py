@@ -68,12 +68,11 @@ def _maybe_wandb(cfg: Config):
 
 
 def _stage(batch: dict, device: torch.device):
-    """Host batch -> this rank's rows as device tensors via pinned memory
-    (non-blocking), and the batch's count of real images."""
-    n_real = len(batch["img"])
-    batch = dist.pad_batch(batch)
-    return (to_device(dist.shard_rows(np.asarray(batch["img"], np.float32)), device),
-            to_device(dist.shard_rows(np.asarray(batch["label"])), device), n_real)
+    """This rank's rows of a global batch (as the loader gives them) ->
+    device tensors via pinned memory (non-blocking), and the global batch's
+    count of real images."""
+    return (to_device(np.asarray(batch["img"], np.float32), device),
+            to_device(np.asarray(batch["label"]), device), batch["n_real"])
 
 
 def _group():
@@ -149,9 +148,11 @@ def _write_predictions(cfg, loader, model, ecfg, device, dataset_name,
     from depthg_tpu_torch.utils.metrics import confusion_heatmap_png
 
     batch = next(iter(loader))
-    img, _, n_real = _stage(batch, device)
+    img, label, n_real = _stage(batch, device)
     lin, clu = (p.cpu().numpy()[:n_real]
                 for p in make_predict_step(ecfg, _group())(model, img))
+    # every rank holds its rows of the batch: rank 0 shows them all
+    img, label = (dist.all_gather(t)[:n_real].cpu() for t in (img, label))
     if not dist.is_main():
         return
     result_dir = join(cfg.output_root, "predictions", cfg.experiment_name)
@@ -160,12 +161,12 @@ def _write_predictions(cfg, loader, model, ecfg, device, dataset_name,
     cmap = (create_cityscapes_colormap() if dataset_name.startswith("cityscapes")
             else create_pascal_label_colormap())
     clu = cluster_metrics.map_clusters(clu)
-    rgb = (unnormalize_255(torch.from_numpy(np.asarray(batch["img"], np.float32)))
-           .round().byte().permute(0, 2, 3, 1).numpy())
+    rgb = unnormalize_255(img).round().byte().permute(0, 2, 3, 1).numpy()
+    label = label.numpy()
     rgbs, label_rgb, clu_rgb, lin_rgb = [], [], [], []
     for j in range(min(n_real, int(cfg.get("n_images", 8)))):
         rgbs.append(rgb[j])
-        label_rgb.append(cmap[np.maximum(batch["label"][j], 0)].astype(np.uint8))
+        label_rgb.append(cmap[np.maximum(label[j], 0)].astype(np.uint8))
         clu_rgb.append(cmap[np.maximum(clu[j], 0)].astype(np.uint8))
         lin_rgb.append(cmap[lin[j]].astype(np.uint8))
         Image.fromarray(rgb[j]).save(join(result_dir, "img", f"{j}.jpg"))

@@ -3,7 +3,7 @@
     python -m depthg_tpu_torch.generate_depth --data_dir DIR --output_dir OUT \\
         [--model zoedepth|midas] (--weights FILE | --allow_random) \\
         [--dataset imagefolder|cocostuff|...] [--split val] [--batch_size 8] \\
-        [--dtype bfloat16|float32] [--attn_impl auto|xla|fused|flash] \\
+        [--dtype bfloat16|float32|int8] [--attn_impl auto|xla|fused|flash] \\
         [--save_features] [--device cuda|cpu]
 
 The port of ``scripts/generate_depth.py``. It iterates a dataset, buckets
@@ -28,7 +28,11 @@ inverted) and writes ``{output_dir}/{parent folder}/{stem}_{model}.png``
   walks the same images and buckets; of each dispatch, rank r runs and
   writes its contiguous share of the images (the JAX script shards each
   dispatch over its mesh), so every PNG is the single-process run's.
-* ``--dtype int8`` (the JAX package's w8a8 backbone) is ROADMAP item 8.
+* ``--dtype int8``: the weights are loaded (or drawn) in float32, then the
+  backbone (BEiT-L or ViT-L) is quantized to w8a8 (``beit.quantize_beit``,
+  ``vit.quantize_vit``: int8 block linears, bf16 elsewhere) and the rest of
+  the model is cast to bf16, as the JAX script does; the images enter in
+  bf16 and K1 runs in bf16.
 * Tails of a bucket run at their own size: the JAX script padded them to a
   power of two to bound its compilations, which changes no output.
 """
@@ -63,7 +67,7 @@ def get_args_parser():
                    help="run with random weights (smoke testing only)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8"],
-                   help="int8 (w8a8 backbone) is not ported yet (ROADMAP item 8)")
+                   help="int8: the w8a8 backbone, bf16 elsewhere")
     p.add_argument("--batch_size", type=int, default=8,
                    help="images per forward (same-size buckets are batched)")
     p.add_argument("--attn_impl", default="auto",
@@ -192,13 +196,29 @@ def run_pipeline(args, infer, device=torch.device("cpu")) -> int:
     return n
 
 
+def to_dtype(model: torch.nn.Module, dtype: str) -> torch.nn.Module:
+    """A float32 ZoeDepth or MiDaS model in ``--dtype``: cast whole to
+    float32 or bf16, or for int8 its backbone (``core.core.pretrained.model``
+    of ZoeDepth, ``pretrained.model`` of MiDaS) replaced by its w8a8 copy
+    and the rest cast to bf16."""
+    if dtype != "int8":
+        return model.to(torch.float32 if dtype == "float32" else torch.bfloat16)
+    from depthg_tpu_torch.models.layers import cast_bf16
+    from depthg_tpu_torch.models.vit import VisionTransformer, quantize_vit
+    from depthg_tpu_torch.models.zoedepth.beit import quantize_beit
+
+    dpt = model.core.core if hasattr(model, "core") else model
+    backbone = dpt.pretrained.model
+    quantize = quantize_vit if isinstance(backbone, VisionTransformer) else quantize_beit
+    dpt.pretrained.model = quantize(backbone)
+    return cast_bf16(model)
+
+
 def build(args, device: torch.device, zoe_config=None, midas_config=None):
     """(infer, model) for ``args``: the weights loaded or drawn at random on
     ``device`` (``--allow_random`` draws ``zoe_config`` / ``midas_config``,
-    the released models' by default), cast to ``--dtype``, in eval mode."""
-    if args.dtype == "int8":
-        raise NotImplementedError("--dtype int8 (the w8a8 backbone) is not ported yet "
-                                  "(ROADMAP item 8)")
+    the released models' by default), cast to ``--dtype`` (``to_dtype``), in
+    eval mode."""
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     weights = args.weights if args.weights and os.path.exists(args.weights) else None
     if weights is None and not args.allow_random:
@@ -216,7 +236,7 @@ def build(args, device: torch.device, zoe_config=None, midas_config=None):
             print("WARNING: running with RANDOM DPT_Large weights (smoke test only).")
             with device:
                 model = MidasDPT(midas_config or MidasDPTConfig()).init_weights(gen)
-        model = model.to(dtype).eval()
+        model = to_dtype(model, args.dtype).eval()
         impl = args.attn_impl
 
         def infer(x):
@@ -240,7 +260,7 @@ def build(args, device: torch.device, zoe_config=None, midas_config=None):
         print("zoedepth has no 'flash' attention; using 'auto' (the kernel on CUDA)",
               flush=True)
         impl = "auto"
-    model = model.to(dtype).eval()
+    model = to_dtype(model, args.dtype).eval()
 
     def infer(x):
         with torch.inference_mode():

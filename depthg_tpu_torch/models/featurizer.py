@@ -98,23 +98,27 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
 
     ``backbone_dtype="bfloat16"`` runs the ViT with its parameters and the
     image cast to bf16 for this call (the module keeps float32 weights) and
-    returns float32 features."""
+    returns float32 features. ``backbone_dtype="int8"`` runs the int8
+    copy of the ViT (``vit.int8_copy``: w8a8 block linears, bf16 elsewhere,
+    derived once per set of weights) on the image in bf16."""
     fcfg = net.fcfg
     vcfg = fcfg.vit
     if img.shape[2] % vcfg.patch_size or img.shape[3] % vcfg.patch_size:
         raise ValueError(f"image {tuple(img.shape)} is not a multiple of the "
                          f"patch size {vcfg.patch_size}")
     fh, fw = img.shape[2] // vcfg.patch_size, img.shape[3] // vcfg.patch_size
-    if backbone_dtype not in (None, "float32", "bfloat16"):
-        raise NotImplementedError(
-            f"backbone_dtype {backbone_dtype!r}: only float32 and bfloat16 "
-            "are ported (int8 w8a8 is a later ROADMAP item)")
+    if backbone_dtype not in (None, "float32", "bfloat16", "int8"):
+        raise ValueError(f"unknown backbone_dtype {backbone_dtype!r}; "
+                         "expected float32 | bfloat16 | int8")
     impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device,
                                       need_attn)
     if backbone_dtype == "bfloat16":
         feats, attns, qkvs = functional_call(
             net.model, bf16_parameters(net.model), (img.to(torch.bfloat16),),
             {"n": 1, "attn_impl": impl})
+    elif backbone_dtype == "int8":
+        feats, attns, qkvs = vit_lib.int8_copy(net.model)(
+            img.to(torch.bfloat16), n=1, attn_impl=impl)
     else:
         feats, attns, qkvs = net.model(img, n=1, attn_impl=impl)
     feat, attn, qkv = feats[0].float(), attns[0], qkvs[0].float()

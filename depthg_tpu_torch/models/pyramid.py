@@ -407,8 +407,9 @@ def pyramid_featurizer_apply(net: FeaturePyramidNet, img: torch.Tensor,
     cfg = net.fcfg
     if backbone_dtype == "int8":
         raise NotImplementedError(
-            "backbone_dtype='int8' is the ViT's w8a8 path (ROADMAP item 8: int8); "
-            "the ResNet pyramid backbone takes float32 | bfloat16")
+            "backbone_dtype='int8' is the ViT's w8a8 path (models/vit.py "
+            "quantize_vit); the ResNet pyramid backbone takes float32 | bfloat16, "
+            "as the JAX package's does")
     if backbone_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"unknown backbone_dtype {backbone_dtype!r}")
     feats = backbone_features(net, img, backbone_dtype)

@@ -12,6 +12,12 @@ maps and qkv of the last ``n`` blocks) and ``resolve_attn_impl``. GELU is
 exact erf in float32 and the tanh approximation in bf16 (the JAX package's
 choice; its error is below the bf16 step).
 
+``quantize_vit`` is the int8 backbone (``quantize_vit_params``): a copy
+whose block linears (qkv, proj, fc1, fc2) are ``layers.W8A8Linear`` and
+whose other parameters are bf16. ``int8_copy`` keeps one such copy per
+model and derives it again when any of the model's parameters is replaced
+or changed in place.
+
 Attention: ``"xla"`` is the eager softmax that can return attention maps;
 ``"fused"`` / ``"flash"`` go through ``ops.attention.attention_qkv``, which
 launches the Hopper kernel on CUDA tensors (one launch per layer for all
@@ -21,14 +27,16 @@ kernel masks the ragged last tile itself.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from depthg_tpu_torch.models.layers import LayerNorm
+from depthg_tpu_torch.models.layers import LayerNorm, cast_bf16, quantize_linear
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic
 
@@ -200,3 +208,41 @@ class VisionTransformer(nn.Module):
                 qkvs.append(qkv.view(b, t, 3, self.cfg.num_heads, -1)
                             .permute(2, 0, 3, 1, 4))
         return feats, attns, qkvs
+
+
+@torch.no_grad()
+def quantize_vit(model: VisionTransformer) -> VisionTransformer:
+    """The int8 (w8a8) copy of ``model``: every block's ``attn.qkv``,
+    ``attn.proj``, ``mlp.fc1`` and ``mlp.fc2`` becomes a ``W8A8Linear``
+    quantized from the float32 weights; the patch embedding, tokens,
+    position table and norms are cast to bf16. The model is not changed."""
+    with torch.inference_mode(False):
+        out = copy.deepcopy(model).requires_grad_(False)
+        for blk in out.blocks:
+            blk.attn.qkv = quantize_linear(blk.attn.qkv)
+            blk.attn.proj = quantize_linear(blk.attn.proj)
+            blk.mlp.fc1 = quantize_linear(blk.mlp.fc1)
+            blk.mlp.fc2 = quantize_linear(blk.mlp.fc2)
+        return cast_bf16(out)
+
+
+_INT8_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _weights_key(model: nn.Module) -> tuple:
+    return tuple((p.data_ptr(), p._version, p.device) for p in model.parameters())
+
+
+def int8_copy(model: VisionTransformer) -> VisionTransformer:
+    """``quantize_vit(model)``, derived once per set of weights: the copy is
+    kept with the storage and version counter of every parameter of
+    ``model``, so a load, a move or an in-place update derives it again
+    (and frees the older copy first)."""
+    key = _weights_key(model)
+    hit = _INT8_COPIES.get(model)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    _INT8_COPIES.pop(model, None)
+    quantized = quantize_vit(model)
+    _INT8_COPIES[model] = (key, quantized)
+    return quantized

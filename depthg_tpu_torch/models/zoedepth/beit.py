@@ -25,11 +25,17 @@ default is ``"xla"``; the port's is ``"auto"``, so a model on the card runs
 the kernel unless told otherwise.) The token axis is
 not padded: the kernel takes any N. The MLP uses the exact GELU in every
 dtype (unlike the DINO ViT's tanh form in bf16).
+
+``quantize_beit`` is the int8 backbone (``quantize_beit_params``): a copy
+whose block linears are ``layers.W8A8Linear``, the decomposed qkv bias
+``cat(q_bias, 0, v_bias)`` folded into the quantized qkv's float32 bias,
+and every other parameter in bf16.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import functools
 
@@ -38,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from depthg_tpu_torch.models.layers import LayerNorm
+from depthg_tpu_torch.models.layers import LayerNorm, W8A8Linear, cast_bf16, quantize_linear
 from depthg_tpu_torch.models.vit import resolve_attn_impl
 from depthg_tpu_torch.models.zoedepth.layers import trunc_normal_
 from depthg_tpu_torch.ops.attention import attention_qkv
@@ -149,8 +155,11 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, h: int, w: int, impl: str) -> torch.Tensor:
         b, n, d = x.shape
-        qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-        qkv = F.linear(x, self.qkv.weight, qkv_bias)  # [B, N, 3D]
+        if isinstance(self.qkv, W8A8Linear):  # int8: the qkv bias is folded in
+            qkv = self.qkv(x)
+        else:
+            qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            qkv = F.linear(x, self.qkv.weight, qkv_bias)  # [B, N, 3D]
         bias = self.rel_pos_bias(h, w)
         if impl == "fused":
             out = attention_qkv(qkv, self.num_heads, self.scale, bias=bias)
@@ -229,3 +238,25 @@ class BEiT(nn.Module):
             if i in self.cfg.hooks:
                 taps.append(tok)
         return taps, (h, w)
+
+
+@torch.no_grad()
+def quantize_beit(model: BEiT) -> BEiT:
+    """The int8 (w8a8) copy of ``model``: each block's packed qkv (its bias
+    ``cat(q_bias, 0, v_bias)`` folded in, ``q_bias`` / ``v_bias`` dropped),
+    ``attn.proj``, ``mlp.fc1`` and ``mlp.fc2`` become ``W8A8Linear``s
+    quantized from the float32 weights; norms, LayerScale gammas, the bias
+    tables, the patch embedding and the cls token are cast to bf16. The
+    model is not changed."""
+    with torch.inference_mode(False):
+        out = copy.deepcopy(model).requires_grad_(False)
+        for blk in out.blocks:
+            attn = blk.attn
+            attn._bias_cache.clear()
+            qkv_bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias])
+            attn.qkv = quantize_linear(attn.qkv, bias=qkv_bias)
+            attn.q_bias = attn.v_bias = None
+            attn.proj = quantize_linear(attn.proj)
+            blk.mlp.fc1 = quantize_linear(blk.mlp.fc1)
+            blk.mlp.fc2 = quantize_linear(blk.mlp.fc2)
+        return cast_bf16(out)

@@ -27,6 +27,12 @@ def tensor_correlation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(bsz, h, w, i, j).to(a.dtype)
 
 
+def depth_correlation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The same contraction for depth maps (C = 1), reference
+    ``src/modules.py:812-814``."""
+    return tensor_correlation(a, b)
+
+
 def average_norm(t: torch.Tensor) -> torch.Tensor:
     """Divide by the mean channel norm instead of per-position norms."""
     return t / t.square().sum(1, keepdim=True).sqrt().mean()

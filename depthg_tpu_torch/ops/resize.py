@@ -148,3 +148,10 @@ def adaptive_avg_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
         return x
     x4, lead = _as4d(x)
     return F.adaptive_avg_pool2d(x4, (oh, ow)).reshape(*lead, oh, ow)
+
+
+def adaptive_max_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``F.adaptive_max_pool2d`` for [..., H, W] (values only)."""
+    oh, ow = _size2(out_hw)
+    x4, lead = _as4d(x)
+    return F.adaptive_max_pool2d(x4, (oh, ow)).reshape(*lead, oh, ow)

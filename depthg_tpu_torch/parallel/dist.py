@@ -123,17 +123,32 @@ def shard_rows(x):
     return x[start:stop]
 
 
-def pad_batch(batch: dict, fills=(("img", 0), ("label", -1))) -> dict:
-    """A host eval batch padded only to divide over the world: zero images
-    with labels -1, which the confusion blocks ignore."""
-    pad = (-len(batch[fills[0][0]])) % world()
-    if not pad:
-        return batch
+def rank_share(indices) -> np.ndarray:
+    """This rank's contiguous share of a global batch of item indices, the
+    batch first padded with -1 (no item) to divide over the world: the rows
+    ``shard_rows(pad_batch(...))`` keeps, named before anything is loaded."""
+    idx = np.asarray(indices, np.int64)
+    padded = np.concatenate([idx, np.full((-len(idx)) % world(), -1, np.int64)])
+    start, stop = shard_range(len(padded))
+    return padded[start:stop]
+
+
+def pad_rows(batch: dict, n: int, fills=(("img", 0), ("label", -1))) -> dict:
+    """``batch`` with each key of ``fills`` it holds padded to ``n`` rows of
+    its fill value: zero images with labels -1, which the confusion blocks
+    ignore. Other keys are left as they are."""
     out = dict(batch)
     for k, fill in fills:
-        v = np.asarray(batch[k])
-        out[k] = np.concatenate([v, np.full((pad, *v.shape[1:]), fill, v.dtype)])
+        if k in batch and len(batch[k]) < n:
+            v = np.asarray(batch[k])
+            out[k] = np.concatenate([v, np.full((n - len(v), *v.shape[1:]), fill, v.dtype)])
     return out
+
+
+def pad_batch(batch: dict, fills=(("img", 0), ("label", -1))) -> dict:
+    """A host eval batch padded only to divide over the world."""
+    n = len(batch[fills[0][0]])
+    return pad_rows(batch, n + (-n) % world(), fills)
 
 
 @contextlib.contextmanager

@@ -51,8 +51,8 @@ from depthg_tpu_torch.utils.ckpt import load_dino_pth
 def embed_dataset(dataset, net, batch_size, num_workers, precision=None,
                   device: str | torch.device = "cuda") -> np.ndarray:
     """[N, C] float32 pooled, normalized embeddings of every image of
-    ``dataset``, in its order. Under a process group each rank embeds its
-    rows of each batch and every rank returns them all."""
+    ``dataset``, in its order. Under a process group each rank loads and
+    embeds only its rows of each batch and every rank returns them all."""
     dev = get_device(device)
     net = net.to(dev)
     feats = []
@@ -60,9 +60,8 @@ def embed_dataset(dataset, net, batch_size, num_workers, precision=None,
                         drop_last=False)
     n_done = 0
     for batch in loader:
-        n_real = len(batch["img"])
-        img = dist.pad_batch({"img": np.asarray(batch["img"], np.float32)}, (("img", 0),))
-        img = to_device(dist.shard_rows(img["img"]), dev)
+        n_real = batch["n_real"]
+        img = to_device(np.asarray(batch["img"], np.float32), dev)
         feats.append(dist.all_gather(knn_lib.pooled_features(net, img, precision))[:n_real])
         n_done += n_real
         if dist.is_main() and n_done % (batch_size * 20) == 0:

@@ -264,6 +264,13 @@ def depth_contrastive_correlation_loss(lcfg: CorrLossConfig,
     }
 
 
+def intra_depth_feature_diversity_loss(feats, depth):
+    """The reference's ``IntraDepthFeatureDiversityLoss``
+    (``src/modules.py:1466-1471``) is an empty stub whose forward returns
+    None; kept for the inventory, as the JAX package keeps it."""
+    return None
+
+
 def contrastive_crf_loss(guidance, clusters, n_samples: int,
                          alpha: float, beta: float, gamma: float,
                          w1: float, w2: float, shift: float,

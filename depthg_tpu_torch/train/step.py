@@ -29,8 +29,8 @@
   gradient before the three Adam steps, so every rank keeps the same
   weights. The logs are all-reduced. The draws' overrides are global.
 
-Not ported (raises ``NotImplementedError`` naming its ROADMAP item): an
-int8 backbone.
+``backbone_dtype`` is float32, bfloat16 or int8 (the ViT's w8a8 copy,
+``models/vit.int8_copy``); the pyramid takes the first two only.
 """
 
 from __future__ import annotations
@@ -131,11 +131,7 @@ def hparams_from_cfg(cfg, n_classes: int) -> TrainHParams:
 
 
 def check_supported(hp: TrainHParams) -> None:
-    if hp.backbone_dtype == "int8":
-        raise NotImplementedError(
-            "backbone_dtype='int8': the w8a8 backbone is not ported yet "
-            "(ROADMAP item 8: int8)")
-    if hp.backbone_dtype not in ("float32", "bfloat16"):
+    if hp.backbone_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"unknown backbone_dtype {hp.backbone_dtype!r}")
 
 

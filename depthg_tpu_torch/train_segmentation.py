@@ -34,7 +34,7 @@ trainer: no orbax directory and no pickled optax state are written, and a
 pickled optax state cannot be resumed (unpickling it needs JAX); the
 random draws of step k are seeded from (seed, k) and ``resume=`` also
 repositions the data loader, so a resumed run repeats an uninterrupted
-one; ``backbone_dtype=int8`` raises ``NotImplementedError``.
+one. ``backbone_dtype`` takes float32, bfloat16 (the default) and int8.
 
 Data-parallel over N GPUs, one process each::
 
@@ -42,8 +42,9 @@ Data-parallel over N GPUs, one process each::
 
 ``n_devices`` is the world size (empty: the group's, 1 without torchrun)
 and ``batch_size`` the global batch, which must divide by it. Every rank
-builds the same seeded loader and keeps its rows of each batch, as the
-JAX host feeds the global batch to its mesh, so the run is the
+builds the same seeded loader and loads only its rows of each batch
+(items are seeded by seed, epoch and index, so they are the rows the JAX
+host feeds its mesh from the global batch), so the run is the
 single-process run (``train.step``); validation is sharded with its
 confusion blocks all-reduced; only rank 0 writes the logs and the
 checkpoints; ``resume=`` loads on every rank. NCCL joins the ranks on CUDA,
@@ -146,14 +147,14 @@ def load_backbone(cfg, model: Segmenter) -> str:
 
 
 def _stage_fn(needed, device: torch.device):
-    """Host batch -> dict of device tensors through pinned memory: this
-    rank's rows of the global batch."""
+    """Host batch (this rank's rows of the global batch, as the loaders
+    give them) -> dict of device tensors through pinned memory."""
     def stage(batch: dict) -> dict:
         out = {}
         for k in needed:
             if k not in batch:
                 continue
-            v = dist.shard_rows(np.asarray(batch[k]))
+            v = np.asarray(batch[k])
             if v.dtype == np.float64:
                 v = v.astype(np.float32)
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -309,7 +310,7 @@ def _run(cfg, device, fcfg, name, checkpoint_dir, log_path, log_file) -> dict:
         cluster_m = SegMetrics("test/cluster/", n_classes, hp.extra_clusters, True)
         val_stage = _stage_fn(("img", "label"), device)
         for batch in val_loader:
-            b = val_stage(dist.pad_batch(batch))
+            b = val_stage(batch)
             ls, cs = val_step(state.model, b["img"], b["label"], eval_res)
             linear_m.add_stats(ls)
             cluster_m.add_stats(cs)

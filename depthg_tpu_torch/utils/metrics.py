@@ -65,6 +65,14 @@ def compute_metrics(stats: np.ndarray, n_classes: int, extra_clusters: int,
     return metrics, assignments
 
 
+def hungarian_assignments(stats: np.ndarray, n_classes: int, extra_clusters: int):
+    """(row_ind, col_ind): the cluster -> class assignment that maximizes
+    the matched counts, reference semantics."""
+    from scipy.optimize import linear_sum_assignment
+
+    return linear_sum_assignment(stats, maximize=True)
+
+
 def map_clusters(assignments, n_classes: int, extra_clusters: int,
                  clusters: np.ndarray) -> np.ndarray:
     """Map raw cluster predictions to matched class ids (-1 for unassigned)."""
@@ -96,6 +104,17 @@ class SegMetrics:
                                self.n_classes), np.int64)
         self.assignments = None
 
+    def _block(self, preds, target) -> np.ndarray:
+        """The confusion block of label maps ``preds`` against ``target``
+        (tensors or arrays), on the host."""
+        preds, target = (t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t))
+                         for t in (preds, target))
+        return confusion_update(preds, target, self.n_classes,
+                                self.extra_clusters).cpu().numpy()
+
+    def update(self, preds, target):
+        self.stats += self._block(preds, target)
+
     def add_stats(self, stats: torch.Tensor):
         """Add a precomputed confusion block (fetched to the host here)."""
         self.stats += stats.cpu().numpy()
@@ -111,6 +130,21 @@ class SegMetrics:
             self.compute()
         return map_clusters(self.assignments, self.n_classes, self.extra_clusters,
                             np.asarray(clusters))
+
+    # the reference's "cherry" variants (``src/utils.py:279-323``): a second
+    # confusion buffer, emptied by every ``compute_cherry``, for per-image
+    # selection
+    def update_cherry(self, preds, target):
+        if not hasattr(self, "cherry_stats"):
+            self.cherry_stats = np.zeros_like(self.stats)
+        self.cherry_stats += self._block(preds, target)
+
+    def compute_cherry(self):
+        metrics, _ = compute_metrics(
+            getattr(self, "cherry_stats", np.zeros_like(self.stats)),
+            self.n_classes, self.extra_clusters, self.compute_hungarian, self.prefix)
+        self.cherry_stats = np.zeros_like(self.stats)
+        return metrics
 
 
 def confusion_heatmap_png(histogram: np.ndarray, path: str, cmap=None,

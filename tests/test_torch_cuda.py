@@ -36,7 +36,13 @@ attention kernel's launches in one ``arch=dino_depth`` step, and the
 pyramid in bf16 against float32 on the card (and float32 against the CPU,
 1e-4 relative). The parallel slice adds the attention kernel launched from
 two threads on two streams at once (the service's replicas): each output
-equal to the same call alone, the launch count exact.
+equal to the same call alone, the launch count exact. The int8 slice adds
+the w8a8 linear (``models/layers.linear_w8a8``: ``torch._int_mm`` between
+torch passes) on the card against the CPU at ViT-S/8's and BEiT-L's widths
+and at fewer than 17 rows (padded): the weight and activation codes and
+scales equal, the int32 sums equal, the bf16 output within one bf16 step;
+a width off a multiple of 8 raises; and a small int8 ViT and BEiT on the
+card against the CPU (cosine > 0.999).
 """
 
 import pytest
@@ -987,3 +993,70 @@ def test_attention_from_two_threads_on_two_streams(cuda):
     for i in range(2):
         for out in outs[i]:
             assert torch.equal(out, alone[i])
+
+
+@pytest.mark.parametrize("m,k,n", [(25616, 384, 1152), (6152, 1024, 4096), (2048, 1536, 384),
+                                   (5, 384, 384), (16, 1024, 1024), (17, 384, 1536)])
+def test_w8a8_linear_on_card_equals_the_cpu(cuda, m, k, n):
+    """Codes and scales (every scale divides by a tensor, as the CPU does)
+    and the int32 sums equal; the bf16 output within one bf16 step (the
+    rescale's float32 product may round apart)."""
+    from depthg_tpu_torch.models import layers
+
+    torch.manual_seed(m + k + n)
+    lin = torch.nn.Linear(k, n)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(1)).bfloat16()
+    q_cpu, q = layers.quantize_linear(lin), layers.quantize_linear(lin.to(cuda))
+    for name in ("w_q", "s_w", "b"):
+        assert torch.equal(getattr(q, name).cpu(), getattr(q_cpu, name)), name
+    codes, s_x = layers.quantize_rows(x.to(cuda))
+    codes_cpu, s_x_cpu = layers.quantize_rows(x)
+    assert torch.equal(codes.cpu(), codes_cpu) and torch.equal(s_x.cpu(), s_x_cpu)
+    rows = slice(0, 1024)
+    assert torch.equal(layers.int8_matmul(codes, q.w_q)[rows].cpu(),
+                       layers.int8_matmul(codes_cpu[rows], q_cpu.w_q))
+    out = q(x.to(cuda))[rows].float().cpu()
+    ref = q_cpu(x[rows]).float()
+    assert out.shape == ref.shape
+    assert bool(((out - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-6).all())
+
+
+def test_w8a8_linear_refuses_widths_off_a_multiple_of_eight(cuda):
+    from depthg_tpu_torch.models import layers
+
+    q = layers.quantize_linear(torch.nn.Linear(36, 40).to(cuda))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        q(torch.randn(32, 36, device=cuda))
+
+
+def test_int8_vit_and_beit_on_card_match_the_cpu(cuda):
+    """A 2-block ViT (128 wide, 2 heads) through ``backbone_features(...,
+    "int8")`` and a 2-block BEiT through ``quantize_beit``, the card's
+    kernels (K1 in bf16, with the bias for BEiT) against the CPU's plain
+    path: cosine > 0.999 (bf16 roundings, codes flipping at .5)."""
+    from depthg_tpu_torch.models import featurizer, vit
+    from depthg_tpu_torch.models.zoedepth import beit
+
+    def cos(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    fcfg = featurizer.FeaturizerConfig(vit_config=vit.ViTConfig(embed_dim=128, depth=2,
+                                                                num_heads=2))
+    net = featurizer.DinoFeaturizer(fcfg).init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    ref, _ = featurizer.backbone_features(net, x, backbone_dtype="int8")
+    launches = tatt.KERNEL.launches
+    out, _ = featurizer.backbone_features(net.to(cuda), x.to(cuda), backbone_dtype="int8")
+    assert tatt.KERNEL.launches == launches + 2 and cos(out.cpu(), ref) > 0.999
+    model = beit.BEiT(beit.BEiTConfig(embed_dim=128, depth=2, num_heads=2, pretrain_window=4,
+                                      hooks=(0, 1), layer_scale_init=0.1))
+    model.init_weights(torch.Generator().manual_seed(2))
+    xb = torch.randn(2, 3, 64, 96, generator=torch.Generator().manual_seed(3)).bfloat16()
+    with torch.no_grad():
+        ref, _ = beit.quantize_beit(model)(xb, attn_impl="xla")
+        launches = tatt.KERNEL.bias_launches
+        out, _ = beit.quantize_beit(model.to(cuda))(xb.to(cuda), attn_impl="fused")
+    assert tatt.KERNEL.bias_launches == launches + 2
+    for a, b in zip(out, ref):
+        assert cos(a.float().cpu(), b.float()) > 0.999

@@ -45,6 +45,14 @@ with JAX on a 2-device CPU mesh.
   dataset: rank 0's ``last.pt`` loads, the two ranks' eval metrics equal a
   single-process eval of it, and the demo's PNGs (global batches of 4, two
   rows a rank) equal those of one process at batch 2.
+* (f) Each rank loads only its rows: a ``DataLoader``
+  over 8, 7 and 5 seeded items at a global batch of 4 (shuffled) fetches
+  B/W = 2 items a rank per batch and its share of the tail (7: 2 and 1;
+  5: 1, and on the rank whose share is all padding one item for the
+  shapes), and its batches are the rows ``shard_rows(pad_batch(...))``
+  keeps of the single process's, with the global ``n_real``; the eval
+  CLI and the demo CLI of (d) load half of a single process's items on
+  each rank.
 * (e) ``generate_depth`` with a tiny ZoeDepth, two size buckets of 4 at
   ``--batch_size 4`` (two images a rank): the PNGs are a single process's
   at batch 2 byte for byte, and within one 8-bit step of its batch-4 run
@@ -219,6 +227,52 @@ def run_depth(image_dir, out, world_flag=(), batch=4):
     return generate_depth.main(argv + list(world_flag), zoe_config=tiny_zoe())
 
 
+class CountedItems:
+    """``n`` seeded items (a float image, an int label map, a name) that
+    record which indices were loaded."""
+
+    def __init__(self, n):
+        self.n, self.seen = n, []
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i, rng):
+        self.seen.append(i)
+        return {"img": np.float32(i) + rng.random((3, 2, 2), np.float32),
+                "label": np.full((2, 2), i % 3, np.int64), "name": f"item{i}"}
+
+
+FETCH_SIZES = (8, 7, 5)
+
+
+def run_fetch():
+    """Every batch of one shuffled epoch over each of ``FETCH_SIZES`` items
+    at a global batch of ``B`` and the items fetched."""
+    from depthg_tpu_torch.data import DataLoader
+
+    out = {}
+    for n in FETCH_SIZES:
+        items = CountedItems(n)
+        loader = DataLoader(items, B, shuffle=True, seed=3, num_workers=2)
+        out[n] = {"batches": list(loader), "fetched": len(items.seen),
+                  "seen": sorted(items.seen)}
+    return out
+
+
+def _count_items(counts):
+    """Count the items the eval datasets and the demo's image folder load."""
+    from depthg_tpu_torch import demo_segmentation
+    from depthg_tpu_torch.data import ContrastiveSegDataset
+
+    for cls, key in ((ContrastiveSegDataset, "dataset"),
+                     (demo_segmentation.UnlabeledImageFolder, "demo")):
+        def getitem(self, *args, _orig=cls.__getitem__, _key=key):
+            counts[_key] += 1
+            return _orig(self, *args)
+        cls.__getitem__ = getitem
+
+
 def cli_args(root, out, **kw):
     args = {"model_type": "vit_tiny", "dim": 16, "res": 32, "batch_size": 4,
             "num_workers": 1, "feature_samples": 3, "neg_samples": 2, "num_neighbors": 3,
@@ -260,17 +314,21 @@ def run_case(case, inputs):
         root, out = inputs["cli_root"], inputs["cli_out"]
         res = train_segmentation.main(cli_args(root, out, n_devices=world))
         path = os.path.join(res["checkpoint_dir"], "last.pt")
+        counts = {"dataset": 0, "demo": 0}
+        _count_items(counts)
         metrics = eval_segmentation.main(eval_args(root, out, path) + [f"n_devices={world}"])
         demo = demo_segmentation.main(demo_args(path, os.path.join(inputs["images"], "val"),
                                                 out, 2) + [f"n_devices={world}"])
         return {"path": path, "files": sorted(os.listdir(res["checkpoint_dir"])),
-                "metrics": metrics, "demo": demo}
+                "metrics": metrics, "demo": demo, "loaded": counts}
+    if case == "fetch":
+        return run_fetch()
     if case == "depth":
         return run_depth(inputs["images"], inputs["depth_out"], ["--n_devices", str(world)])
     raise ValueError(case)
 
 
-CASES = sorted(TRAIN) + ["eval", "knn", "cli", "depth"]
+CASES = sorted(TRAIN) + ["eval", "knn", "fetch", "cli", "depth"]
 
 
 # -- the worker ----------------------------------------------------------------
@@ -635,3 +693,41 @@ def test_two_ranks_generate_depth_pngs_of_one_process(ranks, tmp_path):
         assert open(got, "rb").read() == p.read_bytes(), p.name
         whole = np.asarray(Image.open(tmp_path / "b4" / "val" / p.name), np.int16)
         assert np.abs(np.asarray(Image.open(got), np.int16) - whole).max() <= 1, p.name
+
+
+def test_two_ranks_load_only_their_rows(ranks):
+    """Each rank fetches B/W items of every global batch and its share of
+    the tail, and holds exactly the rows the single process's padded batch
+    gives it; the eval and demo CLIs load half a single process's items on
+    each rank."""
+    workers, _, _ = ranks
+    single = run_fetch()
+    out = workers.get("fetch")
+    for n in FETCH_SIZES:
+        ref = single[n]
+        assert ref["fetched"] == n and ref["seen"] == list(range(n))
+        tail = n % B
+        share = -(-tail // 2)  # the tail padded to divide over 2 ranks
+        want = [(n // B) * B // 2 + share, (n // B) * B // 2 + tail - share]
+        if tail and tail == share:  # rank 1's share of the tail is all padding:
+            want[1] += 1  # it loads the tail's first item once for the shapes
+        assert [o[n]["fetched"] for o in out] == want, (n, want)
+        assert sorted(set(out[0][n]["seen"]) | set(out[1][n]["seen"])) == list(range(n))
+        for r, rank_out in enumerate(out):
+            assert len(rank_out[n]["batches"]) == len(ref["batches"])
+            for got, whole in zip(rank_out[n]["batches"], ref["batches"]):
+                n_real = len(whole["img"])
+                pad = n_real % 2  # pad_batch's rows at a world of 2
+                padded = {k: np.concatenate([whole[k], np.full((pad, *whole[k].shape[1:]),
+                                                               fill, whole[k].dtype)])
+                          for k, fill in (("img", 0), ("label", -1))}
+                m = len(padded["img"]) // 2
+                assert got["n_real"] == n_real
+                for k in ("img", "label"):
+                    np.testing.assert_array_equal(got[k], padded[k][r * m:(r + 1) * m])
+                assert got["name"] == whole["name"][r * m:min((r + 1) * m, n_real)]
+    # the eval CLI over the 2 val images (the metrics pass, then the first
+    # batch again for the figures) and the demo over 8 images: a single
+    # process loads 4 and 8 items, each rank half of them
+    for rank_out in workers.get("cli"):
+        assert rank_out["loaded"] == {"dataset": 2, "demo": 4}

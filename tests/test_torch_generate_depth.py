@@ -9,7 +9,8 @@ data-parallel over the test mesh, the port runs tails at their own size,
 and the output does not change. The stub computes one float32 addition, so
 both frameworks round it alike. Then the MiDaS inversion, the refusals of
 ``main``, and ``main`` end to end on the CPU with a small ZoeDepth and a
-small DPT_Large (``main``'s ``zoe_config`` / ``midas_config``).
+small DPT_Large (``main``'s ``zoe_config`` / ``midas_config``), in float32
+and with ``--dtype int8``.
 """
 
 import importlib.util
@@ -116,9 +117,42 @@ def test_main_refuses_without_weights(image_dir, tmp_path):
 
 
 def test_int8_names_its_roadmap_item(image_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tgd.main(_argv(image_dir, tmp_path) + ["--device", "cpu", "--allow_random",
-                                               "--dtype", "int8"])
+    """``--dtype int8`` runs (it used to refuse, naming its ROADMAP item):
+    ``main --device cpu --allow_random`` on a small ZoeDepth and a small
+    DPT_Large (4 blocks) loads float32, quantizes the backbone (int8 block linears,
+    bf16 elsewhere), casts the rest to bf16 and writes seven non-constant
+    8-bit PNGs per model. Its depth against JAX's int8 forward is in
+    ``tests/test_torch_int8.py``."""
+    from depthg_tpu_torch.models.layers import W8A8Linear
+    from depthg_tpu_torch.models.midas_dpt import MidasDPTConfig
+    from depthg_tpu_torch.models.zoedepth import ZoeConfig
+    from depthg_tpu_torch.models.zoedepth.beit import BEiTConfig
+    from depthg_tpu_torch.models.zoedepth.dpt import DPTConfig
+
+    torch.set_num_threads(2)
+    dpt = dict(features=16, reassemble_channels=(8, 16, 32, 32))
+    configs = {"zoe_config": ZoeConfig(
+        n_bins=8, bin_embedding_dim=16, n_attractors=(2, 2, 1, 1), img_size=(64, 96),
+        beit=BEiTConfig(embed_dim=128, depth=4, num_heads=2, pretrain_window=4, hooks=(0, 1, 2, 3)),
+        dpt=DPTConfig(embed_dim=128, **dpt)), "midas_config": MidasDPTConfig(
+        embed_dim=128, depth=4, num_heads=2, hooks=(0, 1, 2, 3), img_size=64, **dpt)}
+    for model in ("zoedepth", "midas"):
+        out = tmp_path / model
+        argv = _argv(image_dir, out, model, features=False) + [
+            "--device", "cpu", "--allow_random", "--dtype", "int8"]
+        args = tgd.get_args_parser().parse_args(argv)
+        _, net = tgd.build(args, torch.device("cpu"), **configs)
+        backbone = (net.core.core if model == "zoedepth" else net).pretrained.model
+        linears = [m for m in backbone.modules() if isinstance(m, W8A8Linear)]
+        assert len(linears) == 4 * 4 and not any(
+            isinstance(m, torch.nn.Linear) for m in backbone.modules())
+        assert all(p.dtype == torch.bfloat16 for p in net.parameters())
+        assert tgd.main(argv, **configs) == 7
+        pngs = sorted((out / "val").glob(f"*_{model}.png"))
+        assert len(pngs) == 7
+        for p in pngs:
+            a = np.asarray(Image.open(p))
+            assert a.dtype == np.uint8 and a.shape in ((64, 96), (96, 64)) and a.max() > a.min()
 
 
 def test_device_defaults_to_the_card(image_dir, tmp_path):

@@ -18,7 +18,11 @@ a validation step on each, ``pooled_features`` of a ResNet-50 and the KNN
 CLI with ``model_type=resnet50``), and after the parallel slice
 (``parallel.dist`` outside a process group and in a gloo group of one,
 ``parallel.mesh``'s CPU devices and replicas, and the orbax / ``.npz``
-reader of ``utils.checkpoint_io``); no source
+reader of ``utils.checkpoint_io``), and after the int8 slice (an eval step,
+a train step and a validation step with ``backbone_dtype="int8"``, a tiny
+ZoeDepth and DPT_Large through ``generate_depth.to_dtype(..., "int8")``,
+the CRF playground ``train_crf``, ``potsdam_ops``,
+``load_pretrained_model_cfg`` and ``backbone_dtype_study``); no source
 of the port or of
 ``chip_smoke.py`` imports either, or reads a file of ``scripts/`` or
 ``depthg_tpu/``. The attention and bilateral wrappers raise on an input
@@ -165,6 +169,32 @@ with tempfile.TemporaryDirectory() as out_root:  # no weights, no data: a random
     assert depthg_tpu_torch.precompute_knns.main([
         "model_type=resnet50", f"data_dir={out_root}", f"output_root={out_root}", "device=cpu",
         "knn_datasets=[cocostuff27]", "knn_crop_types=[five]", "knn_image_sets=[train]"]) == []
+from depthg_tpu_torch import (backbone_dtype_study, generate_depth, load_pretrained_model_cfg,
+                              potsdam_ops, train_crf)
+from depthg_tpu_torch.models.layers import W8A8Linear
+ecfg = inference.EvalConfig(n_classes=5, extra_clusters=2, label_res=64, backbone_dtype="int8")
+lin, clu = inference.make_eval_step(ecfg)(model, img, label)
+assert int(lin.sum()) <= counted and clu.shape == (7, 5)
+hp8 = step.TrainHParams(n_classes=5, backbone_dtype="int8")
+state8 = step.init_state(fcfg, hp8, torch.Generator().manual_seed(7))
+logs = step.train_step(state8, batch, hp8, losses.CorrLossConfig(feature_samples=3, neg_samples=2),
+                       0.19, 0.03, generator=gen)
+assert all(bool(torch.isfinite(v).all()) for v in logs.values())
+zoe8 = generate_depth.to_dtype(ZoeDepth(zcfg).init_weights(torch.Generator().manual_seed(2)), "int8")
+with torch.no_grad():
+    depth = zoedepth_infer(zoe8.eval(), torch.rand(1, 3, 32, 64, generator=gen).bfloat16())
+assert bool(torch.isfinite(depth.float()).all())
+mcfg = midas_dpt.MidasDPTConfig(embed_dim=128, depth=4, num_heads=2, hooks=(0, 1, 2, 3),
+                                img_size=64, features=16, reassemble_channels=(8, 8, 16, 16))
+dpt8 = generate_depth.to_dtype(midas_dpt.MidasDPT(mcfg).init_weights(
+    torch.Generator().manual_seed(8)), "int8")
+assert sum(isinstance(m, W8A8Linear) for m in dpt8.modules()) == 16
+cfg_crf = load_config("local_config.yml", ["crf_samples=20", "dim=4"])
+table = torch.randn(2, 4, 8, 8, generator=gen, requires_grad=True)
+train_crf.objective(table, torch.randn(2, 3, 8, 8, generator=gen), cfg_crf,
+                    generator=gen)[0].backward()
+assert table.grad is not None and callable(potsdam_ops.convert_mat)
+assert callable(load_pretrained_model_cfg.main) and callable(backbone_dtype_study.run_one)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 theirs = sorted(m for m in sys.modules if m == "depthg_tpu" or m.startswith("depthg_tpu."))
 assert not theirs, theirs

@@ -218,13 +218,16 @@ def _first_batches(pkg_data, pkg_config, root, crop, n_batches=2):
 @pytest.mark.parametrize("crop", ["center", None])
 def test_dataset_and_loader_match_jax_package(tmp_path, crop):
     """``ContrastiveSegDataset`` (val) + ``DataLoader`` give the JAX
-    package's batches, exactly, on a tiny synthetic COCO val set."""
+    package's batches, exactly, on a tiny synthetic COCO val set (plus the
+    port's ``n_real``)."""
     _coco_val(str(tmp_path))
     jds, jlen, ref = _first_batches(jdata, jconfig, str(tmp_path), crop)
     tds, tlen, out = _first_batches(tdata, tconfig, str(tmp_path), crop)
     assert len(tds) == len(jds) == 5 and tlen == jlen == 3
     assert tds.n_classes == jds.n_classes == 27
     for b_out, b_ref in zip(out, ref):
+        # the port's batches also carry the global batch's count of real items
+        assert b_out.pop("n_real") == len(b_ref["img"])
         assert sorted(b_out) == sorted(b_ref)
         assert {"img", "label"} <= set(b_out)
         for key in b_ref:
@@ -655,3 +658,46 @@ def test_variant_copies_equal_their_originals():
     assert (tpyr._DN121_BLOCKS, tpyr._DN_GROWTH) == (jpyr._DN121_BLOCKS, jpyr._DN_GROWTH)
     assert dataclasses.asdict(tpyr.PyramidConfig()) == dataclasses.asdict(jpyr.PyramidConfig())
     assert dataclasses.asdict(tlhp.LHPConfig()) == dataclasses.asdict(jlhp.LHPConfig())
+
+
+def test_potsdam_ops_is_a_verbatim_copy(tmp_path):
+    """``depthg_tpu_torch/potsdam_ops.py`` (numpy, PIL and scipy's
+    ``loadmat``) is ``scripts/potsdam_ops.py`` byte for byte, and its three
+    tasks write the same files: ``.mat`` tiles to PNGs, the depth maps'
+    post-processing, and the exact-match renaming."""
+    import argparse
+
+    from PIL import Image
+    from scipy.io import savemat
+
+    from depthg_tpu_torch import potsdam_ops
+
+    with open(os.path.join(ROOT, "scripts", "potsdam_ops.py"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "depthg_tpu_torch", "potsdam_ops.py"), "rb") as f:
+        assert f.read() == want
+    ref = _load_script("potsdam_ops")
+    rng = np.random.default_rng(0)
+    mats, comp, renamed, depth = (tmp_path / d for d in ("mats", "comp", "renamed", "depth"))
+    for d in (mats, comp, renamed, depth):
+        d.mkdir()
+    tiles = [rng.integers(0, 255, (8, 8, 4), np.uint8) for _ in range(2)]
+    for i, tile in enumerate(tiles):
+        savemat(mats / f"t{i}.mat", {"img": tile})
+        savemat(comp / f"c{1 - i}.mat", {"img": tile})
+        Image.fromarray(tile[:, :, :3]).save(renamed / f"c{1 - i}.png")
+    for name in ("a_kbr.png", "b_midas.png", "c_zoedepth.png", "d_plain.png"):
+        Image.fromarray(rng.integers(0, 255, (20, 30, 3), np.uint8)).save(depth / name)
+    outs = {}
+    for label, mod in (("ref", ref), ("port", potsdam_ops)):
+        out = tmp_path / label
+        args = argparse.Namespace(folder=str(mats), comp_folder=str(comp),
+                                  rename_folder=str(renamed), output_dir=str(out / "png"))
+        mod.convert_mat(args)
+        args.output_dir = str(out / "matched")
+        mod.match_images(args)
+        mod.convert_coco_depth_map(argparse.Namespace(folder=str(depth)))
+        os.replace(depth / "processed", out / "processed")
+        outs[label] = {p.relative_to(out).as_posix(): p.read_bytes()
+                       for p in sorted(out.rglob("*.png"))}
+    assert outs["port"] == outs["ref"] and len(outs["ref"]) == 8

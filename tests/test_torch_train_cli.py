@@ -114,16 +114,16 @@ def test_resume_continues_like_an_uninterrupted_run(two_steps, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
-    """More than one device without torchrun, an int8 backbone and an
-    unknown arch raise.
-    ``arch=dino_depth``, ``lhp=True`` and ``arch=feature-pyramid`` are
-    ported: each trains a step on the synthetic layout, validates and
-    checkpoints (the Lightning ``.ckpt`` for ``arch=dino`` only, as the JAX
-    trainer writes it; ``<tag>.pt`` for every arch)."""
+    """More than one device without torchrun and an unknown arch raise.
+    ``arch=dino_depth``, ``lhp=True``, ``arch=feature-pyramid`` and
+    ``backbone_dtype=int8`` are ported: each trains a step on the synthetic
+    layout, validates and checkpoints (the Lightning ``.ckpt`` for
+    ``arch=dino`` only, as the JAX trainer writes it; ``<tag>.pt`` for every
+    arch)."""
     root = str(tmp_path)
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
         train_segmentation.main(_args(root, root) + ["n_devices=4"])
-    for flag, match in (("backbone_dtype=int8", "ROADMAP item 8"), ("arch=resnet", "arch=resnet"),
+    for flag, match in (("arch=resnet", "arch=resnet"),
                         ("resume=state.pkl", "pickled optax state")):
         with pytest.raises(NotImplementedError, match=match):
             train_segmentation.main(_args(root, root) + [flag])
@@ -131,14 +131,15 @@ def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
     for flags, model_type, logged in (
             (["arch=dino_depth", "guidance=cross_attn"], "vit_small", "loss/depth_feat"),
             (["lhp=True", "propagation_strategy=attn"], "vit_tiny", "loss/lhp_pos_intra"),
-            (["arch=feature-pyramid", "granularity=2"], "resnet50", "loss/pos_intra")):
+            (["arch=feature-pyramid", "granularity=2"], "resnet50", "loss/pos_intra"),
+            (["backbone_dtype=int8"], "vit_tiny", "loss/pos_intra")):
         make_nns(data, model_type, "cocostuff27", "train", "five", 32, n=8)
-        res = train_segmentation.main(_args(data, str(tmp_path / model_type), max_steps=1,
+        res = train_segmentation.main(_args(data, str(tmp_path / flags[0]), max_steps=1,
                                             model_type=model_type) + flags)
         assert res["step"] == 1 and logged in res["last_logs"], flags
         assert all(np.isfinite(v) for v in res["last_logs"].values()), flags
         assert np.isfinite(res["metrics"]["test/cluster/mIoU"]), flags
-        ext = (".pt", ".ckpt", ".train_state.pt") if flags[0] == "lhp=True" else (
+        ext = (".pt", ".ckpt", ".train_state.pt") if "arch=" not in flags[0] else (
             ".pt", ".train_state.pt")
         assert sorted(os.listdir(res["checkpoint_dir"])) == sorted(
             "last" + e for e in ext), flags

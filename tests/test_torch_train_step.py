@@ -301,8 +301,12 @@ def test_hparams_from_cfg_match_jax_and_unported_options_raise():
     assert out.backbone_dtype == "bfloat16" and out.probe_lr == 5e-3
     assert tstep.hparams_from_cfg(tload("local_config.yml"), 27).backbone_dtype == "bfloat16"
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="int8"), gen)
+    # ROADMAP item 8 is ported: an int8 backbone builds (its three steps
+    # against JAX are in tests/test_torch_int8.py); an unknown dtype raises
+    assert tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="int8"),
+                            gen).step == 0
+    with pytest.raises(ValueError, match="backbone_dtype"):
+        tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="fp8"), gen)
     # ROADMAP item 6 is ported: lhp=True builds its frozen head, and the
     # depth-fused and pyramid archs resolve to their config types
     from depthg_tpu.utils.checkpoint_io import fcfg_from_run_cfg as jfcfg
