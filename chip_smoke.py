@@ -26,11 +26,15 @@ final line):
    input (N=769, 16 heads x 64, the bias [16, 769, 769] built from a random
    table by the BEiT module's own builder, in the q dtype) at bf16 B=1, 8,
    16 and float32 B=2: kernel vs plain, the bias acting, +1e4 in the bias
-   past n_valid=700 without influence, an odd row stride refused, times
-   through ``attention_qkv``, queued and alone, without the bias, the
-   library call with the bias as its ``attn_mask``, the plain version, and
-   the bound with the bias bytes; also float32 B=1 at 480 x 640 (N=1201,
-   the bias [16, 1201, 1208]: the fine-tune's validation);
+   past n_valid=700 without influence, an odd row stride refused, B=8
+   equal to its images one by one, times through ``attention_qkv``, queued
+   and alone, without the bias (the difference: the bias's own cost), the
+   kernel alone by ``torch.profiler``, the library call with the bias as
+   its ``attn_mask``, the plain version, and the bound with the bias
+   bytes; also float32 B=1 at 480 x 640 (N=1201, the bias [16, 1201,
+   1208]: the fine-tune's validation); then kernel vs plain at the bias
+   kernel's edges (N=577, 1345, B=3 and 5, n_valid 768, 640 and 129, bf16
+   at N=1201);
 4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
    two fidelity scenes: N=25,600 (ds=2), C=54, B=2 in f32 and bf16, a
    ragged N=25,563 read through views of a NaN-padded buffer, and the
@@ -274,6 +278,16 @@ BIAS_CASES = ((torch.bfloat16, 1, BIAS_GRID), (torch.bfloat16, 2, BIAS_GRID),
               (torch.bfloat16, 16, BIAS_GRID), (torch.float32, 2, BIAS_GRID),
               (torch.float32, 1, FT_GRID))
 BIAS_N_VALID = 700
+# the bias kernel's edges, held against the plain version only: (dtype, batch,
+# grid, n_valid or None): 384 x 384 (N=577), the portrait bucket (N=1345),
+# batches of 3 and 5, n_valid 768 (no row past three 256-row blocks), 640 and
+# 129 (ragged key tiles and query blocks), bf16 at N=1201
+BIAS_EDGE_CASES = ((torch.bfloat16, 2, (24, 24), None), (torch.float32, 2, (24, 24), None),
+                   (torch.bfloat16, 1, (42, 32), None), (torch.bfloat16, 3, BIAS_GRID, None),
+                   (torch.bfloat16, 5, BIAS_GRID, None), (torch.bfloat16, 2, BIAS_GRID, 768),
+                   (torch.bfloat16, 2, BIAS_GRID, 640), (torch.bfloat16, 2, BIAS_GRID, 129),
+                   (torch.float32, 2, BIAS_GRID, 768), (torch.float32, 2, BIAS_GRID, 129),
+                   (torch.bfloat16, 1, FT_GRID, None))
 # depth generation: 8 images of 640 x 480 (one 384 x 512 bucket, one batch
 # of 8), 2 of 480 x 640 (512 x 384) and 1 of 400 x 400 (384 x 384)
 DEPTH_IMAGES = ((640, 480),) * 8 + ((480, 640),) * 2 + ((400, 400),)
@@ -1432,9 +1446,12 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
 
 def attention_bias_phase(att, beit, gen):
     """K1 with BEiT-L's bias at N=769, 16 heads: kernel vs plain, the bias
-    acting, +1e4 past n_valid ignored, an odd row stride refused; times
-    through ``attention_qkv``, queued, alone, the library call with the bias
-    as its ``attn_mask``, the plain version, and the bound."""
+    acting, +1e4 past n_valid ignored, an odd row stride refused, a batch of
+    8 equal to its images one by one; times through ``attention_qkv``,
+    queued, alone, without the bias (the bias's own cost: the difference),
+    the kernel alone by ``torch.profiler``, the library call with the bias
+    as its ``attn_mask``, the plain version, and the bound; then the
+    kernel against the plain version at ``BIAS_EDGE_CASES``."""
     import torch.nn.functional as F
 
     h = BIAS_HEADS
@@ -1486,6 +1503,11 @@ def attention_bias_phase(att, beit, gen):
             raise AssertionError("a bias with an odd row stride was launched")
         except ValueError:
             pass
+        if b == 8:  # images that share the bias's tiles mix nothing
+            alone = torch.cat([att.attention_qkv(inputs[0][i:i + 1], h, SCALE, bias=bias)
+                               for i in range(b)])
+            if not torch.equal(alone, out):
+                raise AssertionError(f"{name}: the batch differs from its images one by one")
 
         o = torch.empty(b, n, h, 64, device="cuda", dtype=dtype).permute(0, 2, 1, 3)
 
@@ -1502,6 +1524,9 @@ def attention_bias_phase(att, beit, gen):
         iters = 10 if dtype == torch.float32 else 50
         bound_ms, bound_by = attention_bound(b, n, h, dtype, h * n * n * bias.element_size())
         clock = sm_clock_mhz()
+        kernels = (("attn_pack_f32_kernel", "attn_f32_wgmma_kernel") if dtype == torch.float32
+                   else ("attn_bf16_wgmma_kernel",))
+        traced = profiled_kernel_ms(launch, inputs, kernels)
         rows[name] = {
             "max_abs_err": err, "rel_err": rel, "n_valid_max_abs_err": nv_err,
             "n_valid_rel_err": nv_rel, "rel_change_from_bias": moved,
@@ -1514,6 +1539,8 @@ def attention_bias_phase(att, beit, gen):
             "kernel_device_ms": device_time_ms(launch, inputs, iters=iters),
             "no_bias_device_ms": device_time_ms(lambda x: att.attention_qkv(x, h, SCALE),
                                                 inputs, iters=iters),
+            "kernel_profiler_ms": traced[kernels[-1]],
+            **({"pack_profiler_ms": traced[kernels[0]]} if dtype == torch.float32 else {}),
             "library_ms": cuda_time_ms(library, inputs, iters=iters),
             "library_device_ms": device_time_ms(library, inputs, iters=iters),
             "plain_ms": cuda_time_ms(plain, inputs, iters=3, warmup=1),
@@ -1521,10 +1548,32 @@ def attention_bias_phase(att, beit, gen):
             **({"fma_bound_ms": attention_fma_bound(b, n, h)} if dtype == torch.float32 else {}),
             "ex2_bound_ms": b * h * n * n / (16 * SMS * clock * 1e6) * 1e3,
             "sm_clock_mhz": clock}
+        rows[name]["bias_cost_ms"] = rows[name]["device_ms"] - rows[name]["no_bias_device_ms"]
         phase("attention_bias", case=name, shape=[b, n, h, 64],
               bias=[h, n, n, str(bias.dtype), bias.stride(1)], **rows[name])
         del base, inputs, out, ref, without, masked, poisoned, o, lib_ref
         torch.cuda.empty_cache()
+    for dtype, b, grid, nv in BIAS_EDGE_CASES:
+        n = grid[0] * grid[1] + 1
+        nv = n if nv is None else nv
+        name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_b{b}_n{n}_valid{nv}"
+        bias = beit.relative_position_bias(table.to(dtype), 24, *grid)
+        x = torch.randn(b, n, 3 * BIAS_DIM, device="cuda", generator=gen).to(dtype)
+        q, k, v = att.split_qkv(x, h)
+        ref = att.attention_plain(q, k, v, SCALE, nv, bias).permute(0, 2, 1, 3).reshape(
+            b, n, BIAS_DIM)
+        out = att.attention_qkv(x, h, SCALE, nv, bias=bias)
+        without = att.attention_qkv(x, h, SCALE, nv)
+        torch.cuda.synchronize()
+        err, rel = compare(out, ref, dtype, f"attention with bias {name}")
+        moved = ((without.float() - out.float()).norm() / out.float().norm()).item()
+        if not moved > 0.05 or not torch.all(out[:, nv:] == 0):
+            raise AssertionError(f"{name}: the bias did not act ({moved}) or a row past "
+                                 f"n_valid is not 0")
+        rows[name] = {"max_abs_err": err, "rel_err": rel, "rel_change_from_bias": moved}
+        phase("attention_bias_edge", case=name, shape=[b, n, h, 64], n_valid=nv, **rows[name])
+        del bias, x, q, k, v, ref, out, without
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3101,6 +3150,10 @@ def main():
         "bias_plain_ms": attn_bias["bf16_b8"]["plain_ms"],
         "bias_bound_ms": attn_bias["bf16_b8"]["bound_ms"],
         "bias_bound_by": attn_bias["bf16_b8"]["bound_by"],
+        # the bias's own cost (queued, minus the same call without it) and the
+        # kernel alone by torch.profiler
+        "bias_cost_ms": attn_bias["bf16_b8"]["bias_cost_ms"],
+        "bias_kernel_profiler_ms": attn_bias["bf16_b8"]["kernel_profiler_ms"],
         "bias_max_abs_err": attn_bias["bf16_b8"]["max_abs_err"],
         "bias_rel_err": attn_bias["bf16_b8"]["rel_err"],
         "bias_cases": attn_bias,
@@ -3109,7 +3162,9 @@ def main():
                                 "[16, 1201, 1201] f32 (a view of [16, 1201, 1208])",
         **{f"f32_bias_n1201_{k}": attn_bias["f32_b1_n1201"][k]
            for k in ("ms", "device_ms", "kernel_device_ms", "library_ms", "library_device_ms",
-                     "plain_ms", "bound_ms", "bound_by", "max_abs_err", "rel_err")},
+                     "plain_ms", "bound_ms", "bound_by", "max_abs_err", "rel_err",
+                     "no_bias_device_ms", "bias_cost_ms", "kernel_profiler_ms",
+                     "pack_profiler_ms")},
         "finetune_path_train_step_launches": max(ft_res["k1_launches_per_step"]),
         "finetune_path_validation_launches_per_image":
             ft_res["k1_f32_bias_launches_per_validation_image"],

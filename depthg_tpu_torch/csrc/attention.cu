@@ -80,36 +80,62 @@
 //     one after the other. Later work: a second S accumulator so a
 //     warpgroup overlaps with itself, the row sum taken from the P V product
 //     (a ones column in V), a persistent block per SM.
-//   * The bias (template argument BIAS: none, bf16, float32): the step's S
-//     accumulator starts as the bias instead of zero, and the q.k^T wgmma
-//     accumulates onto it, so the add costs no instruction and no register:
-//     S is dead between the packing of P and the next q.k^T. Each thread
-//     loads its own fragment (two rows, 16 pairs of adjacent keys: bf16x2
-//     or float2) with plain loads right after packing P, so the loads'
-//     latency hides behind the rescale of O, the barrier waits and the turn
-//     of the other warpgroup. The loads are branch-free (rows and keys
-//     clamped into the valid range; the -inf mask of the last tile
-//     overrides the keys past n_valid, and rows past it are written as 0).
-//     What the bias costs (NVIDIA H100, 700 W, bf16, B=8, N=769, 16 heads,
-//     calls queued behind a long product): 0.132 ms against 0.078 ms
-//     without it and 0.286 ms for PyTorch's fused attention call with the
-//     bias as its mask. The first version guarded each load with a branch
-//     (0 past n_valid) and took 0.578 ms: the loads no longer overlapped.
-//     Adding the bias after the S wait instead (the loads then have nothing
-//     to hide behind, and 64 more registers spill) took 0.209 ms. The
-//     shared-memory ring stays as it is: a bias tile per step would not fit
-//     beside it. The grid runs the images of one head together, (query
-//     blocks, batch, heads), so a wave of blocks shares a few heads' bias in
-//     L2 (16 x 769 x 769 bf16 is 18.9 MB at the ZoeDepth shape). Against
-//     (query blocks, heads, batch), timed by
-//     depthg_tpu_torch/attention_grid_study.py (NVIDIA H100, 700 W; same
-//     bits; queued; median of 15 rounds): with the bias 1.4-2.3% faster
-//     (bf16 B=8 0.1326 against 0.1346 ms, B=16 0.2345 / 0.2400, f32 B=2
-//     0.4261 / 0.4322), without one level (N=769 B=8 0.0776 / 0.0776, f32
-//     0.3221 / 0.3220; N=1601, 6 heads, B=2 0.0328 / 0.0328, B=16 0.1639 /
-//     0.1640, B=32 0.3224 / 0.3223), so both paths use it. The wrapper
-//     requires head and row strides that are multiples of 8 elements and a
-//     16-byte aligned base, so every pair load is aligned.
+//   * The bias (template argument BIAS: none, bf16, float32; BEiT-L's
+//     relative-position bias): the step's S accumulator starts as the bias
+//     instead of zero, and the q.k^T wgmma accumulates onto it. The bias
+//     comes through TMA: the C entry encodes a tensor map over the caller's
+//     [H, N, N] view (extent n_valid in rows and keys, so nothing past
+//     n_valid is read: it arrives as zeros; boxes of 64 rows x 128 bytes in
+//     the 128-byte swizzle), and a second thread of the producer warpgroup
+//     brings each step's [64 rows x 128 keys] tile, in the order the
+//     consumers take the steps, into a 64 KB ring after the K/V stages (4
+//     slots of bf16, 2 of float32; the block takes 225 KB). A consumer
+//     reads its fragment from the slot right after packing P (bf16: 8
+//     ldmatrix.x4 a step; a row's 16-byte chunks sit at chunk ^ (row & 7),
+//     so each 8 x 8 matrix's rows fall on all 32 banks) and releases the
+//     slot once the product that starts from it has completed. Released
+//     right after the loads, a slot took the next tile's TMA before the
+//     loads had read it: wrong outputs, the more often the fewer slots.
+//   * What the bias costs, split with parts compiled out by
+//     depthg_tpu_torch/attention_bias_study.py (NVIDIA H100 80GB HBM3,
+//     700.00 W; bf16 B=8, N=769, 16 heads; queued; medians of 7 rounds):
+//     the first design, each thread loading its fragment from global
+//     memory (32 loads of 4 bytes a step, a quad on half of each 32-byte
+//     sector), took 0.1315 ms against 0.0777 without the bias; 0.032 ms of
+//     that were the loads, 0.021 the fragment itself (64 more instructions a
+//     step beside the softmax's ~320, which bounds the loop). Staged through
+//     TMA: 0.0935 ms; with ldmatrix for the bf16 fragment 0.091. One tile for
+//     several images was not taken: a variant whose every step reads its
+//     head's first tile (no bias traffic left) took 0.0931 against 0.0935
+//     ms, so sharing tiles between images cannot pay in bf16.
+//   * The tails at BEiT's token counts, with a bias. N = 769 = 3 x 256 + 1
+//     leaves each (image, head) a block with one valid row: warpgroup 0
+//     walks it alone, without turns, and warpgroup 1 writes its zeros and
+//     leaves (these blocks alone 0.0188 -> 0.0130 ms). N = 6 x 128 + 1
+//     leaves one key in the last tile: its products and softmax cover only
+//     the chunks that hold a key < n_valid, as 16, 32 or 64 keys
+//     (m64nNk16; N / 16 P V k-steps): 0.0935 -> 0.0877 ms, the same bits.
+//     Sub-tiles a warpgroup does not walk hold no row < n_valid and are
+//     written as zeros. All told (chip_smoke.py, the parent tree in the
+//     same run), bf16 B=8 0.1313-0.1321 -> 0.0880-0.0882 ms (0.0773-0.0778
+//     without the bias, 0.285 for PyTorch's fused attention call with the
+//     bias as its mask), the same bits; a ZoeDepth batch of 8 at 384 x 512
+//     82.33 -> 80.67 ms (attention_bias_study.py --depth).
+//   * The grid runs the images of one head together, (query blocks, batch,
+//     heads), so a wave of blocks shares a few heads' bias in L2 (16 x 769 x
+//     769 bf16 is 18.9 MB at the ZoeDepth shape). Against (query blocks,
+//     heads, batch), timed by depthg_tpu_torch/attention_grid_study.py
+//     (NVIDIA H100 80GB HBM3, 700 W; same bits; queued; median of 15
+//     rounds): on the first bias design 1.4-2.3% faster with the bias (bf16
+//     B=8 0.1326 against 0.1346 ms, B=16 0.2345 / 0.2400, f32 B=2 0.4261 /
+//     0.4322); on the staged one level to within 1% in bf16 (B=8 0.0883 /
+//     0.0881, B=16 0.1588 / 0.1575) and 3.7% faster in float32 (B=2 0.0855 /
+//     0.0888); without a bias level (N=769 B=8 0.0774 / 0.0774, f32 0.0803 /
+//     0.0801; N=1601, 6 heads, B=2 0.0324 / 0.0323, B=16 0.1604 / 0.1603,
+//     B=32 0.3115 / 0.3122), so both paths keep it. The wrapper requires
+//     head and row strides that are multiples of 8 elements and a 16-byte
+//     aligned base, which the bias's tensor map needs (16-byte strides and
+//     base).
 //
 // Design of the float32 kernel (attn_f32_wgmma_kernel, split TF32):
 //   * What bounds it: the same 4 B H N^2 64 operations, which the FMA pipes
@@ -138,7 +164,9 @@
 //     a ring of 3 stages; two consumer warpgroups (240 registers) own 64
 //     query rows each, with q * scale split into registers (64), S (32), P
 //     hi/lo (64) and O (32). Per tile: S = 24 x wgmma.m64n64k8.tf32 (the
-//     bias as its starting value, as in bf16), the online softmax with
+//     bias as its starting value, from a 32 KB ring of [64 rows x 64 keys]
+//     tiles that a second producer thread fills through TMA, as in bf16:
+//     4 slots of bf16, 2 of float32), the online softmax with
 //     ex2.approx.ftz and the LOG2E FMA (2 ulp: inside the limits in the
 //     emulation), P split in registers, and the tile's P V as 24 more into
 //     the S registers, from zero, folded in as O = O * alpha + P V (one
@@ -155,7 +183,14 @@
 //     and the library call in brackets): KNN B=128, N=785 1.436-1.464 ms
 //     (6.57-6.61; 3.99), train B=32, N=785 0.384-0.385 (1.84-1.89; 1.04),
 //     eval B=16, N=1601 0.635-0.638 (3.18-3.20 through attention_qkv;
-//     2.06), BEiT-L's bias f32 B=2, N=769 0.102 (0.426; 0.303-0.311).
+//     2.06), BEiT-L's bias f32 B=2, N=769 0.102 (0.426; 0.303-0.311), and
+//     with the bias staged through TMA 0.0844-0.0857, 0.0792-0.0798 without;
+//     B=1, N=1201 (a fine-tune validation image, 160 blocks: two waves)
+//     0.1327 -> 0.1105-0.1117, 0.0963-0.0969 without. Its per-thread loads were
+//     all of the first design's bias cost there (0.036 ms: the next tile's
+//     S waited on them); a variant that reads one tile throughout takes
+//     0.1001, so a third of what is left is the float32 bias's own traffic
+//     (92 MB at N=1201, more than L2 holds).
 //     Its bound is that of its split products, 0.734 ms at the KNN shape,
 //     0.184 train, 0.382 eval (the FMA pipes' 1.81 / 0.45 / 0.94 ms is a
 //     yardstick only): it runs at 50%, 48% and 59% of it. Apart
@@ -179,12 +214,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, n;  // element strides of batch, head, token
-};
-
-// the optional [H, N, N] logit bias: element (h, row, key) at p + h sh + row sn + key
-struct Bias {
-  const void* p;
-  long long sh, sn;
 };
 
 // The grid is (query blocks, batch, heads), x fastest: the images of one
@@ -213,6 +242,13 @@ constexpr int W_THREADS = 128 * (NCW + 1);  // consumers first, then the produce
 // 1 KB of slack to align the tiles to the swizzle period, the tiles, the barriers
 constexpr int W_SMEM = 1024 + SUB_BYTES * NCW * SUBS + TILE_BYTES * 2 * STAGES + 128;
 constexpr int BAR_TURN = 1;              // named barriers BAR_TURN + consumer index
+// With a bias, each step's [64 rows x WK keys] bias tile comes through TMA
+// into a ring of slots after the K/V ring, as boxes of 64 rows x 128 bytes
+// (128-byte swizzle), with 128 more bytes for the ring's barriers.
+constexpr int BIAS_BOX_BYTES = 64 * 128;
+constexpr int W_BIAS_RING = 64 * 1024;
+template <int BIAS>
+constexpr int W_SMEM_OF = BIAS ? W_SMEM + W_BIAS_RING + 128 : W_SMEM;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -259,6 +295,25 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row0), "r"(h), "r"(b)
       : "memory");
+}
+
+// one bias box (128 bytes of keys x 64 rows) at (key0, row0, head h)
+__device__ __forceinline__ void tma_load_bias(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int key0, int row0, int h) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(key0), "r"(row0), "r"(h)
+      : "memory");
+}
+
+// four 8 x 8 b16 matrices; lane l gives the address of row l & 7 of matrix l / 8
+// and thread (g, t) receives row g, columns 2 t and 2 t + 1 of each
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ void turn_wait(int id) {
@@ -315,6 +370,39 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
+// d[64 rows x N keys] += a[64 x 16 dims, registers] . the first N keys of a K
+// tile (K-major), into the first N / 2 registers of the S accumulator: a
+// last key tile of N = 16, 32 or 64 keys (always accumulating: with a bias)
+__device__ __forceinline__ void wgmma_qk16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_qk32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_qk64(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // d[64 rows x 64 dims] += a[64 x 16 keys, registers] . V tile (MN-major: transposed by the descriptor)
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
@@ -343,47 +431,162 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 
 #undef D8
 
-// S of one step starts as this thread's fragment of the bias: rows row0 + g
-// and row0 + g + 8, keys key0 + 8 c + 2 t and + 1 for c < C (the layout of
-// the S accumulator; C = 16 for the bf16 kernel's 128-key tiles, 8 for the
-// float32 kernel's 64-key tiles), as float32. The loads are branch-free, so all 32 are in
-// flight at once: rows clamp to n_valid - 1 (rows past it are written as 0)
-// and keys to the last even key before n_valid (keys past n_valid, and the
-// odd key after that pair when n_valid is odd, are set to -inf on the last
-// tile). Reading the pair at that even key touches at most column n_valid,
-// which the wrapper checks the bias storage holds.
-template <int BIAS, int C = 16>
-__device__ __forceinline__ void bias_fragment(float (&s)[4 * C], const void* bh, long long sn,
-                                              int row0, int key0, int n_valid, int g, int t) {
-  const int kmax = (n_valid - 1) & ~1;
+// The bias ring of a block: slot seq % SLOTS holds the bias tile of the
+// consumers' seq-th step, [64 rows x 8 C keys] in the bias's own dtype, as
+// boxes of 64 rows x 128 bytes (64 bf16 or 32 float32 keys) in the 128-byte
+// swizzle; a full and an empty mbarrier per slot. One producer thread loads
+// the tiles in the order the steps take them; the four warps of the
+// warpgroup that takes a step release its slot once the product that starts
+// from its fragment has completed: a release right after the loads let the
+// next tile's TMA land in the slot before the loads had read it (wrong
+// outputs, more often the sooner a slot is refilled).
+// The bias's tensor map has extent n_valid in rows and keys, so what lies
+// past n_valid arrives as zeros (rows past it are written as 0, keys past it
+// get -inf on the last tile) and is never read.
+template <int BIAS, int C, int RING>
+struct BiasRing {
+  static constexpr int KEYS_PER_BOX = BIAS == 1 ? 64 : 32;
+  static constexpr int SLOT = 64 * 8 * C * (BIAS == 1 ? 2 : 4);
+  static constexpr int SLOTS = RING / SLOT;
+  const uint8_t* tiles;     // the slots (generic address, 1024-byte aligned)
+  uint32_t full, empty;     // SLOTS mbarriers each, 8 bytes apart
+
+  // producer: the tile of step seq, rows row0.. and keys key0.. of head h
+  __device__ __forceinline__ void load(const CUtensorMap* map, int seq, int row0, int key0,
+                                       int h) const {
+    const int slot = seq % SLOTS;
+    mbar_wait(empty + 8 * slot, ((seq / SLOTS) & 1) ^ 1);  // a fresh barrier passes at once
+    mbar_expect_tx(full + 8 * slot, SLOT);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long off = static_cast<long long>(min(row0 + g + 8 * r, n_valid - 1)) * sn;
+    for (int x = 0; x < SLOT / BIAS_BOX_BYTES; ++x)
+      tma_load_bias(smem_u32(tiles) + slot * SLOT + x * BIAS_BOX_BYTES, map, full + 8 * slot,
+                    key0 + x * KEYS_PER_BOX, row0, h);
+  }
+
+  // S of step seq starts as this thread's fragment of its tile: rows
+  // 16 warp + g and + 8, keys 8 c + 2 t and + 1 for c < C (the layout of the
+  // S accumulator), as float32. A row's 16-byte chunks sit at chunk ^ (row
+  // & 7), so the eight rows of a matrix or a load fall on all 32 banks.
+  __device__ __forceinline__ void read(float (&s)[4 * C], int seq, int warp, int lane) const {
+    const int slot = seq % SLOTS, g = lane >> 2, t = lane & 3;
+    mbar_wait(full + 8 * slot, (seq / SLOTS) & 1);
+    const uint8_t* tile = tiles + slot * SLOT;
+    if (BIAS == 1) {
+      // bf16: chunks c = 2 p and 2 p + 1 of rows g and g + 8 are four 8 x 8
+      // matrices, one ldmatrix: lane l gives row l & 7 of matrix l / 8 (its
+      // bit 0: rows + 8, bit 1: the next chunk)
+      const int i = lane & 7, next = lane >> 4;
+      const uint32_t row = smem_u32(tile) + (warp * 16 + i + 8 * ((lane >> 3) & 1)) * 128;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int key = min(key0 + c * 8 + t * 2, kmax);
-      float2 x;
-      if (BIAS == 1)
-        x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(bh) + off + key));
-      else
-        x = *reinterpret_cast<const float2*>(static_cast<const float*>(bh) + off + key);
-      s[4 * c + 2 * r] = x.x;
-      s[4 * c + 2 * r + 1] = x.y;
+      for (int p = 0; p < C / 2; ++p) {
+        uint32_t m[4];
+        ldmatrix_x4(m, row + (p >> 2) * BIAS_BOX_BYTES + (((2 * (p & 3) + next) ^ i) << 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 2 * p + (j >> 1), r = j & 1;
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&m[j]));
+          s[4 * c + 2 * r] = x.x, s[4 * c + 2 * r + 1] = x.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint8_t* row = tile + (warp * 16 + g + 8 * r) * 128;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          // float32: keys 8 c + 2 t in chunk 2 (c & 3) + t / 2 of box c / 4
+          const float2 x = *reinterpret_cast<const float2*>(
+              row + (c >> 2) * BIAS_BOX_BYTES + (((2 * (c & 3) + (t >> 1)) ^ g) << 4) +
+              8 * (t & 1));
+          s[4 * c + 2 * r] = x.x, s[4 * c + 2 * r + 1] = x.y;
+        }
+      }
     }
   }
+
+  // the step's fragment has been consumed (its S product has completed)
+  __device__ __forceinline__ void release(int seq, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (seq % SLOTS));
+  }
+};
+
+// The online softmax of one step over S's first NC chunks of 8 keys (16: a
+// whole tile), run while the other warpgroup's products are: keys >=
+// n_valid get -inf, the running max m and this thread's share of the sum l
+// move on, P is packed as the next product's A fragments, alpha is the
+// rescale of O.
+template <int NC>
+__device__ __forceinline__ void softmax_step(float (&s)[64], uint32_t (&pa)[8][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], int key0,
+                                             int n_valid, int t) {
+  float mx[2] = {m[0], m[1]};
+  if (key0 + 8 * NC > n_valid) {
+#pragma unroll
+    for (int i = 0; i < 4 * NC; ++i)
+      if (key0 + (i >> 2) * 8 + t * 2 + (i & 1) >= n_valid) s[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NC; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float mlog[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // key 0 is valid (n_valid >= 1), so mx is finite from the first tile on
+    alpha[r] = ex2_approx((m[r] - mx[r]) * LOG2E);
+    mlog[r] = mx[r] * LOG2E;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {  // 8-key chunk: regs 0/1 of an even chunk, 2/3 of an odd one
+    const float p0 = ex2_approx(fmaf(s[4 * c], LOG2E, -mlog[0]));
+    const float p1 = ex2_approx(fmaf(s[4 * c + 1], LOG2E, -mlog[0]));
+    const float p2 = ex2_approx(fmaf(s[4 * c + 2], LOG2E, -mlog[1]));
+    const float p3 = ex2_approx(fmaf(s[4 * c + 3], LOG2E, -mlog[1]));
+    rs[0] += p0 + p1;
+    rs[1] += p2 + p3;
+    pa[c >> 1][(c & 1) * 2] = pack_bf16(p0, p1);
+    pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// With a bias, S (+)= Q K^T on a narrow last key tile: its first 8 nc keys
+// (nc = 2, 4 or 8 chunks), into S's first 4 nc registers
+__device__ __forceinline__ void issue_qk_narrow(float (&s)[64], const uint32_t (&qa)[4][4],
+                                                uint32_t s_tile, int nc) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t desc = smem_desc(s_tile) + 2 * ks;
+    if (nc == 8)
+      wgmma_qk64(s, qa[ks], desc);
+    else if (nc == 4)
+      wgmma_qk32(s, qa[ks], desc);
+    else
+      wgmma_qk16(s, qa[ks], desc);
+  }
+}
+
+// keys of a last tile of r keys rounded up to a product's width: 8-key chunks
+__device__ __forceinline__ int live_chunks(int r) {
+  return r <= 16 ? 2 : r <= 32 ? 4 : r <= 64 ? 8 : 16;
 }
 
 // One consumer warpgroup's whole life: U sub-tiles of 64 query rows (rows
 // (NCW u + cw) * 64 of the block's Q tile), each walked over every K/V tile.
 // A step is one (tile, sub-tile) pair; the warpgroups take turns per step,
-// round robin.
+// round robin. With a bias, nwg warpgroups take steps (1: this one alone,
+// without turns), step (kt, u) of warpgroup cw is the ring's
+// (kt U + u) nwg + cw-th, and the last tile's products and softmax cover
+// only its live chunks (BEiT's N = 128 k + 1 leaves one key there).
 template <int U, int BIAS>
 __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_v, uint32_t bar_q,
                                         uint32_t bar_k, uint32_t bar_v, uint32_t bar_e,
                                         __nv_bfloat16* __restrict__ ob, long long o_sn,
-                                        const void* bh, long long b_sn, int q0,
-                                        int n, int n_valid, int n_tiles, float scale) {
+                                        const BiasRing<BIAS, 16, W_BIAS_RING>& ring, int nwg,
+                                        int q0, int n, int n_valid, int n_tiles, float scale) {
   const int tid = threadIdx.x;
   const int cw = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
@@ -418,22 +621,27 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
     for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
   }
 
-  // first row of this warp's 16 in sub-tile u
-  auto warp_row = [&](int u) { return q0 + (NCW * u + cw) * 64 + warp * 16; };
-
-  // the first turn goes to warpgroup 0
-  if (cw == NCW - 1) turn_pass(other_turn);
-  if (BIAS) bias_fragment<BIAS>(s, bh, b_sn, warp_row(0), 0, n_valid, g, t);
+  // the first turn goes to warpgroup 0; a warpgroup alone takes no turns
+  const bool turns = !(BIAS && nwg == 1);
+  // 8-key chunks of the last tile that hold a key < n_valid (with a bias)
+  const int lc = BIAS ? live_chunks(n_valid - (n_tiles - 1) * WK) : 16;
+  if (turns && cw == NCW - 1) turn_pass(other_turn);
+  if (BIAS) ring.read(s, cw, warp, lane);
   mbar_wait(bar_k, 0);
-  turn_wait(my_turn);
+  if (turns) turn_wait(my_turn);
   wgmma_fence();
+  if (BIAS && n_tiles == 1 && lc < 16) {
+    issue_qk_narrow(s, qa[0], s_k, lc);
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    wgmma_qk(s, qa[0][ks], smem_desc(s_k) + 2 * ks, BIAS ? 1 : ks > 0);
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_qk(s, qa[0][ks], smem_desc(s_k) + 2 * ks, BIAS ? 1 : ks > 0);
+  }
   wgmma_commit();
-  turn_pass(other_turn);
+  if (turns) turn_pass(other_turn);
   wgmma_wait_all();
   fence_regs(s);
+  if (BIAS) ring.release(cw, lane);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt % STAGES, ph = (kt / STAGES) & 1;
@@ -442,45 +650,23 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       uint32_t pa[8][4];  // P as A fragments: [k-step over keys][register]
-      // online softmax of this step, while the other warpgroup's products run
-      float mx[2] = {m_i[u][0], m_i[u][1]};
-      if (kt * WK + WK > n_valid) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i)
-          if (kt * WK + (i >> 2) * 8 + t * 2 + (i & 1) >= n_valid) s[i] = -INFINITY;
-      }
-#pragma unroll
-      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      float alpha[2], mlog[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        // key 0 is valid (n_valid >= 1), so mx is finite from the first tile on
-        alpha[r] = ex2_approx((m_i[u][r] - mx[r]) * LOG2E);
-        mlog[r] = mx[r] * LOG2E;
-        m_i[u][r] = mx[r];
-      }
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {  // 8-key chunk: regs 0/1 of an even chunk, 2/3 of an odd one
-        const float p0 = ex2_approx(fmaf(s[4 * c], LOG2E, -mlog[0]));
-        const float p1 = ex2_approx(fmaf(s[4 * c + 1], LOG2E, -mlog[0]));
-        const float p2 = ex2_approx(fmaf(s[4 * c + 2], LOG2E, -mlog[1]));
-        const float p3 = ex2_approx(fmaf(s[4 * c + 3], LOG2E, -mlog[1]));
-        rs[0] += p0 + p1;
-        rs[1] += p2 + p3;
-        pa[c >> 1][(c & 1) * 2] = pack_bf16(p0, p1);
-        pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
+      float alpha[2];
+      const bool narrow = BIAS && last_tile && lc < 16;
+      if (narrow && lc == 2)
+        softmax_step<2>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
+      else if (narrow && lc == 4)
+        softmax_step<4>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
+      else if (narrow)
+        softmax_step<8>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
+      else
+        softmax_step<16>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
       // S is dead until the next q.k^T: start it as the next step's bias
       if (BIAS) {
         if (u + 1 < U)
-          bias_fragment<BIAS>(s, bh, b_sn, warp_row(u + 1), kt * WK, n_valid, g, t);
+          ring.read(s, (kt * U + u + 1) * nwg + cw, warp, lane);
         else if (!last_tile)
-          bias_fragment<BIAS>(s, bh, b_sn, warp_row(0), (kt + 1) * WK, n_valid, g, t);
+          ring.read(s, (kt + 1) * U * nwg + cw, warp, lane);
       }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_i[u][r] = l_i[u][r] * alpha[r] + rs[r];
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[u][i] *= alpha[(i >> 1) & 1];
 
@@ -489,18 +675,30 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
       const bool last_step = last_tile && u + 1 == U;
       mbar_wait(bar_v + 8 * st, ph);
       if (u + 1 == U && !last_tile) mbar_wait(bar_k + 8 * st1, ((kt + 1) / STAGES) & 1);
-      turn_wait(my_turn);
+      if (turns) turn_wait(my_turn);
       fence_regs(acc[u]);
       wgmma_fence();
+      if (narrow) {
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks)
-        wgmma_pv(acc[u], pa[ks], smem_desc(s_v + st * TILE_BYTES) + 128 * ks);
+        for (int ks = 0; ks < 4; ++ks)  // a narrow tile has at most 64 keys
+          if (2 * ks < lc) wgmma_pv(acc[u], pa[ks], smem_desc(s_v + st * TILE_BYTES) + 128 * ks);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+          wgmma_pv(acc[u], pa[ks], smem_desc(s_v + st * TILE_BYTES) + 128 * ks);
+      }
       wgmma_commit();
-      if (u + 1 < U) {
+      if (u + 1 < U && narrow) {
+        issue_qk_narrow(s, qa[(u + 1) % U], s_k + st * TILE_BYTES, lc);
+        wgmma_commit();
+      } else if (u + 1 < U) {
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
           wgmma_qk(s, qa[(u + 1) % U][ks], smem_desc(s_k + st * TILE_BYTES) + 2 * ks,
                    BIAS ? 1 : ks > 0);
+        wgmma_commit();
+      } else if (BIAS && kt + 2 == n_tiles && lc < 16) {
+        issue_qk_narrow(s, qa[0], s_k + st1 * TILE_BYTES, lc);
         wgmma_commit();
       } else if (!last_tile) {
 #pragma unroll
@@ -509,10 +707,12 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
         wgmma_commit();
       }
       // the very last turn (last warpgroup, last step) has nobody left to wake
-      if (!(last_step && cw == NCW - 1)) turn_pass(other_turn);
+      if (turns && !(last_step && cw == NCW - 1)) turn_pass(other_turn);
       wgmma_wait_all();
       fence_regs(acc[u]);
       fence_regs(s);
+      if (BIAS && !last_step)
+        ring.release(u + 1 < U ? (kt * U + u + 1) * nwg + cw : (kt + 1) * U * nwg + cw, lane);
       if (u + 1 == U) {
         __syncwarp();
         if (lane == 0) mbar_arrive(bar_e + 8 * st);  // this warp is done with stage st
@@ -555,16 +755,20 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
-                       __nv_bfloat16* __restrict__ o, Strides so, Bias bias, int n,
-                       int n_valid, float scale) {
+                       const __grid_constant__ CUtensorMap map_b,
+                       __nv_bfloat16* __restrict__ o, Strides so, int n, int n_valid,
+                       float scale) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
   uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t s_q = smem_u32(smem);  // WQ rows, loaded as boxes of 64
   const uint32_t s_k = s_q + SUB_BYTES * NCW * SUBS, s_v = s_k + STAGES * TILE_BYTES;
-  const uint32_t bars = s_v + STAGES * TILE_BYTES;
+  const uint32_t bars = s_v + STAGES * TILE_BYTES + (BIAS ? W_BIAS_RING : 0);
   const uint32_t bar_q = bars;  // then full_k, full_v, empty: STAGES each, 8 bytes apart
   const uint32_t bar_k = bars + 8, bar_v = bar_k + 8 * STAGES, bar_e = bar_v + 8 * STAGES;
+  using Ring = BiasRing<BIAS, 16, W_BIAS_RING>;  // its slots after the V stages, then barriers
+  const Ring ring{smem + (s_v + STAGES * TILE_BYTES - s_q), bar_e + 8 * STAGES,
+                  bar_e + 8 * STAGES + 8 * Ring::SLOTS};
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * WQ;
@@ -574,13 +778,21 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // sub-tiles per warpgroup in this block: the second round only where it
   // holds a valid row (the turns need the same number of steps from all)
   const int subs = (SUBS == 2 && q0 + 64 * NCW < n_valid) ? 2 : 1;
+  // with a bias, a block whose rows past its first 64 are all >= n_valid
+  // (BEiT's N = 256 k + 1 leaves one such per head) is walked by warpgroup
+  // 0 alone; the other writes its zeros and leaves
+  const int nwg = (BIAS && q0 + 64 >= n_valid) ? 1 : NCW;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_e + 8 * s, 4 * NCW);  // lane 0 of each consumer warp
+      mbar_init(bar_e + 8 * s, 4 * nwg);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; BIAS && s < Ring::SLOTS; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 4);  // the four warps of the step's warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -602,19 +814,34 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_expect_tx(bar_v + 8 * st, TILE_BYTES);
         tma_load_tile(s_v + st * TILE_BYTES, &map_v, bar_v + 8 * st, kt * WK, h, b);
       }
+    } else if (BIAS && tid == 128 * NCW + 32) {
+      // a second thread brings the bias tiles, in the order of the steps
+      int seq = 0;
+      for (int kt = 0; kt < n_tiles; ++kt)
+        for (int u = 0; u < subs; ++u)
+          for (int cw = 0; cw < nwg; ++cw, ++seq)
+            ring.load(&map_b, seq, q0 + (NCW * u + cw) * 64, kt * WK, h);
     }
   } else {
     // ---- consumer warpgroups ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     __nv_bfloat16* ob = o + b * so.b + h * so.h;
-    // this head's [N, N] bias (bytes: the element size is 2 or 4)
-    const void* bh = BIAS ? static_cast<const char*>(bias.p) + h * bias.sh * (BIAS == 1 ? 2 : 4)
-                          : nullptr;
+    if (BIAS) {
+      // the sub-tiles this warpgroup does not walk (a second round, or all
+      // when it is idle) hold no row < n_valid: zeros for their rows < n
+      const int cw = tid >> 7;
+      for (int u = cw < nwg ? subs : 0; u < SUBS; ++u)
+        for (int i = tid & 127; i < 64 * HD / 8; i += 128) {
+          const int row = q0 + (NCW * u + cw) * 64 + i / (HD / 8);
+          if (row < n) *reinterpret_cast<uint4*>(ob + row * so.n + (i % (HD / 8)) * 8) = uint4{};
+        }
+      if (cw >= nwg) return;
+    }
     if (SUBS == 2 && subs == 2)
-      consume<SUBS, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, bh, bias.sn, q0,
+      consume<SUBS, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, nwg, q0,
                           n, n_valid, n_tiles, scale);
     else
-      consume<1, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, bh, bias.sn, q0, n,
+      consume<1, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, nwg, q0, n,
                        n_valid, n_tiles, scale);
   }
 }
@@ -632,6 +859,10 @@ constexpr int F_OPERAND_BYTES = F_BK * HD * 4;  // one split operand of a tile: 
 constexpr int F_HALF_BYTES = F_OPERAND_BYTES / 2;  // 32 columns of 64 rows: 128-byte rows
 constexpr int F_TILE_BYTES = 4 * F_OPERAND_BYTES;  // K hi, K lo, V^T hi, V^T lo: 64 KB
 constexpr int F_SMEM = 1024 + F_STAGES * F_TILE_BYTES + 128;
+// with a bias: a ring of [64 rows x F_BK keys] bias tiles after the stages
+constexpr int F_BIAS_RING = 32 * 1024;
+template <int BIAS>
+constexpr int F_SMEM_OF = BIAS ? F_SMEM + F_BIAS_RING + 128 : F_SMEM;
 
 // The element a slot of a TF32 operand holds, within its group of 8 along
 // the product's K axis: slot t holds element 2 t and slot t + 4 element
@@ -714,12 +945,13 @@ attn_pack_f32_kernel(const float* __restrict__ k, const float* __restrict__ v,
 // Q K^T (+ bias) is 3 x 8 wgmma.m64n64k8 (hi.hi, hi.lo, lo.hi per k-step),
 // the online softmax turns S into P in the A fragment layout (split into hi
 // and lo), and the tile's P V is 3 x 8 more, folded into O on the CUDA cores.
+// With a bias, tile kt of warpgroup cw is the ring's kt nwg + cw-th step.
 template <int BIAS>
 __device__ __forceinline__ void consume_f32(uint32_t s_ring, uint32_t bar_k, uint32_t bar_v,
                                             uint32_t bar_e, const float* __restrict__ qb,
                                             long long q_sn, float* __restrict__ ob, long long o_sn,
-                                            const void* bh, long long b_sn, int q0, int n,
-                                            int n_valid, int n_tiles, float scale) {
+                                            const BiasRing<BIAS, 8, F_BIAS_RING>& ring, int nwg,
+                                            int q0, int n, int n_valid, int n_tiles, float scale) {
   const int tid = threadIdx.x;
   const int cw = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
@@ -759,13 +991,14 @@ __device__ __forceinline__ void consume_f32(uint32_t s_ring, uint32_t bar_k, uin
     }
   };
 
-  if (BIAS) bias_fragment<BIAS, 8>(s, bh, b_sn, row0, 0, n_valid, g, t);
+  if (BIAS) ring.read(s, cw, warp, lane);
   mbar_wait(bar_k, 0);
   wgmma_fence();
   issue_s(0);
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(s);
+  if (BIAS) ring.release(cw, lane);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt % F_STAGES, ph = (kt / F_STAGES) & 1, st1 = (kt + 1) % F_STAGES;
@@ -827,7 +1060,7 @@ __device__ __forceinline__ void consume_f32(uint32_t s_ring, uint32_t bar_k, uin
     if (last_tile) break;
 
     // the next tile's S, from its bias when there is one
-    if (BIAS) bias_fragment<BIAS, 8>(s, bh, b_sn, row0, (kt + 1) * F_BK, n_valid, g, t);
+    if (BIAS) ring.read(s, (kt + 1) * nwg + cw, warp, lane);
     mbar_wait(bar_k + 8 * st1, ((kt + 1) / F_STAGES) & 1);
     fence_regs(s);
     wgmma_fence();
@@ -835,6 +1068,7 @@ __device__ __forceinline__ void consume_f32(uint32_t s_ring, uint32_t bar_k, uin
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
+    if (BIAS) ring.release((kt + 1) * nwg + cw, lane);
   }
 
   // normalize (row sum clamped at 1e-30); rows past n_valid -> 0
@@ -858,14 +1092,19 @@ __device__ __forceinline__ void consume_f32(uint32_t s_ring, uint32_t bar_k, uin
 template <int BIAS>
 __global__ void __launch_bounds__(W_THREADS, 1)
 attn_f32_wgmma_kernel(const float* __restrict__ q, const uint8_t* __restrict__ ws,
-                      float* __restrict__ o, Strides sq, Strides so, Bias bias, int heads, int n,
-                      int n_valid, int n_tiles, float scale) {
+                      float* __restrict__ o, Strides sq, Strides so,
+                      const __grid_constant__ CUtensorMap map_b, int heads, int n, int n_valid,
+                      int n_tiles, float scale) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
   uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t s_ring = smem_u32(smem);
-  const uint32_t bar_k = s_ring + F_STAGES * F_TILE_BYTES;  // then full_v, empty: F_STAGES each
+  // then full_v, empty: F_STAGES each; with a bias its ring comes first
+  const uint32_t bar_k = s_ring + F_STAGES * F_TILE_BYTES + (BIAS ? F_BIAS_RING : 0);
   const uint32_t bar_v = bar_k + 8 * F_STAGES, bar_e = bar_v + 8 * F_STAGES;
+  using Ring = BiasRing<BIAS, 8, F_BIAS_RING>;
+  const Ring ring{smem + F_STAGES * F_TILE_BYTES, bar_e + 8 * F_STAGES,
+                  bar_e + 8 * F_STAGES + 8 * Ring::SLOTS};
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * F_BQ;
@@ -879,6 +1118,10 @@ attn_f32_wgmma_kernel(const float* __restrict__ q, const uint8_t* __restrict__ w
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_e + 8 * s, 4 * active);  // lane 0 of each active consumer warp
+    }
+    for (int s = 0; BIAS && s < Ring::SLOTS; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 4);  // the four warps of the tile's warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -900,6 +1143,12 @@ attn_f32_wgmma_kernel(const float* __restrict__ q, const uint8_t* __restrict__ w
         bulk_load(dst + 2 * F_OPERAND_BYTES, src + kt * F_TILE_BYTES + 2 * F_OPERAND_BYTES,
                   2 * F_OPERAND_BYTES, bar_v + 8 * st);
       }
+    } else if (BIAS && tid == 128 * NCW + 32) {
+      // a second thread brings the bias tiles, in the order of the steps
+      int seq = 0;
+      for (int kt = 0; kt < n_tiles; ++kt)
+        for (int cw = 0; cw < active; ++cw, ++seq)
+          ring.load(&map_b, seq, q0 + cw * 64, kt * F_BK, h);
     }
   } else {
     // ---- consumer warpgroups ----
@@ -915,10 +1164,8 @@ attn_f32_wgmma_kernel(const float* __restrict__ q, const uint8_t* __restrict__ w
       }
       return;
     }
-    const void* bh = BIAS ? static_cast<const char*>(bias.p) + h * bias.sh * (BIAS == 1 ? 2 : 4)
-                          : nullptr;
-    consume_f32<BIAS>(s_ring, bar_k, bar_v, bar_e, q + b * sq.b + h * sq.h, sq.n, ob, so.n, bh,
-                      bias.sn, q0, n, n_valid, n_tiles, scale);
+    consume_f32<BIAS>(s_ring, bar_k, bar_v, bar_e, q + b * sq.b + h * sq.h, sq.n, ob, so.n, ring,
+                      active, q0, n, n_valid, n_tiles, scale);
   }
 }
 
@@ -952,23 +1199,40 @@ static CUresult encode_map(CUtensorMap* map, const void* base, const Strides& s,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// the [heads, n_valid, n_valid] bias (bias_kind 1: bf16, 2: float32) through
+// its element strides; boxes of 64 rows x 128 bytes of keys. Its extent is
+// n_valid in rows and keys: what lies past n_valid arrives as zeros.
+static CUresult encode_bias_map(CUtensorMap* map, const void* base, long long sh, long long sn,
+                                int bias_kind, int heads, int n_valid) {
+  const int elt = bias_kind == 1 ? 2 : 4;
+  const cuuint64_t dims[3] = {cuuint64_t(n_valid), cuuint64_t(n_valid), cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(sn) * elt, cuuint64_t(sh) * elt};
+  const cuuint32_t box[3] = {cuuint32_t(128 / elt), 64, 1}, elem[3] = {1, 1, 1};
+  return encode_tiled()(map, bias_kind == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        3, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 template <int BIAS>
 static int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                       void* o, const Strides& so, const Bias& bias, int batch, int heads, int n,
-                       int n_valid, float scale, cudaStream_t st) {
+                       const CUtensorMap& mb, void* o, const Strides& so, int batch, int heads,
+                       int n, int n_valid, float scale, cudaStream_t st) {
   // per launch, not once per process: the attribute belongs to the current device
   const cudaError_t attr = cudaFuncSetAttribute(
-      attn_bf16_wgmma_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+      attn_bf16_wgmma_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM_OF<BIAS>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  attn_bf16_wgmma_kernel<BIAS><<<grid_of((n + WQ - 1) / WQ, batch, heads), W_THREADS, W_SMEM, st>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, bias, n, n_valid, scale);
+  attn_bf16_wgmma_kernel<BIAS><<<grid_of((n + WQ - 1) / WQ, batch, heads), W_THREADS,
+                                 W_SMEM_OF<BIAS>, st>>>(
+      mq, mk, mv, mb, static_cast<__nv_bfloat16*>(o), so, n, n_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BIAS>
 static int launch_f32(const void* q, const void* k, const void* v, void* o, void* ws,
                       const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
-                      const Bias& bias, int batch, int heads, int n, int n_valid, float scale,
+                      const CUtensorMap& mb, int batch, int heads, int n, int n_valid, float scale,
                       cudaStream_t st) {
   const int n_tiles = (n_valid + F_BK - 1) / F_BK;
   attn_pack_f32_kernel<<<grid_of(n_tiles, batch, heads), 256, 0, st>>>(
@@ -977,12 +1241,12 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(attn_f32_wgmma_kernel<BIAS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_OF<BIAS>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_f32_wgmma_kernel<BIAS><<<grid_of((n + F_BQ - 1) / F_BQ, batch, heads), W_THREADS, F_SMEM,
-                                st>>>(static_cast<const float*>(q), static_cast<const uint8_t*>(ws),
-                                      static_cast<float*>(o), sq, so, bias, heads, n, n_valid,
-                                      n_tiles, scale);
+  attn_f32_wgmma_kernel<BIAS><<<grid_of((n + F_BQ - 1) / F_BQ, batch, heads), W_THREADS,
+                                F_SMEM_OF<BIAS>, st>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(ws), static_cast<float*>(o), sq,
+      so, mb, heads, n, n_valid, n_tiles, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1003,9 +1267,9 @@ extern "C" long long depthg_attention_workspace_bytes(int batch, int heads, int 
 // 16-byte aligned base and strides, 1 <= n_valid <= n; a bias (bias_kind 1:
 // bf16, 2: float32; 0: none) of shape [heads, n, n] with element strides
 // (bias_sh, bias_sn, 1), both multiples of 8, a 16-byte aligned base.
-// The bf16 kernel reads
-// q, k and v through tensor maps made here from those pointers and strides
-// (a launch, maps included, takes ~30 us of host time; they are not cached).
+// The bf16 kernel reads q, k and v, and both kernels the bias, through
+// tensor maps made here from those pointers and strides (a launch, maps
+// included, takes ~30 us of host time; they are not cached).
 // The float32 entry takes a device workspace of
 // depthg_attention_workspace_bytes (cudaErrorInvalidValue without one): a
 // pack kernel writes the split K and V there, then the attention kernel runs.
@@ -1020,10 +1284,16 @@ extern "C" int depthg_attention_fwd(
     void* workspace, void* stream) {
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
   const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
-  const Bias bs{bias, bias_sh, bias_sn};
   if (bias_kind < 0 || bias_kind > 2 || (bias_kind != 0 && bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap mb{};  // read only by the kernels that take a bias
+  if (bias_kind != 0) {
+    if (bias_sh <= 0 || bias_sn <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (!encode_tiled()) return 10000;
+    const CUresult res = encode_bias_map(&mb, bias, bias_sh, bias_sn, bias_kind, heads, n_valid);
+    if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
+  }
   if (is_bf16) {
     auto positive = [](const Strides& s) { return s.b > 0 && s.h > 0 && s.n > 0; };
     if (!positive(sq) || !positive(sk) || !positive(sv))
@@ -1036,18 +1306,18 @@ extern "C" int depthg_attention_fwd(
     if (res == CUDA_SUCCESS) res = encode_map(&mv, v, sv, batch, heads, n_valid, WK);
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
     if (bias_kind == 1)
-      return launch_bf16<1>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
+      return launch_bf16<1>(mq, mk, mv, mb, o, so, batch, heads, n, n_valid, scale, st);
     if (bias_kind == 2)
-      return launch_bf16<2>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
-    return launch_bf16<0>(mq, mk, mv, o, so, bs, batch, heads, n, n_valid, scale, st);
+      return launch_bf16<2>(mq, mk, mv, mb, o, so, batch, heads, n, n_valid, scale, st);
+    return launch_bf16<0>(mq, mk, mv, mb, o, so, batch, heads, n, n_valid, scale, st);
   }
   if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (bias_kind == 1)
-    return launch_f32<1>(q, k, v, o, workspace, sq, sk, sv, so, bs, batch, heads, n, n_valid,
+    return launch_f32<1>(q, k, v, o, workspace, sq, sk, sv, so, mb, batch, heads, n, n_valid,
                          scale, st);
   if (bias_kind == 2)
-    return launch_f32<2>(q, k, v, o, workspace, sq, sk, sv, so, bs, batch, heads, n, n_valid,
+    return launch_f32<2>(q, k, v, o, workspace, sq, sk, sv, so, mb, batch, heads, n, n_valid,
                          scale, st);
-  return launch_f32<0>(q, k, v, o, workspace, sq, sk, sv, so, bs, batch, heads, n, n_valid, scale,
+  return launch_f32<0>(q, k, v, o, workspace, sq, sk, sv, so, mb, batch, heads, n, n_valid, scale,
                        st);
 }

@@ -26,10 +26,11 @@ writes k and v split into a workspace the wrapper allocates with the size
 ``depthg_attention_workspace_bytes`` gives). The bf16 kernel's
 entry makes its TMA tensor maps from the pointers and strides it is given, so
 a view needs a 16-byte aligned base and positive strides that are multiples
-of 16 bytes. The kernel reads a bias in pairs of adjacent keys, so a bias
-needs a contiguous last axis, head and row strides that are positive
-multiples of 8 elements and a 16-byte aligned base (BEiT builds it as [H, N, round_up(N, 8)]
-and passes the [:, :, :N] view); ``attention_plain`` takes any bias. The
+of 16 bytes. Both kernels read a bias through a TMA tensor map too (its rows
+and keys up to n_valid, nothing past them), so a bias needs a contiguous
+last axis, head and row strides that are positive multiples of 8 elements
+and a 16-byte aligned base (BEiT builds it as [H, N, round_up(N, 8)] and
+passes the [:, :, :N] view); ``attention_plain`` takes any bias. The
 wrappers here:
 
 * CUDA tensor -> the kernel, or an exception (bad shape, dtype, stride,
@@ -161,7 +162,7 @@ def _launch(q, k, v, out, scale: float, nv: int, bias=None):
                            "torch.no_grad()")
     bias_args = (None, 0, 0, 0)
     if bias is not None:
-        # read in pairs of adjacent keys straight from the caller's view
+        # read through a TMA tensor map straight from the caller's view
         if (bias.stride(-1) != 1 or bias.stride(1) <= 0 or bias.stride(1) % 8
                 or bias.stride(0) <= 0 or bias.stride(0) % 8 or bias.data_ptr() % 16):
             raise ValueError(f"attention kernel needs a bias with a contiguous last "
@@ -169,13 +170,6 @@ def _launch(q, k, v, out, scale: float, nv: int, bias=None):
                              f"of 8 and a 16-byte aligned base; got strides "
                              f"{bias.stride()}, base {bias.data_ptr() % 16} bytes "
                              f"past 16")
-        # pairs are read up to column round_up(N, 2) - 1 of the last row
-        h_, n_ = bias.shape[:2]
-        end = (bias.storage_offset() + (h_ - 1) * bias.stride(0)
-               + (n_ - 1) * bias.stride(1) + n_ + n_ % 2)
-        if end * bias.element_size() > bias.untyped_storage().nbytes():
-            raise ValueError("attention kernel needs a bias whose storage holds an even "
-                             "number of columns in its last row (a view of padded rows)")
         bias_args = (bias.data_ptr(), bias.stride(0), bias.stride(1),
                      1 if bias.dtype == torch.bfloat16 else 2)
     itemsize = q.element_size()

@@ -162,11 +162,19 @@ def _padded_bias(heads, n, dtype, seed, scale=1.0):
     (torch.bfloat16, torch.float32, 8, 769, 769), (torch.bfloat16, torch.bfloat16, 2, 769, 700),
     (torch.bfloat16, torch.bfloat16, 1, 1345, 1345), (torch.bfloat16, torch.bfloat16, 3, 77, 77),
     (torch.float32, torch.float32, 8, 769, 769), (torch.float32, torch.float32, 16, 769, 769),
-    (torch.float32, torch.bfloat16, 2, 769, 700), (torch.float32, torch.float32, 3, 77, 77)])
+    (torch.float32, torch.bfloat16, 2, 769, 700), (torch.float32, torch.float32, 3, 77, 77),
+    (torch.bfloat16, torch.bfloat16, 1, 1201, 1201), (torch.float32, torch.float32, 1, 1201, 1201),
+    (torch.bfloat16, torch.bfloat16, 2, 577, 577), (torch.float32, torch.float32, 2, 577, 577),
+    (torch.bfloat16, torch.bfloat16, 3, 769, 769), (torch.bfloat16, torch.bfloat16, 5, 769, 769),
+    (torch.bfloat16, torch.bfloat16, 2, 769, 768), (torch.bfloat16, torch.bfloat16, 2, 769, 640),
+    (torch.bfloat16, torch.bfloat16, 2, 769, 129), (torch.float32, torch.float32, 2, 769, 768),
+    (torch.float32, torch.float32, 2, 769, 129)])
 def test_attention_kernel_with_bias_matches_plain(cuda, dtype, bias_dtype, b, n, n_valid):
     """The per-head [H, N, N] logit bias (BEiT) at the ZoeDepth shapes (16
-    heads, N=769 at 384x512, 1345 at its portrait bucket), a bias in either
-    dtype, n_valid < N and a short N: kernel vs plain, a bias that acts, and
+    heads, N=769 at 384x512, 577 at 384x384, 1345 at its portrait bucket,
+    1201 at NYU's 480x640), a bias in either dtype, odd batches, n_valid < N
+    (768: no row past the third 256-row block; 640, 129: a ragged key tile
+    and query block) and a short N: kernel vs plain, a bias that acts, and
     rows past n_valid exactly 0."""
     gen = torch.Generator().manual_seed(11)
     qkv = torch.randn(b, n, 3 * 1024, generator=gen).to(cuda, dtype)
@@ -182,6 +190,32 @@ def test_attention_kernel_with_bias_matches_plain(cuda, dtype, bias_dtype, b, n,
     assert torch.all(out[:, n_valid:] == 0)
     plain = tatt.attention_qkv(qkv, 16, 0.125, n_valid)
     assert float((plain.float() - out.float()).norm() / out.float().norm()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_with_bias_whose_heads_lie_apart(cuda, dtype):
+    """A bias whose head stride is not N x its row stride (the [16, 769,
+    769] corner of [16, 800, 776] storage): kernel vs plain."""
+    gen = torch.Generator().manual_seed(15)
+    qkv = torch.randn(2, 769, 3 * 1024, generator=gen).to(cuda, dtype)
+    bias = (torch.randn(16, 800, 776, generator=gen) * 2.0).to(cuda, dtype)[:, :769, :769]
+    assert bias.stride() == (800 * 776, 776, 1)
+    out = tatt.attention_qkv(qkv, 16, 0.125, bias=bias)
+    q, k, v = tatt.split_qkv(qkv, 16)
+    ref = tatt.attention_plain(q, k, v, 0.125, bias=bias).permute(0, 2, 1, 3)
+    _assert_close(out, ref.reshape(out.shape), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_with_bias_batch_equals_image_by_image(cuda, dtype):
+    """A batch of 8 with BEiT's bias gives each image the bits it gets alone:
+    the blocks that share the bias's tiles mix nothing across images."""
+    gen = torch.Generator().manual_seed(16)
+    qkv = torch.randn(8, 769, 3 * 1024, generator=gen).to(cuda, dtype)
+    bias = _padded_bias(16, 769, dtype, 17, scale=2.0)
+    out = tatt.attention_qkv(qkv, 16, 0.125, bias=bias)
+    alone = torch.cat([tatt.attention_qkv(qkv[i:i + 1], 16, 0.125, bias=bias) for i in range(8)])
+    torch.testing.assert_close(out, alone, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
