@@ -24,17 +24,23 @@ final line):
    224 px, not a multiple of the kernel's 64-row sub-tile or 256-row block);
    then K1 with BEiT-L's relative-position bias at ZoeDepth's 384 x 512
    input (N=769, 16 heads x 64, the bias [16, 769, 769] built from a random
-   table by the BEiT module's own builder, in the q dtype) at bf16 B=1, 8,
-   16 and float32 B=2: kernel vs plain, the bias acting, +1e4 in the bias
-   past n_valid=700 without influence, an odd row stride refused, B=8
-   equal to its images one by one, times through ``attention_qkv``, queued
+   table by the BEiT module's own builder, in the q dtype) at bf16 B=1, 2,
+   8, 16 and float32 B=2 and 8 (``--dtype float32``): kernel vs plain, the
+   bias acting, +1e4 in the bias past n_valid=700 without influence, an odd
+   row stride refused, B=8 equal to its images one by one, times through
+   ``attention_qkv``, queued
    and alone, without the bias (the difference: the bias's own cost), the
    kernel alone by ``torch.profiler``, the library call with the bias as
    its ``attn_mask``, the plain version, and the bound with the bias
    bytes; also float32 B=1 at 480 x 640 (N=1201, the bias [16, 1201,
    1208]: the fine-tune's validation); then kernel vs plain at the bias
    kernel's edges (N=577, 1345, B=3 and 5, n_valid 768, 640 and 129, bf16
-   at N=1201);
+   at N=1201); then K1 without a bias at MiDaS's shape (bf16 B=8, N=769,
+   16 heads: the same figures, the kernel by ``torch.profiler`` too); then
+   K1 at the cases of fault F6 (N=769 with n_valid 640 and 129, N=1664
+   with 1400 and 1; bf16 and float32, without and with a bias) into output
+   memory that held NaN, proved by the output's address: rows past n_valid
+   exactly 0, the others within TOL of the plain version, no NaN;
 4. bilateral kernel (K4) vs ``bilateral_message_plain`` on the features of
    two fidelity scenes: N=25,600 (ds=2), C=54, B=2 in f32 and bf16, a
    ragged N=25,563 read through views of a NaN-padded buffer, and the
@@ -45,7 +51,9 @@ final line):
    relative and max abs error, CUDA-event times of kernel and plain, the
    kernel alone on a preallocated output, and the bounds from the shapes
    (float32: 10 + C FMA-pipe instructions per entry, and the split-TF32
-   kernel's own bound beside it); TF32 still off;
+   kernel's own bound beside it; the degree entry: 11 FP32 instructions
+   per entry, with its pack step and loop by ``torch.profiler``); TF32
+   still off;
 5. CRF precision: the int8 bilateral cache of a 320 px scene built on the
    card vs float64 on the CPU, then the CRF on the six fidelity scenes
    (the port's copy of ``make_scene``) at the default point: mIoU, accuracy
@@ -269,14 +277,15 @@ LATTICE_REF = 98.60  # the same row's label agreement with the lattice (%), +-0.
 # K1 with BEiT-L's relative-position bias at ZoeDepth's 384 x 512 input: a
 # 24 x 32 patch grid plus cls, 16 heads of 64; (dtype, batch, grid) cases:
 # bf16 at the tails' B=1, ZoeDepth-NK's B=2, --batch_size 8 and 16, float32 (the parity mode)
-# at B=2, and float32 B=1 at NYU's 480 x 640 (30 x 40 + 1 = 1201 tokens: the
-# fine-tune's validation, one image at a time; the bias [16, 1201, 1208])
+# at B=2 and at ``generate_depth --dtype float32``'s B=8, and float32 B=1 at NYU's
+# 480 x 640 (30 x 40 + 1 = 1201 tokens: the fine-tune's validation, one image at a
+# time; the bias [16, 1201, 1208])
 BIAS_N, BIAS_HEADS, BIAS_DIM, BIAS_GRID = 769, 16, 1024, (24, 32)
 FT_GRID = (30, 40)
 BIAS_CASES = ((torch.bfloat16, 1, BIAS_GRID), (torch.bfloat16, 2, BIAS_GRID),
               (torch.bfloat16, 8, BIAS_GRID),
               (torch.bfloat16, 16, BIAS_GRID), (torch.float32, 2, BIAS_GRID),
-              (torch.float32, 1, FT_GRID))
+              (torch.float32, 8, BIAS_GRID), (torch.float32, 1, FT_GRID))
 BIAS_N_VALID = 700
 # the bias kernel's edges, held against the plain version only: (dtype, batch,
 # grid, n_valid or None): 384 x 384 (N=577), the portrait bucket (N=1345),
@@ -471,15 +480,20 @@ def attention_fma_bound(b, n, h):
     return 4.0 * b * h * n * n * 64 / PEAK_F32 * 1e3
 
 
-def bilateral_bound(b, n, c, itemsize):
+def bilateral_bound(b, n, c, itemsize, degree=False):
     """Least ms for one message: feats and values read, the output written
     once, or the operations on the N^2 entries, whichever is largest: 10
     float32 instructions per entry (5 subtractions, 5 FMAs; the float32 peak
     counts an FMA as 2) beside the 2 C operations of the product, on the
     bf16 tensor cores or, for float32 values, as split TF32 (three TF32
     products; ``bilateral_fma_bound`` is the FMA pipes' figure). The degree
-    is c = 0."""
+    entry (``degree``: K @ 1) reads the features and writes one float32 a
+    point; per entry it takes the 10 instructions and the add of the row
+    sum, no product (its one ex2 on the MUFU, 16 a clock per SM against the
+    FP32 pipes' 128, weighs 8 of those 11)."""
     entries = float(b) * n * n
+    if degree:
+        return max(b * n * 24 / PEAK_HBM, entries * 11 / (PEAK_F32 / 2)) * 1e3, "operations"
     bytes_ms = b * n * (20 + 2 * c * itemsize) / PEAK_HBM * 1e3
     product = 3 * entries * 2 * c / PEAK_TF32 if itemsize == 4 else entries * 2 * c / PEAK_BF16
     ops_ms = max(entries * 10 / (PEAK_F32 / 2), product) * 1e3
@@ -551,27 +565,52 @@ def attention_phase(att, gen, runtime):
     return results
 
 
-def attention_at_shape(att, gen, dtype, name, b, n, where):
-    """The kernel against its plain version at [b, n, 6 x 64], packed qkv:
-    errors within TOL, CUDA-event times of both, the bound, the kernel
-    alone, the library call and the host time of a launch."""
-    base = torch.randn(b, n, 3 * DIM, device="cuda", generator=gen)
+def attention_at_shape(att, gen, dtype, name, b, n, where, heads=HEADS, profile=False):
+    """The kernel against its plain version at [b, n, heads x 64], packed
+    qkv: errors within TOL, CUDA-event times of both, the bound, the kernel
+    alone, the library call and the host time of a launch (``profile``: the
+    bf16 kernel by ``torch.profiler`` too)."""
+    base = torch.randn(b, n, 3 * 64 * heads, device="cuda", generator=gen)
     inputs = [(base + 1e-2 * i).to(dtype) for i in range(3)]
-    out = att.attention_qkv(inputs[0], HEADS, SCALE)
+    out = att.attention_qkv(inputs[0], heads, SCALE)
 
     def plain(x):
-        q, k, v = att.split_qkv(x, HEADS)
+        q, k, v = att.split_qkv(x, heads)
         return att.attention_plain(q, k, v, SCALE)
 
-    ref = plain(inputs[0]).permute(0, 2, 1, 3).reshape(b, n, DIM)
+    ref = plain(inputs[0]).permute(0, 2, 1, 3).reshape(b, n, 64 * heads)
     torch.cuda.synchronize()
     err, rel = compare(out, ref, dtype, f"attention at B={b}, N={n} ({where})")
     row = {"max_abs_err": err, "rel_err": rel,
-           "ms": cuda_time_ms(lambda x: att.attention_qkv(x, HEADS, SCALE), inputs),
+           "ms": cuda_time_ms(lambda x: att.attention_qkv(x, heads, SCALE), inputs),
            "plain_ms": cuda_time_ms(plain, inputs, iters=5, warmup=2)}
-    row.update(attention_yardsticks(att, inputs, b, n))
-    phase("attention", dtype=name, shape=[b, n, HEADS, 64], where=where, **row)
+    row.update(attention_yardsticks(att, inputs, b, n, heads, profile))
+    phase("attention", dtype=name, shape=[b, n, heads, 64], where=where, **row)
     return row
+
+
+def attention_contract_phase(att, contract, gen):
+    """K1 at the cases of fault F6 (``contract.F6_CASES``: rows < N of a
+    256-row block's second round of sub-tiles that holds no row < n_valid),
+    B=2, into output memory that held NaN (the address of the output proves
+    it: ``contract.poisoned``), bf16 and float32, without and with a bias in
+    the q dtype: rows >= n_valid exactly 0, the others within TOL of the
+    plain version, no NaN; raises at the first case that fails."""
+    rows = {}
+    for n, nv, heads in contract.F6_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_bias in (False, True):
+                x = torch.randn(2, n, 3 * 64 * heads, device="cuda", generator=gen).to(dtype)
+                bias = contract.padded_bias(heads, n, dtype, gen) if with_bias else None
+                res = contract.contract(att, x, heads, nv, bias)
+                name = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_n{n}_valid{nv}"
+                        + ("_bias" if with_bias else ""))
+                phase("attention_contract", case=name, shape=[2, n, heads, 64], n_valid=nv,
+                      **res)
+                if not res["passes"]:
+                    raise AssertionError(f"attention {name} on poisoned output: {res}")
+                rows[name] = res
+    return rows
 
 
 def attention_serving_shapes(att, gen):
@@ -593,19 +632,20 @@ def attention_serving_shapes(att, gen):
     return rows
 
 
-def attention_yardsticks(att, inputs, b, n):
-    """At [b, n] in the inputs' dtype: the kernel alone on a preallocated
-    output, the library call, the host time of a launch (its three tensor
-    maps included) and the bound."""
+def attention_yardsticks(att, inputs, b, n, heads=HEADS, profile=False):
+    """At [b, n, heads] in the inputs' dtype: the kernel alone on a
+    preallocated output, the library call, the host time of a launch (its
+    three tensor maps included) and the bound; float32 (or ``profile``):
+    the kernel by ``torch.profiler``."""
     dtype = inputs[0].dtype
-    out = torch.empty(b, n, HEADS, 64, device="cuda", dtype=dtype).permute(0, 2, 1, 3)
+    out = torch.empty(b, n, heads, 64, device="cuda", dtype=dtype).permute(0, 2, 1, 3)
 
     def launch(x):
-        q, k, v = att.split_qkv(x, HEADS)
+        q, k, v = att.split_qkv(x, heads)
         return att._launch(q, k, v, out, SCALE, n)
 
     def library(x):
-        q, k, v = att.split_qkv(x, HEADS)
+        q, k, v = att.split_qkv(x, heads)
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=SCALE)
 
     slow = dtype == torch.float32 and b * n > 50_000  # ~10 ms per call
@@ -615,7 +655,7 @@ def attention_yardsticks(att, inputs, b, n):
     kernel_device_ms = device_time_ms(launch, inputs, iters=iters)
     library_device_ms = device_time_ms(library, inputs, iters=iters)
     clock = sm_clock_mhz()
-    q, k, v = att.split_qkv(inputs[0], HEADS)
+    q, k, v = att.split_qkv(inputs[0], heads)
     ref = library(inputs[0]).float()
     lib_rel = ((launch(inputs[0]).float() - ref).norm() / ref.norm()).item()
     torch.cuda.synchronize()
@@ -625,21 +665,24 @@ def attention_yardsticks(att, inputs, b, n):
         att._launch(q, k, v, out, SCALE, n)
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
-    bound_ms, bound_by = attention_bound(b, n, HEADS, dtype)
-    f32 = {}
+    bound_ms, bound_by = attention_bound(b, n, heads, dtype)
+    traced = {}
     if dtype == torch.float32:
         # the pack step and the attention kernel that the float32 entry
         # launches in turn, each alone
         split = profiled_kernel_ms(launch, inputs, ("attn_pack_f32_kernel",
                                                   "attn_f32_wgmma_kernel"))
-        f32 = {"fma_bound_ms": attention_fma_bound(b, n, HEADS),
-               "pack_device_ms": split["attn_pack_f32_kernel"],
-               "attention_kernel_device_ms": split["attn_f32_wgmma_kernel"]}
-    return {**f32, "kernel_only_ms": kernel_ms, "library_ms": library_ms,
+        traced = {"fma_bound_ms": attention_fma_bound(b, n, heads),
+                  "pack_device_ms": split["attn_pack_f32_kernel"],
+                  "attention_kernel_device_ms": split["attn_f32_wgmma_kernel"]}
+    elif profile:
+        traced = {"kernel_profiler_ms": profiled_kernel_ms(
+            launch, inputs, ("attn_bf16_wgmma_kernel",))["attn_bf16_wgmma_kernel"]}
+    return {**traced, "kernel_only_ms": kernel_ms, "library_ms": library_ms,
             "kernel_device_ms": kernel_device_ms, "library_device_ms": library_device_ms,
             "rel_err_vs_library": lib_rel,
             "host_us_per_launch": host_us, "bound_ms": bound_ms, "bound_by": bound_by,
-            "ex2_bound_ms": b * HEADS * n * n / (16 * SMS * clock * 1e6) * 1e3,
+            "ex2_bound_ms": b * heads * n * n / (16 * SMS * clock * 1e6) * 1e3,
             "sm_clock_mhz": clock}
 
 
@@ -731,10 +774,17 @@ def bilateral_phase(bil, crf, fidelity, runtime):
                 deg = bil.bilateral_degree(feats)
                 torch.cuda.synchronize()
                 drel, derr = k4_errors(deg, ref, tol[dtype], "bilateral degree entry")
+                dbound, dbound_by = bilateral_bound(b, n, 1, 4, degree=True)
+                # its pack step and its loop (the rows kernel's degree form) apart
+                traced = profiled_kernel_ms(lambda v: bil.bilateral_degree(feats), inputs,
+                                            ("pack_feats_kernel", "bilateral_rows_kernel"),
+                                            iters=3)
                 row.update(degree_entry_rel_err=drel, degree_entry_max_abs_err=derr,
                            degree_entry_ms=cuda_time_ms(
                                lambda v: bil.bilateral_degree(feats), inputs, iters=5, warmup=2),
-                           degree_entry_bound_ms=bilateral_bound(b, n, 0, 4)[0])
+                           degree_entry_pack_profiler_ms=traced["pack_feats_kernel"],
+                           degree_entry_kernel_profiler_ms=traced["bilateral_rows_kernel"],
+                           degree_entry_bound_ms=dbound, degree_entry_bound_by=dbound_by)
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             results[f"{label}_{name}"] = row
             phase("crf_bilateral", case=label, dtype=name, shape=[b, n, c], **row)
@@ -3039,6 +3089,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import depthg_tpu_torch
+    from depthg_tpu_torch import attention_contract_study as contract
     from depthg_tpu_torch import crf_fidelity_study as study
     from depthg_tpu_torch import inference, runtime
     from depthg_tpu_torch.models import featurizer
@@ -3070,6 +3121,10 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = attention_phase(att, gen, runtime)
     attn_bias = attention_bias_phase(att, beit, gen)
+    # MiDaS's DPT_Large at 384 x 512: ViT-L/16, 24 x 32 + 1 tokens, no bias
+    midas = attention_at_shape(att, gen, torch.bfloat16, "bf16", 8, BIAS_N, "MiDaS batch",
+                               heads=BIAS_HEADS, profile=True)
+    contract_rows = attention_contract_phase(att, contract, gen)
     k4 = bilateral_phase(bil, crf, study, runtime)
     crf_phase(study, crf)
     fidelity = fidelity_rows_phase(study, bil)
@@ -3157,6 +3212,12 @@ def main():
         "bias_max_abs_err": attn_bias["bf16_b8"]["max_abs_err"],
         "bias_rel_err": attn_bias["bf16_b8"]["rel_err"],
         "bias_cases": attn_bias,
+        "midas_shape": {"shape": f"bf16, B=8, N={BIAS_N}, {BIAS_HEADS} heads x 64, packed qkv",
+                        **{k: midas[k] for k in (
+                            "max_abs_err", "rel_err", "ms", "kernel_device_ms",
+                            "kernel_profiler_ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "library_device_ms")}},
+        "poisoned_output_cases_passed": len(contract_rows),
         # float32 with the bias at NYU's 480 x 640 (the fine-tune's validation)
         "f32_bias_n1201_shape": "f32, B=1, N=1201, 16 heads x 64, packed qkv, bias "
                                 "[16, 1201, 1201] f32 (a view of [16, 1201, 1208])",
@@ -3254,6 +3315,8 @@ def main():
         "degree_ms": k4["n102400_degree_f32"]["degree_entry_ms"],
         "degree_rel_err": k4["n102400_degree_f32"]["degree_entry_rel_err"],
         "degree_bound_ms": k4["n102400_degree_f32"]["degree_entry_bound_ms"],
+        "degree_bound_by": k4["n102400_degree_f32"]["degree_entry_bound_by"],
+        "degree_kernel_profiler_ms": k4["n102400_degree_f32"]["degree_entry_kernel_profiler_ms"],
         "degree_plain_ms": k4["n102400_degree_f32"]["plain_ms"],
         "degree_as_f32_message_ms": k4["n102400_degree_f32"]["ms"],
         # the float32 message (split TF32) at the exact eval step's shape

@@ -171,6 +171,25 @@ def build_variants(source: Path) -> dict:
     return fns
 
 
+def build_other(source: Path, subdir: str):
+    """(entry, ptxas report): ``source`` (another tree's ``attention.cu``)
+    compiled with the package's flags into ``build/.../<subdir>/``; the
+    entry takes the package's arguments."""
+    from depthg_tpu_torch.ops import _build
+    from depthg_tpu_torch.ops import attention as att
+
+    so = _build.BUILD_DIR / subdir / "libattention_other.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+    fwd = att.KERNEL.fn().fwd
+    entry = ctypes.CDLL(str(so)).depthg_attention_fwd
+    entry.argtypes, entry.restype = fwd.argtypes, fwd.restype
+    return entry, proc.stderr
+
+
 def queued_ms(fn, iters: int) -> float:
     """Device ms per call of ``iters`` calls queued behind a long product."""
     busy = torch.empty(8192, 8192, device="cuda").normal_()
@@ -190,19 +209,10 @@ def depth_ab(other: Path, rounds: int, card: str) -> list:
     in turns (see the module's docstring)."""
     from depthg_tpu_torch.generate_depth import to_dtype
     from depthg_tpu_torch.models.zoedepth import ZoeConfig, ZoeDepth, zoedepth_infer
-    from depthg_tpu_torch.ops import _build
     from depthg_tpu_torch.ops import attention as att
 
     fns = att.KERNEL.fn()
-    libs = {"package": fns.fwd}
-    so = _build.BUILD_DIR / "bias_study" / "libattention_other.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(other)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {other}:\n{proc.stderr}")
-    libs["other"] = ctypes.CDLL(str(so)).depthg_attention_fwd
-    libs["other"].argtypes, libs["other"].restype = fns.fwd.argtypes, fns.fwd.restype
+    libs = {"package": fns.fwd, "other": build_other(other, "bias_study")[0]}
     with torch.device("cuda"):
         model = ZoeDepth(ZoeConfig()).init_weights(torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(5)

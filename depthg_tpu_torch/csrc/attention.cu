@@ -64,7 +64,14 @@
 //     query rows >= n_valid are written as zeros. The output goes through
 //     the warp's own 16 rows of the (now free) Q tile and leaves as 16-byte
 //     plain stores; no TMA store touches the edge. Where the block's second
-//     128 rows hold no valid row, both warpgroups walk one sub-tile only.
+//     128 rows hold no valid row, both warpgroups walk one sub-tile only
+//     and then write that round's rows < N as zeros (with or without a
+//     bias): the output comes from torch.empty, so a row nobody writes
+//     would keep what the memory held. Written after the walk and not
+//     before it, the zeros hold up no product: bf16 B=2, N=769,
+//     n_valid=640 with a bias took 0.0193 ms
+//     against 0.0200 with the zeros first, the bias-free eval shape 0.7%
+//     less (attention_contract_study.py; NVIDIA H100 80GB HBM3, 700.00 W).
 //   * Grid (ceil(N / 256), batch, heads) = 7 x 16 x 6 = 672 blocks at the
 //     eval shape, the seventh of each head half as long (65 rows). A block
 //     takes 161 KB of shared memory and 63 K registers, so one fits per SM:
@@ -826,16 +833,21 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- consumer warpgroups ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     __nv_bfloat16* ob = o + b * so.b + h * so.h;
-    if (BIAS) {
-      // the sub-tiles this warpgroup does not walk (a second round, or all
-      // when it is idle) hold no row < n_valid: zeros for their rows < n
-      const int cw = tid >> 7;
-      for (int u = cw < nwg ? subs : 0; u < SUBS; ++u)
+    // the sub-tiles this warpgroup does not walk (a second round, or all
+    // when it is idle) hold no row < n_valid: zeros for their rows < n,
+    // after the walk, so they hold up no product. No walked sub-tile holds
+    // one of these rows, so the stores never meet.
+    const int cw = tid >> 7;
+    auto zeros = [&](int u0) {
+      for (int u = u0; u < SUBS; ++u)
         for (int i = tid & 127; i < 64 * HD / 8; i += 128) {
           const int row = q0 + (NCW * u + cw) * 64 + i / (HD / 8);
           if (row < n) *reinterpret_cast<uint4*>(ob + row * so.n + (i % (HD / 8)) * 8) = uint4{};
         }
-      if (cw >= nwg) return;
+    };
+    if (BIAS && cw >= nwg) {
+      zeros(0);
+      return;
     }
     if (SUBS == 2 && subs == 2)
       consume<SUBS, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, nwg, q0,
@@ -843,6 +855,7 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     else
       consume<1, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, nwg, q0, n,
                        n_valid, n_tiles, scale);
+    zeros(subs);
   }
 }
 

@@ -152,7 +152,7 @@ def write_one(args, depth, ow, oh, src, feats=None):
         np.save(folder / f"{src_path.stem}_feats.npy", feats)
 
 
-def run_pipeline(args, infer, device=torch.device("cpu")) -> int:
+def run_pipeline(args, infer, *, device: torch.device) -> int:
     """Drive ``infer(x [B, 3, H, W] float32 on device) -> (depth [B, 1, h, w],
     feats)`` over the input images with size-bucketed batches; returns the
     number of maps written (by every rank together). Split from ``main``
@@ -282,7 +282,7 @@ def main(argv=None, zoe_config=None, midas_config=None) -> int:
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     infer, _ = build(args, device, zoe_config, midas_config)
-    return run_pipeline(args, infer, device)
+    return run_pipeline(args, infer, device=device)
 
 
 if __name__ == "__main__":

@@ -40,11 +40,15 @@ def _jax_xla(qkv, heads, scale, n_valid):
 
 
 @pytest.mark.parametrize("heads", [2, 3])
-@pytest.mark.parametrize("n_valid", [128, 100])
-def test_plain_matches_jax(heads, n_valid):
-    qkv = _packed(2, 128, heads, n_valid)
+@pytest.mark.parametrize("n,n_valid", [(128, 128), (128, 100), (384, 129), (384, 256),
+                                       (384, 200)])
+def test_plain_matches_jax(heads, n, n_valid):
+    """Gaps of 128 rows and more too (384 against 129, 256, 200): whole
+    64-row sub-tiles, and the second round of the kernel's 256-row block,
+    past n_valid. Rows >= n_valid are exactly 0 on both sides."""
+    qkv = _packed(2, n, heads, n_valid)
     out = tatt.attention_qkv(torch.from_numpy(qkv), heads, 0.125, n_valid).numpy()
-    assert out.shape == (2, 128, heads * 64)
+    assert out.shape == (2, n, heads * 64)
     assert np.all(out[:, n_valid:] == 0.0)
     ref = _jax_xla(qkv, heads, 0.125, n_valid)
     np.testing.assert_allclose(out[:, :n_valid], ref[:, :n_valid], atol=1e-5)
@@ -52,12 +56,14 @@ def test_plain_matches_jax(heads, n_valid):
         pal = whole_kv_mha_qkv(jnp.asarray(qkv), heads, 0.125, n_valid=n_valid,
                                interpret=True)
     else:  # K2: split operands (vit_tiny-like odd head count)
-        q, k, v = jnp.transpose(jnp.asarray(qkv).reshape(2, 128, 3, heads, 64),
+        q, k, v = jnp.transpose(jnp.asarray(qkv).reshape(2, n, 3, heads, 64),
                                 (2, 0, 3, 1, 4))
         pal = jnp.transpose(whole_kv_mha(q, k, v, 0.125, n_valid=n_valid,
                                          interpret=True),
-                            (0, 2, 1, 3)).reshape(2, 128, heads * 64)
-    np.testing.assert_allclose(out, np.asarray(pal), atol=1e-5)
+                            (0, 2, 1, 3)).reshape(2, n, heads * 64)
+    pal = np.asarray(pal)
+    assert np.all(pal[:, n_valid:] == 0.0)
+    np.testing.assert_allclose(out, pal, atol=1e-5)
 
 
 def test_masked_keys_have_no_influence():

@@ -42,7 +42,12 @@ torch passes) on the card against the CPU at ViT-S/8's and BEiT-L's widths
 and at fewer than 17 rows (padded): the weight and activation codes and
 scales equal, the int32 sums equal, the bf16 output within one bf16 step;
 a width off a multiple of 8 raises; and a small int8 ViT and BEiT on the
-card against the CPU (cosine > 0.999).
+card against the CPU (cosine > 0.999). The contract sweep runs K1 (both
+dtypes, no bias or a bias in either dtype, N from 1 to 1664 against every
+n_valid that crosses a sub-tile, block or key tile) and K4 (N across its
+tiles, C across its chunks, the degree entry) into output memory that
+held NaN, proved by the output's address: an element a kernel leaves
+unwritten cannot pass by chance.
 """
 
 import pytest
@@ -1094,3 +1099,115 @@ def test_int8_vit_and_beit_on_card_match_the_cpu(cuda):
     assert tatt.KERNEL.bias_launches == launches + 2
     for a, b in zip(out, ref):
         assert cos(a.float().cpu(), b.float()) > 0.999
+
+
+# The contract sweep: K1 and K4 into output memory that held NaN.
+#
+# Both wrappers take their output from ``torch.empty``, so a kernel that
+# leaves an element unwritten hands back whatever the memory held, which
+# can happen to pass. Here the memory holds NaN, and the test proves it.
+
+def _poisoned(call, shape, dtype):
+    """``call()``'s output, written into memory that held NaN. A block of the
+    output's byte size is taken on the current stream, filled with NaN and
+    freed; the caching allocator hands that block to the wrapper's first
+    ``torch.empty`` of the same size (it picks the best fit, and the pool is
+    as it was). The output must lie at that address, else the test fails."""
+    junk = torch.empty(shape, dtype=dtype, device="cuda")
+    junk.fill_(float("nan"))  # bf16 0x7FC0, float32 0x7FC00000
+    ptr = junk.data_ptr()
+    del junk
+    out = call()
+    assert out.data_ptr() == ptr, "the output did not land in the poisoned block"
+    return out
+
+
+def _k1_contract(b, n, n_valid, heads, dtype, bias_dtype, seed=0):
+    """K1 on poisoned output memory: rows >= n_valid exactly 0, rows below
+    within TOL of ``attention_plain``, no NaN anywhere."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * 64 * heads, generator=gen).to("cuda", dtype)
+    bias = None if bias_dtype is None else _padded_bias(heads, n, bias_dtype, seed + 1, 2.0)
+    before = tatt.KERNEL.launches
+    out = _poisoned(lambda: tatt.attention_qkv(qkv, heads, 0.125, n_valid, bias=bias),
+                    (b, n, 64 * heads), dtype)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == before + 1
+    q, k, v = tatt.split_qkv(qkv, heads)
+    ref = tatt.attention_plain(q, k, v, 0.125, n_valid, bias).permute(0, 2, 1, 3).reshape(
+        out.shape)
+    assert not torch.isnan(out).any()
+    assert torch.all(out[:, n_valid:] == 0)
+    _assert_close(out[:, :n_valid], ref[:, :n_valid], dtype)
+
+
+def _n_valid_cases(n):
+    return sorted({v for v in (1, 64, 65, 128, 129, 255, 256, 257, n - 1, n) if 1 <= v <= n})
+
+
+# (N, n_valid, heads): across the 64-row sub-tiles, the 256-row blocks and
+# their second round of sub-tiles, the 128-key tiles and the float32
+# kernel's 64-key tiles; 16 heads (BEiT-L, MiDaS) at N=769. The F6 cases
+# by name: the bf16 kernel without a bias left unwritten the rows < N of a
+# block's second round of sub-tiles that holds no row < n_valid (N=769:
+# rows 640-767 at n_valid=640, 384-511 and 640-767 at 129).
+F6 = {(769, 640, 16), (769, 129, 16), (1664, 1400, 6), (1664, 1, 6)}
+K1_SWEEP = ([pytest.param(n, nv, 2, id=f"n{n}_valid{nv}_h2")
+             for n in (1, 64, 65, 128, 129, 256, 257, 384, 769, 785, 1201, 1664)
+             for nv in _n_valid_cases(n)]
+            + [pytest.param(769, nv, 16, id=f"n769_valid{nv}_h16")
+               for nv in _n_valid_cases(769) if (769, nv, 16) not in F6]
+            + [pytest.param(*case, id=f"F6_n{case[0]}_valid{case[1]}_h{case[2]}")
+               for case in sorted(F6)])
+BIASES = pytest.mark.parametrize("bias_dtype", [None, torch.bfloat16, torch.float32],
+                                 ids=["no_bias", "bf16_bias", "f32_bias"])
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+
+
+@BIASES
+@DTYPES
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,n_valid,heads", K1_SWEEP)
+def test_attention_kernel_contract_on_poisoned_output(cuda, n, n_valid, heads, b, dtype,
+                                                      bias_dtype):
+    _k1_contract(b, n, n_valid, heads, dtype, bias_dtype)
+
+
+@DTYPES
+@pytest.mark.parametrize("c", [1, 8, 27, 54, 65])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 25_563])
+def test_bilateral_kernel_contract_on_poisoned_output(cuda, n, c, dtype):
+    """K4 across its 128-key (bf16) and 64-key (float32) tiles and 128-row
+    blocks, C across the channel chunks: every element written, within
+    its limits of ``bilateral_message_plain``."""
+    b = 1 if n > 1000 else 2
+    feats, values = _bilateral_inputs(b, n, c, dtype, seed=n + c)
+    if n > 1000:
+        feats[..., :2] *= 12.0  # positions over ~60 sigmas, like a 160 x 160 grid
+    feats, values = feats.to(cuda), values.to(cuda)
+    before = tbil.KERNEL.launches
+    out = _poisoned(lambda: tbil.bilateral_message(feats, values), (b, n, c), dtype)
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.launches == before + 1
+    assert not torch.isnan(out).any()
+    _assert_k4_close(out, tbil.bilateral_message_plain(feats, values), dtype)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 25_563])
+def test_bilateral_degree_contract_on_poisoned_output(cuda, n):
+    """The degree entry (K @ 1) on poisoned output memory: every row written,
+    within 5e-5 of the plain version on ones."""
+    b = 1 if n > 1000 else 2
+    feats, _ = _bilateral_inputs(b, n, 1, torch.float32, seed=n)
+    if n > 1000:
+        feats[..., :2] *= 12.0
+    feats = feats.to(cuda)
+    before = tbil.KERNEL.launches
+    out = _poisoned(lambda: tbil.bilateral_degree(feats), (b, n, 1), torch.float32)
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.launches == before + 1
+    assert not torch.isnan(out).any()
+    ref = tbil.bilateral_message_plain(feats, torch.ones(b, n, 1, device=cuda))
+    diff = out - ref
+    assert (diff.norm() / ref.norm()).item() <= 5e-5
+    assert diff.abs().max().item() <= 5e-5 * ref.abs().max().item()

@@ -75,7 +75,7 @@ def test_pipeline_writes_the_jax_scripts_bytes(image_dir, tmp_path, model):
         return d, d[:, :, ::2, ::2]
 
     targs = tgd.get_args_parser().parse_args(_argv(image_dir, tmp_path / "port", model))
-    assert tgd.run_pipeline(targs, infer) == 7
+    assert tgd.run_pipeline(targs, infer, device=torch.device("cpu")) == 7
     # one full batch and two tails at their own size (no power-of-two padding)
     assert sorted(batches) == [(1, 3, 64, 96), (2, 3, 96, 64), (4, 3, 64, 96)]
     ref, got = _files(tmp_path / "jax" / "val"), _files(tmp_path / "port" / "val")
@@ -95,7 +95,7 @@ def test_midas_output_is_inverted(image_dir, tmp_path):
     for model in ("zoedepth", "midas"):
         args = tgd.get_args_parser().parse_args(
             _argv(image_dir, tmp_path / model, model, batch=2, features=False))
-        tgd.run_pipeline(args, infer)
+        tgd.run_pipeline(args, infer, device=torch.device("cpu"))
     a = np.asarray(Image.open(tmp_path / "zoedepth" / "val" / "im0_zoedepth.png"), np.int32)
     b = np.asarray(Image.open(tmp_path / "midas" / "val" / "im0_midas.png"), np.int32)
     assert np.abs((255 - a) - b).max() <= 1
