@@ -50,10 +50,12 @@ final line):
    B=2, C=27 and at B=1, C=54 and 27 (one image, one or both probes);
    relative and max abs error, CUDA-event times of kernel and plain, the
    kernel alone on a preallocated output, and the bounds from the shapes
-   (float32: 10 + C FMA-pipe instructions per entry, and the split-TF32
-   kernel's own bound beside it; the degree entry: 11 FP32 instructions
-   per entry, with its pack step and loop by ``torch.profiler``); TF32
-   still off;
+   (the slowest of the memory rate, one ex2 per entry at the SM clock
+   read, and the tensor cores' products, the exponent over augmented
+   features among them; the degree entry's with its row sums' adds, its
+   pack step and loop by ``torch.profiler``), and beside them yardsticks
+   of this kernel's algorithm (10 FP32 instructions per entry, 11 for the
+   degree; float32: 10 + C on the FMA pipes); TF32 still off;
 5. CRF precision: the int8 bilateral cache of a 320 px scene built on the
    card vs float64 on the CPU, then the CRF on the six fidelity scenes
    (the port's copy of ``make_scene``) at the default point: mIoU, accuracy
@@ -245,6 +247,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 B, N, HEADS, DIM = 16, 1601, 6, 384
+N_PADDED = 1664  # the eval batch padded to a multiple of 64 rows, n_valid = N
 TRAIN_B, TRAIN_RES, TRAIN_STEPS = 32, 224, 5
 TRAIN_N = (TRAIN_RES // 8) ** 2 + 1  # 785 tokens
 # K1 at the serving stack's shapes (bf16, N=1601: a bucket of b images is a
@@ -287,6 +290,7 @@ BIAS_CASES = ((torch.bfloat16, 1, BIAS_GRID), (torch.bfloat16, 2, BIAS_GRID),
               (torch.bfloat16, 16, BIAS_GRID), (torch.float32, 2, BIAS_GRID),
               (torch.float32, 8, BIAS_GRID), (torch.float32, 1, FT_GRID))
 BIAS_N_VALID = 700
+MIDAS_B = 8  # MiDaS's DPT_Large at 384 x 512: ViT-L/16, N=769, 16 heads, no bias
 # the bias kernel's edges, held against the plain version only: (dtype, batch,
 # grid, n_valid or None): 384 x 384 (N=577), the portrait bucket (N=1345),
 # batches of 3 and 5, n_valid 768 (no row past three 256-row blocks), 640 and
@@ -480,24 +484,39 @@ def attention_fma_bound(b, n, h):
     return 4.0 * b * h * n * n * 64 / PEAK_F32 * 1e3
 
 
-def bilateral_bound(b, n, c, itemsize, degree=False):
-    """Least ms for one message: feats and values read, the output written
-    once, or the operations on the N^2 entries, whichever is largest: 10
-    float32 instructions per entry (5 subtractions, 5 FMAs; the float32 peak
-    counts an FMA as 2) beside the 2 C operations of the product, on the
-    bf16 tensor cores or, for float32 values, as split TF32 (three TF32
-    products; ``bilateral_fma_bound`` is the FMA pipes' figure). The degree
-    entry (``degree``: K @ 1) reads the features and writes one float32 a
-    point; per entry it takes the 10 instructions and the add of the row
-    sum, no product (its one ex2 on the MUFU, 16 a clock per SM against the
-    FP32 pipes' 128, weighs 8 of those 11)."""
+def bilateral_bound(b, n, c, itemsize, clock_mhz, degree=False):
+    """Least ms for one message, the largest of: feats and values read and
+    the output written once over the memory rate; one ex2 per entry of the
+    N^2 on the MUFU (16 a clock per SM at ``clock_mhz``); and on the tensor
+    cores, the exponent -|f_i - f_j|^2 / 2 as one product over the
+    features augmented to 8 (f_i . f_j - |f_i|^2 / 2 - |f_j|^2 / 2, as
+    the TPU kernel computes it) in split TF32 (three products), plus the 2 C
+    operations of K Z on the bf16 tensor cores or, for float32 values, in
+    split TF32. The degree entry (``degree``: K @ 1) reads the features,
+    writes one float32 a point and sums each row on the FP32 pipes, one add
+    per entry, in place of the product. The pipes run side by side, so the
+    slowest sets the bound; ``bilateral_algorithm_bound`` and
+    ``bilateral_fma_bound`` are yardsticks of this kernel's own algorithm."""
     entries = float(b) * n * n
+    ex2_ms = entries / (16 * SMS * clock_mhz * 1e6) * 1e3
+    exponent = 3 * entries * 2 * 8 / PEAK_TF32
     if degree:
-        return max(b * n * 24 / PEAK_HBM, entries * 11 / (PEAK_F32 / 2)) * 1e3, "operations"
-    bytes_ms = b * n * (20 + 2 * c * itemsize) / PEAK_HBM * 1e3
-    product = 3 * entries * 2 * c / PEAK_TF32 if itemsize == 4 else entries * 2 * c / PEAK_BF16
-    ops_ms = max(entries * 10 / (PEAK_F32 / 2), product) * 1e3
+        bytes_ms = b * n * 24 / PEAK_HBM * 1e3
+        ops_ms = max(ex2_ms, exponent * 1e3, entries / (PEAK_F32 / 2) * 1e3)
+    else:
+        bytes_ms = b * n * (20 + 2 * c * itemsize) / PEAK_HBM * 1e3
+        product = (3 * entries * 2 * c / PEAK_TF32 if itemsize == 4
+                   else entries * 2 * c / PEAK_BF16)
+        ops_ms = max(ex2_ms, (exponent + product) * 1e3)
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def bilateral_algorithm_bound(b, n, degree=False):
+    """A yardstick of this kernel's algorithm, not a bound of the function:
+    the exponent from the differences of the features, 10 FP32
+    instructions per entry (5 subtractions, 5 FMAs; the FP32 peak counts an
+    FMA as 2), 11 with the degree entry's row-sum add, on the FP32 pipes."""
+    return float(b) * n * n * (11 if degree else 10) / (PEAK_F32 / 2) * 1e3
 
 
 def bilateral_fma_bound(b, n, c):
@@ -535,7 +554,7 @@ def attention_phase(att, gen, runtime):
 
         # n_valid=1601 inside N=1664: padded rows exactly 0, keys past
         # n_valid without influence (set to inf there)
-        pad = torch.zeros(B, 1664, 3 * DIM, device="cuda", dtype=dtype)
+        pad = torch.zeros(B, N_PADDED, 3 * DIM, device="cuda", dtype=dtype)
         pad[:, :N] = inputs[0]
         out_pad = att.attention_qkv(pad, HEADS, SCALE, N)
         pad[:, N:] = float("inf")
@@ -589,20 +608,47 @@ def attention_at_shape(att, gen, dtype, name, b, n, where, heads=HEADS, profile=
     return row
 
 
-def attention_contract_phase(att, contract, gen):
-    """K1 at the cases of fault F6 (``contract.F6_CASES``: rows < N of a
+def k1_shapes():
+    """Every (case, dtype, B, N, n_valid, heads, bias dtype or None) at which
+    phase 3 holds K1 to its plain version: the eval shape and its pad, the train,
+    serving, KNN and MiDaS shapes, and with BEiT-L's bias ``BIAS_CASES``
+    (with and without ``BIAS_N_VALID``) and ``BIAS_EDGE_CASES``.
+    ``depthg_tpu_torch/attention_contract_study.py`` compares two trees'
+    kernels at these."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    tag = {bf16: "bf16", f32: "f32"}
+    shapes = [(f"{case}_{tag[d]}", d, b, n, nv, HEADS, None)
+              for d in (bf16, f32)
+              for case, b, n, nv in (("eval", B, N, N), ("eval_padded", B, N_PADDED, N),
+                                     ("train", TRAIN_B, TRAIN_N, TRAIN_N))]
+    shapes += [(f"serve_b{b}_bf16", bf16, b, N, N, HEADS, None) for b in SERVE_ATTENTION_B]
+    shapes += [("knn_f32", f32, KNN_EMBED_B, TRAIN_N, TRAIN_N, HEADS, None),
+               ("midas_bf16", bf16, MIDAS_B, BIAS_N, BIAS_N, BIAS_HEADS, None)]
+    for d, b, grid in BIAS_CASES:
+        n = grid[0] * grid[1] + 1
+        shapes += [(f"bias_{tag[d]}_b{b}_n{n}_valid{nv}", d, b, n, nv, BIAS_HEADS, d)
+                   for nv in (n, BIAS_N_VALID)]
+    for d, b, grid, nv in BIAS_EDGE_CASES:
+        n = grid[0] * grid[1] + 1
+        nv = n if nv is None else nv
+        shapes.append((f"bias_edge_{tag[d]}_b{b}_n{n}_valid{nv}", d, b, n, nv, BIAS_HEADS, d))
+    return shapes
+
+
+def attention_contract_phase(att, poison, gen):
+    """K1 at the cases of fault F6 (``poison.F6_CASES``: rows < N of a
     256-row block's second round of sub-tiles that holds no row < n_valid),
     B=2, into output memory that held NaN (the address of the output proves
-    it: ``contract.poisoned``), bf16 and float32, without and with a bias in
-    the q dtype: rows >= n_valid exactly 0, the others within TOL of the
-    plain version, no NaN; raises at the first case that fails."""
+    it: ``poison.poisoned``), bf16 and float32, without and with a bias in
+    the q dtype: rows >= n_valid exactly 0, the others within the tests'
+    TOL of the plain version, no NaN; raises at the first case that fails."""
     rows = {}
-    for n, nv, heads in contract.F6_CASES:
+    for n, nv, heads in poison.F6_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             for with_bias in (False, True):
                 x = torch.randn(2, n, 3 * 64 * heads, device="cuda", generator=gen).to(dtype)
-                bias = contract.padded_bias(heads, n, dtype, gen) if with_bias else None
-                res = contract.contract(att, x, heads, nv, bias)
+                bias = poison.padded_bias(heads, n, dtype, gen) if with_bias else None
+                res = poison.k1_contract(att, x, heads, nv, bias)
                 name = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_n{n}_valid{nv}"
                         + ("_bias" if with_bias else ""))
                 phase("attention_contract", case=name, shape=[2, n, heads, 64], n_valid=nv,
@@ -755,7 +801,10 @@ def bilateral_phase(bil, crf, fidelity, runtime):
             row["plain_ms"] = cuda_time_ms(
                 lambda v: bil.bilateral_message_plain(feats, v), inputs,
                 iters=iters[1], warmup=1)
-            row["bound_ms"], row["bound_by"] = bilateral_bound(b, n, c, inputs[0].element_size())
+            row["sm_clock_mhz"] = sm_clock_mhz()
+            row["bound_ms"], row["bound_by"] = bilateral_bound(
+                b, n, c, inputs[0].element_size(), row["sm_clock_mhz"])
+            row["algorithm_bound_ms"] = bilateral_algorithm_bound(b, n)
             if dtype == torch.float32:
                 row["fma_bound_ms"] = bilateral_fma_bound(b, n, c)
                 split = profiled_kernel_ms(lambda v: bil.bilateral_message(feats, v), inputs,
@@ -767,14 +816,14 @@ def bilateral_phase(bil, crf, fidelity, runtime):
             obuf = torch.empty_like(inputs[0])
             row["kernel_only_ms"] = cuda_time_ms(
                 lambda v: bil._launch(feats, v, obuf), inputs, iters=iters[0], warmup=2)
-            row["sm_clock_mhz"] = sm_clock_mhz()
             row["ex2_bound_ms"] = float(b) * n * n / (16 * SMS * row["sm_clock_mhz"] * 1e6) * 1e3
             if ones:
                 # the degree entry (what the CRF calls) on the same features
                 deg = bil.bilateral_degree(feats)
                 torch.cuda.synchronize()
                 drel, derr = k4_errors(deg, ref, tol[dtype], "bilateral degree entry")
-                dbound, dbound_by = bilateral_bound(b, n, 1, 4, degree=True)
+                dbound, dbound_by = bilateral_bound(b, n, 1, 4, row["sm_clock_mhz"],
+                                                    degree=True)
                 # its pack step and its loop (the rows kernel's degree form) apart
                 traced = profiled_kernel_ms(lambda v: bil.bilateral_degree(feats), inputs,
                                             ("pack_feats_kernel", "bilateral_rows_kernel"),
@@ -784,7 +833,9 @@ def bilateral_phase(bil, crf, fidelity, runtime):
                                lambda v: bil.bilateral_degree(feats), inputs, iters=5, warmup=2),
                            degree_entry_pack_profiler_ms=traced["pack_feats_kernel"],
                            degree_entry_kernel_profiler_ms=traced["bilateral_rows_kernel"],
-                           degree_entry_bound_ms=dbound, degree_entry_bound_by=dbound_by)
+                           degree_entry_bound_ms=dbound, degree_entry_bound_by=dbound_by,
+                           degree_entry_algorithm_bound_ms=bilateral_algorithm_bound(
+                               b, n, degree=True))
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             results[f"{label}_{name}"] = row
             phase("crf_bilateral", case=label, dtype=name, shape=[b, n, c], **row)
@@ -3088,8 +3139,9 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    sys.path.append(os.path.join(ROOT, "tests"))
     import depthg_tpu_torch
-    from depthg_tpu_torch import attention_contract_study as contract
+    import test_torch_poison as poison
     from depthg_tpu_torch import crf_fidelity_study as study
     from depthg_tpu_torch import inference, runtime
     from depthg_tpu_torch.models import featurizer
@@ -3122,9 +3174,9 @@ def main():
     attn = attention_phase(att, gen, runtime)
     attn_bias = attention_bias_phase(att, beit, gen)
     # MiDaS's DPT_Large at 384 x 512: ViT-L/16, 24 x 32 + 1 tokens, no bias
-    midas = attention_at_shape(att, gen, torch.bfloat16, "bf16", 8, BIAS_N, "MiDaS batch",
-                               heads=BIAS_HEADS, profile=True)
-    contract_rows = attention_contract_phase(att, contract, gen)
+    midas = attention_at_shape(att, gen, torch.bfloat16, "bf16", MIDAS_B, BIAS_N,
+                               "MiDaS batch", heads=BIAS_HEADS, profile=True)
+    contract_rows = attention_contract_phase(att, poison, gen)
     k4 = bilateral_phase(bil, crf, study, runtime)
     crf_phase(study, crf)
     fidelity = fidelity_rows_phase(study, bil)
@@ -3214,9 +3266,10 @@ def main():
         "bias_cases": attn_bias,
         "midas_shape": {"shape": f"bf16, B=8, N={BIAS_N}, {BIAS_HEADS} heads x 64, packed qkv",
                         **{k: midas[k] for k in (
-                            "max_abs_err", "rel_err", "ms", "kernel_device_ms",
-                            "kernel_profiler_ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "library_device_ms")}},
+                            "max_abs_err", "rel_err", "ms", "kernel_only_ms",
+                            "kernel_device_ms", "kernel_profiler_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "library_device_ms",
+                            "host_us_per_launch")}},
         "poisoned_output_cases_passed": len(contract_rows),
         # float32 with the bias at NYU's 480 x 640 (the fine-tune's validation)
         "f32_bias_n1201_shape": "f32, B=1, N=1201, 16 heads x 64, packed qkv, bias "
@@ -3298,6 +3351,7 @@ def main():
         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
         "library_ms": None,
         "ex2_bound_ms": k4_main["ex2_bound_ms"],
+        "algorithm_bound_ms": k4_main["algorithm_bound_ms"],
         "kernel_only_ms": k4_main["kernel_only_ms"],
         "b2_c27_ms": k4["n102400_b2_c27_bf16"]["kernel_only_ms"],
         "b1_c54_ms": k4["n102400_b1_c54_bf16"]["kernel_only_ms"],
@@ -3316,6 +3370,8 @@ def main():
         "degree_rel_err": k4["n102400_degree_f32"]["degree_entry_rel_err"],
         "degree_bound_ms": k4["n102400_degree_f32"]["degree_entry_bound_ms"],
         "degree_bound_by": k4["n102400_degree_f32"]["degree_entry_bound_by"],
+        "degree_algorithm_bound_ms":
+            k4["n102400_degree_f32"]["degree_entry_algorithm_bound_ms"],
         "degree_kernel_profiler_ms": k4["n102400_degree_f32"]["degree_entry_kernel_profiler_ms"],
         "degree_plain_ms": k4["n102400_degree_f32"]["plain_ms"],
         "degree_as_f32_message_ms": k4["n102400_degree_f32"]["ms"],

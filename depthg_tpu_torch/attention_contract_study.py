@@ -2,13 +2,15 @@
 
     python -m depthg_tpu_torch.attention_contract_study --other OLD.cu [--rounds 5] [--out FILE]
 
-Builds ``OLD.cu`` (another tree's ``csrc/attention.cu``, e.g. from
-``git show <commit>:depthg_tpu_torch/csrc/attention.cu`` under ``build/``)
-beside the package's kernel and, on the same inputs:
+Run from the repository's root. Builds ``OLD.cu`` (another tree's
+``csrc/attention.cu``, e.g. from ``git show
+<commit>:depthg_tpu_torch/csrc/attention.cu`` under ``build/``) beside the
+package's kernel and, on the same inputs:
 
-* ``shapes``: at every shape the port launches K1 at (``SHAPES``: the eval,
-  padded eval, train, serving, KNN, MiDaS and BEiT-L bias shapes, the bias
-  kernel's edges), whether the two outputs are equal bit for bit, and the
+* ``shapes``: at every shape at which ``chip_smoke.py`` holds K1 to its
+  plain version (``chip_smoke.k1_shapes``: the eval, padded eval, train,
+  serving, KNN, MiDaS and BEiT-L bias shapes, the bias kernel's edges),
+  whether the two outputs are equal bit for bit, and the
   device ms per call of each, queued behind a long product, the two in
   turns (package, other, other, package, ...) over ``--rounds`` rounds
   after ~2 s of warm-up (the median of each, and the mean over rounds of
@@ -16,8 +18,9 @@ beside the package's kernel and, on the same inputs:
 * ``contract``: each kernel at the cases of fault F6 (``F6_CASES``: rows <
   N in a 256-row block's second round of sub-tiles that holds no row <
   n_valid), both dtypes, with and without a bias, its output written into
-  memory that held NaN (``poisoned``): rows >= n_valid exactly 0, the
-  others within ``TOL`` of ``attention_plain``, no NaN;
+  memory that held NaN: rows >= n_valid exactly 0, the others within
+  ``TOL`` of ``attention_plain``, no NaN (``tests/test_torch_poison.py``'s
+  ``k1_contract``, the card tests' own check);
 * ``ptxas``: the registers and spills of every kernel of both builds.
 
 Prints one JSON line per case and the card's name and power limit.
@@ -34,77 +37,7 @@ from pathlib import Path
 
 import torch
 
-# dtype -> (max abs error, relative error ||out - ref|| / ||ref||), as in
-# chip_smoke.py and tests/test_torch_cuda.py
-TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 5e-3)}
-BF16, F32 = torch.bfloat16, torch.float32
-# (name, dtype, batch, N, n_valid, heads, bias dtype or None)
-SHAPES = (
-    [("eval", d, 16, 1601, 1601, 6, None) for d in (BF16, F32)]
-    + [("eval_padded", d, 16, 1664, 1601, 6, None) for d in (BF16, F32)]
-    + [("train", d, 32, 785, 785, 6, None) for d in (BF16, F32)]
-    + [(f"serve_b{b}", BF16, b, 1601, 1601, 6, None) for b in (1, 2, 4, 8, 32)]
-    + [("knn", F32, 128, 785, 785, 6, None), ("midas", BF16, 8, 769, 769, 16, None)]
-    + [(f"bias_b{b}", BF16, b, 769, 769, 16, BF16) for b in (1, 2, 8, 16)]
-    + [("bias_b8_valid700", BF16, 8, 769, 700, 16, BF16),
-       ("bias_f32_b2", F32, 2, 769, 769, 16, F32),
-       ("bias_f32_b2_valid700", F32, 2, 769, 700, 16, F32),
-       ("bias_f32_b8", F32, 8, 769, 769, 16, F32),
-       ("bias_f32_b1_n1201", F32, 1, 1201, 1201, 16, F32),
-       ("bias_b1_n1201", BF16, 1, 1201, 1201, 16, BF16),
-       ("bias_b2_n577", BF16, 2, 577, 577, 16, BF16),
-       ("bias_f32_b2_n577", F32, 2, 577, 577, 16, F32),
-       ("bias_b1_n1345", BF16, 1, 1345, 1345, 16, BF16)]
-    + [(f"bias_b{b}", BF16, b, 769, 769, 16, BF16) for b in (3, 5)]
-    + [(f"bias_b2_valid{nv}", BF16, 2, 769, nv, 16, BF16) for nv in (768, 640, 129)]
-    + [(f"bias_f32_b2_valid{nv}", F32, 2, 769, nv, 16, F32) for nv in (768, 129)])
-# (N, n_valid, heads): F6 at N=769 (rows 640-767, 384-511 unwritten by the
-# bias-free bf16 kernel before the fix) and at the eval pad's N=1664
-F6_CASES = ((769, 640, 16), (769, 129, 16), (1664, 1400, 6), (1664, 1, 6))
-
-
-def poisoned(call, shape, dtype):
-    """``call()``'s output, written into memory that held NaN. A block of the
-    output's byte size is taken on the current stream, filled with NaN and
-    freed; the caching allocator hands that block to the wrapper's first
-    ``torch.empty`` of the same size (it picks the best fit, and the pool is
-    as it was). Raises if the output lies elsewhere: the poison is proved."""
-    junk = torch.empty(shape, dtype=dtype, device="cuda")
-    junk.fill_(float("nan"))  # bf16 0x7FC0, float32 0x7FC00000
-    ptr = junk.data_ptr()
-    del junk
-    out = call()
-    if out.data_ptr() != ptr:
-        raise AssertionError("the output did not land in the poisoned block")
-    return out
-
-
-def contract(att, qkv, heads, n_valid, bias):
-    """K1 through ``attention_qkv`` into poisoned memory, against its
-    contract: {"passes", "nan", "past_n_valid_nonzero", "max_abs_err",
-    "rel_err"} (the errors over rows < n_valid, NaN-free rows only)."""
-    b, n, d3 = qkv.shape
-    out = poisoned(lambda: att.attention_qkv(qkv, heads, 64 ** -0.5, n_valid, bias=bias),
-                   (b, n, d3 // 3), qkv.dtype)
-    q, k, v = att.split_qkv(qkv, heads)
-    ref = att.attention_plain(q, k, v, 64 ** -0.5, n_valid, bias).permute(0, 2, 1, 3).reshape(
-        out.shape)
-    torch.cuda.synchronize()
-    nan = int(torch.isnan(out).sum())
-    past = int((out[:, n_valid:] != 0).sum())  # NaN != 0 counts too
-    diff = torch.nan_to_num(out[:, :n_valid].float() - ref[:, :n_valid].float(), nan=float("inf"))
-    err = diff.abs().max().item()
-    rel = (diff.norm() / ref[:, :n_valid].float().norm()).item()
-    atol, rtol = TOL[qkv.dtype]
-    return {"passes": nan == 0 and past == 0 and err <= atol and rel <= rtol, "nan": nan,
-            "past_n_valid_nonzero": past, "max_abs_err": err, "rel_err": rel}
-
-
-def padded_bias(heads, n, dtype, gen):
-    """A [heads, n, n] view of [heads, n, round_up(n, 8)] storage (the BEiT
-    module's layout), spread like a trained bias."""
-    store = torch.randn(heads, n, -(-n // 8) * 8, device="cuda", generator=gen) * 2.0
-    return store.to(dtype)[:, :, :n]
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def ptxas_report(log: str) -> dict:
@@ -129,6 +62,10 @@ def main(argv=None) -> int:
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    from chip_smoke import k1_shapes
+    from test_torch_poison import F6_CASES, k1_contract, padded_bias
+
     from depthg_tpu_torch.attention_bias_study import build_other, queued_ms
     from depthg_tpu_torch.ops import _build
     from depthg_tpu_torch.ops import attention as att
@@ -145,7 +82,7 @@ def main(argv=None) -> int:
     for _ in range(100):  # ~2 s of work: the card leaves its idle clocks first
         busy @ busy
     del busy
-    for name, dtype, b, n, nv, heads, bias_dtype in SHAPES:
+    for name, dtype, b, n, nv, heads, bias_dtype in k1_shapes():
         qkv = torch.randn(b, n, 3 * 64 * heads, device="cuda", generator=gen).to(dtype)
         bias = None if bias_dtype is None else padded_bias(heads, n, bias_dtype, gen)
         out = torch.empty(b, n, heads, 64, device="cuda", dtype=dtype).permute(0, 2, 1, 3)
@@ -160,7 +97,7 @@ def main(argv=None) -> int:
             out.fill_(float("nan"))  # a row left unwritten is never equal
             call(lib)
             outs[lib] = out.clone()
-        iters = 10 if dtype == F32 and b * n > 50_000 else 40
+        iters = 10 if dtype == torch.float32 and b * n > 50_000 else 40
         times = {lib: [] for lib in libs}
         for r in range(args.rounds):
             for lib in (("package", "other") if r % 2 == 0 else ("other", "package")):
@@ -179,14 +116,14 @@ def main(argv=None) -> int:
         del qkv, bias, out, q, k, v, outs
         torch.cuda.empty_cache()
     for n, nv, heads in F6_CASES:
-        for dtype in (BF16, F32):
+        for dtype in (torch.bfloat16, torch.float32):
             for bias_dtype in (None, dtype):
                 qkv = torch.randn(2, n, 3 * 64 * heads, device="cuda", generator=gen).to(dtype)
                 bias = None if bias_dtype is None else padded_bias(heads, n, bias_dtype, gen)
                 res = {}
                 for lib in libs:
                     fns.fwd = libs[lib]
-                    res[lib] = contract(att, qkv, heads, nv, bias)
+                    res[lib] = k1_contract(att, qkv, heads, nv, bias)
                 fns.fwd = libs["package"]
                 line = {"contract": f"n{n}_valid{nv}", "dtype": str(dtype),
                         "shape": [2, n, heads, 64], "bias": bias is not None, **res,

@@ -69,9 +69,10 @@
 //     bias): the output comes from torch.empty, so a row nobody writes
 //     would keep what the memory held. Written after the walk and not
 //     before it, the zeros hold up no product: bf16 B=2, N=769,
-//     n_valid=640 with a bias took 0.0193 ms
-//     against 0.0200 with the zeros first, the bias-free eval shape 0.7%
-//     less (attention_contract_study.py; NVIDIA H100 80GB HBM3, 700.00 W).
+//     n_valid=640 with a bias took 0.0193 ms against 0.0200 with the
+//     zeros first (attention_contract_study.py; NVIDIA H100 80GB HBM3,
+//     700.00 W). Where every block's second round holds a row < n_valid,
+//     as at the eval shape, the loop stores nothing.
 //   * Grid (ceil(N / 256), batch, heads) = 7 x 16 x 6 = 672 blocks at the
 //     eval shape, the seventh of each head half as long (65 rows). A block
 //     takes 161 KB of shared memory and 63 K registers, so one fits per SM:

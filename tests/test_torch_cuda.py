@@ -57,6 +57,7 @@ from depthg_tpu_torch.ops import attention as tatt
 from depthg_tpu_torch.ops import crf as tcrf
 from depthg_tpu_torch.ops import crf_bilateral as tbil
 from test_torch_f32_split import emulate_attention, emulate_bilateral
+from test_torch_poison import F6_CASES, TOL, k1_contract, poisoned
 
 pytestmark = pytest.mark.cuda
 
@@ -66,10 +67,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
-
-
-# dtype -> (max abs error, relative error ||out - ref|| / ||ref||)
-TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 5e-3)}
 
 
 def _assert_close(out, ref, dtype):
@@ -1101,26 +1098,9 @@ def test_int8_vit_and_beit_on_card_match_the_cpu(cuda):
         assert cos(a.float().cpu(), b.float()) > 0.999
 
 
-# The contract sweep: K1 and K4 into output memory that held NaN.
-#
-# Both wrappers take their output from ``torch.empty``, so a kernel that
-# leaves an element unwritten hands back whatever the memory held, which
-# can happen to pass. Here the memory holds NaN, and the test proves it.
-
-def _poisoned(call, shape, dtype):
-    """``call()``'s output, written into memory that held NaN. A block of the
-    output's byte size is taken on the current stream, filled with NaN and
-    freed; the caching allocator hands that block to the wrapper's first
-    ``torch.empty`` of the same size (it picks the best fit, and the pool is
-    as it was). The output must lie at that address, else the test fails."""
-    junk = torch.empty(shape, dtype=dtype, device="cuda")
-    junk.fill_(float("nan"))  # bf16 0x7FC0, float32 0x7FC00000
-    ptr = junk.data_ptr()
-    del junk
-    out = call()
-    assert out.data_ptr() == ptr, "the output did not land in the poisoned block"
-    return out
-
+# The contract sweep: K1 and K4 into output memory that held NaN
+# (``test_torch_poison.poisoned``): an element a kernel leaves unwritten cannot
+# pass by chance.
 
 def _k1_contract(b, n, n_valid, heads, dtype, bias_dtype, seed=0):
     """K1 on poisoned output memory: rows >= n_valid exactly 0, rows below
@@ -1129,16 +1109,9 @@ def _k1_contract(b, n, n_valid, heads, dtype, bias_dtype, seed=0):
     qkv = torch.randn(b, n, 3 * 64 * heads, generator=gen).to("cuda", dtype)
     bias = None if bias_dtype is None else _padded_bias(heads, n, bias_dtype, seed + 1, 2.0)
     before = tatt.KERNEL.launches
-    out = _poisoned(lambda: tatt.attention_qkv(qkv, heads, 0.125, n_valid, bias=bias),
-                    (b, n, 64 * heads), dtype)
-    torch.cuda.synchronize()
+    res = k1_contract(tatt, qkv, heads, n_valid, bias)
     assert tatt.KERNEL.launches == before + 1
-    q, k, v = tatt.split_qkv(qkv, heads)
-    ref = tatt.attention_plain(q, k, v, 0.125, n_valid, bias).permute(0, 2, 1, 3).reshape(
-        out.shape)
-    assert not torch.isnan(out).any()
-    assert torch.all(out[:, n_valid:] == 0)
-    _assert_close(out[:, :n_valid], ref[:, :n_valid], dtype)
+    assert res["passes"], res
 
 
 def _n_valid_cases(n):
@@ -1147,18 +1120,15 @@ def _n_valid_cases(n):
 
 # (N, n_valid, heads): across the 64-row sub-tiles, the 256-row blocks and
 # their second round of sub-tiles, the 128-key tiles and the float32
-# kernel's 64-key tiles; 16 heads (BEiT-L, MiDaS) at N=769. The F6 cases
-# by name: the bf16 kernel without a bias left unwritten the rows < N of a
-# block's second round of sub-tiles that holds no row < n_valid (N=769:
-# rows 640-767 at n_valid=640, 384-511 and 640-767 at 129).
-F6 = {(769, 640, 16), (769, 129, 16), (1664, 1400, 6), (1664, 1, 6)}
+# kernel's 64-key tiles; 16 heads (BEiT-L, MiDaS) at N=769. The cases of
+# fault F6 by name.
 K1_SWEEP = ([pytest.param(n, nv, 2, id=f"n{n}_valid{nv}_h2")
              for n in (1, 64, 65, 128, 129, 256, 257, 384, 769, 785, 1201, 1664)
              for nv in _n_valid_cases(n)]
             + [pytest.param(769, nv, 16, id=f"n769_valid{nv}_h16")
-               for nv in _n_valid_cases(769) if (769, nv, 16) not in F6]
+               for nv in _n_valid_cases(769) if (769, nv, 16) not in F6_CASES]
             + [pytest.param(*case, id=f"F6_n{case[0]}_valid{case[1]}_h{case[2]}")
-               for case in sorted(F6)])
+               for case in F6_CASES])
 BIASES = pytest.mark.parametrize("bias_dtype", [None, torch.bfloat16, torch.float32],
                                  ids=["no_bias", "bf16_bias", "f32_bias"])
 DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -1186,7 +1156,7 @@ def test_bilateral_kernel_contract_on_poisoned_output(cuda, n, c, dtype):
         feats[..., :2] *= 12.0  # positions over ~60 sigmas, like a 160 x 160 grid
     feats, values = feats.to(cuda), values.to(cuda)
     before = tbil.KERNEL.launches
-    out = _poisoned(lambda: tbil.bilateral_message(feats, values), (b, n, c), dtype)
+    out = poisoned(lambda: tbil.bilateral_message(feats, values), (b, n, c), dtype)
     torch.cuda.synchronize()
     assert tbil.KERNEL.launches == before + 1
     assert not torch.isnan(out).any()
@@ -1203,7 +1173,7 @@ def test_bilateral_degree_contract_on_poisoned_output(cuda, n):
         feats[..., :2] *= 12.0
     feats = feats.to(cuda)
     before = tbil.KERNEL.launches
-    out = _poisoned(lambda: tbil.bilateral_degree(feats), (b, n, 1), torch.float32)
+    out = poisoned(lambda: tbil.bilateral_degree(feats), (b, n, 1), torch.float32)
     torch.cuda.synchronize()
     assert tbil.KERNEL.launches == before + 1
     assert not torch.isnan(out).any()
