@@ -671,18 +671,53 @@ def attention_serving_shapes(att, gen):
                      "where": where, **{k: row[k] for k in (
                          "max_abs_err", "rel_err", "ms", "kernel_only_ms", "kernel_device_ms",
                          "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
-                         "host_us_per_launch") + (("fma_bound_ms", "pack_device_ms",
+                         "host_us_per_launch", "host_us_per_call", "library_host_us_per_call",
+                         "grid") + (("fma_bound_ms", "pack_device_ms",
                                                    "attention_kernel_device_ms")
                                                   if name == "f32" else ())}})
         torch.cuda.empty_cache()
     return rows
 
 
+def attention_grid(att, b, n, heads, dtype, bias=False):
+    """The bf16 grid the wrapper chooses (``block_plan`` without a bias,
+    every block 256 rows with one): 256-row blocks per (image, head),
+    blocks in all, the SMs it was planned for; None for float32."""
+    if dtype != torch.bfloat16:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = -(-n // 256) if bias else att.block_plan(b, heads, n, n, sms)
+    return {"big_blocks_per_head": big, "blocks": len(att.plan_blocks(b, heads, n, big)),
+            "blocks_if_all_256_rows": len(att.plan_blocks(b, heads, n, -(-n // 256))),
+            "sms": sms}
+
+
+def attention_small_grids(serve_shapes, midas, train):
+    """K1 bf16 where its grid is small or ragged, side by side (queued device
+    ms of the kernel and of the library call, the bound, host us of a launch,
+    of a wrapper call and of a library call, the grid): the serving buckets'
+    B=1, 2, 4, 8 at N=1601, MiDaS's batch and the train step's shape."""
+    keys = ("kernel_device_ms", "library_device_ms", "bound_ms", "host_us_per_launch",
+            "host_us_per_call", "library_host_us_per_call", "grid")
+    rows = [{"shape": row["shape"], **{k: row[k] for k in keys}}
+            for row in serve_shapes if row["where"] == "serve bucket"
+            and int(row["shape"].split("B=")[1].split(",")[0]) <= 8]
+    rows.append({"shape": f"bf16, B={MIDAS_B}, N={BIAS_N}, {BIAS_HEADS} heads x 64",
+                 **{k: midas[k] for k in keys}})
+    rows.append({"shape": f"bf16, B={TRAIN_B}, N={TRAIN_N}, {HEADS} heads x 64",
+                 **{k: train[k] for k in keys}})
+    for row in rows:
+        row["kernel_over_library"] = row["kernel_device_ms"] / row["library_device_ms"]
+    phase("attention_small_grids", rows=rows)
+    return rows
+
+
 def attention_yardsticks(att, inputs, b, n, heads=HEADS, profile=False):
     """At [b, n, heads] in the inputs' dtype: the kernel alone on a
-    preallocated output, the library call, the host time of a launch (its
-    three tensor maps included) and the bound; float32 (or ``profile``):
-    the kernel by ``torch.profiler``."""
+    preallocated output, the library call, the host time of a launch
+    (``_launch`` on a preallocated output), of a call of ``attention_qkv``
+    and of the library call on the same q, k, v views, the grid and the
+    bound; float32 (or ``profile``): the kernel by ``torch.profiler``."""
     dtype = inputs[0].dtype
     out = torch.empty(b, n, heads, 64, device="cuda", dtype=dtype).permute(0, 2, 1, 3)
 
@@ -706,11 +741,20 @@ def attention_yardsticks(att, inputs, b, n, heads=HEADS, profile=False):
     lib_rel = ((launch(inputs[0]).float() - ref).norm() / ref.norm()).item()
     torch.cuda.synchronize()
     reps = 20 if slow else 200
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        att._launch(q, k, v, out, SCALE, n)
-    host_us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    launch_us = host_us(lambda: att._launch(q, k, v, out, SCALE, n))
+    call_us = host_us(lambda: att.attention_qkv(inputs[0], heads, SCALE))
+    library_us = host_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=SCALE))
     bound_ms, bound_by = attention_bound(b, n, heads, dtype)
     traced = {}
     if dtype == torch.float32:
@@ -726,8 +770,10 @@ def attention_yardsticks(att, inputs, b, n, heads=HEADS, profile=False):
             launch, inputs, ("attn_bf16_wgmma_kernel",))["attn_bf16_wgmma_kernel"]}
     return {**traced, "kernel_only_ms": kernel_ms, "library_ms": library_ms,
             "kernel_device_ms": kernel_device_ms, "library_device_ms": library_device_ms,
-            "rel_err_vs_library": lib_rel,
-            "host_us_per_launch": host_us, "bound_ms": bound_ms, "bound_by": bound_by,
+            "rel_err_vs_library": lib_rel, "host_us_per_launch": launch_us,
+            "host_us_per_call": call_us, "library_host_us_per_call": library_us,
+            "grid": attention_grid(att, b, n, heads, dtype),
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "ex2_bound_ms": b * heads * n * n / (16 * SMS * clock * 1e6) * 1e3,
             "sm_clock_mhz": clock}
 
@@ -1648,7 +1694,7 @@ def attention_bias_phase(att, beit, gen):
             "bound_ms": bound_ms, "bound_by": bound_by,
             **({"fma_bound_ms": attention_fma_bound(b, n, h)} if dtype == torch.float32 else {}),
             "ex2_bound_ms": b * h * n * n / (16 * SMS * clock * 1e6) * 1e3,
-            "sm_clock_mhz": clock}
+            "sm_clock_mhz": clock, "grid": attention_grid(att, b, n, h, dtype, bias=True)}
         rows[name]["bias_cost_ms"] = rows[name]["device_ms"] - rows[name]["no_bias_device_ms"]
         phase("attention_bias", case=name, shape=[b, n, h, 64],
               bias=[h, n, n, str(bias.dtype), bias.stride(1)], **rows[name])
@@ -1671,7 +1717,8 @@ def attention_bias_phase(att, beit, gen):
         if not moved > 0.05 or not torch.all(out[:, nv:] == 0):
             raise AssertionError(f"{name}: the bias did not act ({moved}) or a row past "
                                  f"n_valid is not 0")
-        rows[name] = {"max_abs_err": err, "rel_err": rel, "rel_change_from_bias": moved}
+        rows[name] = {"max_abs_err": err, "rel_err": rel, "rel_change_from_bias": moved,
+                      "grid": attention_grid(att, b, n, h, dtype, bias=True)}
         phase("attention_bias_edge", case=name, shape=[b, n, h, 64], n_valid=nv, **rows[name])
         del bias, x, q, k, v, ref, out, without
     torch.cuda.empty_cache()
@@ -3184,6 +3231,7 @@ def main():
     train_res = train_path_phase(att, bil, inference, featurizer, gen)
     train_f32 = train_card_vs_cpu_phase(att, inference, featurizer)
     serve_shapes = attention_serving_shapes(att, gen)
+    small_grids = attention_small_grids(serve_shapes, midas, attn["train_bf16"])
     with tempfile.TemporaryDirectory() as tmp:
         serve_res = serve_path_phase(att, bil, inference, featurizer, tmp)
         demo_res = demo_path_phase(att, bil, inference, serve_res["ckpt"], tmp)
@@ -3269,7 +3317,9 @@ def main():
                             "max_abs_err", "rel_err", "ms", "kernel_only_ms",
                             "kernel_device_ms", "kernel_profiler_ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "library_device_ms",
-                            "host_us_per_launch")}},
+                            "host_us_per_launch", "host_us_per_call",
+                            "library_host_us_per_call", "grid")}},
+        "small_grid_rows": small_grids,
         "poisoned_output_cases_passed": len(contract_rows),
         # float32 with the bias at NYU's 480 x 640 (the fine-tune's validation)
         "f32_bias_n1201_shape": "f32, B=1, N=1201, 16 heads x 64, packed qkv, bias "

@@ -117,9 +117,12 @@ VARIANTS = {
          "ring.load(&map_b, seq, 0, 0, h);"),
     ],
     "tail_only": [
-        ("  const int q0 = blockIdx.x * WQ;",
-         "  const int q0 = (blockIdx.x + (n - 1) / WQ) * WQ;"),
-        ("grid_of((n + WQ - 1) / WQ, batch, heads)", "grid_of(1, batch, heads)"),
+        # bf16: one block per (image, head), the last of the one-dimensional grid's
+        ("  int i = blockIdx.x, per = p.big, base = 0;",
+         "  int i = p.small ? p.big * p.batch * p.heads + (blockIdx.x + 1) * p.small - 1\n"
+         "                  : (blockIdx.x + 1) * p.big - 1;\n"
+         "  int per = p.big, base = 0;"),
+        ("<<<(plan.big + plan.small) * plan.batch * plan.heads,", "<<<plan.batch * plan.heads,"),
         ("  const int q0 = blockIdx.x * F_BQ;",
          "  const int q0 = (blockIdx.x + (n - 1) / F_BQ) * F_BQ;"),
         ("grid_of((n + F_BQ - 1) / F_BQ, batch, heads)", "grid_of(1, batch, heads)"),
@@ -167,7 +170,7 @@ def build_variants(source: Path) -> dict:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{err}")
-        fns[name] = ctypes.CDLL(str(so)).depthg_attention_fwd
+        fns[name] = ctypes.CDLL(str(so)).depthg_attention_launch
     return fns
 
 
@@ -185,7 +188,7 @@ def build_other(source: Path, subdir: str):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
     fwd = att.KERNEL.fn().fwd
-    entry = ctypes.CDLL(str(so)).depthg_attention_fwd
+    entry = ctypes.CDLL(str(so)).depthg_attention_launch
     entry.argtypes, entry.restype = fwd.argtypes, fwd.restype
     return entry, proc.stderr
 

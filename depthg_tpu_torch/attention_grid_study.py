@@ -2,7 +2,8 @@
 
     python -m depthg_tpu_torch.attention_grid_study [--out FILE]
 
-``csrc/attention.cu`` launches its grid as (query blocks, batch, heads):
+``csrc/attention.cu`` launches its grid as (query blocks, batch, heads)
+(the bf16 kernel's one-dimensional grid decodes its blocks in that order):
 the images of one head run together, so with BEiT's [H, N, N] logit bias a
 wave of blocks shares a few heads' bias in L2. This script builds a second
 library from the same source with the grid swapped to (query blocks, heads,
@@ -38,8 +39,11 @@ CASES = (
 )
 ROUNDS = 15
 # the source's grid order and the swapped one, as text
-HEAD_MAJOR = ("h = blockIdx.z; b = blockIdx.y;", "dim3(q_blocks, batch, heads)")
-IMAGE_MAJOR = ("h = blockIdx.y; b = blockIdx.z;", "dim3(q_blocks, heads, batch)")
+# (the float32 kernels' three-dimensional grid, the bf16 kernel's decode)
+HEAD_MAJOR = ("h = blockIdx.z; b = blockIdx.y;", "dim3(q_blocks, batch, heads)",
+              "b = bh % p.batch; h = bh / p.batch;")
+IMAGE_MAJOR = ("h = blockIdx.y; b = blockIdx.z;", "dim3(q_blocks, heads, batch)",
+               "h = bh % p.heads; b = bh / p.heads;")
 
 
 def image_major_library():
@@ -63,7 +67,7 @@ def image_major_library():
     _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the image-major variant:\n{err}")
-    return ctypes.CDLL(str(so)).depthg_attention_fwd
+    return ctypes.CDLL(str(so)).depthg_attention_launch
 
 
 def queued_ms(fn, iters: int) -> float:

@@ -53,12 +53,16 @@
 //     step and S of its next step as one batch, hands the turn over and
 //     then runs its ex2s, max/sum and the rescale of O while the other
 //     warpgroup's batch occupies the tensor cores.
-//   * 256 rows per block, not 128: every block streams the whole K/V of its
-//     head from L2, so rows per block set that traffic. With one sub-tile
-//     per warpgroup (128 rows, 1248 blocks) the kernel took 0.188-0.204 ms
-//     on an H100, with two (672 blocks) 0.161 ms. Three consumer warpgroups
-//     of one sub-tile each (192 rows) took 0.213 ms: the registers left per
-//     thread (128 at 512 threads) no longer hold S, P and O without spills.
+//   * 256 rows per block where the grid fills the card: every block streams
+//     the whole K/V of its head from L2, so rows per block set that
+//     traffic. At the eval shape, with one sub-tile per warpgroup (128 rows,
+//     1248 blocks) the kernel took 0.188-0.204 ms on an H100, with two (672
+//     blocks) 0.161 ms. Three consumer warpgroups of one sub-tile each (192
+//     rows) took 0.213 ms: the registers left per thread (128 at 512
+//     threads) no longer hold S, P and O without spills. A 128-row block
+//     takes 0.59 of a 256-row block's time (B=1, N=1536, 6 heads, one wave:
+//     0.0174 against 0.0299 ms; NVIDIA H100 80GB HBM3, 700.00 W), so where
+//     256-row blocks leave SMs idle, 128-row ones win (Grid, below).
 //   * Masking: logits of keys >= n_valid are set to -inf in registers on
 //     the last tile (their V rows are zeros from the TMA fill, so 0 * 0);
 //     query rows >= n_valid are written as zeros. The output goes through
@@ -73,11 +77,22 @@
 //     zeros first (attention_contract_study.py; NVIDIA H100 80GB HBM3,
 //     700.00 W). Where every block's second round holds a row < n_valid,
 //     as at the eval shape, the loop stores nothing.
-//   * Grid (ceil(N / 256), batch, heads) = 7 x 16 x 6 = 672 blocks at the
-//     eval shape, the seventh of each head half as long (65 rows). A block
-//     takes 161 KB of shared memory and 63 K registers, so one fits per SM:
-//     4.7 blocks of work per SM in 5.1 waves, and each block's prologue
-//     (barrier init, Q and first K in flight) is exposed.
+//   * Grid: one-dimensional (bf16_block): `big` blocks of 256 rows per
+//     (image, head) first, then 128-row blocks over the rest of its rows.
+//     A block takes 161 KB of shared memory and 63 K registers, so one fits
+//     per SM and the card hands blocks to SMs in launch order; the wrapper
+//     (ops/attention.py block_plan) dispatches each choice of `big` on the
+//     SMs in a model of that and takes the one that finishes first, if it
+//     beats every block at 256 rows by 10%. At the eval shape that is 7 x
+//     16 x 6 = 672 blocks of 256 rows (5.1 waves, the seventh of each head
+//     65 rows). At the serving buckets' smaller grids (N=1601, 6 heads;
+//     queued ms, the parent's grid in brackets; NVIDIA H100 80GB HBM3,
+//     700.00 W; attention_contract_study.py): B=1 78 blocks of 128 rows in
+//     one wave, 0.0186 (0.0323); B=4 5 of 256 a head and the rest of 128,
+//     192 blocks, 0.0495 (0.0628); B=8 the same, 384 blocks, 0.0845
+//     (0.0968); MiDaS (B=8, N=769, 16 heads) 3 of 256 a head and its
+//     one-row block after all of them, 0.0719 (0.0779). B=2 (84 blocks),
+//     B=16, B=32 and the train step keep every block at 256 rows.
 //   * What holds it (timed on an H100 with parts of the loop compiled out):
 //     the loads alone take 0.046 ms, both products without the softmax
 //     0.096 ms, the softmax without the products 0.119 ms (0.086 ms without
@@ -129,9 +144,20 @@
 //     without the bias, 0.285 for PyTorch's fused attention call with the
 //     bias as its mask), the same bits; a ZoeDepth batch of 8 at 384 x 512
 //     82.33 -> 80.67 ms (attention_bias_study.py --depth).
+//     Without a bias the one-warpgroup block is taken (MiDaS B=8,
+//     N=769 0.0726 -> 0.0715 ms, train B=32, N=785 0.1084 -> 0.1068), the
+//     narrow tile is not: with it in the kernel the whole bias-free loop ran
+//     slower (MiDaS 0.0832, train 0.1252; the same with S zeroed before the
+//     narrow product, 0.0831 / 0.1250). As runtime branches, the two cost
+//     the bias-free loop a third of its speed at every shape, taken or not
+//     (B=1, N=1601 0.0321 -> 0.0430 ms): LC (the last tile's live chunks)
+//     and ALONE (the launch has a one-warpgroup block) are template
+//     arguments of the kernel, which the C entry picks, so a launch without
+//     a tail runs the loop with no code of theirs. (NVIDIA H100 80GB HBM3,
+//     700.00 W; attention_contract_study.py --sections variants.)
 //   * The grid runs the images of one head together, (query blocks, batch,
-//     heads), so a wave of blocks shares a few heads' bias in L2 (16 x 769 x
-//     769 bf16 is 18.9 MB at the ZoeDepth shape). Against (query blocks,
+//     heads) in launch order, so a wave of blocks shares a few heads' bias
+//     in L2 (16 x 769 x 769 bf16 is 18.9 MB at the ZoeDepth shape). Against (query blocks,
 //     heads, batch), timed by depthg_tpu_torch/attention_grid_study.py
 //     (NVIDIA H100 80GB HBM3, 700 W; same bits; queued; median of 15
 //     rounds): on the first bias design 1.4-2.3% faster with the bias (bf16
@@ -214,6 +240,9 @@
 #include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
 
 namespace {
 
@@ -378,29 +407,32 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-// d[64 rows x N keys] += a[64 x 16 dims, registers] . the first N keys of a K
-// tile (K-major), into the first N / 2 registers of the S accumulator: a
-// last key tile of N = 16, 32 or 64 keys (always accumulating: with a bias)
-__device__ __forceinline__ void wgmma_qk16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+// d[64 rows x N keys] (+)= a[64 x 16 dims, registers] . the first N keys of a
+// K tile (K-major), into the first N / 2 registers of the S accumulator: a
+// last key tile of N = 16, 32 or 64 keys
+__device__ __forceinline__ void wgmma_qk16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
       : D8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_qk32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+__device__ __forceinline__ void wgmma_qk32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
       : D8(0), D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_qk64(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+__device__ __forceinline__ void wgmma_qk64(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -408,7 +440,7 @@ __device__ __forceinline__ void wgmma_qk64(float (&d)[64], const uint32_t (&a)[4
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : D8(0), D8(8), D8(16), D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
 // d[64 rows x 64 dims] += a[64 x 16 keys, registers] . V tile (MN-major: transposed by the descriptor)
@@ -561,40 +593,45 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], uint32_t (&pa)[8][4
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 }
 
-// With a bias, S (+)= Q K^T on a narrow last key tile: its first 8 nc keys
-// (nc = 2, 4 or 8 chunks), into S's first 4 nc registers
+// S (+)= Q K^T on a narrow last key tile: its first 8 nc keys (nc = 2, 4 or
+// 8 chunks), into S's first 4 nc registers; onto the bias, or from zero
+template <int BIAS>
 __device__ __forceinline__ void issue_qk_narrow(float (&s)[64], const uint32_t (&qa)[4][4],
                                                 uint32_t s_tile, int nc) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     const uint64_t desc = smem_desc(s_tile) + 2 * ks;
+    const int accumulate = BIAS || ks > 0;
     if (nc == 8)
-      wgmma_qk64(s, qa[ks], desc);
+      wgmma_qk64(s, qa[ks], desc, accumulate);
     else if (nc == 4)
-      wgmma_qk32(s, qa[ks], desc);
+      wgmma_qk32(s, qa[ks], desc, accumulate);
     else
-      wgmma_qk16(s, qa[ks], desc);
+      wgmma_qk16(s, qa[ks], desc, accumulate);
   }
 }
 
 // keys of a last tile of r keys rounded up to a product's width: 8-key chunks
-__device__ __forceinline__ int live_chunks(int r) {
+__host__ __device__ __forceinline__ int live_chunks(int r) {
   return r <= 16 ? 2 : r <= 32 ? 4 : r <= 64 ? 8 : 16;
 }
 
 // One consumer warpgroup's whole life: U sub-tiles of 64 query rows (rows
 // (NCW u + cw) * 64 of the block's Q tile), each walked over every K/V tile.
-// A step is one (tile, sub-tile) pair; the warpgroups take turns per step,
-// round robin. With a bias, nwg warpgroups take steps (1: this one alone,
-// without turns), step (kt, u) of warpgroup cw is the ring's
-// (kt U + u) nwg + cw-th, and the last tile's products and softmax cover
-// only its live chunks (BEiT's N = 128 k + 1 leaves one key there).
-template <int U, int BIAS>
+// A step is one (tile, sub-tile) pair; the warpgroups take steps in turns,
+// round robin, or this one alone, without turns (ALONE). The last tile's
+// products and softmax cover only its LC live 8-key chunks (N = 128 k + 1,
+// as in BEiT-L's and MiDaS's 769, leaves one key there; 16: all). Both are
+// template arguments: a walk with neither is the loop without any branch
+// of theirs (in runtime branches they cost the bias-free loop a third of
+// its speed, NVIDIA H100 80GB HBM3, 700.00 W). With a bias, step (kt, u) of
+// warpgroup cw is the ring's (kt U + u) nwg + cw-th.
+template <int U, int BIAS, int LC, bool ALONE>
 __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_v, uint32_t bar_q,
                                         uint32_t bar_k, uint32_t bar_v, uint32_t bar_e,
                                         __nv_bfloat16* __restrict__ ob, long long o_sn,
-                                        const BiasRing<BIAS, 16, W_BIAS_RING>& ring, int nwg,
-                                        int q0, int n, int n_valid, int n_tiles, float scale) {
+                                        const BiasRing<BIAS, 16, W_BIAS_RING>& ring, int q0,
+                                        int n, int n_valid, int n_tiles, float scale) {
   const int tid = threadIdx.x;
   const int cw = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
@@ -630,16 +667,15 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
   }
 
   // the first turn goes to warpgroup 0; a warpgroup alone takes no turns
-  const bool turns = !(BIAS && nwg == 1);
-  // 8-key chunks of the last tile that hold a key < n_valid (with a bias)
-  const int lc = BIAS ? live_chunks(n_valid - (n_tiles - 1) * WK) : 16;
+  constexpr bool turns = !ALONE;
+  constexpr int nwg = ALONE ? 1 : NCW;
   if (turns && cw == NCW - 1) turn_pass(other_turn);
   if (BIAS) ring.read(s, cw, warp, lane);
   mbar_wait(bar_k, 0);
   if (turns) turn_wait(my_turn);
   wgmma_fence();
-  if (BIAS && n_tiles == 1 && lc < 16) {
-    issue_qk_narrow(s, qa[0], s_k, lc);
+  if (LC < 16 && n_tiles == 1) {
+    issue_qk_narrow<BIAS>(s, qa[0], s_k, LC);
   } else {
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
@@ -659,13 +695,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
     for (int u = 0; u < U; ++u) {
       uint32_t pa[8][4];  // P as A fragments: [k-step over keys][register]
       float alpha[2];
-      const bool narrow = BIAS && last_tile && lc < 16;
-      if (narrow && lc == 2)
-        softmax_step<2>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
-      else if (narrow && lc == 4)
-        softmax_step<4>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
-      else if (narrow)
-        softmax_step<8>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
+      const bool narrow = LC < 16 && last_tile;
+      if (narrow)
+        softmax_step<LC>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
       else
         softmax_step<16>(s, pa, m_i[u], l_i[u], alpha, kt * WK, n_valid, t);
       // S is dead until the next q.k^T: start it as the next step's bias
@@ -689,7 +721,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
       if (narrow) {
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)  // a narrow tile has at most 64 keys
-          if (2 * ks < lc) wgmma_pv(acc[u], pa[ks], smem_desc(s_v + st * TILE_BYTES) + 128 * ks);
+          if (2 * ks < LC) wgmma_pv(acc[u], pa[ks], smem_desc(s_v + st * TILE_BYTES) + 128 * ks);
       } else {
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks)
@@ -697,7 +729,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
       }
       wgmma_commit();
       if (u + 1 < U && narrow) {
-        issue_qk_narrow(s, qa[(u + 1) % U], s_k + st * TILE_BYTES, lc);
+        issue_qk_narrow<BIAS>(s, qa[(u + 1) % U], s_k + st * TILE_BYTES, LC);
         wgmma_commit();
       } else if (u + 1 < U) {
 #pragma unroll
@@ -705,8 +737,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
           wgmma_qk(s, qa[(u + 1) % U][ks], smem_desc(s_k + st * TILE_BYTES) + 2 * ks,
                    BIAS ? 1 : ks > 0);
         wgmma_commit();
-      } else if (BIAS && kt + 2 == n_tiles && lc < 16) {
-        issue_qk_narrow(s, qa[0], s_k + st1 * TILE_BYTES, lc);
+      } else if (LC < 16 && kt + 2 == n_tiles) {
+        issue_qk_narrow<BIAS>(s, qa[0], s_k + st1 * TILE_BYTES, LC);
         wgmma_commit();
       } else if (!last_tile) {
 #pragma unroll
@@ -758,13 +790,39 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t s_k, uint32_t s_
   }
 }
 
-template <int BIAS>
+// The bf16 grid is one-dimensional: first `big` blocks of 256 rows (two
+// rounds of sub-tiles) per (image, head), over rows [0, 256 big), then
+// `small` blocks of 128 rows (one round) per (image, head), over [256 big,
+// n). Within each part the row blocks of one image run together, then the
+// images of one head, so a wave of blocks shares a few heads' bias in L2;
+// the long blocks are dispatched first and the short ones fill the last
+// waves. The wrapper chooses `big` (ops/attention.py block_plan).
+struct Plan {
+  int big, small, batch, heads;
+};
+
+__device__ __forceinline__ void bf16_block(const Plan& p, int& q0, int& rounds, int& h, int& b) {
+  int i = blockIdx.x, per = p.big, base = 0;
+  rounds = SUBS;
+  if (i >= p.big * p.batch * p.heads) {
+    i -= p.big * p.batch * p.heads;
+    per = p.small, base = WQ * p.big, rounds = 1;
+  }
+  q0 = base + (i % per) * 64 * NCW * rounds;
+  const int bh = i / per;
+  b = bh % p.batch; h = bh / p.batch;
+}
+
+// LC: the live 8-key chunks of the last key tile, the same for every block
+// of a launch (it follows from n_valid); ALONE: the launch has blocks that
+// one warpgroup walks. The C entry picks the kernel (launch_bf16).
+template <int BIAS, int LC, bool ALONE>
 __global__ void __launch_bounds__(W_THREADS, 1)
 attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        const __grid_constant__ CUtensorMap map_b,
-                       __nv_bfloat16* __restrict__ o, Strides so, int n, int n_valid,
+                       __nv_bfloat16* __restrict__ o, Strides so, Plan plan, int n, int n_valid,
                        float scale) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
@@ -779,17 +837,16 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   bar_e + 8 * STAGES + 8 * Ring::SLOTS};
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * WQ;
-  int h, b;
-  head_and_image(h, b);
+  int q0, rounds, h, b;
+  bf16_block(plan, q0, rounds, h, b);
   const int n_tiles = (n_valid + WK - 1) / WK;  // tiles past n_valid weigh 0
   // sub-tiles per warpgroup in this block: the second round only where it
   // holds a valid row (the turns need the same number of steps from all)
-  const int subs = (SUBS == 2 && q0 + 64 * NCW < n_valid) ? 2 : 1;
-  // with a bias, a block whose rows past its first 64 are all >= n_valid
-  // (BEiT's N = 256 k + 1 leaves one such per head) is walked by warpgroup
-  // 0 alone; the other writes its zeros and leaves
-  const int nwg = (BIAS && q0 + 64 >= n_valid) ? 1 : NCW;
+  const int subs = (rounds == 2 && q0 + 64 * NCW < n_valid) ? 2 : 1;
+  // a block whose rows past its first 64 are all >= n_valid (N = 256 k + 1
+  // or 128 k + 1, as BEiT-L's and MiDaS's 769, leaves one such per head) is
+  // walked by warpgroup 0 alone; the other writes its zeros and leaves
+  const int nwg = ALONE && q0 + 64 >= n_valid ? 1 : NCW;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -840,22 +897,25 @@ attn_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // one of these rows, so the stores never meet.
     const int cw = tid >> 7;
     auto zeros = [&](int u0) {
-      for (int u = u0; u < SUBS; ++u)
+      for (int u = u0; u < rounds; ++u)
         for (int i = tid & 127; i < 64 * HD / 8; i += 128) {
           const int row = q0 + (NCW * u + cw) * 64 + i / (HD / 8);
           if (row < n) *reinterpret_cast<uint4*>(ob + row * so.n + (i % (HD / 8)) * 8) = uint4{};
         }
     };
-    if (BIAS && cw >= nwg) {
+    if (cw >= nwg) {
       zeros(0);
       return;
     }
-    if (SUBS == 2 && subs == 2)
-      consume<SUBS, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, nwg, q0,
-                          n, n_valid, n_tiles, scale);
+    if (ALONE && nwg == 1)
+      consume<1, BIAS, LC, true>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, q0,
+                                 n, n_valid, n_tiles, scale);
+    else if (SUBS == 2 && subs == 2)
+      consume<SUBS, BIAS, LC, false>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring,
+                                     q0, n, n_valid, n_tiles, scale);
     else
-      consume<1, BIAS>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, nwg, q0, n,
-                       n_valid, n_tiles, scale);
+      consume<1, BIAS, LC, false>(smem, s_k, s_v, bar_q, bar_k, bar_v, bar_e, ob, so.n, ring, q0,
+                                  n, n_valid, n_tiles, scale);
     zeros(subs);
   }
 }
@@ -1200,17 +1260,60 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Everything a tensor map is encoded from (the interleave, swizzle, L2
+// promotion and fill are the same for all of this file's maps). A map is a
+// pure function of these, so each thread keeps its last MAP_CACHE maps by
+// them: a launch whose operands lie where an earlier one's did (the caching
+// allocator hands a ViT's layers the same blocks) encodes nothing. Per
+// thread, so the service's replica threads share no state.
+struct MapKey {
+  const void* base;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  int dtype, rank;
+};
+constexpr int MAP_CACHE = 16;
+struct MapCache {
+  MapKey key[MAP_CACHE];
+  CUtensorMap map[MAP_CACHE];
+  int used = 0, next = 0;
+};
+
+static CUresult encode_cached(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
+                              const void* base, const cuuint64_t* dims,
+                              const cuuint64_t* strides, const cuuint32_t* box) {
+  static thread_local MapCache cache;
+  MapKey key;
+  memset(&key, 0, sizeof key);  // the padding too: keys are compared as bytes
+  key.base = base, key.dtype = static_cast<int>(dtype), key.rank = rank;
+  for (int d = 0; d < rank; ++d) key.dims[d] = dims[d], key.box[d] = box[d];
+  for (int d = 0; d + 1 < rank; ++d) key.strides[d] = strides[d];
+  for (int i = 0; i < cache.used; ++i)
+    if (memcmp(&cache.key[i], &key, sizeof key) == 0) {
+      *map = cache.map[i];
+      return CUDA_SUCCESS;
+    }
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode_tiled()(
+      map, dtype, rank, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res == CUDA_SUCCESS) {
+    cache.key[cache.next] = key, cache.map[cache.next] = *map;
+    cache.next = (cache.next + 1) % MAP_CACHE;
+    cache.used += cache.used < MAP_CACHE;
+  }
+  return res;
+}
+
 // [rows, 64] bf16 per (head, image) through element strides; box box_rows x 64
 static CUresult encode_map(CUtensorMap* map, const void* base, const Strides& s, int batch,
                            int heads, int rows, int box_rows) {
   const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(rows), cuuint64_t(heads),
                               cuuint64_t(batch)};
   const cuuint64_t strides[3] = {cuuint64_t(s.n) * 2, cuuint64_t(s.h) * 2, cuuint64_t(s.b) * 2};
-  const cuuint32_t box[4] = {HD, cuuint32_t(box_rows), 1, 1}, elem[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t box[4] = {HD, cuuint32_t(box_rows), 1, 1};
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
 // the [heads, n_valid, n_valid] bias (bias_kind 1: bf16, 2: float32) through
@@ -1221,41 +1324,93 @@ static CUresult encode_bias_map(CUtensorMap* map, const void* base, long long sh
   const int elt = bias_kind == 1 ? 2 : 4;
   const cuuint64_t dims[3] = {cuuint64_t(n_valid), cuuint64_t(n_valid), cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(sn) * elt, cuuint64_t(sh) * elt};
-  const cuuint32_t box[3] = {cuuint32_t(128 / elt), 64, 1}, elem[3] = {1, 1, 1};
-  return encode_tiled()(map, bias_kind == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                        3, const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t box[3] = {cuuint32_t(128 / elt), 64, 1};
+  return encode_cached(map, bias_kind == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       3, base, dims, strides, box);
+}
+
+// The dynamic shared memory a kernel takes, set once per device (a bit per
+// device in `done`; a device past 63 sets it every launch): the attribute
+// belongs to the current device, and setting it twice is harmless, so
+// threads that race both set it.
+template <typename Kernel>
+static cudaError_t smem_attribute(Kernel kernel, int bytes, int device,
+                                  std::atomic<unsigned long long>& done) {
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int BIAS, int LC, bool ALONE>
+static int launch_bf16_kernel(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                              const CUtensorMap& mb, void* o, const Strides& so,
+                              const Plan& plan, int n, int n_valid, float scale, int device,
+                              cudaStream_t st) {
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t attr = smem_attribute(attn_bf16_wgmma_kernel<BIAS, LC, ALONE>,
+                                          W_SMEM_OF<BIAS>, device, done);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attn_bf16_wgmma_kernel<BIAS, LC, ALONE><<<(plan.big + plan.small) * plan.batch * plan.heads,
+                                            W_THREADS, W_SMEM_OF<BIAS>, st>>>(
+      mq, mk, mv, mb, static_cast<__nv_bfloat16*>(o), so, plan, n, n_valid, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// whether a block of the plan holds no row < n_valid past its first 64
+// (the last block starts furthest in)
+static bool has_alone_block(const Plan& p, int n_valid) {
+  const int last = p.small ? WQ * p.big + 64 * NCW * (p.small - 1) : WQ * (p.big - 1);
+  return last + 64 >= n_valid;
 }
 
 template <int BIAS>
 static int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                       const CUtensorMap& mb, void* o, const Strides& so, int batch, int heads,
-                       int n, int n_valid, float scale, cudaStream_t st) {
-  // per launch, not once per process: the attribute belongs to the current device
-  const cudaError_t attr = cudaFuncSetAttribute(
-      attn_bf16_wgmma_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM_OF<BIAS>);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  attn_bf16_wgmma_kernel<BIAS><<<grid_of((n + WQ - 1) / WQ, batch, heads), W_THREADS,
-                                 W_SMEM_OF<BIAS>, st>>>(
-      mq, mk, mv, mb, static_cast<__nv_bfloat16*>(o), so, n, n_valid, scale);
-  return static_cast<int>(cudaGetLastError());
+                       const CUtensorMap& mb, void* o, const Strides& so, const Plan& plan,
+                       int n, int n_valid, float scale, int device, cudaStream_t st) {
+  if constexpr (BIAS != 0) {
+    switch (live_chunks(n_valid - (n_valid - 1) / WK * WK)) {
+      case 2:
+        return launch_bf16_kernel<BIAS, 2, true>(mq, mk, mv, mb, o, so, plan, n, n_valid, scale,
+                                                 device, st);
+      case 4:
+        return launch_bf16_kernel<BIAS, 4, true>(mq, mk, mv, mb, o, so, plan, n, n_valid, scale,
+                                                 device, st);
+      case 8:
+        return launch_bf16_kernel<BIAS, 8, true>(mq, mk, mv, mb, o, so, plan, n, n_valid, scale,
+                                                 device, st);
+      default:
+        return launch_bf16_kernel<BIAS, 16, true>(mq, mk, mv, mb, o, so, plan, n, n_valid,
+                                                  scale, device, st);
+    }
+  } else {
+    // Without a bias the last key tile is walked whole: a narrow tile's
+    // code in the kernel slowed its whole loop more than the tile saves
+    // (attention_contract_study.py --sections variants).
+    if (has_alone_block(plan, n_valid))
+      return launch_bf16_kernel<0, 16, true>(mq, mk, mv, mb, o, so, plan, n, n_valid, scale,
+                                             device, st);
+    return launch_bf16_kernel<0, 16, false>(mq, mk, mv, mb, o, so, plan, n, n_valid, scale,
+                                            device, st);
+  }
 }
 
 template <int BIAS>
 static int launch_f32(const void* q, const void* k, const void* v, void* o, void* ws,
                       const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
                       const CUtensorMap& mb, int batch, int heads, int n, int n_valid, float scale,
-                      cudaStream_t st) {
+                      int device, cudaStream_t st) {
   const int n_tiles = (n_valid + F_BK - 1) / F_BK;
   attn_pack_f32_kernel<<<grid_of(n_tiles, batch, heads), 256, 0, st>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<uint8_t*>(ws), sk,
       sv, heads, n_valid, n_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_f32_wgmma_kernel<BIAS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_OF<BIAS>);
+  static std::atomic<unsigned long long> done{0};
+  err = smem_attribute(attn_f32_wgmma_kernel<BIAS>, F_SMEM_OF<BIAS>, device, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_f32_wgmma_kernel<BIAS><<<grid_of((n + F_BQ - 1) / F_BQ, batch, heads), W_THREADS,
                                 F_SMEM_OF<BIAS>, st>>>(
@@ -1272,66 +1427,111 @@ extern "C" long long depthg_attention_workspace_bytes(int batch, int heads, int 
   return static_cast<long long>(batch) * heads * ((n_valid + F_BK - 1) / F_BK) * F_TILE_BYTES;
 }
 
-// Launch on `stream`. Returns 0 when launched, cudaGetLastError() when the
-// launch was refused, cudaErrorInvalidValue when an operand's strides are
-// negative (a tensor map cannot express them), 10000 when libcuda has no
-// tensor-map encoder and 10000 + its CUresult when it refuses a map. Pointers,
-// strides and n_valid are validated by the Python wrapper
-// (depthg_tpu_torch/ops/attention.py): head_dim 64, contiguous last axis,
-// 16-byte aligned base and strides, 1 <= n_valid <= n; a bias (bias_kind 1:
-// bf16, 2: float32; 0: none) of shape [heads, n, n] with element strides
-// (bias_sh, bias_sn, 1), both multiples of 8, a 16-byte aligned base.
-// The bf16 kernel reads q, k and v, and both kernels the bias, through
-// tensor maps made here from those pointers and strides (a launch, maps
-// included, takes ~30 us of host time; they are not cached).
-// The float32 entry takes a device workspace of
-// depthg_attention_workspace_bytes (cudaErrorInvalidValue without one): a
-// pack kernel writes the split K and V there, then the attention kernel runs.
-extern "C" int depthg_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
-    long long q_sb, long long q_sh, long long q_sn,
-    long long k_sb, long long k_sh, long long k_sn,
-    long long v_sb, long long v_sh, long long v_sn,
-    long long o_sb, long long o_sh, long long o_sn,
-    const void* bias, long long bias_sh, long long bias_sn, int bias_kind,
-    int batch, int heads, int n, int n_valid, float scale, int is_bf16,
-    void* workspace, void* stream) {
-  const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
-  const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
-  if (bias_kind < 0 || bias_kind > 2 || (bias_kind != 0 && bias == nullptr))
+// The launch's arguments, one struct passed by address: the wrapper packs
+// them in this order (ops/attention.py ARGS, held to sizeof at load).
+// Strides are in elements, of (batch, head, token); big_blocks is the
+// number of 256-row blocks per (image, head) of the bf16 grid (Plan).
+struct LaunchArgs {
+  const void *q, *k, *v;
+  void* o;
+  const void* bias;
+  void* workspace;
+  void* stream;
+  long long q_s[3], k_s[3], v_s[3], o_s[3];
+  long long bias_sh, bias_sn;
+  int bias_kind, batch, heads, n, n_valid, is_bf16, device, big_blocks;
+  float scale;
+};
+
+extern "C" int depthg_attention_args_bytes() { return static_cast<int>(sizeof(LaunchArgs)); }
+
+// Makes `device` current for a launch and gives the caller's device back.
+struct DeviceGuard {
+  int prev = -1, err = 0;
+  bool switched = false;
+  explicit DeviceGuard(int device) {
+    err = static_cast<int>(cudaGetDevice(&prev));
+    if (err == 0 && prev != device) {
+      err = static_cast<int>(cudaSetDevice(device));
+      switched = err == 0;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched) cudaSetDevice(prev);
+  }
+};
+
+static int attention_launch(const LaunchArgs& a) {
+  const Strides sq{a.q_s[0], a.q_s[1], a.q_s[2]}, sk{a.k_s[0], a.k_s[1], a.k_s[2]};
+  const Strides sv{a.v_s[0], a.v_s[1], a.v_s[2]}, so{a.o_s[0], a.o_s[1], a.o_s[2]};
+  if (a.bias_kind < 0 || a.bias_kind > 2 || (a.bias_kind != 0 && a.bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(a.stream);
   CUtensorMap mb{};  // read only by the kernels that take a bias
-  if (bias_kind != 0) {
-    if (bias_sh <= 0 || bias_sn <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.bias_kind != 0) {
+    if (a.bias_sh <= 0 || a.bias_sn <= 0) return static_cast<int>(cudaErrorInvalidValue);
     if (!encode_tiled()) return 10000;
-    const CUresult res = encode_bias_map(&mb, bias, bias_sh, bias_sn, bias_kind, heads, n_valid);
+    const CUresult res =
+        encode_bias_map(&mb, a.bias, a.bias_sh, a.bias_sn, a.bias_kind, a.heads, a.n_valid);
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
   }
-  if (is_bf16) {
+  if (a.is_bf16) {
     auto positive = [](const Strides& s) { return s.b > 0 && s.h > 0 && s.n > 0; };
     if (!positive(sq) || !positive(sk) || !positive(sv))
       return static_cast<int>(cudaErrorInvalidValue);
+    if (a.big_blocks < 0 || a.big_blocks > (a.n + WQ - 1) / WQ)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rest = a.n - WQ * a.big_blocks;
+    const Plan plan{a.big_blocks, rest > 0 ? (rest + 64 * NCW - 1) / (64 * NCW) : 0, a.batch,
+                    a.heads};
     if (!encode_tiled()) return 10000;
     // the token extent is n_valid: rows past it arrive as zeros
     CUtensorMap mq, mk, mv;
-    CUresult res = encode_map(&mq, q, sq, batch, heads, n_valid, 64);
-    if (res == CUDA_SUCCESS) res = encode_map(&mk, k, sk, batch, heads, n_valid, WK);
-    if (res == CUDA_SUCCESS) res = encode_map(&mv, v, sv, batch, heads, n_valid, WK);
+    CUresult res = encode_map(&mq, a.q, sq, a.batch, a.heads, a.n_valid, 64);
+    if (res == CUDA_SUCCESS) res = encode_map(&mk, a.k, sk, a.batch, a.heads, a.n_valid, WK);
+    if (res == CUDA_SUCCESS) res = encode_map(&mv, a.v, sv, a.batch, a.heads, a.n_valid, WK);
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
-    if (bias_kind == 1)
-      return launch_bf16<1>(mq, mk, mv, mb, o, so, batch, heads, n, n_valid, scale, st);
-    if (bias_kind == 2)
-      return launch_bf16<2>(mq, mk, mv, mb, o, so, batch, heads, n, n_valid, scale, st);
-    return launch_bf16<0>(mq, mk, mv, mb, o, so, batch, heads, n, n_valid, scale, st);
+    if (a.bias_kind == 1)
+      return launch_bf16<1>(mq, mk, mv, mb, a.o, so, plan, a.n, a.n_valid, a.scale, a.device, st);
+    if (a.bias_kind == 2)
+      return launch_bf16<2>(mq, mk, mv, mb, a.o, so, plan, a.n, a.n_valid, a.scale, a.device, st);
+    return launch_bf16<0>(mq, mk, mv, mb, a.o, so, plan, a.n, a.n_valid, a.scale, a.device, st);
   }
-  if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (bias_kind == 1)
-    return launch_f32<1>(q, k, v, o, workspace, sq, sk, sv, so, mb, batch, heads, n, n_valid,
-                         scale, st);
-  if (bias_kind == 2)
-    return launch_f32<2>(q, k, v, o, workspace, sq, sk, sv, so, mb, batch, heads, n, n_valid,
-                         scale, st);
-  return launch_f32<0>(q, k, v, o, workspace, sq, sk, sv, so, mb, batch, heads, n, n_valid, scale,
-                       st);
+  if (a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.bias_kind == 1)
+    return launch_f32<1>(a.q, a.k, a.v, a.o, a.workspace, sq, sk, sv, so, mb, a.batch, a.heads,
+                         a.n, a.n_valid, a.scale, a.device, st);
+  if (a.bias_kind == 2)
+    return launch_f32<2>(a.q, a.k, a.v, a.o, a.workspace, sq, sk, sv, so, mb, a.batch, a.heads,
+                         a.n, a.n_valid, a.scale, a.device, st);
+  return launch_f32<0>(a.q, a.k, a.v, a.o, a.workspace, sq, sk, sv, so, mb, a.batch, a.heads,
+                       a.n, a.n_valid, a.scale, a.device, st);
+}
+
+// Launch on `stream`, on `device` (made current for the launch when it is
+// not). Returns 0 when launched, cudaGetLastError() when the launch was
+// refused, cudaErrorInvalidValue when an operand's strides are negative (a
+// tensor map cannot express them) or big_blocks is past ceil(n / 256),
+// 10000 when libcuda has no tensor-map encoder and 10000 + its CUresult when
+// it refuses a map. Pointers, strides and n_valid are validated by the
+// Python wrapper (depthg_tpu_torch/ops/attention.py): head_dim 64,
+// contiguous last axis, 16-byte aligned base and strides, 1 <= n_valid <=
+// n; a bias (bias_kind 1: bf16, 2: float32; 0: none) of shape [heads, n, n]
+// with element strides (bias_sh, bias_sn, 1), both multiples of 8, a 16-byte
+// aligned base.
+// The bf16 kernel reads q, k and v, and both kernels the bias, through
+// tensor maps made here from those pointers and strides (kept per thread,
+// encode_cached); the shared-memory attribute is set once per device. A
+// launch takes 9-16 us of host time through ops/attention.py _launch and
+// 18-24 us through attention_qkv, against the 27-49 and 61-102 us of the
+// entry that took 28 arguments, encoded every map and set the attribute on
+// every launch (NVIDIA H100 80GB HBM3, 700.00 W; attention_contract_study.py
+// --sections host, which splits where the time goes).
+// The float32 entry takes a device workspace of
+// depthg_attention_workspace_bytes (cudaErrorInvalidValue without one): a
+// pack kernel writes the split K and V there, then the attention kernel runs.
+extern "C" int depthg_attention_launch(const LaunchArgs* args) {
+  const DeviceGuard guard(args->device);
+  if (guard.err != 0) return guard.err;
+  return attention_launch(*args);
 }

@@ -47,7 +47,12 @@ dtypes, no bias or a bias in either dtype, N from 1 to 1664 against every
 n_valid that crosses a sub-tile, block or key tile) and K4 (N across its
 tiles, C across its chunks, the degree entry) into output memory that
 held NaN, proved by the output's address: an element a kernel leaves
-unwritten cannot pass by chance.
+unwritten cannot pass by chance. The small-grid slice adds that sweep at
+the grids the bias-free bf16 kernel chooses (``block_plan``: B=1-8 at
+N=1601 with n_valid across the 128- and 256-row block edges, and N=769,
+785 and 1201, whose last block one warpgroup walks), every grid choice
+forced on poisoned output with the chosen grid's bits, and a bias-free
+batch equal to its images one by one.
 """
 
 import pytest
@@ -1141,6 +1146,71 @@ DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=[
 def test_attention_kernel_contract_on_poisoned_output(cuda, n, n_valid, heads, b, dtype,
                                                       bias_dtype):
     _k1_contract(b, n, n_valid, heads, dtype, bias_dtype)
+
+
+# (B, N, n_valid, heads) at the grids the bias-free bf16 kernel chooses
+# (``block_plan``): the serving buckets' B=1-8 at N=1601 with n_valid across
+# the 128-row and 256-row block edges, and the narrow last key tiles (one
+# warpgroup on the last block) of MiDaS (N=769), the train step (N=785) and
+# NYU's 480 x 640 (N=1201)
+K1_GRID_SWEEP = ([pytest.param(b, 1601, nv, 6, id=f"b{b}_n1601_valid{nv}_h6")
+                  for b in (1, 2, 4, 8) for nv in (127, 128, 129, 1536, 1537, 1600, 1601)]
+                 + [pytest.param(*case, id="b{}_n{}_valid{}_h{}".format(*case))
+                    for case in ((8, 769, 769, 16), (8, 769, 641, 16), (32, 785, 785, 6),
+                                 (32, 785, 721, 6), (1, 1201, 1201, 16), (4, 1201, 1153, 6))])
+
+
+@BIASES
+@DTYPES
+@pytest.mark.parametrize("b,n,n_valid,heads", K1_GRID_SWEEP)
+def test_attention_kernel_grid_contract_on_poisoned_output(cuda, b, n, n_valid, heads, dtype,
+                                                           bias_dtype):
+    _k1_contract(b, n, n_valid, heads, dtype, bias_dtype)
+
+
+@pytest.mark.parametrize("b,n,n_valid,heads", [(2, 1601, 1601, 6), (2, 1601, 1537, 6),
+                                               (1, 769, 769, 16), (3, 785, 721, 2),
+                                               (2, 1201, 1201, 2), (1, 300, 129, 2)])
+def test_attention_kernel_every_grid_on_poisoned_output(cuda, monkeypatch, b, n, n_valid, heads):
+    """The bf16 kernel without a bias at every grid its C entry takes (256-row
+    blocks per (image, head) from ceil(N / 256) down to 0, the rest 128-row
+    blocks), each into memory that held NaN: rows >= n_valid exactly 0, the
+    others within TOL of the plain version, and the bits of the grid
+    ``block_plan`` chooses (every row walks the same key tiles in the same
+    order)."""
+    gen = torch.Generator().manual_seed(n + n_valid)
+    qkv = torch.randn(b, n, 3 * 64 * heads, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = tatt.split_qkv(qkv, heads)
+    ref = tatt.attention_plain(q, k, v, 0.125, n_valid)
+    chosen = tatt.attention_qkv(qkv, heads, 0.125, n_valid)
+
+    def launch():
+        out = torch.empty(b, n, heads, 64, device=cuda, dtype=torch.bfloat16)
+        tatt._launch(q, k, v, out.permute(0, 2, 1, 3), 0.125, n_valid)
+        return out
+
+    for big in range(-(-n // 256) + 1):
+        monkeypatch.setattr(tatt, "block_plan", lambda *args, big=big, **kwargs: big)
+        before = tatt.KERNEL.launches
+        out = poisoned(launch, (b, n, heads, 64), torch.bfloat16)
+        torch.cuda.synchronize()
+        assert tatt.KERNEL.launches == before + 1
+        assert not torch.isnan(out).any(), big
+        assert torch.all(out[:, n_valid:] == 0), big
+        _assert_close(out[:, :n_valid].permute(0, 2, 1, 3), ref[:, :, :n_valid], torch.bfloat16)
+        assert torch.equal(out.reshape(chosen.shape), chosen), big
+
+
+@pytest.mark.parametrize("n,heads", [(1601, 6), (769, 16)])
+def test_attention_kernel_batch_equals_image_by_image(cuda, n, heads):
+    """Without a bias, a batch of 8 (256- and 128-row blocks, ``block_plan``)
+    gives each image the bits it gets alone (at N=1601 on a grid of 128-row
+    blocks only)."""
+    gen = torch.Generator().manual_seed(n)
+    qkv = torch.randn(8, n, 3 * 64 * heads, generator=gen).to(cuda, torch.bfloat16)
+    out = tatt.attention_qkv(qkv, heads, 0.125)
+    alone = torch.cat([tatt.attention_qkv(qkv[i:i + 1], heads, 0.125) for i in range(8)])
+    torch.testing.assert_close(out, alone, rtol=0, atol=0)
 
 
 @DTYPES
