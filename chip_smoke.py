@@ -226,7 +226,15 @@ final line):
     MiDaS over phase 12's images (48 K1 launches per batch, all with the
     bias, and 24; 8-bit PNGs of each image's size) and one 384 x 512 batch
     of 8 beside bf16, in turns; two steps of ``train_crf.main`` on a
-    two-image Coco layout.
+    two-image Coco layout;
+20. bench (before phase 17's lines): ``python -m depthg_tpu_torch.bench`` at
+    full size in a process of its own, its JSON line printed: exit 0, the
+    ``default`` headline, all four points measured, no ``*_error`` and no
+    fall-back, K1 launches per eval step 24 / 24 / 24 / 0 (``safe`` runs the
+    eager attention) and 24 per train step with each backbone, the card's
+    name and power limit as its ``device``; then ``step_flops`` of one
+    smoke-size eval step (the bench's smoke setup, 128 px, batch 2) from
+    one set of weights, equal on the card (24 K1 launches) and on the CPU.
 """
 
 import copy
@@ -471,9 +479,11 @@ def attention_bound(b, n, h, dtype=torch.bfloat16, bias_bytes=0):
     or 4 B H N^2 64 operations at the peak of the kernel's arithmetic,
     whichever is larger. bf16: the tensor cores. float32: split TF32, three
     TF32 products each (``attention_fma_bound`` is the FMA pipes' figure)."""
+    from depthg_tpu_torch.utils.profiling import attention_flops
+
     bf16 = dtype == torch.bfloat16
     bytes_ms = (4 * b * h * n * 64 * (2 if bf16 else 4) + bias_bytes) / PEAK_HBM * 1e3
-    ops = 4.0 * b * h * n * n * 64
+    ops = attention_flops(b, h, n, n)
     ops_ms = (ops / PEAK_BF16 if bf16 else 3 * ops / PEAK_TF32) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
 
@@ -481,7 +491,9 @@ def attention_bound(b, n, h, dtype=torch.bfloat16, bias_bytes=0):
 def attention_fma_bound(b, n, h):
     """A yardstick for the float32 kernel: its 4 B H N^2 64 operations on
     the FMA pipes, where a float32 kernel without the tensor cores runs."""
-    return 4.0 * b * h * n * n * 64 / PEAK_F32 * 1e3
+    from depthg_tpu_torch.utils.profiling import attention_flops
+
+    return attention_flops(b, h, n, n) / PEAK_F32 * 1e3
 
 
 def bilateral_bound(b, n, c, itemsize, clock_mhz, degree=False):
@@ -496,17 +508,23 @@ def bilateral_bound(b, n, c, itemsize, clock_mhz, degree=False):
     writes one float32 a point and sums each row on the FP32 pipes, one add
     per entry, in place of the product. The pipes run side by side, so the
     slowest sets the bound; ``bilateral_algorithm_bound`` and
-    ``bilateral_fma_bound`` are yardsticks of this kernel's own algorithm."""
+    ``bilateral_fma_bound`` are yardsticks of this kernel's own algorithm.
+    The operation counts are ``utils.profiling``'s, which ``step_flops`` uses."""
+    from depthg_tpu_torch.utils.profiling import (bilateral_degree_adds,
+                                                  bilateral_exponent_flops,
+                                                  bilateral_product_flops)
+
     entries = float(b) * n * n
     ex2_ms = entries / (16 * SMS * clock_mhz * 1e6) * 1e3
-    exponent = 3 * entries * 2 * 8 / PEAK_TF32
+    exponent = 3 * bilateral_exponent_flops(b, n) / PEAK_TF32
     if degree:
         bytes_ms = b * n * 24 / PEAK_HBM * 1e3
-        ops_ms = max(ex2_ms, exponent * 1e3, entries / (PEAK_F32 / 2) * 1e3)
+        ops_ms = max(ex2_ms, exponent * 1e3,
+                     bilateral_degree_adds(b, n) / (PEAK_F32 / 2) * 1e3)
     else:
         bytes_ms = b * n * (20 + 2 * c * itemsize) / PEAK_HBM * 1e3
-        product = (3 * entries * 2 * c / PEAK_TF32 if itemsize == 4
-                   else entries * 2 * c / PEAK_BF16)
+        product = (3 * bilateral_product_flops(b, n, c) / PEAK_TF32 if itemsize == 4
+                   else bilateral_product_flops(b, n, c) / PEAK_BF16)
         ops_ms = max(ex2_ms, (exponent + product) * 1e3)
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
 
@@ -1093,7 +1111,7 @@ def train_path_phase(att, bil, inference, featurizer, gen):
     lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps",
                                    depth_feat_correlation_loss=True)
     w, sh = profile_train.DEPTH_FEAT_WEIGHT, profile_train.DEPTH_FEAT_SHIFT
-    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), "cuda")
+    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), device="cuda")
     n_params = {name: sum(p.numel() for g in opt.param_groups for p in g["params"])
                 for name, opt in state.opt.items()}
     batch = profile_train.synthetic_batch(TRAIN_B, TRAIN_RES, 27, gen)
@@ -2262,7 +2280,7 @@ def variants_path_phase(att, bil, inference, crf, gen, tmp):
     for name, overrides, per_step in VARIANTS:
         fcfg, hp = profile_train.variant(
             overrides, step_lib.TrainHParams(n_classes=27, backbone_dtype="bfloat16"))
-        state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), "cuda")
+        state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), device="cuda")
         net = state.model.net
         frozen = {"model." + k: v.clone() for k, v in net.model.state_dict().items()}
         if state.lhp is not None:
@@ -2443,7 +2461,7 @@ def _par_train_setup(featurizer, dtype):
     lcfg = loss_lib.CorrLossConfig(feature_samples=11, neg_samples=5, depth_sampling="fps",
                                    depth_feat_correlation_loss=True)
     state = step_lib.init_state(featurizer.FeaturizerConfig(), hp,
-                                torch.Generator().manual_seed(0), "cuda")
+                                torch.Generator().manual_seed(0), device="cuda")
     batch = profile_train.synthetic_batch(TRAIN_B, TRAIN_RES, 27,
                                           torch.Generator(device="cuda").manual_seed(11))
     return state, batch, hp, lcfg
@@ -2840,8 +2858,10 @@ def int8_linear_bound_ms(m, k, n):
     """Least ms for one w8a8 linear: the bf16 input, the int8 weight, its
     scales and bias read and the bf16 output written once over the memory
     rate, or 2 MNK int8 operations over the int8 peak."""
+    from depthg_tpu_torch.utils.profiling import int8_matmul_flops
+
     nbytes = 2 * m * k + k * n + 8 * n + 2 * m * n
-    return max(nbytes / PEAK_HBM, 2 * m * n * k / PEAK_INT8) * 1e3
+    return max(nbytes / PEAK_HBM, int8_matmul_flops(m, k, n) / PEAK_INT8) * 1e3
 
 
 def bf16_linear_bound_ms(m, k, n):
@@ -3053,7 +3073,7 @@ def int8_path_phase(att, bil, inference, featurizer, crf, gen, tmp, card):
     runs = {}
     for d in ("bfloat16", "int8"):
         hp = step_lib.TrainHParams(n_classes=27, backbone_dtype=d)
-        state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), "cuda")
+        state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), device="cuda")
         vit = [p.detach().clone() for p in state.model.net.model.parameters()]
         runs[d] = {"hp": hp, "state": state, "vit": vit, "ms": [], "logs": []}
 
@@ -3180,6 +3200,76 @@ def int8_path_phase(att, bil, inference, featurizer, crf, gen, tmp, card):
     return out
 
 
+# the bench (``python -m depthg_tpu_torch.bench``) at full size: seconds for
+# the whole run and for each of its child phases; K1 launches per eval step
+# by point (``safe`` runs the eager attention) and per train step by backbone
+BENCH_TIMEOUT_S, BENCH_PHASE_TIMEOUT_S = 600, 300
+BENCH_K1_PER_STEP = {"default": 24, "quality_plus": 24, "fast": 24, "safe": 0}
+BENCH_TRAIN_K1_PER_STEP = {"bfloat16": 24, "float32": 24, "int8": 24}
+
+
+def bench_phase(att, inference, card):
+    """Phase 20: the bench at full size in a process of its own (its phases
+    in children of that process), its JSON line printed on its own line;
+    then ``step_flops`` of one smoke-size eval step from the same weights
+    on the card and on the CPU, which must be equal."""
+    from depthg_tpu_torch import bench
+    from depthg_tpu_torch.utils.profiling import step_flops
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update({"PYTHONPATH": ROOT, "BENCH_PHASE_TIMEOUT_S": str(BENCH_PHASE_TIMEOUT_S)})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "depthg_tpu_torch.bench"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench: rc {proc.returncode}, stdout {proc.stdout[-2000:]!r}, "
+                             f"stderr {proc.stderr[-4000:]!r}")
+    out = json.loads(lines[-1])
+    print(json.dumps(out), flush=True)
+    errors = sorted(k for k in out if k.endswith("_error") or k == "eval_fallback_reason")
+    if out["value"] is None or out["operating_point"] != "default" or errors:
+        raise AssertionError(f"bench: value {out['value']}, point {out.get('operating_point')}, "
+                             f"errors {[(k, out[k]) for k in errors]}")
+    if sorted(out["points_img_per_sec"]) != sorted(bench.EVAL_POINTS):
+        raise AssertionError(f"bench measured {sorted(out['points_img_per_sec'])}")
+    if out["k1_launches_per_step"] != BENCH_K1_PER_STEP:
+        raise AssertionError(f"bench K1 launches per eval step {out['k1_launches_per_step']}, "
+                             f"want {BENCH_K1_PER_STEP}")
+    if out["train_k1_launches_per_step"] != BENCH_TRAIN_K1_PER_STEP:
+        raise AssertionError(f"bench K1 launches per train step "
+                             f"{out['train_k1_launches_per_step']}")
+    if out["device"] != card or out["eval_hw_util"] is None or out["train_hw_util"] is None:
+        raise AssertionError(f"bench device {out['device']!r} (card {card!r}), utilization "
+                             f"{out['eval_hw_util']}, {out['train_hw_util']}")
+
+    # one smoke-size eval step (the bench's smoke setup) from one set of
+    # weights: the count through the kernels on the card and through the
+    # plain versions on the CPU
+    fcfg, ecfg, res = bench._eval_setup("default", smoke=True)
+    b = bench.eval_sizes(smoke=True)["batch"]
+    cpu_model = bench.eval_model(fcfg, torch.device("cpu"))
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randn(b, 3, res, res, generator=gen)
+    label = torch.randint(-1, 27, (b, res, res), generator=gen)
+    step = inference.make_eval_step(ecfg)
+    launches = att.KERNEL.launches
+    flops_card = step_flops(step, card_model, img.cuda(), label.cuda())
+    launches = att.KERNEL.launches - launches
+    flops_cpu = step_flops(step, cpu_model, img, label)
+    if flops_card != flops_cpu or launches != BENCH_K1_PER_STEP["default"]:
+        raise AssertionError(f"step_flops card {flops_card} vs CPU {flops_cpu} "
+                             f"({launches} K1 launches on the card)")
+    phase("bench", seconds=seconds, value=out["value"], host_img_per_sec=out["host_img_per_sec"],
+          points_img_per_sec=out["points_img_per_sec"],
+          train_step_ms_b16=out["train_step_ms_b16"], eval_hw_util=out["eval_hw_util"],
+          smoke_step_flops_card=flops_card, smoke_step_flops_cpu=flops_cpu,
+          smoke_step_k1_launches_card=launches)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -3247,6 +3337,7 @@ def main():
         par_res = parallel_path_phase(att, bil, inference, featurizer, crf, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         int8_res = int8_path_phase(att, bil, inference, featurizer, crf, gen, tmp, card)
+    bench_phase(att, inference, card)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")

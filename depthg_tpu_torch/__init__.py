@@ -15,7 +15,7 @@ reader), ``utils.figures`` and the entry modules
 ``eval_segmentation``, ``train_segmentation``, ``serve``, ``serve_loadgen``,
 ``demo_segmentation``, ``crop_datasets``, ``precompute_knns``,
 ``crf_fidelity_study``, ``profile_eval``, ``profile_train``,
-``profile_serve`` and ``profile_knn``. This package imports torch and never
+``profile_serve``, ``profile_knn`` and ``bench`` (with ``utils.profiling``). This package imports torch and never
 jax.
 """
 

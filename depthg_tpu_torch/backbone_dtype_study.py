@@ -89,7 +89,7 @@ def run_one(backbone_dtype, seed, steps, batch, res, n_train, n_val,
     labels_d = torch.from_numpy(labels).long().to(device)
     train_img, train_depth, train_label = imgs_d[:n_train], depths_d[:n_train], labels_d[:n_train]
 
-    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(seed), device)
+    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(seed), device=device)
     with torch.no_grad():  # KNN positives over the pooled float32 backbone features
         pooled = torch.cat([pooled_features(state.model.net, train_img[i:i + 16])
                             for i in range(0, n_train, 16)])

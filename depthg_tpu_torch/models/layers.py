@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from depthg_tpu_torch.parallel import dist
+from depthg_tpu_torch.utils.profiling import counted, int8_matmul_flops
 
 
 class LayerNorm(nn.LayerNorm):
@@ -121,9 +122,11 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(x / s).to(torch.int8), s
 
 
+@counted(lambda a, w_q: int8_matmul_flops(*a.shape, w_q.shape[0]))
 def int8_matmul(a: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """[M, K] int8 x [N, K] int8 (a linear's [out, in] weight) -> [M, N]
-    int32 sums by ``torch._int_mm`` on ``w_q.t()``, column-major [K, N].
+    int32 sums by ``torch._int_mm`` on ``w_q.t()``, column-major [K, N]
+    (counted for ``step_flops`` as 2 M K N, padding rows excluded).
     ``_int_mm`` on CUDA needs M > 16 and K, N multiples of 8: fewer rows are
     padded with zero rows (their sums are 0 and are dropped); K or N off a
     multiple of 8 raises."""

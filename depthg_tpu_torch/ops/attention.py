@@ -41,6 +41,8 @@ wrappers here:
   need a gradient through it (grad mode on and ``qkv`` or the bias
   requiring one) raises instead of returning a result without a
   ``grad_fn``; a caller that trains passes ``attn_impl="xla"``.
+* ``attention_qkv`` counts its work from the shapes for
+  ``utils.profiling.step_flops`` (``counted``), the same on both devices.
 * ``KERNEL.launches`` counts kernel launches (one per call, all heads and
   images, with or without a bias), so a run can show that it went through
   the kernel; ``KERNEL.bias_launches`` counts those that carried a bias,
@@ -69,6 +71,7 @@ import types
 import torch
 
 from depthg_tpu_torch.ops import _build
+from depthg_tpu_torch.utils.profiling import attention_flops, counted
 
 HEAD_DIM = 64
 # the C entry's LaunchArgs: q, k, v, o, bias, workspace and stream pointers;
@@ -353,6 +356,13 @@ def split_qkv(qkv: torch.Tensor, num_heads: int):
     return (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))
 
 
+def _qkv_flops(qkv, num_heads, scale, n_valid=None, bias=None):
+    b, n, d3 = qkv.shape
+    return attention_flops(b, num_heads, n, n if n_valid is None else int(n_valid),
+                           d3 // (3 * num_heads))
+
+
+@counted(_qkv_flops)
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                   n_valid: int | None = None,
                   bias: torch.Tensor | None = None) -> torch.Tensor:

@@ -43,6 +43,7 @@ import torch
 from depthg_tpu_torch.ops.crf_bilateral import bilateral_degree, bilateral_message, \
     row_blocks
 from depthg_tpu_torch.ops.resize import resize_bilinear
+from depthg_tpu_torch.utils.profiling import counted, int8_matmul_flops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,8 +215,10 @@ def _cache_kernel(feats: torch.Tensor, ccfg: CRFConfig, dt) -> torch.Tensor:
     return out
 
 
+@counted(lambda kmat, z8: z8.shape[0] * int8_matmul_flops(kmat.shape[1], *z8.shape[1:]))
 def _int8_matmul(kmat: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:
-    """[B, N, N] int8 @ [B, N, C] int8 -> [B, N, C] (int32 sums as float32).
+    """[B, N, N] int8 @ [B, N, C] int8 -> [B, N, C] (int32 sums as float32),
+    counted for ``step_flops`` as B [N, N] x [N, C] products (C unpadded).
 
     CUDA: ``torch._int_mm`` per image, with C zero-padded to a multiple of 8
     (its constraint) and the right operand column-major. CPU: float64, which

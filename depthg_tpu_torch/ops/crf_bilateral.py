@@ -32,6 +32,8 @@ to float32's limits), the plain version in float32.
 * ``bilateral_degree`` is K @ 1 in float32 (the CRF's normalizer, once per
   call): the kernel's degree entry on CUDA tensors (row sums of the entries,
   no value product), the plain version on ones on the CPU.
+* Both entries count their work from the shapes for
+  ``utils.profiling.step_flops`` (``counted``), the same on both devices.
 * ``KERNEL.launches`` counts kernel launches (one per call, whole batch);
   ``KERNEL.f32_launches`` those of the float32 message.
 
@@ -52,6 +54,8 @@ import types
 import torch
 
 from depthg_tpu_torch.ops import _build
+from depthg_tpu_torch.utils.profiling import (bilateral_degree_flops,
+                                              bilateral_message_flops, counted)
 
 N_FEATURES = 5
 # entries of one [B, rows, N] block of kernel entries, in the plain version
@@ -187,6 +191,7 @@ def _launch(feats, values, out):
     return out
 
 
+@counted(lambda feats, values: bilateral_message_flops(*values.shape))
 def bilateral_message(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """K @ values per image: [B, N, 5] float32, [B, N, C] -> [B, N, C] in the
     values' dtype. The kernel on CUDA tensors, the plain version on CPU ones."""
@@ -201,6 +206,7 @@ def bilateral_message(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor
                                               device=values.device))
 
 
+@counted(lambda feats: bilateral_degree_flops(*feats.shape[:2]))
 def bilateral_degree(feats: torch.Tensor) -> torch.Tensor:
     """K @ 1 per image, float32: [B, N, 5] float32 -> [B, N, 1]."""
     _check_feats(feats)

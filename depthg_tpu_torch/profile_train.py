@@ -123,7 +123,7 @@ def main(argv=None) -> dict:
     fcfg, hp = variant(args.overrides, step_lib.TrainHParams(
         n_classes=27, backbone_dtype="bfloat16", fused_pair_forward=args.fused_pair_forward))
     lcfg = loss_lib.CorrLossConfig(feature_samples=args.feature_samples)
-    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), dev)
+    state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = [perturbed(synthetic_batch(b, args.res, 27, gen), i) for i in range(4)]
     w, sh = DEPTH_FEAT_WEIGHT, DEPTH_FEAT_SHIFT

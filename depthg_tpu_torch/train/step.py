@@ -191,11 +191,11 @@ def state_from_model(model: Segmenter, hp: TrainHParams,
     return TrainState(model=model, opt=make_optimizers(model, hp), step=0, lhp=lhp)
 
 
-def init_state(fcfg, hp: TrainHParams, generator: torch.Generator,
-               device: torch.device | str = "cpu") -> TrainState:
+def init_state(fcfg, hp: TrainHParams, generator: torch.Generator, *,
+               device: torch.device | str) -> TrainState:
     """A random-weight train state from ``generator`` (a CPU generator: the
     weights, and then the LHP head's, are drawn on the host and moved to
-    ``device``). ``fcfg`` is any featurizer config."""
+    ``device``, which the caller names). ``fcfg`` is any featurizer config."""
     model = Segmenter(fcfg, hp.n_classes, hp.n_classes + hp.extra_clusters,
                       decoder=True).init_weights(generator).to(device)
     return state_from_model(model, hp, generator)

@@ -171,6 +171,15 @@ def main(argv=None) -> dict:
 
     if cfg.arch not in ("dino", "dino_depth", "feature-pyramid"):
         raise NotImplementedError(f"arch={cfg.arch}")
+    if cfg.arch == "feature-pyramid" and float(cfg.get("rec_weight", 0)) > 0:
+        # broken in the reference too: its decoder maps dim -> n_feats where
+        # FeaturePyramidNet.n_feats = dim (src/modules.py:709), but the rec
+        # loss dots rec_feats against the 2048-channel 7x7 low_res_feats
+        # (src/train_segmentation.py:392-397) — shape mismatch either way.
+        # Every shipped config keeps rec_weight=0 for this arch.
+        raise NotImplementedError(
+            "rec_weight > 0 is unsupported for arch=feature-pyramid (the "
+            "reference's own decoder/feats shapes disagree there)")
     if str(cfg.get("resume") or "").endswith(".pkl"):
         raise NotImplementedError(
             f"resume={cfg.resume}: the JAX trainer's pickled optax state needs JAX "

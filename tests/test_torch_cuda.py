@@ -927,7 +927,7 @@ def test_dino_depth_step_launches_k1_24_times(cuda):
 
     fcfg = DepthFeaturizerConfig(guidance="cross_attn", vit_config=ViTConfig(depth=2))
     hp = step.TrainHParams(n_classes=27, backbone_dtype="bfloat16")
-    state = step.init_state(fcfg, hp, torch.Generator().manual_seed(0), cuda)
+    state = step.init_state(fcfg, hp, torch.Generator().manual_seed(0), device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     batch = {"img": torch.randn(4, 3, 224, 224, device=cuda, generator=gen),
              "img_pos": torch.randn(4, 3, 224, 224, device=cuda, generator=gen),
@@ -980,7 +980,7 @@ def test_variant_train_and_eval_steps_on_the_card(cuda, arch, kw):
     fcfg = (DepthFeaturizerConfig(vit_config=ViTConfig(depth=2), **kw) if arch == "dino_depth"
             else PyramidConfig(**kw))
     hp = step.TrainHParams(n_classes=27, backbone_dtype="bfloat16")
-    state = step.init_state(fcfg, hp, torch.Generator().manual_seed(0), cuda)
+    state = step.init_state(fcfg, hp, torch.Generator().manual_seed(0), device=cuda)
     frozen = {k: v.clone() for k, v in state.model.net.model.state_dict().items()}
     gen = torch.Generator(device=cuda).manual_seed(0)
     batch = {"img": torch.randn(2, 3, 224, 224, device=cuda, generator=gen),

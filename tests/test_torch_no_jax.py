@@ -22,7 +22,9 @@ reader of ``utils.checkpoint_io``), and after the int8 slice (an eval step,
 a train step and a validation step with ``backbone_dtype="int8"``, a tiny
 ZoeDepth and DPT_Large through ``generate_depth.to_dtype(..., "int8")``,
 the CRF playground ``train_crf``, ``potsdam_ops``,
-``load_pretrained_model_cfg`` and ``backbone_dtype_study``); no source
+``load_pretrained_model_cfg`` and ``backbone_dtype_study``), and after
+importing the bench and ``utils.profiling`` (and in two of the bench's
+child phases); no source
 of the port or of
 ``chip_smoke.py`` imports either, or reads a file of ``scripts/`` or
 ``depthg_tpu/``. The attention and bilateral wrappers raise on an input
@@ -55,6 +57,8 @@ import depthg_tpu_torch.demo_segmentation
 import depthg_tpu_torch.precompute_knns
 import depthg_tpu_torch.serve
 import depthg_tpu_torch.serve_loadgen
+import depthg_tpu_torch.bench
+import depthg_tpu_torch.utils.profiling
 from depthg_tpu_torch import crf_fidelity_study, inference
 from depthg_tpu_torch.models import featurizer, vit
 from depthg_tpu_torch.ops.crf import crf_config_from_cfg
@@ -79,7 +83,7 @@ for crf in (crf_config_from_cfg({}),
     assert int(lin.sum()) <= counted and int(clu.sum()) <= counted
 from depthg_tpu_torch.train import decay, losses, step
 hp = step.TrainHParams(n_classes=5, backbone_dtype="bfloat16")
-state = step.init_state(fcfg, hp, torch.Generator().manual_seed(1))
+state = step.init_state(fcfg, hp, torch.Generator().manual_seed(1), device=dev)
 batch = {"img": img, "img_pos": img.flip(-1), "label": label,
          "depth": torch.rand(2, 1, 64, 64, generator=gen),
          "depth_pos": torch.rand(2, 1, 64, 64, generator=gen)}
@@ -155,7 +159,7 @@ for flags, cls in ((["arch=dino_depth", "guidance=cross_attn"], featurizer_depth
                 embed_dim=384, depth=1, num_heads=2, img_size=32))
         vhp = step.TrainHParams(n_classes=5, backbone_dtype="bfloat16", lhp=True,
                                 lhp_propagation_strategy="attn")
-        vstate = step.init_state(vcfg, vhp, torch.Generator().manual_seed(5))
+        vstate = step.init_state(vcfg, vhp, torch.Generator().manual_seed(5), device=dev)
         assert depthg_tpu_torch.train_segmentation.load_backbone(run, vstate.model) == "random"
         vlogs = step.train_step(vstate, batch, vhp, losses.CorrLossConfig(feature_samples=3,
                                                                           neg_samples=2),
@@ -176,7 +180,7 @@ ecfg = inference.EvalConfig(n_classes=5, extra_clusters=2, label_res=64, backbon
 lin, clu = inference.make_eval_step(ecfg)(model, img, label)
 assert int(lin.sum()) <= counted and clu.shape == (7, 5)
 hp8 = step.TrainHParams(n_classes=5, backbone_dtype="int8")
-state8 = step.init_state(fcfg, hp8, torch.Generator().manual_seed(7))
+state8 = step.init_state(fcfg, hp8, torch.Generator().manual_seed(7), device=dev)
 logs = step.train_step(state8, batch, hp8, losses.CorrLossConfig(feature_samples=3, neg_samples=2),
                        0.19, 0.03, generator=gen)
 assert all(bool(torch.isfinite(v).all()) for v in logs.values())
@@ -262,6 +266,32 @@ def test_parallel_and_checkpoint_reader_run_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "PARALLEL_OK" in proc.stdout
+
+
+def test_bench_children_run_without_jax():
+    """Two of the bench's child phases (the eval ``safe`` point and the IO
+    phase at smoke size on the CPU), run as ``python -m
+    depthg_tpu_torch.bench`` runs them, leave JAX and the JAX package out of
+    ``sys.modules``."""
+    program = (
+        "import json, runpy, sys, io, contextlib\n"
+        "for args in (['--phase', 'eval', '--point', 'safe'], ['--phase', 'io']):\n"
+        "    sys.argv = ['bench', *args, '--device', 'cpu']\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        runpy.run_module('depthg_tpu_torch.bench', run_name='__main__')\n"
+        "    assert json.loads(buf.getvalue().splitlines()[-1]), args\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'depthg_tpu.'))"
+        " or m == 'depthg_tpu')\n"
+        "assert not bad, bad\n"
+        "print('BENCH_OK')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update({"PYTHONPATH": ROOT, "BENCH_SMOKE": "1", "OMP_NUM_THREADS": "2"})
+    env.pop("BENCH_FAULT_INJECT", None)
+    proc = subprocess.run([sys.executable, "-c", program], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BENCH_OK" in proc.stdout
 
 
 def test_depth_cli_help_runs_without_jax():

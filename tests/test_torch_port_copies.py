@@ -701,3 +701,19 @@ def test_potsdam_ops_is_a_verbatim_copy(tmp_path):
         outs[label] = {p.relative_to(out).as_posix(): p.read_bytes()
                        for p in sorted(out.rglob("*.png"))}
     assert outs["port"] == outs["ref"] and len(outs["ref"]) == 8
+
+
+def test_profiling_step_timer_and_log_jsonl_are_copies(tmp_path):
+    """``utils/profiling.py``'s ``StepTimer`` and ``log_jsonl`` (pure Python)
+    have their originals' source, and write the same log."""
+    import inspect
+
+    from depthg_tpu.utils import profiling as jprof
+    from depthg_tpu_torch.utils import profiling as tprof
+
+    for name in ("StepTimer", "log_jsonl"):
+        assert inspect.getsource(getattr(tprof, name)) == inspect.getsource(
+            getattr(jprof, name)), name
+    for mod, path in ((jprof, tmp_path / "j.jsonl"), (tprof, tmp_path / "t.jsonl")):
+        mod.log_jsonl(str(path), {"step": 3, "img/s": 1.5})
+    assert (tmp_path / "j.jsonl").read_bytes() == (tmp_path / "t.jsonl").read_bytes()

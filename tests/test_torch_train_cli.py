@@ -114,7 +114,10 @@ def test_resume_continues_like_an_uninterrupted_run(two_steps, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
-    """More than one device without torchrun and an unknown arch raise.
+    """More than one device without torchrun, an unknown arch, a pickled
+    resume and ``arch=feature-pyramid`` with ``rec_weight > 0`` (with the JAX
+    trainer's message, before the device, the data or the weights are
+    touched: ``device=cuda`` on a host without a card) raise.
     ``arch=dino_depth``, ``lhp=True``, ``arch=feature-pyramid`` and
     ``backbone_dtype=int8`` are ported: each trains a step on the synthetic
     layout, validates and checkpoints (the Lightning ``.ckpt`` for
@@ -123,10 +126,12 @@ def test_cli_refuses_what_is_not_ported(two_steps, tmp_path):
     root = str(tmp_path)
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
         train_segmentation.main(_args(root, root) + ["n_devices=4"])
-    for flag, match in (("arch=resnet", "arch=resnet"),
-                        ("resume=state.pkl", "pickled optax state")):
+    for flags, match in ((["arch=resnet"], "arch=resnet"),
+                         (["resume=state.pkl"], "pickled optax state"),
+                         (["arch=feature-pyramid", "rec_weight=1.0", "device=cuda"],
+                          "rec_weight > 0 is unsupported for arch=feature-pyramid")):
         with pytest.raises(NotImplementedError, match=match):
-            train_segmentation.main(_args(root, root) + [flag])
+            train_segmentation.main(_args(root, root) + flags)
     data, _ = two_steps
     for flags, model_type, logged in (
             (["arch=dino_depth", "guidance=cross_attn"], "vit_small", "loss/depth_feat"),

@@ -304,9 +304,10 @@ def test_hparams_from_cfg_match_jax_and_unported_options_raise():
     # ROADMAP item 8 is ported: an int8 backbone builds (its three steps
     # against JAX are in tests/test_torch_int8.py); an unknown dtype raises
     assert tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="int8"),
-                            gen).step == 0
+                            gen, device="cpu").step == 0
     with pytest.raises(ValueError, match="backbone_dtype"):
-        tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="fp8"), gen)
+        tstep.init_state(TF, tstep.TrainHParams(n_classes=3, backbone_dtype="fp8"), gen,
+                         device="cpu")
     # ROADMAP item 6 is ported: lhp=True builds its frozen head, and the
     # depth-fused and pyramid archs resolve to their config types
     from depthg_tpu.utils.checkpoint_io import fcfg_from_run_cfg as jfcfg
@@ -314,7 +315,7 @@ def test_hparams_from_cfg_match_jax_and_unported_options_raise():
     from depthg_tpu_torch.models.lhp import LHP
     from depthg_tpu_torch.models.pyramid import PyramidConfig
 
-    state = tstep.init_state(TF, tstep.TrainHParams(n_classes=3, lhp=True), gen)
+    state = tstep.init_state(TF, tstep.TrainHParams(n_classes=3, lhp=True), gen, device="cpu")
     assert isinstance(state.lhp, LHP) and state.lhp.cfg.dim == TF.dim
     for arch, cls in (("dino_depth", DepthFeaturizerConfig), ("feature-pyramid", PyramidConfig)):
         flags = [f"arch={arch}", "guidance=sum", "granularity=3"]
@@ -331,8 +332,8 @@ def test_init_state_is_seeded_and_learns_on_a_fixed_batch():
     the probes' losses fall on a fixed batch."""
     fcfg = dataclasses.replace(TF, dropout=True, drop_rate=0.1)
     hp = tstep.TrainHParams(n_classes=3, lr=1e-3)
-    a = tstep.init_state(fcfg, hp, torch.Generator().manual_seed(0))
-    b = tstep.init_state(fcfg, hp, torch.Generator().manual_seed(0))
+    a = tstep.init_state(fcfg, hp, torch.Generator().manual_seed(0), device="cpu")
+    b = tstep.init_state(fcfg, hp, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
     assert "decoder.weight" in tstep.eval_state_dict(a)
     tl = tloss.CorrLossConfig(**LOSS)

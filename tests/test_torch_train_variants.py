@@ -341,7 +341,7 @@ def test_optimizer_groups_and_frozen_parts(case):
     kind, cfg_kw, hp_kw = CASES[case]
     _, tf = _configs(kind, **cfg_kw)
     thp = tstep.TrainHParams(n_classes=3, **hp_kw)
-    state = tstep.init_state(tf, thp, torch.Generator().manual_seed(0))
+    state = tstep.init_state(tf, thp, torch.Generator().manual_seed(0), device="cpu")
     net_ids = {id(p) for g in state.opt["net"].param_groups for p in g["params"]}
     all_ids = {id(p) for o in state.opt.values() for g in o.param_groups for p in g["params"]}
     for name, p in state.model.net.named_parameters():
@@ -355,7 +355,7 @@ def test_optimizer_groups_and_frozen_parts(case):
     assert (state.lhp is not None) == thp.lhp
     if state.lhp is not None:
         assert not any(id(p) in all_ids or p.requires_grad for p in state.lhp.parameters())
-        again = tstep.init_state(tf, thp, torch.Generator().manual_seed(0))
+        again = tstep.init_state(tf, thp, torch.Generator().manual_seed(0), device="cpu")
         for a, b in zip(state.lhp.parameters(), again.lhp.parameters()):
             assert torch.equal(a, b)
         with pytest.raises(ValueError, match="LHP head"):
@@ -373,7 +373,7 @@ def test_pyramid_steps_at_every_granularity(granularity, continuous):
     statistics move, the ResNet does not."""
     tf = TPyramidConfig(granularity=granularity, dim=8, out_size=16, continuous=continuous)
     thp = tstep.TrainHParams(n_classes=3)
-    state = tstep.init_state(tf, thp, torch.Generator().manual_seed(granularity))
+    state = tstep.init_state(tf, thp, torch.Generator().manual_seed(granularity), device="cpu")
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     gen = torch.Generator().manual_seed(1)
     for i in range(2):
