@@ -1,0 +1,13 @@
+"""mfu.eval (%): the eval step's model operations, counted from the
+configuration's widths (`counting.eval_step_flops`: both flip-TTA passes
+through the ViT and the head, the probes; the CRF not counted), over the
+untraced window's step time, against the H100's dense bf16 peak."""
+
+from benchmark.counting import PEAK_BF16_FLOPS
+
+
+def read(spec, out):
+    c = out["counts"]
+    if not c["steps"]:
+        return None
+    return 100.0 * c["step_flops"] * c["steps"] / (c["window_s"] * PEAK_BF16_FLOPS)
