@@ -13,6 +13,9 @@ and validation steps all-reduce their confusion blocks and the predict
 step all-gathers its label maps along the batch, as the JAX steps do over
 their mesh. The ``backbone_sub_batch`` chunking and the ``batch_shards``
 CRF hint of the JAX package (TPU workarounds) are not ported.
+
+Spans (``utils.profiling``): the eval step is ``eval.step``; under it, the
+CRF with its guidance is ``crf`` and each backbone forward ``backbone``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from depthg_tpu_torch.ops.crf import CRFConfig, crf_config_from_cfg, \
     dense_crf_multi_batch
 from depthg_tpu_torch.ops.resize import resize_bilinear
 from depthg_tpu_torch.parallel import dist
+from depthg_tpu_torch.utils import profiling
 from depthg_tpu_torch.utils.metrics import confusion_update
 
 
@@ -149,12 +153,13 @@ def predictions(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig):
     """(linear_preds, cluster_preds) [B, R, R] int32, with optional CRF."""
     linear_log, cluster_log = eval_logits(model, img, ecfg, normalized=False)
     if ecfg.run_crf:
-        guidance = unnormalize_255(img)
-        if guidance.shape[-1] != ecfg.label_res:
-            guidance = resize_bilinear(guidance, (ecfg.label_res, ecfg.label_res))
-        # one mean field: both probes share each image's pairwise kernel
-        linear_log, cluster_log = dense_crf_multi_batch(
-            guidance, [linear_log, cluster_log], ecfg.crf)
+        with profiling.span("crf"):
+            guidance = unnormalize_255(img)
+            if guidance.shape[-1] != ecfg.label_res:
+                guidance = resize_bilinear(guidance, (ecfg.label_res, ecfg.label_res))
+            # one mean field: both probes share each image's pairwise kernel
+            linear_log, cluster_log = dense_crf_multi_batch(
+                guidance, [linear_log, cluster_log], ecfg.crf)
     return (linear_log.argmax(1).to(torch.int32),
             cluster_log.argmax(1).to(torch.int32))
 
@@ -174,10 +179,11 @@ def make_eval_step(ecfg: EvalConfig, group=None):
 
     @torch.inference_mode()
     def step(model, img, label):
-        linear_preds, cluster_preds = predictions(model, img, ecfg)
-        return _sum_blocks((confusion_update(linear_preds, label, ecfg.n_classes, 0),
-                            confusion_update(cluster_preds, label, ecfg.n_classes,
-                                             ecfg.extra_clusters)), group)
+        with profiling.span("eval.step"):
+            linear_preds, cluster_preds = predictions(model, img, ecfg)
+            return _sum_blocks((confusion_update(linear_preds, label, ecfg.n_classes, 0),
+                                confusion_update(cluster_preds, label, ecfg.n_classes,
+                                                 ecfg.extra_clusters)), group)
 
     return step
 

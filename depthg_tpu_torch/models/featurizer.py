@@ -24,6 +24,7 @@ from torch.func import functional_call
 
 from depthg_tpu_torch.models import vit as vit_lib
 from depthg_tpu_torch.models.layers import conv1x1, dropout2d
+from depthg_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +101,9 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
     image cast to bf16 for this call (the module keeps float32 weights) and
     returns float32 features. ``backbone_dtype="int8"`` runs the int8
     copy of the ViT (``vit.int8_copy``: w8a8 block linears, bf16 elsewhere,
-    derived once per set of weights) on the image in bf16."""
+    derived once per set of weights) on the image in bf16. The forward,
+    the weights' cast included, is one ``backbone`` span
+    (``utils.profiling``)."""
     fcfg = net.fcfg
     vcfg = fcfg.vit
     if img.shape[2] % vcfg.patch_size or img.shape[3] % vcfg.patch_size:
@@ -110,32 +113,33 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
     if backbone_dtype not in (None, "float32", "bfloat16", "int8"):
         raise ValueError(f"unknown backbone_dtype {backbone_dtype!r}; "
                          "expected float32 | bfloat16 | int8")
-    impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device,
-                                      need_attn)
-    if backbone_dtype == "bfloat16":
-        feats, attns, qkvs = functional_call(
-            net.model, bf16_parameters(net.model), (img.to(torch.bfloat16),),
-            {"n": 1, "attn_impl": impl})
-    elif backbone_dtype == "int8":
-        feats, attns, qkvs = vit_lib.int8_copy(net.model)(
-            img.to(torch.bfloat16), n=1, attn_impl=impl)
-    else:
-        feats, attns, qkvs = net.model(img, n=1, attn_impl=impl)
-    feat, attn, qkv = feats[0].float(), attns[0], qkvs[0].float()
-    if attn is not None:
-        attn = attn.float()
+    with profiling.span("backbone"):
+        impl = vit_lib.resolve_attn_impl(fcfg.attention_impl, precision, img.device,
+                                          need_attn)
+        if backbone_dtype == "bfloat16":
+            feats, attns, qkvs = functional_call(
+                net.model, bf16_parameters(net.model), (img.to(torch.bfloat16),),
+                {"n": 1, "attn_impl": impl})
+        elif backbone_dtype == "int8":
+            feats, attns, qkvs = vit_lib.int8_copy(net.model)(
+                img.to(torch.bfloat16), n=1, attn_impl=impl)
+        else:
+            feats, attns, qkvs = net.model(img, n=1, attn_impl=impl)
+        feat, attn, qkv = feats[0].float(), attns[0], qkvs[0].float()
+        if attn is not None:
+            attn = attn.float()
 
-    if fcfg.feat_type == "feat":
-        b = feat.shape[0]
-        image_feat = feat[:, 1:].reshape(b, fh, fw, -1).permute(0, 3, 1, 2)
-    elif fcfg.feat_type == "KK":
-        k = qkv[1][:, :, 1:, :]  # [B, h, HW, hd] keys of the last block
-        b, nh, _, hd = k.shape
-        image_feat = (k.reshape(b, nh, fh, fw, hd).permute(0, 1, 4, 2, 3)
-                      .reshape(b, nh * hd, fh, fw))
-    else:
-        raise ValueError(f"Unknown feat type: {fcfg.feat_type}")
-    return image_feat, attn
+        if fcfg.feat_type == "feat":
+            b = feat.shape[0]
+            image_feat = feat[:, 1:].reshape(b, fh, fw, -1).permute(0, 3, 1, 2)
+        elif fcfg.feat_type == "KK":
+            k = qkv[1][:, :, 1:, :]  # [B, h, HW, hd] keys of the last block
+            b, nh, _, hd = k.shape
+            image_feat = (k.reshape(b, nh, fh, fw, hd).permute(0, 1, 4, 2, 3)
+                          .reshape(b, nh * hd, fh, fw))
+        else:
+            raise ValueError(f"Unknown feat type: {fcfg.feat_type}")
+        return image_feat, attn
 
 
 def project(net: DinoFeaturizer, image_feat: torch.Tensor, train: bool = False,

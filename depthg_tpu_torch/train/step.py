@@ -49,6 +49,7 @@ from depthg_tpu_torch.ops.resize import resize_bilinear
 from depthg_tpu_torch.ops.sampling import sample
 from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.train import losses as loss_lib
+from depthg_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,19 +394,27 @@ def train_step(state: TrainState, batch: dict, hp: TrainHParams,
                lhp_neg_perms=None) -> dict:
     """One optimization step in place: one backward over the total loss, then
     the three optimizer steps. Returns the logs as detached tensors on the
-    batch's device (nothing here waits for the device)."""
-    for opt in state.opt.values():
-        opt.zero_grad(set_to_none=True)
-    loss, logs = loss_fn(state.model, batch, hp, lcfg, depth_feat_weight,
-                         depth_feat_shift, generator, coords_override, neg_perms,
-                         state.lhp, lhp_coords_override, lhp_neg_perms)
-    loss.backward()
-    dist.average_gradients([p for opt in state.opt.values()
-                            for group in opt.param_groups for p in group["params"]])
-    for opt in state.opt.values():
-        opt.step()
-    state.step += 1
-    return _global_logs({k: v.detach() for k, v in logs.items()})
+    batch's device (nothing here waits for the device). Spans
+    (``utils.profiling``): ``train.step`` holds ``optimizer`` (the
+    ``zero_grad``s), ``train.forward`` (``loss_fn``), ``backward`` and
+    ``optimizer`` again (the gradients' average and the Adam steps)."""
+    with profiling.span("train.step"):
+        with profiling.span("optimizer"):
+            for opt in state.opt.values():
+                opt.zero_grad(set_to_none=True)
+        with profiling.span("train.forward"):
+            loss, logs = loss_fn(state.model, batch, hp, lcfg, depth_feat_weight,
+                                 depth_feat_shift, generator, coords_override, neg_perms,
+                                 state.lhp, lhp_coords_override, lhp_neg_perms)
+        with profiling.span("backward"):
+            loss.backward()
+        with profiling.span("optimizer"):
+            dist.average_gradients([p for opt in state.opt.values()
+                                    for group in opt.param_groups for p in group["params"]])
+            for opt in state.opt.values():
+                opt.step()
+        state.step += 1
+        return _global_logs({k: v.detach() for k, v in logs.items()})
 
 
 def _global_logs(logs: dict) -> dict:

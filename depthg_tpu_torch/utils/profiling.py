@@ -1,10 +1,9 @@
 """Profiling / observability helpers of the port (``depthg_tpu/utils/profiling.py``).
 
-* ``StepTimer`` — rolling per-step wall-time + images/sec, host-side, zero
-  device sync (a copy of the JAX package's).
-* ``trace`` — context manager around ``torch.profiler`` writing a Chrome
-  trace of the enclosed block into ``log_dir``.
-* ``log_jsonl`` — append structured metrics to a jsonl run log (a copy).
+* ``span`` / ``recording`` / ``collect`` / ``clear`` — the port's spans:
+  named ranges at its layer boundaries (``eval.step``, ``backbone``,
+  ``crf``, ``train.step``, ...), recorded while a ``torch.profiler``
+  session is active or inside ``recording()``, and inert otherwise.
 * ``median_time`` — median host-clock seconds of a call that ends in a
   synchronize or a host fetch.
 * ``dispatch_rtt`` — the round trip of one trivial kernel and its fetch.
@@ -25,60 +24,163 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import json
-import os
+import itertools
+import threading
 import time
-from collections import deque
+from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# the most spans kept between two ``clear()``s; later ones are counted as dropped
+MAX_SPANS = 16384
+_OFF = contextlib.nullcontext()
 
 
-class StepTimer:
-    def __init__(self, window: int = 50):
-        self.times: deque = deque(maxlen=window)
-        self.last = None
+def _k1_launches() -> int:
+    """K1's own launch counter as it stands."""
+    from depthg_tpu_torch.ops import attention
 
-    def tick(self) -> float | None:
-        now = time.perf_counter()
-        dt = None
-        if self.last is not None:
-            dt = now - self.last
-            self.times.append(dt)
-        self.last = now
-        return dt
-
-    @property
-    def steps_per_sec(self) -> float:
-        if not self.times:
-            return 0.0
-        return len(self.times) / sum(self.times)
-
-    def images_per_sec(self, batch_size: int) -> float:
-        return self.steps_per_sec * batch_size
+    return attention.KERNEL.launches
 
 
-@contextlib.contextmanager
-def trace(log_dir: str, enabled: bool = True, device: str | torch.device = "cuda"):
-    """Capture a ``torch.profiler`` trace of the enclosed block and write it
-    as a Chrome trace (``trace_<ns>.json``) into ``log_dir``: host and CUDA
-    activity, host activity only when the caller passed ``device="cpu"``."""
-    if not enabled:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
+class _Span:
+    """One span while recording is on: host stamps on ``time.time_ns()``
+    (the clock of the profiler's events), a pair of timing events on the
+    current CUDA stream once CUDA is in use, and K1's launch counter read
+    at both edges. A span opens no ``torch.profiler.record_function``: on
+    the card kineto reports such a range a second time as a device event (a
+    ``gpu_user_annotation``), which a trace summary that keeps every
+    CUDA-typed event would count as a kernel and as busy time."""
 
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
+    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "events")
+
+    def __init__(self, rec: "Recorder", name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        stack = self.rec._stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(self.rec._ids)
+        self.step = self.id if self.parent is None else self.parent.step
+        self.k1 = _k1_launches()
+        self.events = None
+        if torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        stack.append(self)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.time_ns()
+        self.rec._stack().pop()
+        if self.events is not None:
+            self.events[1].record()
+        self.k1 = _k1_launches() - self.k1
+        self.rec._keep(self)
+        return False
 
 
-def log_jsonl(path: str, record: dict):
-    with open(path, "a") as f:
-        f.write(json.dumps(record) + "\n")
+class Recorder:
+    """Spans kept in memory, at most ``MAX_SPANS`` between two ``clear()``s.
+
+    Recording is on while a ``torch.profiler`` session is active or inside
+    ``recording()``. Off, ``span`` returns one shared null context: no
+    allocation, no ``record_function``, no CUDA event, no lock. On, each
+    span records its name, its parent (the innermost open span of the same
+    thread), the id of its outermost span (its step), its host start and end,
+    its stream time and the K1 launches inside it. Nothing waits for the
+    device until ``collect()``."""
+
+    def __init__(self):
+        self._on = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._spans: list = []
+        self._dropped = 0
+
+    def span(self, name: str):
+        """A context manager that records the enclosed block as ``name``."""
+        if self._on or _autograd_profiler._is_profiler_enabled:
+            return _Span(self, name)
+        return _OFF
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record spans inside the block, with or without a profiler."""
+        with self._lock:
+            self._on += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._on -= 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans, self._dropped = [], 0
+
+    def collect(self) -> dict:
+        """``{"spans": [...], "dropped": n}``, the spans kept so far in the
+        order they opened (they stay kept until ``clear()``), each a plain
+        dict: ``id``, ``name``, ``parent`` (id or None), ``step`` (the
+        outermost span's id), ``host_start_ns`` / ``host_end_ns``
+        (``time.time_ns()``), ``host_ms``, ``self_host_ms`` (the span less
+        its children), ``device_ms`` (stream time between the span's edges)
+        with ``device_start_ns`` / ``device_end_ns`` on the host clock, and
+        ``k1_launches``; the device fields are None for a span recorded
+        before CUDA was in use. One synchronize: an anchor event recorded
+        now on the current device puts the events on the host clock."""
+        with self._lock:
+            spans, dropped = sorted(self._spans, key=lambda s: s.id), self._dropped
+        anchor = None
+        if any(s.events is not None for s in spans):
+            anchor = torch.cuda.Event(enable_timing=True)
+            anchor.record()
+            torch.cuda.synchronize()
+            t_anchor = time.time_ns()
+        out = []
+        for s in spans:
+            rec = {"id": s.id, "name": s.name,
+                   "parent": None if s.parent is None else s.parent.id, "step": s.step,
+                   "host_start_ns": s.t0, "host_end_ns": s.t1, "host_ms": (s.t1 - s.t0) / 1e6,
+                   "device_ms": None, "device_start_ns": None, "device_end_ns": None,
+                   "k1_launches": s.k1}
+            if s.events is not None:
+                e0, e1 = s.events
+                rec["device_ms"] = e0.elapsed_time(e1)
+                rec["device_start_ns"] = t_anchor - round(e0.elapsed_time(anchor) * 1e6)
+                rec["device_end_ns"] = t_anchor - round(e1.elapsed_time(anchor) * 1e6)
+            out.append(rec)
+        children = defaultdict(float)
+        for rec in out:
+            children[rec["parent"]] += rec["host_ms"]
+        for rec in out:
+            rec["self_host_ms"] = rec["host_ms"] - children[rec["id"]]
+        return {"spans": out, "dropped": dropped}
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _keep(self, span: _Span) -> None:
+        with self._lock:
+            if len(self._spans) < MAX_SPANS:
+                self._spans.append(span)
+            else:
+                self._dropped += 1
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+recording = RECORDER.recording
+collect = RECORDER.collect
+clear = RECORDER.clear
 
 
 def median_time(fn, repeats: int = 5) -> float:

@@ -1,0 +1,375 @@
+"""The port's spans (``depthg_tpu_torch.utils.profiling``) and the
+benchmark's readers of them, on the CPU.
+
+* Off (no profiler, outside ``recording()``) a span is one shared null
+  context: the tiny eval and train steps run with ``torch.cuda.Event`` and
+  ``torch.profiler.record_function`` made to raise, record nothing, and a
+  span allocates nothing.
+* On: the parent is the innermost open span of the same thread, every span
+  under one outermost span shares its step id, self time is the span less
+  its children, the K1 counter's delta is the kernel's own
+  ``KERNEL.launches`` delta, and the host stamps bracket a profiler event
+  recorded inside (one clock, ``time.time_ns()``). A running
+  ``torch.profiler`` turns recording on by itself.
+* The tiny eval, predict and train steps (the sizes of
+  ``test_torch_eval_step.py`` and ``test_torch_train_step.py``) emit exactly
+  their span trees.
+* ``collect()`` is idempotent, the cap counts what it drops.
+* Each reader in ``benchmark/metrics/`` that reads spans, loaded by path as
+  the harness loads it, computes its value from a hand-built span list and
+  returns None without a step, with a step that lacks its span, with a
+  dropped span, or from a program that has no spans; and the spans it
+  names are the ones the tiny steps emit.
+"""
+
+import importlib.util
+import threading
+import time
+import tracemalloc
+from pathlib import Path
+
+import pytest
+import torch
+
+from depthg_tpu_torch import inference as tinf
+from depthg_tpu_torch.models import featurizer as tfeat
+from depthg_tpu_torch.models import vit as tvit
+from depthg_tpu_torch.ops import attention
+from depthg_tpu_torch.train import losses as tloss
+from depthg_tpu_torch.train import step as tstep
+from depthg_tpu_torch.utils import profiling
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+EVAL_VIT = dict(embed_dim=128, depth=2, num_heads=2, patch_size=8)
+TRAIN_VIT = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32)
+LOSS = dict(feature_samples=3, neg_samples=2, depth_sampling="fps",
+            depth_feat_correlation_loss=True)
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    profiling.clear()
+    yield
+    profiling.clear()
+
+
+def eval_call(predict=False, **kw):
+    fcfg = tfeat.FeaturizerConfig(vit_config=tvit.ViTConfig(**EVAL_VIT), dim=16)
+    model = tinf.Segmenter(fcfg, 5, 7).init_weights(torch.Generator().manual_seed(0))
+    ecfg = tinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=64, **kw)
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 3, 64, 64, generator=gen)
+    if predict:
+        step = tinf.make_predict_step(ecfg)
+        return lambda: step(model, img)
+    label = torch.randint(-1, 5, (2, 64, 64), generator=gen)
+    step = tinf.make_eval_step(ecfg)
+    return lambda: step(model, img, label)
+
+
+def train_call(**kw):
+    fcfg = tfeat.FeaturizerConfig(arch="vit_small", patch_size=8, dim=16,
+                                  vit_config=tvit.ViTConfig(**TRAIN_VIT), dropout=False,
+                                  drop_rate=0.0)
+    hp = tstep.TrainHParams(n_classes=3, **kw)
+    state = tstep.init_state(fcfg, hp, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"img": torch.randn(8, 3, 32, 32, generator=gen),
+             "img_pos": torch.randn(8, 3, 32, 32, generator=gen),
+             "label": torch.randint(-1, 3, (8, 32, 32), generator=gen),
+             "depth": torch.rand(8, 1, 32, 32, generator=gen),
+             "depth_pos": torch.rand(8, 1, 32, 32, generator=gen)}
+    lcfg = tloss.CorrLossConfig(**LOSS)
+    return lambda: tstep.train_step(state, batch, hp, lcfg, 0.19, 0.03, generator=gen)
+
+
+def tree(spans):
+    """The spans as nested (name, [children]) tuples, in the order they opened."""
+    kids = {s["id"]: [] for s in spans}
+    roots = []
+    for s in spans:
+        (roots if s["parent"] is None else kids[s["parent"]]).append(s)
+
+    def node(s):
+        return (s["name"], [node(k) for k in kids[s["id"]]])
+    return [node(s) for s in roots]
+
+
+def raising(*args, **kwargs):
+    raise AssertionError("called while recording is off")
+
+
+@pytest.mark.parametrize("make", [eval_call, train_call], ids=["eval", "train"])
+def test_off_is_inert(monkeypatch, make):
+    call = make()
+    monkeypatch.setattr(torch.cuda, "Event", raising)
+    monkeypatch.setattr(torch.profiler, "record_function", raising)
+    monkeypatch.setattr(profiling, "_k1_launches", raising)
+    call()
+    assert profiling.span("a") is profiling.span("b")
+    assert profiling.collect() == {"spans": [], "dropped": 0}
+
+
+def test_off_span_allocates_nothing():
+    here = tracemalloc.Filter(True, profiling.__file__)
+    for _ in range(10):  # warm
+        with profiling.span("x"):
+            pass
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot().filter_traces([here])
+        for _ in range(1000):
+            with profiling.span("x"):
+                pass
+        after = tracemalloc.take_snapshot().filter_traces([here])
+    finally:
+        tracemalloc.stop()
+    grown = [d for d in after.compare_to(before, "lineno") if d.size_diff > 0]
+    assert grown == []
+
+
+def test_nesting_parent_step_and_self_time():
+    with profiling.recording():
+        for _ in range(2):
+            with profiling.span("outer"):
+                with profiling.span("a"):
+                    with profiling.span("leaf"):
+                        time.sleep(0.002)
+                with profiling.span("b"):
+                    time.sleep(0.001)
+                time.sleep(0.001)
+        done = threading.Event()
+
+        def other():
+            with profiling.span("thread"):
+                done.set()
+        with profiling.span("open"):
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=30)
+    assert not t.is_alive() and done.is_set()
+    spans = profiling.collect()["spans"]
+    by = {}
+    for s in spans:
+        by.setdefault(s["name"], []).append(s)
+    assert tree([s for s in spans if s["name"] not in ("open", "thread")]) == [
+        ("outer", [("a", [("leaf", [])]), ("b", [])])] * 2
+    # a span in another thread does not nest under this thread's open span
+    assert by["thread"][0]["parent"] is None and by["open"][0]["parent"] is None
+    for i, outer in enumerate(by["outer"]):
+        a, leaf, b = by["a"][i], by["leaf"][i], by["b"][i]
+        assert {a["step"], leaf["step"], b["step"], outer["step"]} == {outer["id"]}
+        assert a["parent"] == b["parent"] == outer["id"] and leaf["parent"] == a["id"]
+        assert outer["self_host_ms"] == pytest.approx(
+            outer["host_ms"] - a["host_ms"] - b["host_ms"])
+        assert a["self_host_ms"] == pytest.approx(a["host_ms"] - leaf["host_ms"])
+        assert leaf["self_host_ms"] == leaf["host_ms"] >= 2.0
+        assert outer["self_host_ms"] >= 1.0
+        assert outer["host_start_ns"] <= a["host_start_ns"] <= leaf["host_start_ns"] \
+            < leaf["host_end_ns"] <= a["host_end_ns"] <= b["host_start_ns"] \
+            < b["host_end_ns"] <= outer["host_end_ns"]
+        assert a["device_ms"] is None and a["device_start_ns"] is None  # no CUDA here
+    assert by["outer"][0]["step"] != by["outer"][1]["step"]
+
+
+def test_counter_deltas_are_the_kernels_launches():
+    k1 = attention.KERNEL
+    with profiling.recording():
+        k1_0 = k1.launches
+        with profiling.span("step"):
+            k1.count(False, True)
+            with profiling.span("inner"):
+                for _ in range(3):
+                    k1.count(False, True)
+            k1.count(True, False)
+        k1_1 = k1.launches
+    step, inner = profiling.collect()["spans"]
+    assert step["k1_launches"] == k1_1 - k1_0 == 5
+    assert inner["k1_launches"] == 3
+
+
+def test_stamps_bracket_profiler_events():
+    """Under a running profiler, without ``recording()``: the span's
+    ``time.time_ns()`` stamps bracket an operator recorded inside it."""
+    x = torch.randn(64, 64)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("outer"):
+            time.sleep(0.001)
+            torch.mm(x, x)
+            time.sleep(0.001)
+    (s,) = profiling.collect()["spans"]
+    mm = [ev for ev in prof.profiler.kineto_results.events() if ev.name() == "aten::mm"]
+    assert len(mm) == 1
+    start, end = mm[0].start_ns(), mm[0].start_ns() + mm[0].duration_ns()
+    assert s["host_start_ns"] < start < end < s["host_end_ns"]
+    with profiling.span("after"):  # the profiler has stopped: off again
+        pass
+    assert len(profiling.collect()["spans"]) == 1
+
+
+@pytest.mark.parametrize("make, want", [
+    (lambda: eval_call(fused_tta=True),
+     [("eval.step", [("backbone", []), ("crf", [])])]),
+    (lambda: eval_call(fused_tta=False),
+     [("eval.step", [("backbone", []), ("backbone", []), ("crf", [])])]),
+    (lambda: eval_call(predict=True, fused_tta=True),
+     [("backbone", []), ("crf", [])]),
+    (lambda: train_call(),
+     [("train.step", [("optimizer", []), ("train.forward", [("backbone", []), ("backbone", [])]),
+                      ("backward", []), ("optimizer", [])])]),
+    (lambda: train_call(fused_pair_forward=True),
+     [("train.step", [("optimizer", []), ("train.forward", [("backbone", [])]),
+                      ("backward", []), ("optimizer", [])])]),
+], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair"])
+def test_steps_emit_their_span_trees(make, want):
+    call = make()
+    with profiling.recording():
+        call()
+        call()
+    got = profiling.collect()
+    assert got["dropped"] == 0
+    assert tree(got["spans"]) == want * 2
+    for s in got["spans"]:
+        assert s["self_host_ms"] >= 0 and s["k1_launches"] == 0
+
+
+def test_collect_is_idempotent_and_clear_empties():
+    with profiling.recording():
+        with profiling.span("a"):
+            pass
+    first = profiling.collect()
+    assert profiling.collect() == first and len(first["spans"]) == 1
+    with profiling.recording():
+        with profiling.span("b"):
+            pass
+    second = profiling.collect()
+    assert [s["name"] for s in second["spans"]] == ["a", "b"]
+    assert second["spans"][0] == first["spans"][0]
+    assert [s["name"] for s in first["spans"]] == ["a"]  # the old result is left as it was
+    profiling.clear()
+    assert profiling.collect() == {"spans": [], "dropped": 0}
+
+
+def test_cap_counts_dropped_spans(monkeypatch):
+    monkeypatch.setattr(profiling, "MAX_SPANS", 3)
+    rec = profiling.Recorder()
+    with rec.recording():
+        for i in range(5):
+            with rec.span(f"s{i}"):
+                pass
+    got = rec.collect()
+    assert [s["name"] for s in got["spans"]] == ["s0", "s1", "s2"] and got["dropped"] == 2
+    rec.clear()
+    assert rec.collect() == {"spans": [], "dropped": 0}
+
+
+def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0):
+    return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
+            "host_ms": host, "self_host_ms": host if self_host is None else self_host,
+            "device_ms": device, "k1_launches": k1}
+
+
+def eval_spans(device=True):
+    """Two eval steps (one with two passes) and the spans of a predict step,
+    which has no step span of its own."""
+    d = (lambda v: v) if device else (lambda v: None)
+    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12),
+            span(2, "backbone", 1, 1, host=5.0, device=d(20.0)),
+            span(3, "crf", 1, 1, host=30.0, device=d(44.0)),
+            span(4, "eval.step", host=52.0, device=d(74.0), k1=12),
+            span(5, "backbone", 4, 4, host=3.0, device=d(11.0)),
+            span(6, "backbone", 4, 4, host=3.0, device=d(11.0)),
+            span(7, "crf", 4, 4, host=31.0, device=d(46.0)),
+            span(8, "backbone", host=5.0, device=d(99.0), k1=12),
+            span(9, "crf", host=30.0, device=d(99.0))]
+
+
+def train_spans():
+    out = []
+    for i, base in enumerate((1, 8)):
+        out += [span(base, "train.step", host=44.0, k1=24),
+                span(base + 1, "optimizer", base, base, host=0.2),
+                span(base + 2, "train.forward", base, base, host=30.0, self_host=14.0 + i),
+                span(base + 3, "backbone", base + 2, base, host=8.0 + i),
+                span(base + 4, "backbone", base + 2, base, host=8.0),
+                span(base + 5, "backward", base, base, host=9.0 + 2 * i),
+                span(base + 6, "optimizer", base, base, host=2.0)]
+    return out
+
+
+READERS = {
+    "backbone_device_ms.eval": (eval_spans, (20.0 + 22.0) / 2),
+    "k1_launches_per_step.eval": (eval_spans, 12.0),
+    "backbone_host_ms.train": (train_spans, (16.0 + 17.0) / 2),
+    "losses_host_ms.train": (train_spans, (14.0 + 15.0) / 2),
+    "backward_host_ms.train": (train_spans, (9.0 + 11.0) / 2),
+    "optimizer_host_ms.train": (train_spans, 2.2),
+    "k1_launches_per_step.train": (train_spans, 24.0),
+}
+
+
+def load_reader(name):
+    path = ROOT / "benchmark" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location("reader_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_readers_are_the_span_metrics_of_the_benchmark():
+    """Every per-layer metric whose reader reads spans is tested here."""
+    import json
+
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    span_readers = {m["name"] for m in bench["per_layer"]
+                    if "benchmark.spans" in (ROOT / "benchmark" / "metrics"
+                                             / f"{m['name']}.py").read_text()}
+    assert span_readers == set(READERS)
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_span_readers(monkeypatch, name):
+    make, want = READERS[name]
+    reader = load_reader(name)
+
+    def read(spans, dropped=0):
+        monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": dropped})
+        return reader.read({}, {})
+
+    assert read(make()) == pytest.approx(want)
+    assert read([]) is None
+    other = train_spans if make is eval_spans else eval_spans
+    assert read(other()) is None  # no step of its kind
+    assert read(make(), dropped=1) is None
+    if reader.SPAN != reader.STEP:  # a step whose span is gone (renamed, moved) reads nothing
+        first = make()[0]["id"]
+        assert read([s for s in make()
+                     if not (s["name"] == reader.SPAN and s["step"] == first)]) is None
+    if reader.KEY == "device_ms":
+        assert read(eval_spans(device=False)) is None  # recorded without CUDA
+    monkeypatch.delattr(profiling, "collect")  # a program without spans
+    assert reader.read({}, {}) is None
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_readers_name_the_spans_the_steps_emit(name):
+    """Each reader's step and span, as the tiny step of its cell's kind
+    emits them: every step holds the span, and the reader reads a number
+    (a stream time only where CUDA runs)."""
+    from benchmark.spans import per_step
+
+    reader = load_reader(name)
+    call = eval_call(fused_tta=True) if name.endswith(".eval") else train_call()
+    with profiling.recording():
+        call()
+        call()
+    got = profiling.collect()
+    assert sum(s["name"] == reader.STEP and s["parent"] is None for s in got["spans"]) == 2
+    assert per_step(reader.STEP, reader.SPAN, "host_ms") > 0
+    value = reader.read({}, {})
+    if reader.KEY == "device_ms":
+        assert value is None  # no CUDA here
+    else:
+        assert value is not None and value >= 0
