@@ -57,7 +57,11 @@ final line):
    of this kernel's algorithm (10 FP32 instructions per entry, 11 for the
    degree; float32: 10 + C on the FMA pipes); TF32 still off;
 5. CRF precision: the int8 bilateral cache of a 320 px scene built on the
-   card vs float64 on the CPU, then the CRF on the six fidelity scenes
+   card (one launch of the cache kernel) vs float64 on the CPU; the cache
+   kernel and the eager build at the eval step's B=16, N=6,400 (16 scenes):
+   CUDA-event times (also queued behind a long product), the bound (bytes
+   written once, or one ex2 per entry) and the entries where the two
+   builds differ; then the CRF on the six fidelity scenes
    (the port's copy of ``make_scene``) at the default point: mIoU, accuracy
    and label agreement with the permutohedral lattice (``native_crf`` on
    the CPU), each within 0.2 of the ``docs/CRF_FIDELITY.md`` row (69.67,
@@ -68,9 +72,9 @@ final line):
 6. main path: full-width ViT-S/8 at 320 px with random weights from a
    fixed generator, ``make_eval_step`` at the default point (bf16 backbone,
    bf16 CRF state), batch 16, one warm-up and three timed batches; launch
-   counts, confusion sums, img/s; then one image in float32 on the card vs
-   the CPU (plain path) for pixel agreement (24 launches of K1's float32
-   kernel); then the same step at
+   counts (one int8 cache launch per batch), confusion sums, img/s; then
+   one image in float32 on the card vs the CPU (plain path) for pixel
+   agreement (24 launches of K1's float32 kernel); then the same step at
    ``crf_downsample=1`` (batch 2, 11 K4 launches per batch) and at
    ``operating_point=safe`` (batch 16);
 7. train path: the same full-width ViT-S/8 (frozen, bf16) under
@@ -923,14 +927,11 @@ def k4_errors(out, ref, limits, what):
     return rel, err
 
 
-def crf_phase(fidelity, crf):
+def phase_point_features(image, ccfg, phases):
+    """[4 x 40 x 40, 5] float64 point features of a 320 px image at the
+    default point, phase-major as ``crf._jbu_operator`` builds them."""
     import numpy as np
 
-    ccfg = crf.crf_config_from_cfg({})
-    image = fidelity.make_scene(320, 27, seed=0)[0]
-    phases = crf._jbu_phases(ccfg, 320, 320)
-    _, _, kmat = crf._jbu_operator(torch.from_numpy(image)[None].cuda(), ccfg, 8,
-                                   torch.bfloat16, phases)
     feats = []
     for oy, ox in phases:
         ys, xs = np.meshgrid(np.arange(40) * 8 + oy, np.arange(40) * 8 + ox,
@@ -938,13 +939,86 @@ def crf_phase(fidelity, crf):
         f = np.concatenate([xs[None] / ccfg.bi_xy_std, ys[None] / ccfg.bi_xy_std,
                             image[:, oy::8, ox::8].astype(np.float64) / ccfg.bi_rgb_std])
         feats.append(f.reshape(5, -1).T)
-    f = torch.from_numpy(np.concatenate(feats))  # float64 on the CPU
+    return np.concatenate(feats)
+
+
+def cache_bound_ms(b, n, clock_mhz):
+    """Least ms of the int8 cache build: B N^2 bytes written once over the
+    memory rate, against one ex2 per entry on the MUFU (16 a clock per SM)."""
+    entries = float(b) * n * n
+    bytes_ms = entries / PEAK_HBM * 1e3
+    ex2_ms = entries / (16 * SMS * clock_mhz * 1e6) * 1e3
+    return max(bytes_ms, ex2_ms), "bytes" if bytes_ms > ex2_ms else "ex2"
+
+
+def cache_float64(feats):
+    """round_half_even(127 exp(-|f_i - f_j|^2 / 2)) of [B, N, 5] features in
+    float64 on the card (the direct distance), a block of rows at a time."""
+    b, n, _ = feats.shape
+    f = feats.double()
+    out = torch.empty((b, n, n), dtype=torch.int8, device=feats.device)
+    for i in range(b):
+        for r0 in range(0, n, 2048):
+            d2 = ((f[i, r0:r0 + 2048, None] - f[i, None]) ** 2).sum(-1)
+            out[i, r0:r0 + 2048] = torch.round(torch.exp(-0.5 * d2) * 127.0).to(torch.int8)
+    return out
+
+
+def crf_phase(fidelity, crf, bil):
+    import numpy as np
+
+    ccfg = crf.crf_config_from_cfg({})
+    image = fidelity.make_scene(320, 27, seed=0)[0]
+    phases = crf._jbu_phases(ccfg, 320, 320)
+    before = bil.KERNEL.cache_launches
+    _, _, kmat = crf._jbu_operator(torch.from_numpy(image)[None].cuda(), ccfg, 8,
+                                   torch.bfloat16, phases)
+    if bil.KERNEL.cache_launches != before + 1:
+        raise AssertionError("the default point's cache was not built by the kernel")
+    f = torch.from_numpy(phase_point_features(image, ccfg, phases))  # float64 on the CPU
     sq = (f * f).sum(1)
     k64 = torch.round(torch.exp(f @ f.T - 0.5 * sq[:, None] - 0.5 * sq[None]) * 127)
     cache_diff = (kmat[0].cpu().double() - k64).abs().max().item()
     if not cache_diff <= 1:
         raise AssertionError(f"int8 cache differs from float64 by {cache_diff}")
-    phase("crf_cache", points=int(f.shape[0]), max_step_diff=cache_diff)
+
+    # the eval step's build: 16 scenes at 320 px, kernel and eager build
+    f16 = torch.from_numpy(np.stack([
+        phase_point_features(fidelity.make_scene(320, 27, seed=i)[0], ccfg, phases)
+        for i in range(16)])).float().cuda()
+    b, n = f16.shape[:2]
+    inputs = [f16 + 1e-3 * i for i in range(4)]
+    kernel_ms = cuda_time_ms(crf.cache_kernel_int8, inputs, iters=50)
+    queued_ms = device_time_ms(crf.cache_kernel_int8, inputs, iters=50)
+    clock = sm_clock_mhz()
+    bound, bound_by = cache_bound_ms(b, n, clock)
+    eager_ms = cuda_time_ms(crf.cache_kernel_int8_plain, inputs, iters=10, warmup=2)
+    kern, eager = crf.cache_kernel_int8(f16), crf.cache_kernel_int8_plain(f16)
+    steps_apart = (kern.int() - eager.int()).abs()
+    # the rounding contract at the eval step's shape, as the card tests hold
+    # it: against float64, at most one step off, at most 1e-3 of the entries
+    # off, and no more of them than the eager build's
+    ref = cache_float64(f16)
+    kern_off = (kern.int() - ref.int()).abs()
+    cache = dict(points=n, batch=b, kernel_ms=kernel_ms, kernel_queued_ms=queued_ms,
+                 eager_ms=eager_ms, bound_ms=bound, bound_by=bound_by, sm_clock_mhz=clock,
+                 share_of_bound=bound / min(kernel_ms, queued_ms),
+                 max_step_from_float64=int(kern_off.max()),
+                 entries_off_float64=int((kern_off != 0).sum()),
+                 eager_entries_off_float64=int((eager != ref).sum()),
+                 entries_apart_from_eager=int((steps_apart != 0).sum()),
+                 max_step_apart_from_eager=int(steps_apart.max()))
+    phase("crf_cache", scene0_max_step_from_float64=cache_diff, **cache)
+    del f16, inputs, kern, eager, steps_apart, ref, kern_off
+    torch.cuda.empty_cache()
+    if not (cache["max_step_from_float64"] <= 1
+            and cache["entries_off_float64"] <= 1e-3 * b * n * n
+            and cache["entries_off_float64"] <= cache["eager_entries_off_float64"]):
+        raise AssertionError(f"int8 cache kernel at B={b}, N={n}: at most "
+                             f"{cache['max_step_from_float64']} steps and "
+                             f"{cache['entries_off_float64']} entries off float64 (the eager "
+                             f"build: {cache['eager_entries_off_float64']}); limits 1 step, "
+                             f"{1e-3 * b * n * n:.0f} entries and the eager build's")
 
     scenes = [fidelity.make_scene(320, 27, seed=i) for i in range(6)]
     imgs = torch.from_numpy(np.stack([s[0] for s in scenes])).cuda()
@@ -968,7 +1042,8 @@ def crf_phase(fidelity, crf):
     if not ok:
         raise AssertionError(f"CRF fidelity {miou:.2f}/{acc:.2f}, lattice agreement "
                              f"{agree:.2f}% not within 0.2 of {CRF_REF}, {LATTICE_REF}%")
-    return {"miou": float(miou), "accuracy": float(acc), "lattice_agreement": agree}
+    return {"miou": float(miou), "accuracy": float(acc), "lattice_agreement": agree,
+            "cache": cache}
 
 
 def fidelity_rows_phase(study, bil):
@@ -1040,13 +1115,18 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
 
     batches = make_batches(gen, B, 4)  # warm-up + 3 timed
     torch.cuda.reset_peak_memory_stats()
+    caches = bil.KERNEL.cache_launches
     _, img_s, launches, k4 = run_eval_batches(step, model, batches, att, bil)
+    caches = bil.KERNEL.cache_launches - caches
+    caches_per_batch = caches / len(batches)
     expected = per_batch * len(batches)
-    if launches != expected or k4 != 0:
-        raise AssertionError(f"attention launches {launches} != {expected} or "
-                             f"K4 launches {k4} != 0 at the default point")
+    if launches != expected or k4 != 0 or caches != len(batches):
+        raise AssertionError(f"attention launches {launches} != {expected}, K4 launches "
+                             f"{k4} != 0 or int8 cache launches {caches} != "
+                             f"{len(batches)} at the default point")
     phase("main_path", batch=B, res=320, batches_timed=3, img_per_s=img_s,
           attention_launches=launches, expected_launches=expected,
+          crf_cache_launches=caches,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
     # one image in float32: kernel on the card vs plain path on the CPU
@@ -1081,11 +1161,15 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
             n_classes=27, crf=ccfg, backbone_dtype="bfloat16"))
         batches = make_batches(gen, b, n_batches)
         torch.cuda.reset_peak_memory_stats()
+        caches = bil.KERNEL.cache_launches
         _, pt_img_s, pt_att, pt_k4 = run_eval_batches(step, model, batches, att, bil)
-        if pt_att != per_batch * n_batches or pt_k4 != k4_per_batch * n_batches:
+        if (pt_att != per_batch * n_batches or pt_k4 != k4_per_batch * n_batches
+                or bil.KERNEL.cache_launches != caches):  # no int8 cache at these points
             raise AssertionError(f"{name}: attention launches {pt_att}, K4 launches "
-                                 f"{pt_k4}; expected {per_batch * n_batches} and "
-                                 f"{k4_per_batch * n_batches}")
+                                 f"{pt_k4}, int8 cache launches "
+                                 f"{bil.KERNEL.cache_launches - caches}; expected "
+                                 f"{per_batch * n_batches}, {k4_per_batch * n_batches} "
+                                 f"and 0")
         points[name] = {"img_per_s": pt_img_s, "k4_launches": pt_k4}
         phase("main_path_point", point=name, cfg=cfg, batch=b,
               batches_timed=n_batches - 1, img_per_s=pt_img_s, attention_launches=pt_att,
@@ -1094,7 +1178,8 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
         del batches
         torch.cuda.empty_cache()
     return {"img_per_s": img_s, "launches": launches, "agreement": agree,
-            "points": points, "f32_eval_launches": f32_eval_launches}
+            "points": points, "f32_eval_launches": f32_eval_launches,
+            "crf_cache_launches_per_batch": caches_per_batch}
 
 
 def train_path_phase(att, bil, inference, featurizer, gen):
@@ -3315,7 +3400,7 @@ def main():
                                "MiDaS batch", heads=BIAS_HEADS, profile=True)
     contract_rows = attention_contract_phase(att, poison, gen)
     k4 = bilateral_phase(bil, crf, study, runtime)
-    crf_phase(study, crf)
+    crf_res = crf_phase(study, crf, bil)
     fidelity = fidelity_rows_phase(study, bil)
     main_res = main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen)
     train_res = train_path_phase(att, bil, inference, featurizer, gen)
@@ -3531,6 +3616,21 @@ def main():
         "f32_library_ms": None,
         "exact_f32_crf_message_launches_per_run":
             fidelity["exact (ds=1)"]["k4_f32_message_launches"] / 2,
+    }, {
+        "name": "crf_cache_int8", "route": "cuda",
+        "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
+        "replaces": "none (XLA ops, depthg_tpu/ops/crf.py:820)",
+        "launches": main_res["crf_cache_launches_per_batch"],
+        "shape": f"B={crf_res['cache']['batch']}, N={crf_res['cache']['points']}, 5 features "
+                 "(the default eval step's cache, 16 fidelity scenes)",
+        "ms": crf_res["cache"]["kernel_ms"],
+        "queued_ms": crf_res["cache"]["kernel_queued_ms"],
+        "plain_ms": crf_res["cache"]["eager_ms"],
+        "bound_ms": crf_res["cache"]["bound_ms"], "bound_by": crf_res["cache"]["bound_by"],
+        "library_ms": None,
+        "max_step_from_float64": crf_res["cache"]["max_step_from_float64"],
+        "entries_off_float64": crf_res["cache"]["entries_off_float64"],
+        "eager_entries_off_float64": crf_res["cache"]["eager_entries_off_float64"],
     }]}
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))

@@ -1,4 +1,5 @@
-// Streaming bilateral message of the dense CRF for Hopper (sm_90a).
+// Streaming bilateral message of the dense CRF for Hopper (sm_90a), and the
+// kernel that builds its int8 kernel cache (at the end of this note).
 //
 // Replaces the TPU kernel depthg_tpu/ops/crf_pallas.py bilateral_message_pallas
 // (_kernel), the fused form of depthg_tpu/ops/crf.py _bilateral_message:
@@ -107,7 +108,38 @@
 // The pack step is 0.05 ms of it (torch.profiler in chip_smoke.py): the gap
 // to the bound is the message kernel's.
 // Left for later: the kernel's symmetry (half the exps, needs a second pass
-// or atomics), exact tile skipping, a fused kernel that builds the int8 cache.
+// or atomics), exact tile skipping.
+//
+// The int8 kernel cache (bilateral_cache_int8_kernel). It replaces no TPU
+// kernel: the JAX package builds the cache with XLA ops
+// (depthg_tpu/ops/crf.py _cache_kernel). Where a point set's kernel fits
+// the cache (the CRF's default point: ds=8, 4 phases, N=6,400 at 320 px),
+// the CRF stores K per image as int8 at the fixed scale 127,
+//     out[b, i, j] = round_half_even(127 k_ij) in [0, 127],
+// and reads it in every message. What bounds it: the bytes, B N^2 written
+// once (655 MB at B=16, N=6,400: 0.196 ms at 3.35 TB/s), beside one ex2 per
+// entry on the MUFU (0.157 ms at 1980 MHz) and ~13 instructions per entry at
+// the issue rate (10 for the distance, the ex2, the rounding FMA, 3/4 of a
+// byte permute). Design: a block owns 512 columns and 256 rows of one
+// image; it stages the features of both, scaled by EX2_SCALE, in shared
+// memory with coalesced loads. A thread then holds its 16 consecutive
+// columns in registers and walks rows: a warp covers the block's 512
+// columns of a row, and the 4 warps take every 4th row (every lane reads
+// the same row's features: a broadcast). Per row a thread computes its 16
+// entries as K4 does (direct distance, ex2.approx.ftz; the diagonal's
+// distance is exactly 0, so it is exactly 127), rounds each on the FP32
+// pipe (an FMA with 127 and 1.5 * 2^23 leaves the integer, half to even, in
+// the low mantissa byte; a cvt would share the MUFU's pipe), packs 4 bytes
+// a word with byte permutes and writes the 16 as one 16-byte store, so the
+// kernel matrix never exists in float32. Where N is not a multiple of 16
+// (row pieces off 16-byte alignment) and at the ragged piece at column N,
+// a thread writes byte by byte; nothing past column N or row N is written.
+// What holds it (H100, B=16, N=6,400): the instruction issue. The stores
+// alone take 0.206 ms (95% of the memory rate) and the entries alone (no
+// store) 0.375 ms, ~14.6 instructions an entry (the row loop's address
+// and loop work beside the 12.75) at ~76% of the issue rate. Columns read
+// by each lane straight from the [B, N, 5] features (320-byte strides
+// across a warp) cost 0.477 ms against 0.40-0.42 staged; 64-row tiles 0.60.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -802,6 +834,99 @@ bilateral_f32_rows_kernel(const float* __restrict__ ft, const float* __restrict_
     }
 }
 
+constexpr int CACHE_COLS = 16;                 // columns (bytes) a thread writes per row
+constexpr int CACHE_THREADS = 128;             // 4 warps
+constexpr int CACHE_WARPS = CACHE_THREADS / 32;
+constexpr int CACHE_STRIP = 32 * CACHE_COLS;   // columns of a block: one warp's row piece
+constexpr int CACHE_ROWS = 256;                // rows of a block
+constexpr float ROUND_MAGIC = 12582912.f;      // 1.5 * 2^23: x + it is round(x) in the low bits
+
+// The CACHE_COLS entries of one row at a thread's columns, 4 bytes a word
+// (column order, little-endian): q the row's scaled features, fc the columns'.
+__device__ __forceinline__ void cache_row(const float4 qa, const float q4,
+                                          const float (&fc)[NF][CACHE_COLS],
+                                          uint32_t (&w)[CACHE_COLS / 4]) {
+#pragma unroll
+  for (int c4 = 0; c4 < CACHE_COLS / 4; ++c4) {
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * c4 + e;
+      float a = qa.x - fc[0][c], d = -a * a;  // -|f_i - f_j|^2 (scaled)
+      a = qa.y - fc[1][c];
+      d = fmaf(-a, a, d);
+      a = qa.z - fc[2][c];
+      d = fmaf(-a, a, d);
+      a = qa.w - fc[3][c];
+      d = fmaf(-a, a, d);
+      a = q4 - fc[4][c];
+      d = fmaf(-a, a, d);
+      // low byte of the bits: round_half_even(127 k) (k <= 1)
+      v[e] = __float_as_uint(fmaf(ex2_approx(d), 127.f, ROUND_MAGIC));
+    }
+    w[c4] = __byte_perm(__byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040),
+                        0x5410);
+  }
+}
+
+// [B, N, 5] features (strides sf) -> out [B, N, N] int8, contiguous and
+// 16-byte aligned. Block (strip, row tile, image): CACHE_STRIP columns x
+// CACHE_ROWS rows; warp w writes rows w, w + 4, ... of the tile.
+__global__ void __launch_bounds__(CACHE_THREADS, 5)
+bilateral_cache_int8_kernel(const float* __restrict__ feats, int8_t* __restrict__ out, Strides sf,
+                            int n) {
+  __shared__ float4 s_row[CACHE_ROWS][2];  // the tile's rows: f0-f3, f4
+  // the strip's columns, [f][lane][16 + 4 padding floats]: a lane's 16 lie
+  // in one piece, and the padding spreads the lanes' LDS.128 over the banks
+  __shared__ float4 s_col[NF][32][CACHE_COLS / 4 + 1];
+  const int b = blockIdx.z, r0 = blockIdx.y * CACHE_ROWS, c0 = blockIdx.x * CACHE_STRIP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* fb = feats + b * sf.b;
+  // both staged with coalesced loads (consecutive threads, consecutive features)
+  for (int i = threadIdx.x; i < CACHE_ROWS * NF; i += CACHE_THREADS) {
+    const int r = i / NF, f = i % NF, row = r0 + r;
+    reinterpret_cast<float*>(s_row[r])[f] = row < n ? fb[row * sf.n + f] * EX2_SCALE : 0.f;
+  }
+  for (int i = threadIdx.x; i < CACHE_STRIP * NF; i += CACHE_THREADS) {
+    const int jj = i / NF, f = i % NF, j = c0 + jj;
+    reinterpret_cast<float*>(s_col[f][jj / CACHE_COLS])[jj % CACHE_COLS] =
+        j < n ? fb[j * sf.n + f] * EX2_SCALE : PAD_FEATURE;  // past n: entries 0, not written
+  }
+  __syncthreads();
+  const int j0 = c0 + lane * CACHE_COLS;
+  if (j0 >= n) return;
+
+  float fc[NF][CACHE_COLS];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int q = 0; q < CACHE_COLS / 4; ++q) {
+      const float4 v = s_col[f][lane][q];
+      fc[f][4 * q] = v.x;
+      fc[f][4 * q + 1] = v.y;
+      fc[f][4 * q + 2] = v.z;
+      fc[f][4 * q + 3] = v.w;
+    }
+  const int rows = min(CACHE_ROWS, n - r0);
+  const long long row_step = static_cast<long long>(CACHE_WARPS) * n;
+  int8_t* dst = out + (static_cast<long long>(b) * n + r0 + warp) * n + j0;
+  uint32_t w[CACHE_COLS / 4];
+  if (n % CACHE_COLS == 0 && j0 + CACHE_COLS <= n) {
+    // every row piece whole and 16-byte aligned: one store each
+    for (int r = warp; r < rows; r += CACHE_WARPS, dst += row_step) {
+      cache_row(s_row[r][0], s_row[r][1].x, fc, w);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    for (int r = warp; r < rows; r += CACHE_WARPS, dst += row_step) {
+      cache_row(s_row[r][0], s_row[r][1].x, fc, w);
+#pragma unroll
+      for (int c = 0; c < CACHE_COLS; ++c)
+        if (j0 + c < n) dst[c] = static_cast<int8_t>(w[c >> 2] >> (8 * (c & 3)));
+    }
+  }
+}
+
 template <int NT>
 void launch_bf16(const float* ft, const __nv_bfloat16* zt, __nv_bfloat16* out,
                  const Packed& p, Strides so, int batch, int n, int c, cudaStream_t st) {
@@ -898,6 +1023,20 @@ extern "C" int depthg_bilateral_degree(
   bilateral_rows_kernel<1, true>
       <<<dim3((p.np + RQ - 1) / RQ, 1, batch), 128, rows_smem_bytes(1, true), st>>>(
       static_cast<const float*>(workspace), nullptr, out, 0, p.np, so, n, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 kernel cache: feats [B, N, 5] float32 (element strides f_sb,
+// f_sn, contiguous last axis) -> out [B, N, N] int8, contiguous and 16-byte
+// aligned, every byte written; no workspace. The return value is that of
+// the message entries.
+extern "C" int depthg_bilateral_cache_int8(const void* feats, void* out, long long f_sb,
+                                           long long f_sn, int batch, int n, void* stream) {
+  if (batch < 1 || batch > 65535 || n < 1 || (n + CACHE_ROWS - 1) / CACHE_ROWS > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + CACHE_STRIP - 1) / CACHE_STRIP, (n + CACHE_ROWS - 1) / CACHE_ROWS, batch);
+  bilateral_cache_int8_kernel<<<grid, CACHE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(feats), static_cast<int8_t*>(out), Strides{f_sb, f_sn}, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,14 +17,17 @@ operating point the JAX ``CRFConfig`` reaches.
 The exact separable Gaussian is two dense banded matmuls. The bilateral
 kernel exp(-|f_i - f_j|^2 / 2) is cached per image when it fits
 ``kernel_cache_mb`` (int8 with fixed scale 127 and an int8 x int8 -> int32
-product, or the state dtype and a plain ``bmm``), built in full float32
-(TF32 off: ``runtime.configure_numerics``). A point set whose cache would
-not fit streams through ``ops/crf_bilateral.bilateral_message`` (the K4
-kernel on CUDA), which never stores the kernel.
+product, or the state dtype and a plain ``bmm``). The int8 cache is built
+on CUDA by one kernel launch for the batch
+(``ops/crf_bilateral.bilateral_cache_int8``); every other cache build is
+eager torch in full float32 (TF32 off: ``runtime.configure_numerics``). A
+point set whose cache would not fit streams through
+``ops/crf_bilateral.bilateral_message`` (the K4 kernel on CUDA), which never
+stores the kernel.
 
 Batching: batched tensor ops over the image axis, except the int8 product
-(``torch._int_mm`` has no batch form) and the cache build (one image at a
-time). The caches of a batch are held together up to ``CACHE_BUDGET_BYTES``;
+(``torch._int_mm`` has no batch form) and the eager cache builds (one image
+at a time). The caches of a batch are held together up to ``CACHE_BUDGET_BYTES``;
 a larger batch runs in groups of images that fit it (at ``downsample=2`` a
 float32 cache is 2.44 GiB per image), as the JAX package's cache-sized
 chunks do. Whether a point set caches depends on its size alone, never on
@@ -40,10 +43,10 @@ import functools
 import numpy as np
 import torch
 
-from depthg_tpu_torch.ops.crf_bilateral import bilateral_degree, bilateral_message, \
-    row_blocks
+from depthg_tpu_torch.ops.crf_bilateral import bilateral_cache_int8, bilateral_degree, \
+    bilateral_message, row_blocks
 from depthg_tpu_torch.ops.resize import resize_bilinear
-from depthg_tpu_torch.utils.profiling import counted, int8_matmul_flops
+from depthg_tpu_torch.utils.profiling import bilateral_cache_flops, counted, int8_matmul_flops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,14 +173,26 @@ def bilateral_kernel(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
                      - 0.5 * (b * b).sum(1)[None, :])
 
 
-def cache_kernel_int8(feats: torch.Tensor) -> torch.Tensor:
-    """[B, N, 5] -> [B, N, N] int8 kernel cache, fixed scale 127 (entries live
-    in (0, 1], the diagonal is exactly 127); built one image at a time."""
+def cache_kernel_int8_plain(feats: torch.Tensor) -> torch.Tensor:
+    """The eager build of ``cache_kernel_int8``, one image at a time: the
+    augmented form ``bilateral_kernel`` in float32, scaled and rounded."""
     b, n, _ = feats.shape
     out = torch.empty((b, n, n), dtype=torch.int8, device=feats.device)
     for i in range(b):
         out[i] = torch.round(bilateral_kernel(feats[i], feats[i]) * 127.0).to(torch.int8)
     return out
+
+
+@counted(lambda feats: bilateral_cache_flops(*feats.shape[:2]))
+def cache_kernel_int8(feats: torch.Tensor) -> torch.Tensor:
+    """[B, N, 5] -> [B, N, N] int8 kernel cache, fixed scale 127 (entries live
+    in (0, 1], rounded half to even; the diagonal is exactly 127). CUDA
+    tensors: the kernel ``bilateral_cache_int8`` (the direct distance, no
+    float32 kernel matrix in memory); CPU ones: ``cache_kernel_int8_plain``.
+    Counted for ``step_flops`` as the eager build's product, on both devices."""
+    if feats.device.type == "cpu":
+        return cache_kernel_int8_plain(feats)
+    return bilateral_cache_int8(feats)
 
 
 # largest total of kernel caches held at once by one call (32 GiB of the
@@ -198,13 +213,14 @@ def _cache_kernel(feats: torch.Tensor, ccfg: CRFConfig, dt) -> torch.Tensor:
     """[B, N, 5] -> [B, N, N] cache in its storage dtype: int8, or the state
     dtype ``dt`` (built in float32 row blocks, one image at a time).
 
-    Every cache is built by ``bilateral_kernel``, the JAX cache's augmented
+    The eager builds use ``bilateral_kernel``, the JAX cache's augmented
     form, not the direct distance of the streaming message: in eager torch
     it is one GEMM and two broadcast subtractions per block, about a third
     of the memory passes of five broadcast differences. Its ~1e-3 relative
     cancellation noise per entry lies below the rounding of a bf16 entry
     (2^-8 relative) or an int8 one (1/127 absolute); a float32 cache keeps
-    it, as the JAX package's float32 cache does."""
+    it, as the JAX package's float32 cache does. The int8 kernel on CUDA
+    computes the direct distance."""
     if ccfg.kernel_int8:
         return cache_kernel_int8(feats)
     b, n, _ = feats.shape

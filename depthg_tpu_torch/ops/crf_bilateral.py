@@ -36,6 +36,12 @@ to float32's limits), the plain version in float32.
   ``utils.profiling.step_flops`` (``counted``), the same on both devices.
 * ``KERNEL.launches`` counts kernel launches (one per call, whole batch);
   ``KERNEL.f32_launches`` those of the float32 message.
+* ``bilateral_cache_int8`` builds the CRF's int8 kernel cache (fixed scale
+  127, round half to even, ``ops/crf.cache_kernel_int8``) from the same
+  features in one launch for the whole batch: each entry is computed as the
+  message computes it and written once as a byte. CUDA tensors only (the
+  CRF builds its cache eagerly on the CPU); ``KERNEL.cache_launches``
+  counts its launches, which ``KERNEL.launches`` does not.
 
 The TPU forms are not ported: the unrolled symmetric diagonals, the
 +inf/-1e30 padding of the features and the VMEM budget check. Any N is
@@ -69,6 +75,7 @@ class _BilateralKernel:
     def __init__(self):
         self.launches = 0
         self.f32_launches = 0
+        self.cache_launches = 0
         self._fns = None
         # the service's replicas launch from one thread each
         self._lock = threading.Lock()
@@ -78,9 +85,13 @@ class _BilateralKernel:
             self.launches += 1
             self.f32_launches += not bf16
 
+    def count_cache(self) -> None:
+        with self._lock:
+            self.cache_launches += 1
+
     def fn(self):
         """The entries of ``csrc/crf_bilateral.cu``: ``bf16`` and ``f32``
-        messages, ``degree`` and ``workspace_bytes``."""
+        messages, ``degree``, ``cache_int8`` and ``workspace_bytes``."""
         with self._lock:
             if self._fns is None:
                 lib = _build.load("crf_bilateral")
@@ -88,6 +99,7 @@ class _BilateralKernel:
                     bf16=lib.depthg_bilateral_message_bf16,
                     f32=lib.depthg_bilateral_message_f32,
                     degree=lib.depthg_bilateral_degree,
+                    cache_int8=lib.depthg_bilateral_cache_int8,
                     workspace_bytes=lib.depthg_bilateral_workspace_bytes)
                 for f in (fns.bf16, fns.f32):
                     f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
@@ -96,6 +108,9 @@ class _BilateralKernel:
                 fns.degree.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
                                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
                 fns.degree.restype = ctypes.c_int
+                fns.cache_int8.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+                                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                fns.cache_int8.restype = ctypes.c_int
                 fns.workspace_bytes.argtypes = [ctypes.c_int] * 4
                 fns.workspace_bytes.restype = ctypes.c_longlong
                 self._fns = fns
@@ -229,4 +244,36 @@ def bilateral_degree(feats: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"bilateral degree launch failed for {tuple(feats.shape)}: "
                            f"CUDA error {err}")
     KERNEL.count()
+    return out
+
+
+def bilateral_cache_int8(feats: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, N, 5] float32 CUDA features -> [B, N, N] int8 kernel cache,
+    round_half_even(127 exp(-|f_i - f_j|^2 / 2)), one launch; written into
+    ``out`` (contiguous, 16-byte aligned, on the features' device) when
+    given."""
+    _check_feats(feats)
+    b, n, _ = feats.shape
+    if feats.device.type != "cuda":
+        raise ValueError(f"int8 cache kernel needs CUDA tensors, got {feats.device}")
+    if max(b, n) >= 2 ** 31:
+        raise ValueError(f"shape too large for the kernel: {tuple(feats.shape)}")
+    if out is None:
+        out = torch.empty((b, n, n), dtype=torch.int8, device=feats.device)
+    elif (out.device != feats.device or out.shape != (b, n, n) or out.dtype != torch.int8
+            or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, 16-byte aligned [{b}, {n}, {n}] int8 "
+                         f"tensor on {feats.device}, got {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} at {out.data_ptr():#x}")
+    if feats.stride(-1) != 1:
+        feats = feats.contiguous()
+    fns = KERNEL.fn()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = fns.cache_int8(feats.data_ptr(), out.data_ptr(), *feats.stride()[:2], b, n,
+                             stream)
+    if err != 0:
+        raise RuntimeError(f"int8 cache kernel launch failed for {tuple(feats.shape)}: "
+                           f"CUDA error {err}")
+    KERNEL.count_cache()
     return out

@@ -9,11 +9,12 @@
 * ``dispatch_rtt`` — the round trip of one trivial kernel and its fetch.
 * ``step_flops`` — the operations of one call, counted from shapes, the
   same on the CPU and on the card: PyTorch's ``FlopCounterMode`` for the
-  ordinary tensor ops, and for the three functions whose work it cannot see
-  or would see in another form (the attention kernel, the CRF bilateral
-  message and degree, the int8 products: ``torch._int_mm`` counts 0, a
-  ctypes kernel is invisible, and on the CPU their plain versions run other
-  products), their own count once from their shapes (``counted``).
+  ordinary tensor ops, and for the functions whose work it cannot see or
+  would see in another form (the attention kernel, the CRF bilateral
+  message and degree, its int8 kernel cache, the int8 products:
+  ``torch._int_mm`` counts 0, a ctypes kernel is invisible, and on the CPU
+  their plain versions run other products), their own count once from
+  their shapes (``counted``).
 
 The formulas (``attention_flops``, ``bilateral_*_flops``,
 ``int8_matmul_flops``) are each function's least work; ``chip_smoke.py``'s
@@ -44,16 +45,24 @@ def _k1_launches() -> int:
     return attention.KERNEL.launches
 
 
+def _crf_cache_launches() -> int:
+    """The int8 cache kernel's own launch counter as it stands."""
+    from depthg_tpu_torch.ops import crf_bilateral
+
+    return crf_bilateral.KERNEL.cache_launches
+
+
 class _Span:
     """One span while recording is on: host stamps on ``time.time_ns()``
     (the clock of the profiler's events), a pair of timing events on the
-    current CUDA stream once CUDA is in use, and K1's launch counter read
-    at both edges. A span opens no ``torch.profiler.record_function``: on
-    the card kineto reports such a range a second time as a device event (a
-    ``gpu_user_annotation``), which a trace summary that keeps every
-    CUDA-typed event would count as a kernel and as busy time."""
+    current CUDA stream once CUDA is in use, and the launch counters of K1
+    and of the CRF's int8 cache kernel read at both edges. A span opens no
+    ``torch.profiler.record_function``: on the card kineto reports such a
+    range a second time as a device event (a ``gpu_user_annotation``), which
+    a trace summary that keeps every CUDA-typed event would count as a
+    kernel and as busy time."""
 
-    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "events")
+    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "cache", "events")
 
     def __init__(self, rec: "Recorder", name: str):
         self.rec, self.name = rec, name
@@ -64,6 +73,7 @@ class _Span:
         self.id = next(self.rec._ids)
         self.step = self.id if self.parent is None else self.parent.step
         self.k1 = _k1_launches()
+        self.cache = _crf_cache_launches()
         self.events = None
         if torch.cuda.is_initialized():
             self.events = (torch.cuda.Event(enable_timing=True),
@@ -79,6 +89,7 @@ class _Span:
         if self.events is not None:
             self.events[1].record()
         self.k1 = _k1_launches() - self.k1
+        self.cache = _crf_cache_launches() - self.cache
         self.rec._keep(self)
         return False
 
@@ -91,8 +102,8 @@ class Recorder:
     allocation, no ``record_function``, no CUDA event, no lock. On, each
     span records its name, its parent (the innermost open span of the same
     thread), the id of its outermost span (its step), its host start and end,
-    its stream time and the K1 launches inside it. Nothing waits for the
-    device until ``collect()``."""
+    its stream time and the launches of K1 and of the int8 cache kernel
+    inside it. Nothing waits for the device until ``collect()``."""
 
     def __init__(self):
         self._on = 0
@@ -130,10 +141,11 @@ class Recorder:
         outermost span's id), ``host_start_ns`` / ``host_end_ns``
         (``time.time_ns()``), ``host_ms``, ``self_host_ms`` (the span less
         its children), ``device_ms`` (stream time between the span's edges)
-        with ``device_start_ns`` / ``device_end_ns`` on the host clock, and
-        ``k1_launches``; the device fields are None for a span recorded
-        before CUDA was in use. One synchronize: an anchor event recorded
-        now on the current device puts the events on the host clock."""
+        with ``device_start_ns`` / ``device_end_ns`` on the host clock,
+        ``k1_launches`` and ``crf_cache_launches``; the device fields are
+        None for a span recorded before CUDA was in use. One synchronize: an
+        anchor event recorded now on the current device puts the events on
+        the host clock."""
         with self._lock:
             spans, dropped = sorted(self._spans, key=lambda s: s.id), self._dropped
         anchor = None
@@ -148,7 +160,7 @@ class Recorder:
                    "parent": None if s.parent is None else s.parent.id, "step": s.step,
                    "host_start_ns": s.t0, "host_end_ns": s.t1, "host_ms": (s.t1 - s.t0) / 1e6,
                    "device_ms": None, "device_start_ns": None, "device_end_ns": None,
-                   "k1_launches": s.k1}
+                   "k1_launches": s.k1, "crf_cache_launches": s.cache}
             if s.events is not None:
                 e0, e1 = s.events
                 rec["device_ms"] = e0.elapsed_time(e1)
@@ -221,6 +233,12 @@ def bilateral_exponent_flops(b: int, n: int) -> float:
     product over the 5 features augmented to 8 (f_i . f_j - |f_i|^2 / 2 -
     |f_j|^2 / 2, the TPU kernel's form)."""
     return 2.0 * b * n * n * 8
+
+
+def bilateral_cache_flops(b: int, n: int) -> float:
+    """The int8 kernel cache's exponent as the eager build counts it: an
+    [N, 5] x [5, N] product per image (``FlopCounterMode`` of ``a @ b.T``)."""
+    return 2.0 * b * n * n * 5
 
 
 def bilateral_product_flops(b: int, n: int, c: int) -> float:

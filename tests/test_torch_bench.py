@@ -20,7 +20,8 @@
   of a float64 product formulation, its plain version's products are not
   counted again, and one eval step counts the same through the kernel's
   entry (``attention_impl="fused"``, the card's path) as through the eager
-  attention (the CPU's ``auto``).
+  attention (the CPU's ``auto``), and with the counted int8 cache as with
+  its eager build seen by ``FlopCounterMode``.
 * ``median_time`` and ``dispatch_rtt``.
 """
 
@@ -360,6 +361,35 @@ def test_int8_products_count_their_work_once():
         assert profiling.int8_matmul_flops(m, 32, 24) == ref
         assert _counted(layers.int8_matmul, a, w) == ref
         assert _flop_counter(lambda: layers.int8_matmul(a, w)) == 0  # _int_mm counts 0
+
+
+def test_int8_cache_counts_its_work_once():
+    """The int8 cache counts the eager build's [N, 5] x [5, N] product per
+    image once, as ``FlopCounterMode`` counts it in float64; its own
+    tensor ops are not counted again."""
+    b, n = 3, 50
+    feats = torch.randn(b, n, 5, generator=torch.Generator().manual_seed(4))
+    f = feats.double()
+    ref = sum(_flop_counter(lambda: f[i] @ f[i].T) for i in range(b))
+    assert profiling.bilateral_cache_flops(b, n) == ref == 2 * b * n * n * 5
+    assert _counted(tcrf.cache_kernel_int8, feats) == ref
+
+
+def test_eval_step_counts_the_same_with_the_counted_cache(monkeypatch):
+    """An eval step at the default point (int8 cache) counts what it counted
+    when ``FlopCounterMode`` saw the eager build's product itself."""
+    cfg = tvit.ViTConfig(embed_dim=128, depth=2, num_heads=2)
+    ecfg = tinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
+                           crf=tcrf.crf_config_from_cfg({}), backbone_dtype="bfloat16")
+    g = torch.Generator().manual_seed(5)
+    img = torch.randn(2, 3, 64, 64, generator=g)
+    label = torch.randint(-1, 5, (2, 64, 64), generator=g)
+    fcfg = tfeat.FeaturizerConfig(vit_config=cfg, dim=16)
+    model = tinf.Segmenter(fcfg, 5, 7).init_weights(torch.Generator().manual_seed(0))
+    step = tinf.make_eval_step(ecfg)
+    counted = profiling.step_flops(step, model, img, label)
+    monkeypatch.setattr(tcrf, "cache_kernel_int8", tcrf.cache_kernel_int8_plain)
+    assert profiling.step_flops(step, model, img, label) == counted
 
 
 def test_eval_step_counts_the_same_through_the_kernels_entry():

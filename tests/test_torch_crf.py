@@ -35,6 +35,7 @@ import torch
 
 from depthg_tpu.ops import crf as jcrf
 from depthg_tpu_torch.ops import crf as tcrf
+from depthg_tpu_torch.ops import crf_bilateral as tbil
 
 torch.set_num_threads(1)
 
@@ -249,6 +250,23 @@ def test_int8_cache_matches_float64_and_jax(scene):
                                        jcrf.crf_config_from_cfg({}),
                                        jnp.float32)).astype(np.int32)
     assert np.abs(kt - kj).max() <= 1
+
+
+def test_int8_cache_on_the_cpu_is_the_eager_build(scene):
+    """On the CPU ``cache_kernel_int8`` is the eager build, byte for byte:
+    the augmented form in float32 per image, scaled by 127 and rounded; the
+    card's kernel is not counted."""
+    image = torch.from_numpy(scene[0][:, ::2, ::2]).float()  # 80 px: 4 x 100 points
+    feats = tcrf._bilateral_features(torch.stack([image, image.flip(-1)]), tcrf.CRFConfig(), 8)
+    a = feats.float()
+    want = torch.stack([
+        torch.round(torch.exp(a[i] @ a[i].T - 0.5 * (a[i] * a[i]).sum(1)[:, None]
+                              - 0.5 * (a[i] * a[i]).sum(1)[None, :]) * 127.0).to(torch.int8)
+        for i in range(2)])
+    launches = tbil.KERNEL.cache_launches
+    got = tcrf.cache_kernel_int8(feats)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert tbil.KERNEL.cache_launches == launches
 
 
 def test_cached_matmul_matches_jax():

@@ -52,7 +52,12 @@ the grids the bias-free bf16 kernel chooses (``block_plan``: B=1-8 at
 N=1601 with n_valid across the 128- and 256-row block edges, and N=769,
 785 and 1201, whose last block one warpgroup walks), every grid choice
 forced on poisoned output with the chosen grid's bits, and a bias-free
-batch equal to its images one by one.
+batch equal to its images one by one. The int8 cache slice adds the CRF's
+int8 cache kernel (``bilateral_cache_int8``) against the float64
+rounding (at most one step off, at most 1e-3 of the entries off, no more
+than the eager build's share) on memory that held -1 with guard bytes
+past it, its refusals, and the default CRF's labels with the kernel's
+cache against the eager build's.
 """
 
 import pytest
@@ -418,6 +423,103 @@ def test_cached_matmul_close_on_card(cuda):
     out = tcrf.cached_matmul(k8.to(cuda), z.to(cuda), torch.float32).cpu()
     assert (out - ref).abs().max() <= 1600 * (1.0 / 127)
     assert (out - ref).abs().mean() <= 1e-3 * ref.abs().mean()
+
+
+def _cache_feats(b, n, seed, cuda, width=5):
+    """CRF-like point features on the card, [B, N, 5] (a view of [B, N,
+    width] storage when width > 5): positions over 5 sigmas, colors within
+    a few sigmas of a color per image, so entries span 0 to 127."""
+    gen = torch.Generator().manual_seed(seed)
+    store = torch.rand(b, n, width, generator=gen) * 5.0
+    store[..., 2:5] = store[..., 2:5] * 0.8 + torch.rand(b, 1, 3, generator=gen) * 85.0
+    return store.to(cuda)[..., :5]
+
+
+def _cache_float64(feats):
+    """round_half_even(127 exp(-|f_i - f_j|^2 / 2)) in float64 on the card,
+    one image and one block of rows at a time."""
+    b, n, _ = feats.shape
+    f = feats.double()
+    out = torch.empty((b, n, n), dtype=torch.int8, device=feats.device)
+    for i in range(b):
+        for r0 in range(0, n, 2048):
+            d2 = ((f[i, r0:r0 + 2048, None] - f[i, None]) ** 2).sum(-1)
+            out[i, r0:r0 + 2048] = torch.round(torch.exp(-0.5 * d2) * 127.0).to(torch.int8)
+    return out
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("n", [1, 100, 6399, 6400, 12_800])
+def test_int8_cache_kernel_against_float64(cuda, b, n):
+    """The int8 cache kernel (``bilateral_cache_int8``) into a buffer that
+    held -1, with guard bytes past B N^2: every byte written and in [0,
+    127], the guard untouched, one launch counted, the diagonal exactly
+    127; against the float64 rounding no entry off by more than one and at
+    most 1e-3 of them off at all, and (N >= 6,399, where the eager build's
+    cancellation noise has many entries to show in) no more than the eager
+    build's own share on the same features. N = 100 and 6,399 leave rows
+    off 16-byte alignment and a ragged last piece; B = 1 features are a
+    strided view."""
+    feats = _cache_feats(b, n, seed=n + b, cuda=cuda, width=8 if b == 1 else 5)
+    size = b * n * n
+    buf = torch.full((size + 4096,), -1, dtype=torch.int8, device=cuda)
+    before = tbil.KERNEL.cache_launches
+    out = tbil.bilateral_cache_int8(feats, buf[:size].view(b, n, n))
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.cache_launches == before + 1
+    assert torch.all(buf[size:] == -1)
+    assert int(out.min()) >= 0 and int(out.max()) <= 127
+    assert torch.all(torch.diagonal(out, dim1=1, dim2=2) == 127)
+    ref = _cache_float64(feats)
+    diff = (out.int() - ref.int()).abs()
+    assert int(diff.max()) <= 1
+    off = int((diff != 0).sum())
+    assert off <= 1e-3 * size
+    if n >= 6399:
+        eager = tcrf.cache_kernel_int8_plain(feats)
+        assert off <= int((eager != ref).sum())
+    # the public entry, and the CRF's, give the same bytes in one launch each
+    before = tbil.KERNEL.cache_launches
+    assert torch.equal(tbil.bilateral_cache_int8(feats), out)
+    assert torch.equal(tcrf.cache_kernel_int8(feats), out)
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.cache_launches == before + 2
+
+
+@pytest.mark.parametrize("bad", ["float64", "rank2", "width4", "cpu", "out_off_16_bytes"])
+def test_int8_cache_kernel_refuses_what_it_cannot_take(cuda, bad):
+    feats = _cache_feats(2, 64, seed=0, cuda=cuda)
+    before = tbil.KERNEL.cache_launches
+    with pytest.raises(ValueError):
+        if bad == "out_off_16_bytes":
+            buf = torch.empty(2 * 64 * 64 + 16, dtype=torch.int8, device=cuda)
+            tbil.bilateral_cache_int8(feats, buf[4:4 + 2 * 64 * 64].view(2, 64, 64))
+        else:
+            tbil.bilateral_cache_int8({"float64": feats.double(), "rank2": feats[0],
+                                       "width4": feats[..., :4], "cpu": feats.cpu()}[bad])
+    assert tbil.KERNEL.cache_launches == before
+
+
+def test_default_crf_labels_with_the_cache_kernel_and_the_eager_build(cuda, monkeypatch):
+    """``dense_crf_multi_batch`` at the default point on four 320 px scenes:
+    the labels with the kernel's cache and with the eager build patched in
+    agree on >= 99.9% of pixels, and the kernel ran once for the batch."""
+    import numpy as np
+
+    from depthg_tpu_torch import crf_fidelity_study as study
+
+    scenes = [study.make_scene(320, 27, seed=i) for i in range(4)]
+    imgs = torch.from_numpy(np.stack([s[0] for s in scenes])).to(cuda)
+    lgs = torch.from_numpy(np.stack([s[2] for s in scenes])).to(cuda)
+    ccfg = tcrf.crf_config_from_cfg({})
+    before = tbil.KERNEL.cache_launches
+    kernel = tcrf.dense_crf_multi_batch(imgs, [lgs], ccfg)[0].argmax(1)
+    torch.cuda.synchronize()
+    assert tbil.KERNEL.cache_launches == before + 1
+    monkeypatch.setattr(tcrf, "cache_kernel_int8", tcrf.cache_kernel_int8_plain)
+    eager = tcrf.dense_crf_multi_batch(imgs, [lgs], ccfg)[0].argmax(1)
+    assert tbil.KERNEL.cache_launches == before + 1
+    assert (kernel == eager).float().mean().item() >= 0.999
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,7 +8,8 @@ benchmark's readers of them, on the CPU.
 * On: the parent is the innermost open span of the same thread, every span
   under one outermost span shares its step id, self time is the span less
   its children, the K1 counter's delta is the kernel's own
-  ``KERNEL.launches`` delta, and the host stamps bracket a profiler event
+  ``KERNEL.launches`` delta, the int8 cache kernel's counter is recorded
+  as a delta too, and the host stamps bracket a profiler event
   recorded inside (one clock, ``time.time_ns()``). A running
   ``torch.profiler`` turns recording on by itself.
 * The tiny eval, predict and train steps (the sizes of
@@ -18,8 +19,10 @@ benchmark's readers of them, on the CPU.
 * Each reader in ``benchmark/metrics/`` that reads spans, loaded by path as
   the harness loads it, computes its value from a hand-built span list and
   returns None without a step, with a step that lacks its span, with a
-  dropped span, or from a program that has no spans; and the spans it
-  names are the ones the tiny steps emit.
+  dropped span, or from a program that has no spans (the cache launches'
+  reader also from spans without its counter, or with a step that launched
+  the kernel no time, as every step on the CPU); and the spans it names are
+  the ones the tiny steps emit.
 """
 
 import importlib.util
@@ -107,6 +110,7 @@ def test_off_is_inert(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "Event", raising)
     monkeypatch.setattr(torch.profiler, "record_function", raising)
     monkeypatch.setattr(profiling, "_k1_launches", raising)
+    monkeypatch.setattr(profiling, "_crf_cache_launches", raising)
     call()
     assert profiling.span("a") is profiling.span("b")
     assert profiling.collect() == {"spans": [], "dropped": 0}
@@ -190,6 +194,20 @@ def test_counter_deltas_are_the_kernels_launches():
     assert inner["k1_launches"] == 3
 
 
+def test_crf_cache_counter_deltas(monkeypatch):
+    """``crf_cache_launches`` is the delta of the cache kernel's counter
+    (stubbed here: the CPU builds its cache without the kernel) across each
+    span."""
+    count = iter([10, 11, 14, 16])  # step opens, inner opens, inner closes, step closes
+    monkeypatch.setattr(profiling, "_crf_cache_launches", lambda: next(count))
+    with profiling.recording():
+        with profiling.span("step"):
+            with profiling.span("inner"):
+                pass
+    step, inner = profiling.collect()["spans"]
+    assert step["crf_cache_launches"] == 6 and inner["crf_cache_launches"] == 3
+
+
 def test_stamps_bracket_profiler_events():
     """Under a running profiler, without ``recording()``: the span's
     ``time.time_ns()`` stamps bracket an operator recorded inside it."""
@@ -265,20 +283,21 @@ def test_cap_counts_dropped_spans(monkeypatch):
     assert rec.collect() == {"spans": [], "dropped": 0}
 
 
-def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0):
+def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0,
+         cache=0):
     return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
             "host_ms": host, "self_host_ms": host if self_host is None else self_host,
-            "device_ms": device, "k1_launches": k1}
+            "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache}
 
 
 def eval_spans(device=True):
     """Two eval steps (one with two passes) and the spans of a predict step,
     which has no step span of its own."""
     d = (lambda v: v) if device else (lambda v: None)
-    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12),
+    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12, cache=1),
             span(2, "backbone", 1, 1, host=5.0, device=d(20.0)),
             span(3, "crf", 1, 1, host=30.0, device=d(44.0)),
-            span(4, "eval.step", host=52.0, device=d(74.0), k1=12),
+            span(4, "eval.step", host=52.0, device=d(74.0), k1=12, cache=1),
             span(5, "backbone", 4, 4, host=3.0, device=d(11.0)),
             span(6, "backbone", 4, 4, host=3.0, device=d(11.0)),
             span(7, "crf", 4, 4, host=31.0, device=d(46.0)),
@@ -302,6 +321,7 @@ def train_spans():
 READERS = {
     "backbone_device_ms.eval": (eval_spans, (20.0 + 22.0) / 2),
     "k1_launches_per_step.eval": (eval_spans, 12.0),
+    "crf_cache_launches_per_step.eval": (eval_spans, 1.0),
     "backbone_host_ms.train": (train_spans, (16.0 + 17.0) / 2),
     "losses_host_ms.train": (train_spans, (14.0 + 15.0) / 2),
     "backward_host_ms.train": (train_spans, (9.0 + 11.0) / 2),
@@ -353,6 +373,23 @@ def test_span_readers(monkeypatch, name):
     assert reader.read({}, {}) is None
 
 
+@pytest.mark.parametrize("case", ["without_the_counter", "a_step_without_a_launch"])
+def test_cache_reader_reads_nothing_without_the_kernel(monkeypatch, case):
+    """Spans of a program whose steps do not carry ``crf_cache_launches``,
+    or where an eval step launched the cache kernel no time (its cache built
+    without the kernel), read nothing, and raise nothing: losing the kernel
+    never reads as fewer launches."""
+    spans = eval_spans()
+    for s in spans:
+        if case == "without_the_counter":
+            del s["crf_cache_launches"]
+        elif s["id"] == 4:
+            s["crf_cache_launches"] = 0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader("crf_cache_launches_per_step.eval").read({}, {}) is None
+    assert load_reader("k1_launches_per_step.eval").read({}, {}) == 12.0
+
+
 @pytest.mark.parametrize("name", sorted(READERS))
 def test_readers_name_the_spans_the_steps_emit(name):
     """Each reader's step and span, as the tiny step of its cell's kind
@@ -371,5 +408,8 @@ def test_readers_name_the_spans_the_steps_emit(name):
     value = reader.read({}, {})
     if reader.KEY == "device_ms":
         assert value is None  # no CUDA here
+    elif reader.KEY == "crf_cache_launches":
+        assert value is None  # the CPU builds its cache without the kernel
+        assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     else:
         assert value is not None and value >= 0
