@@ -16,7 +16,8 @@ inverted) and writes ``{output_dir}/{parent folder}/{stem}_{model}.png``
 * ``--model zoedepth``: ``models/zoedepth`` with the reflect-pad + flip TTA
   of ``zoedepth_infer``; BEiT-L attention goes through the Hopper kernel
   with its relative-position bias (48 launches per batch: 24 blocks, two
-  passes). ``--model midas``: ``models/midas_dpt`` on raw images (24 kernel
+  passes), each batch one ``depth.step`` span of ``utils.profiling``.
+  ``--model midas``: ``models/midas_dpt`` on raw images (24 kernel
   launches per batch, no bias).
 * Weights: ``--weights`` (``ZoeD_M12_N.pt`` or ``dpt_large-midas-2f21e586.pt``,
   nothing is downloaded) or ``--allow_random`` (full width, random weights
@@ -51,6 +52,7 @@ from PIL import Image
 from depthg_tpu_torch.data.transforms import image_to_array as _image_to_array
 from depthg_tpu_torch.parallel import dist
 from depthg_tpu_torch.runtime import get_device
+from depthg_tpu_torch.utils import profiling
 
 def get_args_parser():
     p = argparse.ArgumentParser("Depth", add_help=False)
@@ -263,10 +265,10 @@ def build(args, device: torch.device, zoe_config=None, midas_config=None):
     model = to_dtype(model, args.dtype).eval()
 
     def infer(x):
-        with torch.inference_mode():
+        with torch.inference_mode(), profiling.span("depth.step"):
             depth, feats = zoedepth_infer(model, x.to(dtype), return_feats=True,
                                           attn_impl=impl)
-        return depth.float(), feats.float()
+            return depth.float(), feats.float()
     return infer, model
 
 

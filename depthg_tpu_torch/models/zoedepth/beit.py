@@ -5,14 +5,18 @@ adaptation: patch-16 embedding, cls token, no absolute position embedding,
 24 pre-norm blocks with LayerScale (``gamma_1``/``gamma_2``) and the
 decomposed qkv bias ``cat(q_bias, 0, v_bias)``, and per block a relative
 position bias over the (patches + cls) window, whose 2-D table is resized
-bicubically for any window other than the pretraining one. Parameter names
-are timm's, so ``core.core.pretrained.model.*`` of a released ZoeDepth
-file loads with ``strict=True``.
+bilinearly (``align_corners=False``, MiDaS 3.1's ``_get_rel_pos_bias``) for
+any window other than the pretraining one. (``BEiTConfig.rel_pos_resize =
+"bicubic"`` resizes it as the JAX package does, a departure from the
+published model.) Parameter names are timm's, so ``core.core.pretrained.model.*`` of a
+released ZoeDepth file loads with ``strict=True``.
 
 The bias of a block is built once per input size and kept in a small cache
 (inference only: with gradients on it is rebuilt every call), as
 [heads, N, round_up(N, 8)] storage whose [:, :, :N] view goes to the
-attention kernel, which reads bias rows in aligned pairs.
+attention kernel, which reads bias rows in aligned pairs. ``BIAS_BUILDS``
+counts the biases built (``utils.profiling`` reads it at each span's edges
+as ``rel_bias_builds``).
 
 Attention (the ``attn_impl`` argument of the forward, by default
 ``BEiTConfig.attn_impl``, ``"auto"``): ``"xla"`` is the eager softmax of the
@@ -38,6 +42,7 @@ import collections
 import copy
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -48,10 +53,26 @@ from depthg_tpu_torch.models.layers import LayerNorm, W8A8Linear, cast_bf16, qua
 from depthg_tpu_torch.models.vit import resolve_attn_impl
 from depthg_tpu_torch.models.zoedepth.layers import trunc_normal_
 from depthg_tpu_torch.ops.attention import attention_qkv
-from depthg_tpu_torch.ops.resize import resize_bicubic
+from depthg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
 
 # biases kept per block (one per input size)
 BIAS_CACHE_SIZES = 4
+
+
+class _BiasBuilds:
+    """The number of [heads, N, N] biases ``Attention.rel_pos_bias`` has
+    built in this process."""
+
+    def __init__(self):
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
+
+
+BIAS_BUILDS = _BiasBuilds()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +87,9 @@ class BEiTConfig:
     hooks: tuple = (5, 11, 17, 23)
     layer_scale_init: float = 1e-5
     attn_impl: str = "auto"  # "auto" | "xla" | "fused"
+    # the relative-position table's resize to a window other than the
+    # pretraining one: "bilinear" (MiDaS 3.1, the released model) | "bicubic"
+    rel_pos_resize: str = "bilinear"
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,14 +114,17 @@ def relative_position_index(h: int, w: int) -> np.ndarray:
     return idx
 
 
-def relative_position_bias(table: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
+def relative_position_bias(table: torch.Tensor, window: int, h: int, w: int,
+                           resize: str = "bilinear") -> torch.Tensor:
     """[heads, N, N] bias (N = h w + 1) in the table's dtype for an h x w
-    patch window, resizing the 2-D part of the table bicubically (in
-    float32) when the window is not ``window`` x ``window``. The result is
-    the [:, :, :N] view of [heads, N, round_up(N, 8)] storage."""
+    patch window, resizing the 2-D part of the table (``resize``:
+    "bilinear" or "bicubic", in float32) when the window is not ``window`` x
+    ``window``. The result is the [:, :, :N] view of [heads, N,
+    round_up(N, 8)] storage."""
     if (h, w) != (window, window):
+        resize_fn = {"bilinear": resize_bilinear, "bicubic": resize_bicubic}[resize]
         grid = table[:-3].reshape(2 * window - 1, 2 * window - 1, -1).permute(2, 0, 1)
-        grid = resize_bicubic(grid[None].float(), (2 * h - 1, 2 * w - 1))[0]
+        grid = resize_fn(grid[None].float(), (2 * h - 1, 2 * w - 1))[0]
         grid = grid.permute(1, 2, 0).reshape(-1, table.shape[-1])
         table = torch.cat([grid.to(table.dtype), table[-3:]], dim=0)
     idx = torch.from_numpy(relative_position_index(h, w)).to(table.device)
@@ -123,6 +150,7 @@ class Attention(nn.Module):
         self.num_heads = nh
         self.scale = (d // nh) ** -0.5
         self.window = cfg.pretrain_window
+        self.resize = cfg.rel_pos_resize
         self.qkv = nn.Linear(d, 3 * d, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(d))
         self.v_bias = nn.Parameter(torch.zeros(d))
@@ -138,7 +166,8 @@ class Attention(nn.Module):
         entry of the older version)."""
         table = self.relative_position_bias_table
         if torch.is_grad_enabled():
-            return relative_position_bias(table, self.window, h, w)
+            BIAS_BUILDS.add()
+            return relative_position_bias(table, self.window, h, w, self.resize)
         key = (h, w, table.data_ptr(), table._version, table.dtype, table.device)
         bias = self._bias_cache.get(key)
         if bias is None:
@@ -147,7 +176,8 @@ class Attention(nn.Module):
             for stale in [k for k in self._bias_cache
                           if k[:3] == key[:3] and k[4:] == key[4:]]:
                 del self._bias_cache[stale]
-            bias = relative_position_bias(table, self.window, h, w)
+            BIAS_BUILDS.add()
+            bias = relative_position_bias(table, self.window, h, w, self.resize)
             self._bias_cache[key] = bias
             while len(self._bias_cache) > BIAS_CACHE_SIZES:
                 self._bias_cache.popitem(last=False)

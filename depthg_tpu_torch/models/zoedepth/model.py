@@ -5,7 +5,10 @@ BEiT-L/384 encoder -> DPT decoder -> bottleneck conv -> softplus seed bins
 log-binomial over 64 bins -> depth = sum p c. ``zoedepth_infer`` adds the
 reference's reflect pad and horizontal-flip TTA, and ``prep`` the MiDaS
 prep resize (keep aspect, multiples of 32, "minimal", 0.5/0.5
-normalization). ``ZoeDepth.forward`` is ``zoedepth_forward``.
+normalization). ``ZoeDepth.forward`` is ``zoedepth_forward``; it opens the
+spans ``backbone`` (BEiT, its bias lookup included), ``dpt`` (the decoder)
+and ``bins`` (``conv2`` through the log-binomial and the depth sum) of
+``utils.profiling``.
 
 Module names are those of the released ``ZoeD_M12_N.pt``
 (``core.core.pretrained.model.*`` for BEiT, ``core.core.pretrained.act_postprocess*``
@@ -28,6 +31,7 @@ from depthg_tpu_torch.models.zoedepth.beit import BEiT, BEiTConfig
 from depthg_tpu_torch.models.zoedepth.dpt import DPT, DPTConfig
 from depthg_tpu_torch.models.zoedepth.layers import conv2d, init_uniform_
 from depthg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
+from depthg_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +93,16 @@ class ZoeDepth(nn.Module):
         ``attn_impl`` (auto | xla | fused) defaults to ``cfg.beit.attn_impl``."""
         cfg = self.cfg
         dpt = self.core.core
-        taps, grid = dpt.pretrained.model(x, attn_impl)
-        rel_depth, hooks = dpt.decode(taps, grid)
+        with profiling.span("backbone"):
+            taps, grid = dpt.pretrained.model(x, attn_impl)
+        with profiling.span("dpt"):
+            rel_depth, hooks = dpt.decode(taps, grid)
+        with profiling.span("bins"):
+            return self._bins(rel_depth, hooks, return_probs)
 
+    def _bins(self, rel_depth, hooks, return_probs):
+        """The metric-bins head on the decoder's outputs."""
+        cfg = self.cfg
         xh = self.conv2(hooks["l4_rn"])
         normed = cfg.bin_centers_type != "softplus"
         _, seed_centers = self.seed_bin_regressor(

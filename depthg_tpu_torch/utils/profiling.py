@@ -2,7 +2,7 @@
 
 * ``span`` / ``recording`` / ``collect`` / ``clear`` — the port's spans:
   named ranges at its layer boundaries (``eval.step``, ``backbone``,
-  ``crf``, ``train.step``, ...), recorded while a ``torch.profiler``
+  ``crf``, ``train.step``, ``depth.step``, ``dpt``, ``bins``, ...), recorded while a ``torch.profiler``
   session is active or inside ``recording()``, and inert otherwise.
 * ``median_time`` — median host-clock seconds of a call that ends in a
   synchronize or a host fetch.
@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import itertools
+import sys
 import threading
 import time
 from collections import defaultdict
@@ -52,17 +53,26 @@ def _crf_cache_launches() -> int:
     return crf_bilateral.KERNEL.cache_launches
 
 
+def _rel_bias_builds() -> int:
+    """BEiT's relative-position biases built so far: none while its module
+    has not been imported (read without importing it)."""
+    beit = sys.modules.get("depthg_tpu_torch.models.zoedepth.beit")
+    return 0 if beit is None else beit.BIAS_BUILDS.count
+
+
 class _Span:
     """One span while recording is on: host stamps on ``time.time_ns()``
     (the clock of the profiler's events), a pair of timing events on the
     current CUDA stream once CUDA is in use, and the launch counters of K1
-    and of the CRF's int8 cache kernel read at both edges. A span opens no
+    and of the CRF's int8 cache kernel and BEiT's count of relative-position
+    biases built read at both edges. A span opens no
     ``torch.profiler.record_function``: on the card kineto reports such a
     range a second time as a device event (a ``gpu_user_annotation``), which
     a trace summary that keeps every CUDA-typed event would count as a
     kernel and as busy time."""
 
-    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "cache", "events")
+    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "cache", "bias",
+                 "events")
 
     def __init__(self, rec: "Recorder", name: str):
         self.rec, self.name = rec, name
@@ -74,6 +84,7 @@ class _Span:
         self.step = self.id if self.parent is None else self.parent.step
         self.k1 = _k1_launches()
         self.cache = _crf_cache_launches()
+        self.bias = _rel_bias_builds()
         self.events = None
         if torch.cuda.is_initialized():
             self.events = (torch.cuda.Event(enable_timing=True),
@@ -90,6 +101,7 @@ class _Span:
             self.events[1].record()
         self.k1 = _k1_launches() - self.k1
         self.cache = _crf_cache_launches() - self.cache
+        self.bias = _rel_bias_builds() - self.bias
         self.rec._keep(self)
         return False
 
@@ -102,8 +114,8 @@ class Recorder:
     allocation, no ``record_function``, no CUDA event, no lock. On, each
     span records its name, its parent (the innermost open span of the same
     thread), the id of its outermost span (its step), its host start and end,
-    its stream time and the launches of K1 and of the int8 cache kernel
-    inside it. Nothing waits for the device until ``collect()``."""
+    its stream time, the launches of K1 and of the int8 cache kernel and the
+    relative-position biases built inside it. Nothing waits for the device until ``collect()``."""
 
     def __init__(self):
         self._on = 0
@@ -142,8 +154,9 @@ class Recorder:
         (``time.time_ns()``), ``host_ms``, ``self_host_ms`` (the span less
         its children), ``device_ms`` (stream time between the span's edges)
         with ``device_start_ns`` / ``device_end_ns`` on the host clock,
-        ``k1_launches`` and ``crf_cache_launches``; the device fields are
-        None for a span recorded before CUDA was in use. One synchronize: an
+        ``k1_launches``, ``crf_cache_launches`` and ``rel_bias_builds``; the
+        device fields are None for a span recorded before CUDA was in use.
+        One synchronize: an
         anchor event recorded now on the current device puts the events on
         the host clock."""
         with self._lock:
@@ -160,7 +173,8 @@ class Recorder:
                    "parent": None if s.parent is None else s.parent.id, "step": s.step,
                    "host_start_ns": s.t0, "host_end_ns": s.t1, "host_ms": (s.t1 - s.t0) / 1e6,
                    "device_ms": None, "device_start_ns": None, "device_end_ns": None,
-                   "k1_launches": s.k1, "crf_cache_launches": s.cache}
+                   "k1_launches": s.k1, "crf_cache_launches": s.cache,
+                   "rel_bias_builds": s.bias}
             if s.events is not None:
                 e0, e1 = s.events
                 rec["device_ms"] = e0.elapsed_time(e1)

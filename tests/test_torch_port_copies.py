@@ -490,8 +490,10 @@ def test_depth_dataset_tables_match_jax_package():
                                        "min_temp": 0.5, "unknown_key": 1}])
 def test_get_config_matches_jax_package(model, mode, over):
     """Field by field, for both models and all three modes, with and without
-    overrides. Two differences are the port's own: BEiT's ``attn_impl``
-    (the port's "auto", the JAX package's "xla") and ``DPTConfig``'s
+    overrides. Three differences are the port's own: BEiT's ``attn_impl``
+    (the port's "auto", the JAX package's "xla"), BEiT's ``rel_pos_resize``
+    (the port's "bilinear", the released model's; the JAX package has no
+    such field and resizes bicubically) and ``DPTConfig``'s
     ``project_readout`` (the port also loads MiDaS files without a readout
     projection; True is the JAX package's only behaviour)."""
     from depthg_tpu.models.zoedepth import config as jc
@@ -500,6 +502,7 @@ def test_get_config_matches_jax_package(model, mode, over):
     ref = dataclasses.asdict(jc.get_config(model, mode, **over))
     got = dataclasses.asdict(tc.get_config(model, mode, **over))
     assert (ref["beit"].pop("attn_impl"), got["beit"].pop("attn_impl")) == ("xla", "auto")
+    assert got["beit"].pop("rel_pos_resize") == "bilinear"
     assert got["dpt"].pop("project_readout") is True
     assert got == ref
     with pytest.raises(ValueError):

@@ -13,8 +13,10 @@ benchmark's readers of them, on the CPU.
   recorded inside (one clock, ``time.time_ns()``). A running
   ``torch.profiler`` turns recording on by itself.
 * The tiny eval, predict and train steps (the sizes of
-  ``test_torch_eval_step.py`` and ``test_torch_train_step.py``) emit exactly
-  their span trees.
+  ``test_torch_eval_step.py`` and ``test_torch_train_step.py``) and the
+  depth step of ``generate_depth.build`` on a tiny ZoeDepth emit exactly
+  their span trees; the depth step counts BEiT's relative-position biases
+  built: one a block on its first step at a grid, none on the next.
 * ``collect()`` is idempotent, the cap counts what it drops.
 * Each reader in ``benchmark/metrics/`` that reads spans, loaded by path as
   the harness loads it, computes its value from a hand-built span list and
@@ -34,9 +36,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from depthg_tpu_torch import generate_depth as tgen
 from depthg_tpu_torch import inference as tinf
 from depthg_tpu_torch.models import featurizer as tfeat
 from depthg_tpu_torch.models import vit as tvit
+from depthg_tpu_torch.models.zoedepth import beit as tbeit
+from depthg_tpu_torch.models.zoedepth import dpt as tdpt
+from depthg_tpu_torch.models.zoedepth import model as tzoe
 from depthg_tpu_torch.ops import attention
 from depthg_tpu_torch.train import losses as tloss
 from depthg_tpu_torch.train import step as tstep
@@ -49,6 +55,14 @@ EVAL_VIT = dict(embed_dim=128, depth=2, num_heads=2, patch_size=8)
 TRAIN_VIT = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32)
 LOSS = dict(feature_samples=3, neg_samples=2, depth_sampling="fps",
             depth_feat_correlation_loss=True)
+# a 64 x 96 image: padded to 96 x 136, prepped to 64 x 96, a 4 x 6 grid
+# against the 6 x 6 pretraining window
+ZOE = tzoe.ZoeConfig(n_bins=8, bin_embedding_dim=16, n_attractors=(4, 2, 2, 1),
+                     img_size=(64, 96),
+                     beit=tbeit.BEiTConfig(embed_dim=64, depth=4, num_heads=4, pretrain_window=6,
+                                           hooks=(0, 1, 2, 3)),
+                     dpt=tdpt.DPTConfig(embed_dim=64, features=16,
+                                        reassemble_channels=(8, 16, 32, 32)))
 
 
 @pytest.fixture(autouse=True)
@@ -88,6 +102,13 @@ def train_call(**kw):
     return lambda: tstep.train_step(state, batch, hp, lcfg, 0.19, 0.03, generator=gen)
 
 
+def depth_call():
+    args = tgen.get_args_parser().parse_args(["--allow_random", "--dtype", "float32"])
+    infer, _ = tgen.build(args, torch.device("cpu"), zoe_config=ZOE)
+    img = torch.rand(2, 3, 64, 96, generator=torch.Generator().manual_seed(1))
+    return lambda: infer(img)
+
+
 def tree(spans):
     """The spans as nested (name, [children]) tuples, in the order they opened."""
     kids = {s["id"]: [] for s in spans}
@@ -104,13 +125,15 @@ def raising(*args, **kwargs):
     raise AssertionError("called while recording is off")
 
 
-@pytest.mark.parametrize("make", [eval_call, train_call], ids=["eval", "train"])
+@pytest.mark.parametrize("make", [eval_call, train_call, depth_call],
+                         ids=["eval", "train", "depth"])
 def test_off_is_inert(monkeypatch, make):
     call = make()
     monkeypatch.setattr(torch.cuda, "Event", raising)
     monkeypatch.setattr(torch.profiler, "record_function", raising)
     monkeypatch.setattr(profiling, "_k1_launches", raising)
     monkeypatch.setattr(profiling, "_crf_cache_launches", raising)
+    monkeypatch.setattr(profiling, "_rel_bias_builds", raising)
     call()
     assert profiling.span("a") is profiling.span("b")
     assert profiling.collect() == {"spans": [], "dropped": 0}
@@ -240,7 +263,9 @@ def test_stamps_bracket_profiler_events():
     (lambda: train_call(fused_pair_forward=True),
      [("train.step", [("optimizer", []), ("train.forward", [("backbone", [])]),
                       ("backward", []), ("optimizer", [])])]),
-], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair"])
+    (depth_call,
+     [("depth.step", [("backbone", []), ("dpt", []), ("bins", [])] * 2)]),
+], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair", "depth"])
 def test_steps_emit_their_span_trees(make, want):
     call = make()
     with profiling.recording():
@@ -251,6 +276,26 @@ def test_steps_emit_their_span_trees(make, want):
     assert tree(got["spans"]) == want * 2
     for s in got["spans"]:
         assert s["self_host_ms"] >= 0 and s["k1_launches"] == 0
+
+
+def test_rel_bias_builds_once_a_grid():
+    """The first depth step at a grid builds one bias a block, in its first
+    pass's ``backbone`` span; the flip pass and the next step build none
+    (each block's bias cache holds them)."""
+    call = depth_call()
+    before = tbeit.BIAS_BUILDS.count
+    with profiling.recording():
+        call()
+        call()
+    spans = profiling.collect()["spans"]
+    steps = [s for s in spans if s["name"] == "depth.step"]
+    assert [s["rel_bias_builds"] for s in steps] == [ZOE.beit.depth, 0]
+    assert tbeit.BIAS_BUILDS.count - before == ZOE.beit.depth
+    first = [s["rel_bias_builds"] for s in spans if s["step"] == steps[0]["id"]
+             and s["name"] == "backbone"]
+    assert first == [ZOE.beit.depth, 0]
+    assert all(s["rel_bias_builds"] == 0 for s in spans
+               if s["name"] in ("dpt", "bins"))
 
 
 def test_collect_is_idempotent_and_clear_empties():
@@ -305,6 +350,19 @@ def eval_spans(device=True):
             span(9, "crf", host=30.0, device=d(99.0))]
 
 
+def depth_spans(device=True):
+    """Two depth steps of two passes each (backbone, dpt, bins a pass)."""
+    d = (lambda v: v) if device else (lambda v: None)
+    out = []
+    for i, base in enumerate((1, 8)):
+        out.append(span(base, "depth.step", host=90.0, device=d(85.0), k1=48))
+        for p in range(2):
+            out += [span(base + 1 + 3 * p, "backbone", base, base, device=d(20.0 + i)),
+                    span(base + 2 + 3 * p, "dpt", base, base, device=d(9.0)),
+                    span(base + 3 + 3 * p, "bins", base, base, device=d(6.0 + p))]
+    return out
+
+
 def train_spans():
     out = []
     for i, base in enumerate((1, 8)):
@@ -327,6 +385,10 @@ READERS = {
     "backward_host_ms.train": (train_spans, (9.0 + 11.0) / 2),
     "optimizer_host_ms.train": (train_spans, 2.2),
     "k1_launches_per_step.train": (train_spans, 24.0),
+    "backbone_device_ms.depth": (depth_spans, (40.0 + 42.0) / 2),
+    "dpt_device_ms.depth": (depth_spans, 18.0),
+    "bins_device_ms.depth": (depth_spans, 13.0),
+    "k1_launches_per_step.depth": (depth_spans, 48.0),
 }
 
 
@@ -368,7 +430,7 @@ def test_span_readers(monkeypatch, name):
         assert read([s for s in make()
                      if not (s["name"] == reader.SPAN and s["step"] == first)]) is None
     if reader.KEY == "device_ms":
-        assert read(eval_spans(device=False)) is None  # recorded without CUDA
+        assert read(make(device=False)) is None  # recorded without CUDA
     monkeypatch.delattr(profiling, "collect")  # a program without spans
     assert reader.read({}, {}) is None
 
@@ -398,7 +460,8 @@ def test_readers_name_the_spans_the_steps_emit(name):
     from benchmark.spans import per_step
 
     reader = load_reader(name)
-    call = eval_call(fused_tta=True) if name.endswith(".eval") else train_call()
+    call = {"eval": lambda: eval_call(fused_tta=True), "train": train_call,
+            "depth": depth_call}[name.rsplit(".", 1)[1]]()
     with profiling.recording():
         call()
         call()

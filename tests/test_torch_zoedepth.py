@@ -7,6 +7,9 @@ table; LayerScale at 0.1 so that attention shows in the output (at the
 default 1e-5 every block is nearly the identity). The JAX package draws
 the weights (``zoedepth_init``); they cross over as the released file's
 state dict (``zoe_state_dict_from_params``) and load with ``strict=True``.
+The JAX package resizes the table bicubically, so the port runs here with
+``rel_pos_resize="bicubic"`` (its default is MiDaS 3.1's bilinear resize,
+held to the plain reference in ``test_torch_zoedepth_reference.py``).
 
 Float32 throughout, JAX at "highest" matmul precision. Tolerances: taps
 2e-5 absolute and relative, as the JAX package's own fused-vs-xla test
@@ -48,7 +51,7 @@ def port_config(jcfg) -> tmodel.ZoeConfig:
     fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     # the attention path is the port's own default ("auto"), not JAX's "xla"
     fields["beit"] = tbeit.BEiTConfig(**{k: v for k, v in dataclasses.asdict(jcfg.beit).items()
-                                         if k != "attn_impl"})
+                                         if k != "attn_impl"}, rel_pos_resize="bicubic")
     fields["dpt"] = TDPTConfig(**dataclasses.asdict(jcfg.dpt))
     return tmodel.ZoeConfig(**fields)
 
@@ -109,7 +112,7 @@ def test_relative_position_bias_matches_jax(models):
     params, model, _ = models
     table = params["beit"]["blocks"][1]["rel_pos_table"]
     ref = jbeit._rel_pos_bias(jnp.asarray(table), JCFG.beit, 4, 6)
-    got = tbeit.relative_position_bias(torch.from_numpy(table), 4, 4, 6)
+    got = tbeit.relative_position_bias(torch.from_numpy(table), 4, 4, 6, "bicubic")
     assert got.shape == (2, 25, 25) and got.stride() == (25 * 32, 32, 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
     same = tbeit.relative_position_bias(torch.from_numpy(table), 4, 4, 4)
@@ -316,7 +319,9 @@ def test_carry_over_round_trips_through_the_jax_converter(models, module_prefix)
 
 def test_load_zoedepth_pt_strict(models, tmp_path):
     """A file in the released layout loads with ``strict=True`` into a model
-    of the derived configuration, equal to the fixture's."""
+    of the derived configuration, equal to the fixture's but for the table's
+    resize, which a file does not hold: it loads as the released model's
+    bilinear one, set here to the fixture's bicubic one for the comparison."""
     from depthg_tpu_torch.models.zoedepth.convert import load_zoedepth_pt
 
     params, model, x = models
@@ -325,6 +330,9 @@ def test_load_zoedepth_pt_strict(models, tmp_path):
     path = tmp_path / "zoe.pt"
     torch.save({"model": {"module." + k: v for k, v in sd.items()}}, path)
     loaded = load_zoedepth_pt(str(path)).eval()
+    assert loaded.cfg.beit.rel_pos_resize == "bilinear"
+    for block in loaded.core.core.pretrained.model.blocks:
+        block.attn.resize = "bicubic"
     xn = torch.from_numpy((x - 0.5) / 0.5)
     with torch.no_grad():
         torch.testing.assert_close(loaded(xn)["metric_depth"], model(xn)["metric_depth"],
@@ -337,11 +345,14 @@ def test_config_from_state_dict_matches_jax(features):
     the same weights: every field equal, except that the port reads
     ``n_midas_out`` from the log-binomial's input (always the decoder's 32
     channels) where JAX copies ``conv2``'s width (``features``): the two
-    agree at features=32 only."""
+    agree at features=32 only; and a state dict does not hold the table's
+    resize, which the port reads as the released model's bilinear one."""
     jcfg = dataclasses.replace(JCFG, dpt=dataclasses.replace(JCFG.dpt, features=features))
     params = _np_tree(jmodel.zoedepth_init(jax.random.PRNGKey(1), jcfg))
     ref = zoe_config_from_params(params)
     got = zoe_config_from_state_dict(zoe_state_dict_from_params(params))
     assert got.n_midas_out == 32 and ref.n_midas_out == features
     assert got.dpt.project_readout
-    assert got == dataclasses.replace(port_config(ref), n_midas_out=32)
+    want = port_config(ref)
+    assert got == dataclasses.replace(
+        want, n_midas_out=32, beit=dataclasses.replace(want.beit, rel_pos_resize="bilinear"))

@@ -418,4 +418,4 @@ def test_bias_cache_keeps_one_entry_per_size_across_updates():
                                                                    ((4, 6), version)]
         fresh = attn.rel_pos_bias(4, 6)
     torch.testing.assert_close(fresh, tbeit.relative_position_bias(
-        attn.relative_position_bias_table.detach(), 4, 4, 6), rtol=0, atol=0)
+        attn.relative_position_bias_table.detach(), 4, 4, 6, "bicubic"), rtol=0, atol=0)
