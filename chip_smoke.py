@@ -6,8 +6,9 @@ Phases, each printing one line (any failure exits non-zero before the
 final line):
 
 1. device: CUDA required; card name and power limit; TF32 off;
-2. build: nvcc builds ``depthg_tpu_torch/csrc/attention.cu`` and
-   ``csrc/crf_bilateral.cu``, one process each, started together;
+2. build: nvcc builds ``depthg_tpu_torch/csrc/attention.cu``,
+   ``csrc/crf_bilateral.cu`` and ``csrc/zoe_bins.cu``, one process each,
+   started together;
 3. attention kernel vs ``attention_plain`` at the ViT-S/8 eval shape
    (B=16, N=1601, 6 heads x 64, packed qkv) in bf16 and f32, plus
    n_valid=1601 inside N=1664: max abs and relative error, exact-zero
@@ -129,7 +130,9 @@ final line):
     its ReLU everywhere, so its maps are constant and that is accepted)
     and once from a random file in the hub layout whose head bias is +0.1:
     48 K1 launches per ZoeDepth batch, all with a bias, 24 per
-    MiDaS batch, none with one, no K4 launch; every PNG 8-bit, of its
+    MiDaS batch, none with one, no K4 launch; two launches of the bins
+    tail kernel per bf16 ZoeDepth batch (one a pass), none in float32 or
+    for MiDaS; every PNG 8-bit, of its
     image's size and (but under ``--allow_random`` MiDaS) not constant; the
     first image's PNG equal to its normalized depth (inverted for MiDaS);
     the host time of ``main``, the CUDA-event time of one 384 x 512 batch of
@@ -139,7 +142,11 @@ final line):
     show): bf16 through K1 vs the eager softmax on the card (taps and metric
     depth, relative error), then one 384 x 512 image in float32 through K1
     on the card vs the CPU's plain path at 4 of the 24 blocks (metric depth
-    within 1e-4 relative);
+    within 1e-4 relative); then ZoeDepth's bins tail at the depth cell's
+    shape (B=8, 384 x 512, a pass; ``tests/bins_tail_cases.py``'s inputs and
+    limits): the kernel against its plain version, its time back to back,
+    queued and by ``torch.profiler``, its host time a call, the plain
+    version's time, the bound (bytes);
 14. fine-tune path: ``finetune_zoedepth.main`` at full width (random
     float32 ZoeDepth from seed 0, TF32 off) on a synthetic NYU layout of 8
     training and 4 evaluation pairs at 640 x 480: 4 steps at batch 4 (the
@@ -1837,6 +1844,7 @@ def depth_path_phase(att, bil, tmp):
     from PIL import Image
 
     from depthg_tpu_torch import generate_depth
+    from depthg_tpu_torch.ops import zoe_bins
     from depthg_tpu_torch.profile_serve import synthetic_jpeg
 
     image_dir = os.path.join(tmp, "depth_images", "val")
@@ -1879,23 +1887,27 @@ def depth_path_phase(att, bil, tmp):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             att.KERNEL.launches = att.KERNEL.bias_launches = bil.KERNEL.launches = 0
-            att.KERNEL.f32_launches = 0
+            att.KERNEL.f32_launches = zoe_bins.KERNEL.bins_launches = 0
             t0 = time.perf_counter()
             written = generate_depth.main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches, bias_launches, k4 = (att.KERNEL.launches, att.KERNEL.bias_launches,
                                            bil.KERNEL.launches)
-            f32_launches = att.KERNEL.f32_launches
+            f32_launches, bins = att.KERNEL.f32_launches, zoe_bins.KERNEL.bins_launches
             peak = torch.cuda.max_memory_allocated() / 2**30
             expected = per_batch * DEPTH_BATCHES
+            # the bins tail kernel: one a pass (two a batch) of the bf16 ZoeDepth
+            expected_bins = 2 * DEPTH_BATCHES if label == "zoedepth" else 0
             if (written != len(DEPTH_IMAGES) or launches != expected or k4 != 0
                     or bias_launches != (expected if with_bias else 0)
-                    or f32_launches != (expected if label == "zoedepth_f32" else 0)):
+                    or f32_launches != (expected if label == "zoedepth_f32" else 0)
+                    or bins != expected_bins):
                 raise AssertionError(f"{model}: {written} maps, {launches} K1 launches "
-                                     f"({bias_launches} with a bias), {k4} K4 launches; "
-                                     f"expected {expected} K1 launches per "
-                                     f"{DEPTH_BATCHES} batches, all with a bias: {with_bias}")
+                                     f"({bias_launches} with a bias), {k4} K4 launches, "
+                                     f"{bins} bins tail launches; expected {expected} K1 "
+                                     f"launches per {DEPTH_BATCHES} batches, all with a bias: "
+                                     f"{with_bias}, and {expected_bins} bins tail launches")
             names = sorted(os.listdir(image_dir))
             constant = []
             for name, (w, h) in zip(names, DEPTH_IMAGES):
@@ -1941,7 +1953,8 @@ def depth_path_phase(att, bil, tmp):
             results[model] = {
                 "images": written, "batches": DEPTH_BATCHES, "k1_launches": launches,
                 "k1_bias_launches": bias_launches, "k4_launches": k4,
-                "k1_launches_per_batch": launches / DEPTH_BATCHES, "main_seconds": seconds,
+                "k1_launches_per_batch": launches / DEPTH_BATCHES,
+                "bins_tail_launches_per_batch": bins / DEPTH_BATCHES, "main_seconds": seconds,
                 "main_img_per_s": written / seconds, "batch8_384x512_ms": batch_ms,
                 "batch8_img_per_s": 8 / batch_ms * 1e3, "peak_mem_gb": peak}
             phase("depth_path", model=model, **results[model])
@@ -2022,6 +2035,75 @@ def depth_numerics_phase(att):
         raise AssertionError(f"depth numerics: kernel vs eager {tap_err}, {depth_err}; "
                              f"card vs CPU {card_err}")
     return {"tap_rel_err": tap_err, "depth_rel_err": depth_err, "card_vs_cpu": card_err}
+
+
+def bins_tail_bound_ms(b, h, w):
+    """(least ms, what bounds it) of ZoeDepth's bins tail at [B, H, W]: its
+    bytes (out_conv, rel and the half-size embedding and centers read once,
+    feats and the float32 depth written once) over the memory rate, against
+    its two products at the bf16 peak."""
+    from depthg_tpu_torch.utils.profiling import bins_tail_flops
+
+    px, src = b * h * w, b * (h // 2) * (w // 2)
+    nbytes = px * (32 * 2 + 2 + 128 * 2 + 4) + src * (128 + 64) * 2
+    bytes_ms = nbytes / PEAK_HBM * 1e3
+    flops_ms = bins_tail_flops(b, h, w, 161, 80) / PEAK_BF16 * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms > flops_ms else "operations"
+
+
+def bins_tail_phase(zb):
+    """ZoeDepth's bins tail at the depth cell's shape (B=8, 384 x 512, one
+    pass): the kernel against its plain version (``tests/bins_tail_cases.py``'s
+    inputs and limits), the kernel on CUDA events back to back, queued
+    behind a long product and by ``torch.profiler``, its host time a call,
+    the plain version, the bound."""
+    import bins_tail_cases as cases
+
+    b, h, w = 8, 384, 512
+    clb = cases.head("cuda")
+    inputs = [cases.inputs("cuda", b, h, w, seed=i) for i in range(2)]
+    with torch.inference_mode():
+        before = zb.KERNEL.bins_launches
+        depth, feats = zb.bins_tail(*inputs[0], clb)
+        ref_depth, ref_feats, _, _ = zb.bins_tail_plain(*inputs[0], clb)
+        held = cases.holds(depth, feats, ref_depth, ref_feats, inputs[0][2])
+        if zb.KERNEL.bins_launches != before + 1:
+            raise AssertionError("the bins tail kernel did not count its launch")
+        del depth, feats, ref_depth, ref_feats
+
+        def kernel(a):
+            return zb.bins_tail(*a, clb)[0]
+
+        kernel_ms = cuda_time_ms(kernel, inputs, iters=30)
+        queued_ms = device_time_ms(kernel, inputs, iters=30)
+        profiled_ms = profiled_kernel_ms(kernel, inputs, ["zoe_bins_tail_kernel"])[
+            "zoe_bins_tail_kernel"]
+        # the host's time a call, while the card works through a long product
+        busy = torch.empty(8192, 8192, device="cuda").normal_()
+        torch.cuda.synchronize()
+        busy @ busy
+        t0 = time.perf_counter()
+        for i in range(20):
+            kernel(inputs[i % 2])
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        del busy
+        plain_ms = cuda_time_ms(lambda a: zb.bins_tail_plain(*a, clb)[0], inputs, iters=5,
+                                warmup=2)
+    bound, bound_by = bins_tail_bound_ms(b, h, w)
+    out = dict(shape=[b, h, w], kernel_ms=kernel_ms, kernel_queued_ms=queued_ms,
+               kernel_profiler_ms=profiled_ms, host_us_per_call=host_us, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by,
+               share_of_bound=bound / min(queued_ms, profiled_ms or queued_ms),
+               limits={"depth_p99_over_range": cases.P99_TOL,
+                       "depth_max_over_range": cases.MAX_TOL,
+                       "feats_share_differing": cases.FEATS_SHARE}, **held)
+    phase("bins_tail", **out)
+    del inputs
+    torch.cuda.empty_cache()
+    if not held["passes"]:
+        raise AssertionError(f"bins tail kernel vs plain: {held}")
+    return out
 
 
 def write_nyu_layout(root, n_train, n_eval, hw=(480, 640), seed=0):
@@ -3371,6 +3453,7 @@ def main():
     from depthg_tpu_torch.ops import _build, crf
     from depthg_tpu_torch.ops import attention as att
     from depthg_tpu_torch.ops import crf_bilateral as bil
+    from depthg_tpu_torch.ops import zoe_bins as zb
     from depthg_tpu_torch.models.zoedepth import beit
 
     card = card_line()
@@ -3381,10 +3464,11 @@ def main():
           gpu=torch.cuda.get_device_name(0), tf32_off=True)
 
     t_build = time.perf_counter()
-    _build.build(["attention", "crf_bilateral"])
+    _build.build(["attention", "crf_bilateral", "zoe_bins"])
     att.KERNEL.fn()
     bil.KERNEL.fn()
-    for name in ("attention", "crf_bilateral"):
+    zb.KERNEL.fn()
+    for name in ("attention", "crf_bilateral", "zoe_bins"):
         phase("build", source=f"depthg_tpu_torch/csrc/{name}.cu",
               seconds=_build.BUILD_SECONDS[name],
               ptxas=[ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
@@ -3413,6 +3497,7 @@ def main():
         knn_res = knn_path_phase(att, bil, featurizer, runtime, gen, tmp)
         depth_res = depth_path_phase(att, bil, tmp)
     depth_numerics_phase(att)
+    bins = bins_tail_phase(zb)
     with tempfile.TemporaryDirectory() as tmp:
         ft_res = finetune_path_phase(att, bil, tmp)
     nk_res = nk_path_phase(att)
@@ -3631,6 +3716,18 @@ def main():
         "max_step_from_float64": crf_res["cache"]["max_step_from_float64"],
         "entries_off_float64": crf_res["cache"]["entries_off_float64"],
         "eager_entries_off_float64": crf_res["cache"]["eager_entries_off_float64"],
+    }, {
+        "name": "zoe_bins_tail", "route": "cuda",
+        "source": "depthg_tpu_torch/csrc/zoe_bins.cu",
+        "replaces": "none (XLA ops, depthg_tpu/models/zoedepth/heads.py and model.py)",
+        "launches": depth_res["zoedepth"]["bins_tail_launches_per_batch"],
+        "shape": "bf16, B=8, 384 x 512 (a pass of the depth cell's step)",
+        "ms": bins["kernel_ms"], "queued_ms": bins["kernel_queued_ms"],
+        "profiler_ms": bins["kernel_profiler_ms"], "plain_ms": bins["plain_ms"],
+        "bound_ms": bins["bound_ms"], "bound_by": bins["bound_by"],
+        "library_ms": None,
+        "depth_p99_over_range": bins["depth_p99_over_range"],
+        "depth_max_over_range": bins["depth_max_over_range"],
     }]}
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))

@@ -5,7 +5,8 @@ crop + KNN pipeline.
 Module names follow the JAX package (``depthg_tpu``), which stays the
 reference: ``ops.resize``, ``ops.attention`` (+ the hand-written Hopper
 kernel in ``csrc/attention.cu``), ``ops.crf``, ``ops.crf_bilateral`` (+
-``csrc/crf_bilateral.cu``), ``models.vit``, ``models.featurizer``,
+``csrc/crf_bilateral.cu``), ``ops.zoe_bins`` (+ ``csrc/zoe_bins.cu``,
+ZoeDepth's bins tail), ``models.vit``, ``models.featurizer``,
 ``models.probes``, ``utils.metrics``, ``utils.ckpt``, ``inference``, the
 training side (``ops.sampling``, ``ops.depth``, ``ops.correlation``,
 ``train.losses``, ``train.decay``, ``train.step``), ``serve``,

@@ -2,13 +2,14 @@
 
 BEiT-L/384 encoder -> DPT decoder -> bottleneck conv -> softplus seed bins
 -> 4 inverse-attractor stages over the decoder scales -> conditional
-log-binomial over 64 bins -> depth = sum p c. ``zoedepth_infer`` adds the
-reference's reflect pad and horizontal-flip TTA, and ``prep`` the MiDaS
-prep resize (keep aspect, multiples of 32, "minimal", 0.5/0.5
-normalization). ``ZoeDepth.forward`` is ``zoedepth_forward``; it opens the
-spans ``backbone`` (BEiT, its bias lookup included), ``dpt`` (the decoder)
-and ``bins`` (``conv2`` through the log-binomial and the depth sum) of
-``utils.profiling``.
+log-binomial over 64 bins -> depth = sum p c (the full-resolution tail in
+one kernel, ``ops.zoe_bins``, for a bf16 head on the card at inference).
+``zoedepth_infer`` adds the reference's reflect pad and horizontal-flip
+TTA, and ``prep`` the MiDaS prep resize (keep aspect, multiples of 32,
+"minimal", 0.5/0.5 normalization). ``ZoeDepth.forward`` is
+``zoedepth_forward``; it opens the spans ``backbone`` (BEiT, its bias
+lookup included), ``dpt`` (the decoder) and ``bins`` (``conv2`` through
+the log-binomial and the depth sum) of ``utils.profiling``.
 
 Module names are those of the released ``ZoeD_M12_N.pt``
 (``core.core.pretrained.model.*`` for BEiT, ``core.core.pretrained.act_postprocess*``
@@ -30,6 +31,7 @@ from depthg_tpu_torch.models.zoedepth import heads
 from depthg_tpu_torch.models.zoedepth.beit import BEiT, BEiTConfig
 from depthg_tpu_torch.models.zoedepth.dpt import DPT, DPTConfig
 from depthg_tpu_torch.models.zoedepth.layers import conv2d, init_uniform_
+from depthg_tpu_torch.ops import zoe_bins
 from depthg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
 from depthg_tpu_torch.utils import profiling
 
@@ -128,13 +130,19 @@ class ZoeDepth(nn.Module):
             hi = rel.amax(dim=(1, 2, 3), keepdim=True)
             rel = (rel - lo) / (hi - lo)
         rel = resize_bilinear(rel, last.shape[-2:], align_corners=True)
-        last = torch.cat([last, rel], dim=1)
 
-        emb_up = resize_bilinear(prev_emb, last.shape[-2:], align_corners=True)
-        probs = self.conditional_log_binomial(last, emb_up)
-        centers_up = resize_bilinear(b_centers, probs.shape[-2:], align_corners=True)
-        depth = torch.sum(probs * centers_up, dim=1, keepdim=True)
-
+        # the full-resolution tail: the kernel where it takes the call (a bf16
+        # head at the released widths on the card, gradients off), else the
+        # module's code. The kernel reads channels-last maps, as the decoder
+        # leaves them for a batch of several images (of one image, in NCHW).
+        clb = self.conditional_log_binomial
+        if not return_probs and zoe_bins.takes(last, rel, prev_emb, b_centers, clb):
+            last, prev_emb, b_centers = (t.contiguous(memory_format=torch.channels_last)
+                                         for t in (last, prev_emb, b_centers))
+            depth, emb_up = zoe_bins.bins_tail(last, rel.contiguous(), prev_emb, b_centers, clb)
+            return {"rel_depth": rel_depth, "metric_depth": depth, "feats": emb_up}
+        depth, emb_up, probs, centers_up = zoe_bins.bins_tail_plain(
+            last, rel, prev_emb, b_centers, clb)
         out = {"rel_depth": rel_depth, "metric_depth": depth, "feats": emb_up}
         if return_probs:
             out["probs"] = probs

@@ -13,12 +13,12 @@
   would see in another form (the attention kernel, the CRF bilateral
   message and degree, its int8 kernel cache, the int8 products:
   ``torch._int_mm`` counts 0, a ctypes kernel is invisible, and on the CPU
-  their plain versions run other products), their own count once from
-  their shapes (``counted``).
+  their plain versions run other products; ZoeDepth's bins tail kernel),
+  their own count once from their shapes (``counted``).
 
 The formulas (``attention_flops``, ``bilateral_*_flops``,
-``int8_matmul_flops``) are each function's least work; ``chip_smoke.py``'s
-bounds import them.
+``int8_matmul_flops``, ``bins_tail_flops``) are each function's least work;
+``chip_smoke.py``'s bounds import them.
 """
 
 from __future__ import annotations
@@ -53,6 +53,13 @@ def _crf_cache_launches() -> int:
     return crf_bilateral.KERNEL.cache_launches
 
 
+def _bins_launches() -> int:
+    """The bins tail kernel's own launch counter as it stands."""
+    from depthg_tpu_torch.ops import zoe_bins
+
+    return zoe_bins.KERNEL.bins_launches
+
+
 def _rel_bias_builds() -> int:
     """BEiT's relative-position biases built so far: none while its module
     has not been imported (read without importing it)."""
@@ -63,16 +70,16 @@ def _rel_bias_builds() -> int:
 class _Span:
     """One span while recording is on: host stamps on ``time.time_ns()``
     (the clock of the profiler's events), a pair of timing events on the
-    current CUDA stream once CUDA is in use, and the launch counters of K1
-    and of the CRF's int8 cache kernel and BEiT's count of relative-position
-    biases built read at both edges. A span opens no
-    ``torch.profiler.record_function``: on the card kineto reports such a
-    range a second time as a device event (a ``gpu_user_annotation``), which
-    a trace summary that keeps every CUDA-typed event would count as a
-    kernel and as busy time."""
+    current CUDA stream once CUDA is in use, and the launch counters of K1,
+    of the CRF's int8 cache kernel and of ZoeDepth's bins tail kernel and
+    BEiT's count of relative-position biases built read at both edges. A
+    span opens no ``torch.profiler.record_function``: on the card kineto
+    reports such a range a second time as a device event (a
+    ``gpu_user_annotation``), which a trace summary that keeps every
+    CUDA-typed event would count as a kernel and as busy time."""
 
-    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "cache", "bias",
-                 "events")
+    __slots__ = ("rec", "name", "id", "parent", "step", "t0", "t1", "k1", "cache", "bins",
+                 "bias", "events")
 
     def __init__(self, rec: "Recorder", name: str):
         self.rec, self.name = rec, name
@@ -84,6 +91,7 @@ class _Span:
         self.step = self.id if self.parent is None else self.parent.step
         self.k1 = _k1_launches()
         self.cache = _crf_cache_launches()
+        self.bins = _bins_launches()
         self.bias = _rel_bias_builds()
         self.events = None
         if torch.cuda.is_initialized():
@@ -101,6 +109,7 @@ class _Span:
             self.events[1].record()
         self.k1 = _k1_launches() - self.k1
         self.cache = _crf_cache_launches() - self.cache
+        self.bins = _bins_launches() - self.bins
         self.bias = _rel_bias_builds() - self.bias
         self.rec._keep(self)
         return False
@@ -114,8 +123,9 @@ class Recorder:
     allocation, no ``record_function``, no CUDA event, no lock. On, each
     span records its name, its parent (the innermost open span of the same
     thread), the id of its outermost span (its step), its host start and end,
-    its stream time, the launches of K1 and of the int8 cache kernel and the
-    relative-position biases built inside it. Nothing waits for the device until ``collect()``."""
+    its stream time, the launches of K1, of the int8 cache kernel and of the
+    bins tail kernel and the relative-position biases built inside it.
+    Nothing waits for the device until ``collect()``."""
 
     def __init__(self):
         self._on = 0
@@ -154,8 +164,9 @@ class Recorder:
         (``time.time_ns()``), ``host_ms``, ``self_host_ms`` (the span less
         its children), ``device_ms`` (stream time between the span's edges)
         with ``device_start_ns`` / ``device_end_ns`` on the host clock,
-        ``k1_launches``, ``crf_cache_launches`` and ``rel_bias_builds``; the
-        device fields are None for a span recorded before CUDA was in use.
+        ``k1_launches``, ``crf_cache_launches``, ``bins_tail_launches`` and
+        ``rel_bias_builds``; the device fields are None for a span recorded
+        before CUDA was in use.
         One synchronize: an
         anchor event recorded now on the current device puts the events on
         the host clock."""
@@ -174,7 +185,7 @@ class Recorder:
                    "host_start_ns": s.t0, "host_end_ns": s.t1, "host_ms": (s.t1 - s.t0) / 1e6,
                    "device_ms": None, "device_start_ns": None, "device_end_ns": None,
                    "k1_launches": s.k1, "crf_cache_launches": s.cache,
-                   "rel_bias_builds": s.bias}
+                   "bins_tail_launches": s.bins, "rel_bias_builds": s.bias}
             if s.events is not None:
                 e0, e1 = s.events
                 rec["device_ms"] = e0.elapsed_time(e1)
@@ -278,6 +289,12 @@ def bilateral_degree_flops(b: int, n: int) -> float:
 def int8_matmul_flops(m: int, k: int, n: int) -> float:
     """An [M, K] x [K, N] product."""
     return 2.0 * m * k * n
+
+
+def bins_tail_flops(b: int, h: int, w: int, c_in: int, bottleneck: int) -> float:
+    """ZoeDepth's bins tail: the c_in -> bottleneck -> 4 products per pixel
+    of [B, H, W], as the flop counter counts the two 1x1 convolutions."""
+    return 2.0 * b * h * w * (c_in * bottleneck + bottleneck * 4)
 
 
 # one running total per open ``step_flops`` (innermost last)

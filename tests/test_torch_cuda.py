@@ -57,7 +57,17 @@ int8 cache kernel (``bilateral_cache_int8``) against the float64
 rounding (at most one step off, at most 1e-3 of the entries off, no more
 than the eager build's share) on memory that held -1 with guard bytes
 past it, its refusals, and the default CRF's labels with the kernel's
-cache against the eager build's.
+cache against the eager build's. The bins slice adds ZoeDepth's bins tail
+kernel (``zoe_bins.bins_tail``) against its plain version at the depth
+cell's widths (B=2 at 384 x 512 and at 416 x 544, whose width is no
+multiple of the kernel's tile, and two small shapes) into output memory
+that held NaN, the metric depth by the worst image's 99th percentile and
+largest gap over its range and feats within a bf16 step (``BINS_*``, with
+their reasons); faults planted in the plain version (centers not
+interpolated, the rel channel left out, ``align_corners=False``, the
+temperature not applied) each read at least five times the limit; one
+launch a call; its refusals; and a small ZoeDepth with the released head's
+widths, kernel against the module path.
 """
 
 import pytest
@@ -66,8 +76,10 @@ import torch
 from depthg_tpu_torch.ops import attention as tatt
 from depthg_tpu_torch.ops import crf as tcrf
 from depthg_tpu_torch.ops import crf_bilateral as tbil
+from depthg_tpu_torch.ops import zoe_bins as tzb
+import bins_tail_cases as bcases
 from test_torch_f32_split import emulate_attention, emulate_bilateral
-from test_torch_poison import F6_CASES, TOL, k1_contract, poisoned
+from test_torch_poison import F6_CASES, TOL, k1_contract, poisoned, poisoned_outputs
 
 pytestmark = pytest.mark.cuda
 
@@ -1353,3 +1365,164 @@ def test_bilateral_degree_contract_on_poisoned_output(cuda, n):
     diff = out - ref
     assert (diff.norm() / ref.norm()).item() <= 5e-5
     assert diff.abs().max().item() <= 5e-5 * ref.abs().max().item()
+
+
+# ZoeDepth's bins tail kernel (``ops.zoe_bins.bins_tail``) against its plain
+# version, the module's code: inputs, yardsticks and limits (with their
+# reasons) in ``tests/bins_tail_cases.py``.
+BINS_FAULTS = ("centers_not_interpolated", "rel_left_out", "align_corners_false",
+               "temperature_not_applied")
+
+
+def _planted_tail(last, rel, prev_emb, b_centers, clb, fault):
+    """The plain tail's metric depth, written out, with ``fault`` planted
+    ("none": the plain version's)."""
+    import torch.nn.functional as F
+
+    from depthg_tpu_torch.models.zoedepth import heads as theads
+    from depthg_tpu_torch.ops.resize import resize_bilinear
+
+    size = last.shape[-2:]
+    corners = fault != "align_corners_false"
+    if fault == "rel_left_out":
+        rel = torch.zeros_like(rel)
+    x = torch.cat([last, rel], dim=1)
+    emb_up = resize_bilinear(prev_emb, size, align_corners=corners)
+    pt = clb.mlp(torch.cat([x, emb_up], dim=1))
+    prob, temp = pt[:, :2] + 1e-4, pt[:, 2:] + 1e-4
+    prob = prob[:, 0] / (prob[:, 0] + prob[:, 1])
+    temp = temp[:, 0] / (temp[:, 0] + temp[:, 1])
+    temp = (clb.max_temp - clb.min_temp) * temp[:, None] + clb.min_temp
+    if fault == "temperature_not_applied":
+        temp = torch.ones_like(temp)
+    probs = theads.log_binomial(prob[:, None], temp, clb.n_classes)
+    if fault == "centers_not_interpolated":
+        centers = F.interpolate(b_centers, size=size, mode="nearest")
+    else:
+        centers = resize_bilinear(b_centers, size, align_corners=corners)
+    return torch.sum(probs * centers, dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 384, 512), (2, 416, 544), (1, 64, 96), (3, 32, 34)])
+def test_bins_tail_kernel_matches_plain_on_poisoned_output(cuda, b, h, w):
+    """The kernel into output memory that held NaN, one launch: every pixel
+    and channel written, the metric depth within ``P99_TOL`` and
+    ``MAX_TOL`` of the plain version, feats within a bf16 step. 544 (and
+    34) are not multiples of the kernel's 64-pixel tile."""
+    clb = bcases.head(cuda, seed=b + h)
+    args = bcases.inputs(cuda, b, h, w, seed=h + w)
+    before = tzb.KERNEL.bins_launches
+    with torch.inference_mode():
+        depth, feats = poisoned_outputs(
+            lambda: tzb.bins_tail(*args, clb),
+            [((b, 1, h, w), torch.float32), ((b, 128, h, w), torch.bfloat16)])
+        torch.cuda.synchronize()
+        assert tzb.KERNEL.bins_launches == before + 1
+        ref_depth, ref_feats, _, _ = tzb.bins_tail_plain(*args, clb)
+    assert depth.shape == ref_depth.shape and feats.shape == ref_feats.shape
+    assert feats.is_contiguous(memory_format=torch.channels_last)
+    assert not torch.isnan(depth).any() and not torch.isnan(feats).any()
+    p99, worst = bcases.depth_gaps(depth, ref_depth)
+    assert p99 <= bcases.P99_TOL and worst <= bcases.MAX_TOL, (p99, worst)
+    apart, share = bcases.feats_apart(feats, ref_feats, args[2])
+    assert apart == 0 and share <= bcases.FEATS_SHARE, (apart, share)
+
+
+@pytest.mark.parametrize("fault", ("none",) + BINS_FAULTS)
+def test_bins_tail_kernel_tolerance_sees_planted_faults(cuda, fault):
+    """Faults planted in the plain version read at least 5x ``P99_TOL``
+    against the kernel; the version written out without a fault passes."""
+    clb = bcases.head(cuda, seed=1)
+    args = bcases.inputs(cuda, 2, 384, 512, seed=1)
+    with torch.inference_mode():
+        depth, _ = tzb.bins_tail(*args, clb)
+        planted = _planted_tail(*args, clb, fault)
+    p99, _ = bcases.depth_gaps(depth, planted)
+    if fault == "none":
+        assert p99 <= bcases.P99_TOL
+    else:
+        assert p99 >= 5 * bcases.P99_TOL, p99
+
+
+def test_bins_tail_kernel_counts_one_launch_a_call(cuda):
+    clb = bcases.head(cuda)
+    args = bcases.inputs(cuda, 2, 64, 96)
+    before = tzb.KERNEL.bins_launches
+    with torch.inference_mode():
+        for i in range(3):
+            tzb.bins_tail(*args, clb)
+            assert tzb.KERNEL.bins_launches == before + i + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bad", ["float32_maps", "float32_head", "emb_64", "bins_32",
+                                 "bottleneck_40", "centers_full_size", "nchw_embedding",
+                                 "strided_out_conv", "strided_rel", "grad"])
+def test_bins_tail_kernel_refuses_what_it_cannot_take(cuda, bad):
+    clb = bcases.head(cuda, **{"emb_64": dict(emb=64), "bins_32": dict(n_bins=32),
+                              "bottleneck_40": dict(bottleneck=40)}.get(bad, {}))
+    if bad == "float32_head":
+        clb = clb.float()
+    last, rel, prev_emb, b_centers = bcases.inputs(
+        cuda, 2, 64, 96, emb=64 if bad == "emb_64" else 128, n_bins=32 if bad == "bins_32" else 64)
+    if bad == "float32_maps":
+        last, rel, prev_emb, b_centers = (t.float() for t in (last, rel, prev_emb, b_centers))
+    elif bad == "centers_full_size":
+        b_centers = torch.zeros(2, 64, 64, 96, dtype=torch.bfloat16, device=cuda).contiguous(
+            memory_format=torch.channels_last)
+    elif bad == "nchw_embedding":
+        prev_emb = prev_emb.contiguous()
+    elif bad == "strided_out_conv":
+        wide = torch.zeros(2, 64, 64, 96, dtype=torch.bfloat16, device=cuda).contiguous(
+            memory_format=torch.channels_last)
+        last = wide[:, :32]
+    elif bad == "strided_rel":
+        rel = torch.zeros(2, 1, 64, 192, dtype=torch.bfloat16, device=cuda)[..., ::2]
+    before = tzb.KERNEL.bins_launches
+    with torch.set_grad_enabled(bad == "grad"), pytest.raises(ValueError):
+        tzb.bins_tail(last, rel, prev_emb, b_centers, clb)
+    assert tzb.KERNEL.bins_launches == before
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_small_zoedepth_bins_kernel_vs_module_path(cuda, monkeypatch, b):
+    """A small ZoeDepth with the released head's widths and the depth cell's
+    weight magnitudes (``benchmark.weights_zoedepth``: at the port's init
+    every depth map is one constant), bf16 on the card: one kernel launch a
+    forward, whose depth and feats hold to the module path's (``takes``
+    made to refuse) within the limits above. One image: the decoder leaves
+    its maps in NCHW, which ``_bins`` lays out channels-last for the kernel."""
+    from benchmark.drivers.depth import zoe_config
+    from benchmark.tests._tiny_depth import tiny_depth_spec
+    from benchmark.weights_zoedepth import make_state_dict
+    from depthg_tpu_torch.models.zoedepth import model as tzoe
+
+    cfg = tiny_depth_spec()["config"]
+    cfg["beit"].update(num_heads=1, head_dim=64)  # K1 takes heads of 64
+    cfg["bins"].update(n_bins=64, bin_embedding_dim=128)  # the released head's widths
+    net = tzoe.ZoeDepth(zoe_config(cfg)).to(cuda)
+    net.load_state_dict(make_state_dict(cfg, 0, cuda), strict=True)
+    net = net.to(torch.bfloat16).eval()
+    x = (torch.rand(b, 3, 128, 192, generator=torch.Generator().manual_seed(1)) * 2 - 1).to(
+        cuda, torch.bfloat16)
+    calls = []
+    kernel = tzb.bins_tail
+
+    def recorded(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    monkeypatch.setattr(tzb, "bins_tail", recorded)
+    before = tzb.KERNEL.bins_launches
+    with torch.inference_mode():
+        got = net(x)
+        torch.cuda.synchronize()
+        assert tzb.KERNEL.bins_launches == before + 1 and len(calls) == 1
+        monkeypatch.setattr(tzb, "takes", lambda *args: False)
+        want = net(x)
+    assert tzb.KERNEL.bins_launches == before + 1 and len(calls) == 1
+    assert torch.equal(got["rel_depth"], want["rel_depth"])
+    p99, worst = bcases.depth_gaps(got["metric_depth"], want["metric_depth"])
+    assert p99 <= bcases.P99_TOL and worst <= bcases.MAX_TOL, (p99, worst)
+    apart, share = bcases.feats_apart(got["feats"], want["feats"], calls[0][2])
+    assert apart == 0 and share <= bcases.FEATS_SHARE, (apart, share)

@@ -3,7 +3,7 @@ port's kernels. It holds no tests: ``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` and ``depthg_tpu_torch/attention_contract_study.py`` import
 this one copy.
 
-Both wrappers take their output from ``torch.empty``, so a kernel that
+The wrappers take their outputs from ``torch.empty``, so a kernel that
 leaves an element unwritten hands back whatever the memory held, which can
 happen to pass. Here the memory holds NaN, and the output's address proves
 it. Imports torch only.
@@ -34,6 +34,22 @@ def poisoned(call, shape, dtype):
     out = call()
     if out.data_ptr() != ptr:
         raise AssertionError("the output did not land in the poisoned block")
+    return out
+
+
+def poisoned_outputs(call, specs):
+    """``call()``'s outputs, each written into memory that held NaN: as
+    ``poisoned``, one block per (shape, dtype) of ``specs`` in the order the
+    call allocates them, of distinct sizes. The allocator's other free
+    blocks are released first, so that none of them fits an output better."""
+    torch.cuda.empty_cache()
+    junk = [torch.empty(shape, dtype=dtype, device="cuda").fill_(float("nan"))
+            for shape, dtype in specs]
+    ptrs = [j.data_ptr() for j in junk]
+    del junk
+    out = call()
+    if [o.data_ptr() for o in out] != ptrs:
+        raise AssertionError("the outputs did not land in the poisoned blocks")
     return out
 
 

@@ -8,9 +8,10 @@ benchmark's readers of them, on the CPU.
 * On: the parent is the innermost open span of the same thread, every span
   under one outermost span shares its step id, self time is the span less
   its children, the K1 counter's delta is the kernel's own
-  ``KERNEL.launches`` delta, the int8 cache kernel's counter is recorded
-  as a delta too, and the host stamps bracket a profiler event
-  recorded inside (one clock, ``time.time_ns()``). A running
+  ``KERNEL.launches`` delta, the int8 cache kernel's and the bins tail
+  kernel's counters are recorded as deltas too (every span of the depth
+  step carries the latter, 0 on the CPU), and the host stamps bracket a
+  profiler event recorded inside (one clock, ``time.time_ns()``). A running
   ``torch.profiler`` turns recording on by itself.
 * The tiny eval, predict and train steps (the sizes of
   ``test_torch_eval_step.py`` and ``test_torch_train_step.py``) and the
@@ -21,10 +22,10 @@ benchmark's readers of them, on the CPU.
 * Each reader in ``benchmark/metrics/`` that reads spans, loaded by path as
   the harness loads it, computes its value from a hand-built span list and
   returns None without a step, with a step that lacks its span, with a
-  dropped span, or from a program that has no spans (the cache launches'
-  reader also from spans without its counter, or with a step that launched
-  the kernel no time, as every step on the CPU); and the spans it names are
-  the ones the tiny steps emit.
+  dropped span, or from a program that has no spans (the cache and bins
+  tail launches' readers also from spans without their counter, or with a
+  step that launched the kernel no time, as every step on the CPU); and the
+  spans it names are the ones the tiny steps emit.
 """
 
 import importlib.util
@@ -329,10 +330,11 @@ def test_cap_counts_dropped_spans(monkeypatch):
 
 
 def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0,
-         cache=0):
+         cache=0, bins=0):
     return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
             "host_ms": host, "self_host_ms": host if self_host is None else self_host,
-            "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache}
+            "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache,
+            "bins_tail_launches": bins}
 
 
 def eval_spans(device=True):
@@ -355,7 +357,7 @@ def depth_spans(device=True):
     d = (lambda v: v) if device else (lambda v: None)
     out = []
     for i, base in enumerate((1, 8)):
-        out.append(span(base, "depth.step", host=90.0, device=d(85.0), k1=48))
+        out.append(span(base, "depth.step", host=90.0, device=d(85.0), k1=48, bins=2))
         for p in range(2):
             out += [span(base + 1 + 3 * p, "backbone", base, base, device=d(20.0 + i)),
                     span(base + 2 + 3 * p, "dpt", base, base, device=d(9.0)),
@@ -389,6 +391,7 @@ READERS = {
     "dpt_device_ms.depth": (depth_spans, 18.0),
     "bins_device_ms.depth": (depth_spans, 13.0),
     "k1_launches_per_step.depth": (depth_spans, 48.0),
+    "bins_tail_launches_per_step.depth": (depth_spans, 2.0),
 }
 
 
@@ -452,6 +455,35 @@ def test_cache_reader_reads_nothing_without_the_kernel(monkeypatch, case):
     assert load_reader("k1_launches_per_step.eval").read({}, {}) == 12.0
 
 
+@pytest.mark.parametrize("case", ["without_the_counter", "a_step_without_a_launch"])
+def test_bins_tail_reader_reads_nothing_without_the_kernel(monkeypatch, case):
+    """Spans of a program whose steps do not carry ``bins_tail_launches``,
+    or where a depth step launched the bins tail kernel no time (its tail
+    run by the module's code), read nothing, and raise nothing: losing the
+    kernel never reads as fewer launches."""
+    spans = depth_spans()
+    for s in spans:
+        if case == "without_the_counter":
+            del s["bins_tail_launches"]
+        elif s["id"] == 8:
+            s["bins_tail_launches"] = 0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader("bins_tail_launches_per_step.depth").read({}, {}) is None
+    assert load_reader("k1_launches_per_step.depth").read({}, {}) == 48.0
+
+
+def test_depth_spans_carry_the_bins_tail_launches():
+    """Every span of the depth step carries the bins tail kernel's launches,
+    0 on the CPU (the module's code runs the tail there)."""
+    call = depth_call()
+    with profiling.recording():
+        call()
+        call()
+    spans = profiling.collect()["spans"]
+    assert len(spans) == 14
+    assert all(s["bins_tail_launches"] == 0 for s in spans)
+
+
 @pytest.mark.parametrize("name", sorted(READERS))
 def test_readers_name_the_spans_the_steps_emit(name):
     """Each reader's step and span, as the tiny step of its cell's kind
@@ -473,6 +505,9 @@ def test_readers_name_the_spans_the_steps_emit(name):
         assert value is None  # no CUDA here
     elif reader.KEY == "crf_cache_launches":
         assert value is None  # the CPU builds its cache without the kernel
+        assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
+    elif reader.KEY == "bins_tail_launches":
+        assert value is None  # the CPU runs the bins tail without the kernel
         assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     else:
         assert value is not None and value >= 0
