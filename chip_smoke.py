@@ -276,7 +276,7 @@ SERVE_ATTENTION_B = (1, 2, 4, 8, 32)
 # give the batch-16 labels bit for bit; bucket 1 (one image: a backbone
 # batch of 2) does not: its pre-CRF logits differ by up to 9.4e-3 in bf16,
 # and at worst 98.90% of an image's pixels agree, on the parent tree too
-# (python -m depthg_tpu_torch.serve_bucket_study; NVIDIA H100, 700 W). So
+# (a one-off bucket study whose figures CHANGES.md keeps; NVIDIA H100, 700 W). So
 # bucket 1 has its own limit, and one request is served alone every run.
 # Every response is also held exactly to the predict step on its own batch.
 SERVE_CROSS_BUCKET_AGREEMENT = 0.995
@@ -379,6 +379,41 @@ LHP_FLIP_GAP, LHP_CODE_TOL, PYRAMID_CARD_VS_CPU_TOL = 2e-3, 1e-5, 1e-4
 KNN_CNN_IMAGES = 40
 FIDELITY_ROWS = [("exact (ds=1)", 11), ("ds=2 legacy", 0), ("ds=4 mixed bf16", 0),
                  ("ds=4 jbu2 sf1.41 bf16 (quality+)", 0)]
+
+
+# the least operations of each function bounded below, from its shapes alone
+def attention_flops(b: int, h: int, n: int, n_valid: int, d: int = 64) -> float:
+    """Masked attention on [B, H, N, D]: q k^T and P v over the keys that
+    weigh, 2 N n_valid D operations each per (image, head)."""
+    return 4.0 * b * h * n * n_valid * d
+
+
+def bilateral_exponent_flops(b: int, n: int) -> float:
+    """The CRF kernel's exponent -|f_i - f_j|^2 / 2 for every pair, as one
+    product over the 5 features augmented to 8 (f_i . f_j - |f_i|^2 / 2 -
+    |f_j|^2 / 2, the TPU kernel's form)."""
+    return 2.0 * b * n * n * 8
+
+
+def bilateral_product_flops(b: int, n: int, c: int) -> float:
+    """K Z for [B, N, N] K and [B, N, C] Z."""
+    return 2.0 * b * n * n * c
+
+
+def bilateral_degree_adds(b: int, n: int) -> float:
+    """K 1: one add per entry of K."""
+    return float(b) * n * n
+
+
+def int8_matmul_flops(m: int, k: int, n: int) -> float:
+    """An [M, K] x [K, N] product."""
+    return 2.0 * m * k * n
+
+
+def bins_tail_flops(b: int, h: int, w: int, c_in: int, bottleneck: int) -> float:
+    """ZoeDepth's bins tail: the c_in -> bottleneck -> 4 products per pixel
+    of [B, H, W], as the flop counter counts the two 1x1 convolutions."""
+    return 2.0 * b * h * w * (c_in * bottleneck + bottleneck * 4)
 
 
 def phase(name, **values):
@@ -490,8 +525,6 @@ def attention_bound(b, n, h, dtype=torch.bfloat16, bias_bytes=0):
     or 4 B H N^2 64 operations at the peak of the kernel's arithmetic,
     whichever is larger. bf16: the tensor cores. float32: split TF32, three
     TF32 products each (``attention_fma_bound`` is the FMA pipes' figure)."""
-    from depthg_tpu_torch.utils.profiling import attention_flops
-
     bf16 = dtype == torch.bfloat16
     bytes_ms = (4 * b * h * n * 64 * (2 if bf16 else 4) + bias_bytes) / PEAK_HBM * 1e3
     ops = attention_flops(b, h, n, n)
@@ -502,8 +535,6 @@ def attention_bound(b, n, h, dtype=torch.bfloat16, bias_bytes=0):
 def attention_fma_bound(b, n, h):
     """A yardstick for the float32 kernel: its 4 B H N^2 64 operations on
     the FMA pipes, where a float32 kernel without the tensor cores runs."""
-    from depthg_tpu_torch.utils.profiling import attention_flops
-
     return attention_flops(b, h, n, n) / PEAK_F32 * 1e3
 
 
@@ -519,12 +550,7 @@ def bilateral_bound(b, n, c, itemsize, clock_mhz, degree=False):
     writes one float32 a point and sums each row on the FP32 pipes, one add
     per entry, in place of the product. The pipes run side by side, so the
     slowest sets the bound; ``bilateral_algorithm_bound`` and
-    ``bilateral_fma_bound`` are yardsticks of this kernel's own algorithm.
-    The operation counts are ``utils.profiling``'s, which ``step_flops`` uses."""
-    from depthg_tpu_torch.utils.profiling import (bilateral_degree_adds,
-                                                  bilateral_exponent_flops,
-                                                  bilateral_product_flops)
-
+    ``bilateral_fma_bound`` are yardsticks of this kernel's own algorithm."""
     entries = float(b) * n * n
     ex2_ms = entries / (16 * SMS * clock_mhz * 1e6) * 1e3
     exponent = 3 * bilateral_exponent_flops(b, n) / PEAK_TF32
@@ -2042,8 +2068,6 @@ def bins_tail_bound_ms(b, h, w):
     bytes (out_conv, rel and the half-size embedding and centers read once,
     feats and the float32 depth written once) over the memory rate, against
     its two products at the bf16 peak."""
-    from depthg_tpu_torch.utils.profiling import bins_tail_flops
-
     px, src = b * h * w, b * (h // 2) * (w // 2)
     nbytes = px * (32 * 2 + 2 + 128 * 2 + 4) + src * (128 + 64) * 2
     bytes_ms = nbytes / PEAK_HBM * 1e3
@@ -3025,8 +3049,6 @@ def int8_linear_bound_ms(m, k, n):
     """Least ms for one w8a8 linear: the bf16 input, the int8 weight, its
     scales and bias read and the bf16 output written once over the memory
     rate, or 2 MNK int8 operations over the int8 peak."""
-    from depthg_tpu_torch.utils.profiling import int8_matmul_flops
-
     nbytes = 2 * m * k + k * n + 8 * n + 2 * m * n
     return max(nbytes / PEAK_HBM, int8_matmul_flops(m, k, n) / PEAK_INT8) * 1e3
 
@@ -3375,13 +3397,10 @@ BENCH_K1_PER_STEP = {"default": 24, "quality_plus": 24, "fast": 24, "safe": 0}
 BENCH_TRAIN_K1_PER_STEP = {"bfloat16": 24, "float32": 24, "int8": 24}
 
 
-def bench_phase(att, inference, card):
+def bench_phase(card):
     """Phase 20: the bench at full size in a process of its own (its phases
-    in children of that process), its JSON line printed on its own line;
-    then ``step_flops`` of one smoke-size eval step from the same weights
-    on the card and on the CPU, which must be equal."""
+    in children of that process), its JSON line printed on its own line."""
     from depthg_tpu_torch import bench
-    from depthg_tpu_torch.utils.profiling import step_flops
 
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     env.update({"PYTHONPATH": ROOT, "BENCH_PHASE_TIMEOUT_S": str(BENCH_PHASE_TIMEOUT_S)})
@@ -3407,33 +3426,11 @@ def bench_phase(att, inference, card):
     if out["train_k1_launches_per_step"] != BENCH_TRAIN_K1_PER_STEP:
         raise AssertionError(f"bench K1 launches per train step "
                              f"{out['train_k1_launches_per_step']}")
-    if out["device"] != card or out["eval_hw_util"] is None or out["train_hw_util"] is None:
-        raise AssertionError(f"bench device {out['device']!r} (card {card!r}), utilization "
-                             f"{out['eval_hw_util']}, {out['train_hw_util']}")
-
-    # one smoke-size eval step (the bench's smoke setup) from one set of
-    # weights: the count through the kernels on the card and through the
-    # plain versions on the CPU
-    fcfg, ecfg, res = bench._eval_setup("default", smoke=True)
-    b = bench.eval_sizes(smoke=True)["batch"]
-    cpu_model = bench.eval_model(fcfg, torch.device("cpu"))
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    gen = torch.Generator().manual_seed(0)
-    img = torch.randn(b, 3, res, res, generator=gen)
-    label = torch.randint(-1, 27, (b, res, res), generator=gen)
-    step = inference.make_eval_step(ecfg)
-    launches = att.KERNEL.launches
-    flops_card = step_flops(step, card_model, img.cuda(), label.cuda())
-    launches = att.KERNEL.launches - launches
-    flops_cpu = step_flops(step, cpu_model, img, label)
-    if flops_card != flops_cpu or launches != BENCH_K1_PER_STEP["default"]:
-        raise AssertionError(f"step_flops card {flops_card} vs CPU {flops_cpu} "
-                             f"({launches} K1 launches on the card)")
+    if out["device"] != card:
+        raise AssertionError(f"bench device {out['device']!r} (card {card!r})")
     phase("bench", seconds=seconds, value=out["value"], host_img_per_sec=out["host_img_per_sec"],
           points_img_per_sec=out["points_img_per_sec"],
-          train_step_ms_b16=out["train_step_ms_b16"], eval_hw_util=out["eval_hw_util"],
-          smoke_step_flops_card=flops_card, smoke_step_flops_cpu=flops_cpu,
-          smoke_step_k1_launches_card=launches)
+          train_step_ms_b16=out["train_step_ms_b16"])
     return out
 
 
@@ -3507,7 +3504,7 @@ def main():
         par_res = parallel_path_phase(att, bil, inference, featurizer, crf, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         int8_res = int8_path_phase(att, bil, inference, featurizer, crf, gen, tmp, card)
-    bench_phase(att, inference, card)
+    bench_phase(card)
 
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "depthg_tpu.")) or m == "depthg_tpu")

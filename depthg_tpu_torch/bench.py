@@ -46,10 +46,6 @@ Numbers reported (one GPU):
 * ``pipelined_img_per_sec``: K independent eval steps over device-resident
   batches, the statistics summed on the device, one final fetch.
 * ``batch_sweep_img_per_sec``: the chain at batches 16, 32 and 64.
-* ``eval_tflops_per_sec`` / ``eval_hw_util``: ``utils.profiling.step_flops``
-  of one step (the attention kernel, the CRF's bilateral message and int8
-  products counted from their shapes) over the step's time, against the
-  H100 SXM's dense bf16 peak (989 TFLOP/s); null on the CPU.
 * ``k1_launches_per_step``: attention-kernel launches per eval step, per point.
 * ``host_to_device_mb_per_sec`` / ``device_put_latency_ms``: a batch
   through ``runtime.to_device`` (pinned memory, a non-blocking copy), a
@@ -60,6 +56,10 @@ Numbers reported (one GPU):
   the device), with the bf16 frozen backbone; ``*_f32_backbone`` and
   ``*_int8_backbone`` the same with the other backbones.
 * ``device``: the card's name and power limit (``nvidia-smi``), or ``cpu``.
+
+The bench counts no operations: the benchmark's ``mfu.eval`` and
+``mfu.train`` metrics (``benchmark/counting.py``, from the configuration's
+published shapes) are the measure of the card's use.
 
 ``vs_baseline``: the reference publishes no numbers. The denominator is an
 estimate of its end-to-end eval throughput on a GPU host, where the CRF
@@ -83,8 +83,6 @@ import sys
 import time
 
 BASELINE_IMG_PER_SEC_EST = 1.25
-# NVIDIA H100 SXM data sheet, dense bf16 tensor-core peak
-H100_BF16_PEAK_TFLOPS = 989.0
 # every point measured every run; the FIRST is the headline + fall-back chain head
 EVAL_POINTS = ("default", "quality_plus", "fast", "safe")
 SMOKE = os.environ.get("BENCH_SMOKE", "") not in ("", "0")
@@ -216,13 +214,13 @@ def _card(dev) -> str:
 
 def phase_eval(point: str, dev, full: bool = False) -> dict:
     """Throughput of one operating point; ``full`` (the headline point
-    only) adds the batch sweep, the pipelined number and the utilization."""
+    only) adds the batch sweep and the pipelined number."""
     _maybe_fault(f"eval:{point}")
     import torch
 
     from depthg_tpu_torch.inference import make_eval_step
     from depthg_tpu_torch.ops import attention
-    from depthg_tpu_torch.utils.profiling import dispatch_rtt, step_flops
+    from depthg_tpu_torch.utils.profiling import dispatch_rtt
 
     rtt = dispatch_rtt(dev, repeats=2 if SMOKE else 5)
     fcfg, ecfg, res = _eval_setup(point)
@@ -277,9 +275,6 @@ def phase_eval(point: str, dev, full: bool = False) -> dict:
         dt_b, _ = measure(*make_batch(bsz))
         sweep[bsz] = round(bsz / dt_b, 2)
 
-    with torch.inference_mode():
-        flops = step_flops(step, model, img, label)
-
     # pipelined: K independent steps over resident batches, one dependent fetch
     n_res, k_steps = sizes["resident"], sizes["pipelined"]
     resident = [make_batch(batch)[0] for _ in range(n_res)]
@@ -295,13 +290,9 @@ def phase_eval(point: str, dev, full: bool = False) -> dict:
     pipelined_run()
     dt_p = _median3(pipelined_run, dev)[0] / k_steps
 
-    tflops = flops / dt / 1e12 if dev.type == "cuda" else None
     frag.update({
         "pipelined_img_per_sec": round(batch / dt_p, 2),
         "batch_sweep_img_per_sec": {str(k): v for k, v in sweep.items()},
-        "eval_step_flops": flops,
-        "eval_tflops_per_sec": None if tflops is None else round(tflops, 2),
-        "eval_hw_util": None if tflops is None else round(tflops / H100_BF16_PEAK_TFLOPS, 4),
     })
     return frag
 
@@ -312,7 +303,6 @@ def phase_train(dev) -> dict:
 
     from depthg_tpu_torch.ops import attention
     from depthg_tpu_torch.train import step as step_lib
-    from depthg_tpu_torch.utils.profiling import step_flops
 
     sizes = train_sizes()
     res, batch, iters = sizes["res"], sizes["batch"], sizes["iters"]
@@ -327,8 +317,8 @@ def phase_train(dev) -> dict:
     }
 
     def arm(hp):
-        """Device seconds per step of ``iters`` dependent steps, K1
-        launches per step and the operations of one step."""
+        """Device seconds per step of ``iters`` dependent steps and K1
+        launches per step."""
         state = step_lib.init_state(fcfg, hp, torch.Generator().manual_seed(0), device=dev)
 
         def loop():
@@ -350,13 +340,11 @@ def phase_train(dev) -> dict:
         attention.KERNEL.launches = 0
         d = _median3(loop, dev, check)[0]
         launches = attention.KERNEL.launches / (3 * iters)
-        flops = step_flops(step_lib.train_step, state, tb, hp, lcfg, w, shift, generator=gen)
-        return d / iters, launches, flops
+        return d / iters, launches
 
-    dt_t, l_t, _ = arm(hps["float32"])
-    dt_tb, l_tb, flops = arm(hps["bfloat16"])
-    dt_i8, l_i8, _ = arm(hps["int8"])
-    tflops = flops / dt_tb / 1e12 if dev.type == "cuda" else None
+    dt_t, l_t = arm(hps["float32"])
+    dt_tb, l_tb = arm(hps["bfloat16"])
+    dt_i8, l_i8 = arm(hps["int8"])
     return {
         "train_step_ms_b16": round(dt_tb * 1e3, 3),
         "train_img_per_sec": round(batch / dt_tb, 2),
@@ -365,9 +353,6 @@ def phase_train(dev) -> dict:
         "train_step_ms_b16_int8_backbone": round(dt_i8 * 1e3, 3),
         "train_img_per_sec_int8_backbone": round(batch / dt_i8, 2),
         "train_k1_launches_per_step": {"bfloat16": l_tb, "float32": l_t, "int8": l_i8},
-        "train_step_flops": flops,
-        "train_tflops_per_sec": None if tflops is None else round(tflops, 2),
-        "train_hw_util": None if tflops is None else round(tflops / H100_BF16_PEAK_TFLOPS, 4),
     }
 
 
@@ -497,7 +482,7 @@ def main(argv=None):
     ap.add_argument("--phase", choices=["all", "eval", "train", "io"], default="all")
     ap.add_argument("--point", choices=list(EVAL_POINTS), default="default")
     ap.add_argument("--full", action="store_true",
-                    help="headline point: add sweep/pipelined/utilization")
+                    help="headline point: add sweep/pipelined")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.phase == "all":

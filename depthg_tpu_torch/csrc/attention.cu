@@ -158,7 +158,7 @@
 //   * The grid runs the images of one head together, (query blocks, batch,
 //     heads) in launch order, so a wave of blocks shares a few heads' bias
 //     in L2 (16 x 769 x 769 bf16 is 18.9 MB at the ZoeDepth shape). Against (query blocks,
-//     heads, batch), timed by depthg_tpu_torch/attention_grid_study.py
+//     heads, batch), timed by a one-off study that built both orders
 //     (NVIDIA H100 80GB HBM3, 700 W; same bits; queued; median of 15
 //     rounds): on the first bias design 1.4-2.3% faster with the bias (bf16
 //     B=8 0.1326 against 0.1346 ms, B=16 0.2345 / 0.2400, f32 B=2 0.4261 /

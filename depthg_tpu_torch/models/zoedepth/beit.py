@@ -15,8 +15,7 @@ The bias of a block is built once per input size and kept in a small cache
 (inference only: with gradients on it is rebuilt every call), as
 [heads, N, round_up(N, 8)] storage whose [:, :, :N] view goes to the
 attention kernel, which reads bias rows in aligned pairs. ``BIAS_BUILDS``
-counts the biases built (``utils.profiling`` reads it at each span's edges
-as ``rel_bias_builds``).
+counts the biases built (the spans record it as ``rel_bias_builds``).
 
 Attention (the ``attn_impl`` argument of the forward, by default
 ``BEiTConfig.attn_impl``, ``"auto"``): ``"xla"`` is the eager softmax of the
@@ -54,6 +53,7 @@ from depthg_tpu_torch.models.vit import resolve_attn_impl
 from depthg_tpu_torch.models.zoedepth.layers import trunc_normal_
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
+from depthg_tpu_torch.utils import profiling
 
 # biases kept per block (one per input size)
 BIAS_CACHE_SIZES = 4
@@ -73,6 +73,7 @@ class _BiasBuilds:
 
 
 BIAS_BUILDS = _BiasBuilds()
+profiling.register_counter("rel_bias_builds", lambda: BIAS_BUILDS.count)
 
 
 @dataclasses.dataclass(frozen=True)

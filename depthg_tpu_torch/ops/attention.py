@@ -41,11 +41,10 @@ wrappers here:
   need a gradient through it (grad mode on and ``qkv`` or the bias
   requiring one) raises instead of returning a result without a
   ``grad_fn``; a caller that trains passes ``attn_impl="xla"``.
-* ``attention_qkv`` counts its work from the shapes for
-  ``utils.profiling.step_flops`` (``counted``), the same on both devices.
 * ``KERNEL.launches`` counts kernel launches (one per call, all heads and
   images, with or without a bias), so a run can show that it went through
-  the kernel; ``KERNEL.bias_launches`` counts those that carried a bias,
+  the kernel (the spans record it as ``k1_launches``);
+  ``KERNEL.bias_launches`` counts those that carried a bias,
   ``KERNEL.f32_launches`` those of the float32 kernel.
 * ``block_plan`` chooses the bf16 kernel's grid without a bias: how many
   256-row blocks each (image, head) takes before 128-row blocks cover the
@@ -71,7 +70,7 @@ import types
 import torch
 
 from depthg_tpu_torch.ops import _build
-from depthg_tpu_torch.utils.profiling import attention_flops, counted
+from depthg_tpu_torch.utils import profiling
 
 HEAD_DIM = 64
 # the C entry's LaunchArgs: q, k, v, o, bias, workspace and stream pointers;
@@ -135,6 +134,7 @@ class _AttentionKernel:
 
 
 KERNEL = _AttentionKernel()
+profiling.register_counter("k1_launches", lambda: KERNEL.launches)
 
 
 def plan_blocks(batch: int, heads: int, n: int, big: int) -> list:
@@ -356,13 +356,6 @@ def split_qkv(qkv: torch.Tensor, num_heads: int):
     return (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))
 
 
-def _qkv_flops(qkv, num_heads, scale, n_valid=None, bias=None):
-    b, n, d3 = qkv.shape
-    return attention_flops(b, num_heads, n, n if n_valid is None else int(n_valid),
-                           d3 // (3 * num_heads))
-
-
-@counted(_qkv_flops)
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                   n_valid: int | None = None,
                   bias: torch.Tensor | None = None) -> torch.Tensor:

@@ -46,7 +46,6 @@ import torch
 from depthg_tpu_torch.ops.crf_bilateral import bilateral_cache_int8, bilateral_degree, \
     bilateral_message, row_blocks
 from depthg_tpu_torch.ops.resize import resize_bilinear
-from depthg_tpu_torch.utils.profiling import bilateral_cache_flops, counted, int8_matmul_flops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,13 +182,11 @@ def cache_kernel_int8_plain(feats: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@counted(lambda feats: bilateral_cache_flops(*feats.shape[:2]))
 def cache_kernel_int8(feats: torch.Tensor) -> torch.Tensor:
     """[B, N, 5] -> [B, N, N] int8 kernel cache, fixed scale 127 (entries live
     in (0, 1], rounded half to even; the diagonal is exactly 127). CUDA
     tensors: the kernel ``bilateral_cache_int8`` (the direct distance, no
-    float32 kernel matrix in memory); CPU ones: ``cache_kernel_int8_plain``.
-    Counted for ``step_flops`` as the eager build's product, on both devices."""
+    float32 kernel matrix in memory); CPU ones: ``cache_kernel_int8_plain``."""
     if feats.device.type == "cpu":
         return cache_kernel_int8_plain(feats)
     return bilateral_cache_int8(feats)
@@ -231,10 +228,8 @@ def _cache_kernel(feats: torch.Tensor, ccfg: CRFConfig, dt) -> torch.Tensor:
     return out
 
 
-@counted(lambda kmat, z8: z8.shape[0] * int8_matmul_flops(kmat.shape[1], *z8.shape[1:]))
 def _int8_matmul(kmat: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:
-    """[B, N, N] int8 @ [B, N, C] int8 -> [B, N, C] (int32 sums as float32),
-    counted for ``step_flops`` as B [N, N] x [N, C] products (C unpadded).
+    """[B, N, N] int8 @ [B, N, C] int8 -> [B, N, C] (int32 sums as float32).
 
     CUDA: ``torch._int_mm`` per image, with C zero-padded to a multiple of 8
     (its constraint) and the right operand column-major. CPU: float64, which

@@ -32,8 +32,6 @@ to float32's limits), the plain version in float32.
 * ``bilateral_degree`` is K @ 1 in float32 (the CRF's normalizer, once per
   call): the kernel's degree entry on CUDA tensors (row sums of the entries,
   no value product), the plain version on ones on the CPU.
-* Both entries count their work from the shapes for
-  ``utils.profiling.step_flops`` (``counted``), the same on both devices.
 * ``KERNEL.launches`` counts kernel launches (one per call, whole batch);
   ``KERNEL.f32_launches`` those of the float32 message.
 * ``bilateral_cache_int8`` builds the CRF's int8 kernel cache (fixed scale
@@ -41,7 +39,8 @@ to float32's limits), the plain version in float32.
   features in one launch for the whole batch: each entry is computed as the
   message computes it and written once as a byte. CUDA tensors only (the
   CRF builds its cache eagerly on the CPU); ``KERNEL.cache_launches``
-  counts its launches, which ``KERNEL.launches`` does not.
+  counts its launches, which ``KERNEL.launches`` does not (the spans record
+  them as ``crf_cache_launches``).
 
 The TPU forms are not ported: the unrolled symmetric diagonals, the
 +inf/-1e30 padding of the features and the VMEM budget check. Any N is
@@ -60,8 +59,7 @@ import types
 import torch
 
 from depthg_tpu_torch.ops import _build
-from depthg_tpu_torch.utils.profiling import (bilateral_degree_flops,
-                                              bilateral_message_flops, counted)
+from depthg_tpu_torch.utils import profiling
 
 N_FEATURES = 5
 # entries of one [B, rows, N] block of kernel entries, in the plain version
@@ -118,6 +116,7 @@ class _BilateralKernel:
 
 
 KERNEL = _BilateralKernel()
+profiling.register_counter("crf_cache_launches", lambda: KERNEL.cache_launches)
 
 
 def row_blocks(b: int, n: int):
@@ -206,7 +205,6 @@ def _launch(feats, values, out):
     return out
 
 
-@counted(lambda feats, values: bilateral_message_flops(*values.shape))
 def bilateral_message(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """K @ values per image: [B, N, 5] float32, [B, N, C] -> [B, N, C] in the
     values' dtype. The kernel on CUDA tensors, the plain version on CPU ones."""
@@ -221,7 +219,6 @@ def bilateral_message(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor
                                               device=values.device))
 
 
-@counted(lambda feats: bilateral_degree_flops(*feats.shape[:2]))
 def bilateral_degree(feats: torch.Tensor) -> torch.Tensor:
     """K @ 1 per image, float32: [B, N, 5] float32 -> [B, N, 1]."""
     _check_feats(feats)

@@ -23,11 +23,8 @@ replaces no TPU kernel: the JAX package leaves these operations to XLA
   ``csrc/zoe_bins.cu``), so it returns the plain version's depth and
   ``feats`` up to the order of sums and one bf16 step of a resized value.
 * ``takes`` says which of the two ``_bins`` runs, from the call's tensors.
-* ``KERNEL.bins_launches`` counts the kernel's launches; the spans read it
-  (``utils.profiling``: ``bins_tail_launches``).
-* ``bins_tail`` counts its work from the shapes for
-  ``utils.profiling.step_flops`` (``counted``): the two products, as the
-  flop counter counts the plain version's convolutions.
+* ``KERNEL.bins_launches`` counts the kernel's launches; the spans record
+  it as ``bins_tail_launches``.
 """
 
 from __future__ import annotations
@@ -39,7 +36,7 @@ import torch
 
 from depthg_tpu_torch.ops import _build
 from depthg_tpu_torch.ops.resize import resize_bilinear
-from depthg_tpu_torch.utils.profiling import bins_tail_flops, counted
+from depthg_tpu_torch.utils import profiling
 
 # the released head's widths, the only ones the kernel takes
 OUT_CONV, EMB, N_BINS, BOTTLENECK = 32, 128, 64, 80
@@ -73,6 +70,7 @@ class _BinsKernel:
 
 
 KERNEL = _BinsKernel()
+profiling.register_counter("bins_tail_launches", lambda: KERNEL.bins_launches)
 
 
 def bins_tail_plain(last, rel, prev_emb, b_centers, clb):
@@ -151,8 +149,6 @@ def _check(last, rel, prev_emb, b_centers, clb):
             raise ValueError(f"bins tail kernel needs contiguous {name}, strides {t.stride()}")
 
 
-@counted(lambda last, rel, prev_emb, b_centers, clb: bins_tail_flops(
-    last.shape[0], *last.shape[-2:], clb.mlp[0].weight.shape[1], clb.mlp[0].weight.shape[0]))
 def bins_tail(last, rel, prev_emb, b_centers, clb):
     """(depth [B, 1, H, W] float32, feats [B, 128, H, W] bf16 channels-last)
     of ``bins_tail_plain`` in one launch; the arguments as there, in the

@@ -16,12 +16,9 @@
 * The orchestrator in a subprocess with injected faults falls back and
   still reports; without ``--device cpu`` on a host without a card it
   exits 1 with the error line.
-* ``step_flops``: each counted function's work equals ``FlopCounterMode``
-  of a float64 product formulation, its plain version's products are not
-  counted again, and one eval step counts the same through the kernel's
-  entry (``attention_impl="fused"``, the card's path) as through the eager
-  attention (the CPU's ``auto``), and with the counted int8 cache as with
-  its eager build seen by ``FlopCounterMode``.
+* ``benchmark/counting.py``'s featurizer count (the yardstick of the
+  ``mfu.*`` metrics) equals ``FlopCounterMode`` on the port's forward, for
+  ViT-S/8 and ViT-B/8 at their published widths.
 * ``median_time`` and ``dispatch_rtt``.
 """
 
@@ -38,14 +35,10 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from benchmark import common, counting
 from depthg_tpu_torch import bench as tbench
 from depthg_tpu_torch import inference as tinf
 from depthg_tpu_torch.models import featurizer as tfeat
-from depthg_tpu_torch.models import layers
-from depthg_tpu_torch.models import vit as tvit
-from depthg_tpu_torch.ops import attention as tatt
-from depthg_tpu_torch.ops import crf as tcrf
-from depthg_tpu_torch.ops import crf_bilateral as tbil
 from depthg_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -221,8 +214,7 @@ def test_orchestrator_falls_back_and_still_reports():
     assert len(out["eval_fallback_reason"]) == 1
     assert out["eval_fallback_reason"][0].startswith("default: rc=42")
     assert "rc=42" in out["train_error"]
-    assert out["eval_hw_util"] is None and out["eval_tflops_per_sec"] is None
-    assert out["eval_step_flops"] > 0 and out["host_img_per_sec"] > 0
+    assert out["host_img_per_sec"] > 0
     assert out["pipelined_img_per_sec"] > 0 and out["device_put_latency_ms"] > 0
     assert out["device"] == "cpu" and out["vs_baseline"] is not None
 
@@ -300,118 +292,22 @@ def test_bench_refuses_without_a_card():
     assert r.returncode != 0 and "torch.cuda.is_available() is False" in r.stderr
 
 
-def _counted(fn, *args):
-    return profiling.step_flops(fn, *args)
-
-
-def _flop_counter(fn):
-    with FlopCounterMode(display=False) as c:
-        fn()
-    return c.get_total_flops()
-
-
-@pytest.mark.parametrize("n_valid", [None, 37])
-def test_attention_counts_its_work_once(n_valid):
-    b, h, n, d = 2, 3, 45, 64
-    g = torch.Generator().manual_seed(0)
-    qkv = torch.randn(b, n, 3 * h * d, generator=g)
-    nv = n if n_valid is None else n_valid
-    q, k, v = (x.double() for x in tatt.split_qkv(qkv, h))
-    # a float64 formulation: q k^T over the keys that weigh, then P v
-    ref = _flop_counter(lambda: (q @ k[:, :, :nv].transpose(-1, -2)).softmax(-1)
-                        @ v[:, :, :nv])
-    assert profiling.attention_flops(b, h, n, nv, d) == ref
-    assert _counted(tatt.attention_qkv, qkv, h, d ** -0.5, n_valid) == ref
-    # the plain version alone is ordinary tensor ops: FlopCounterMode sees them
-    assert _counted(tatt.attention_plain, *tatt.split_qkv(qkv, h), d ** -0.5, n_valid) > 0
-
-
-@pytest.mark.parametrize("c", [1, 27])
-def test_bilateral_message_and_degree_count_their_work_once(c):
-    b, n = 2, 70
-    g = torch.Generator().manual_seed(1)
-    feats = torch.randn(b, n, 5, generator=g)
-    values = torch.randn(b, n, c, generator=g)
-    f = feats.double()
-    sq = (f * f).sum(-1, keepdim=True)
-    ones, zeros = torch.ones_like(sq), torch.zeros(b, n, 1, dtype=torch.float64)
-    # the exponent as one product over the features augmented to 8
-    a = torch.cat([f, -0.5 * sq, ones, zeros], -1)
-    bb = torch.cat([f, ones, -0.5 * sq, zeros], -1)
-    exponent = _flop_counter(lambda: torch.bmm(a, bb.transpose(1, 2)))
-    kmat = torch.exp(torch.bmm(a, bb.transpose(1, 2)))
-    product = _flop_counter(lambda: torch.bmm(kmat, values.double()))
-    assert profiling.bilateral_message_flops(b, n, c) == exponent + product
-    assert _counted(tbil.bilateral_message, feats, values) == exponent + product
-    # the degree K 1: the exponent and one add per entry of K
-    assert profiling.bilateral_degree_flops(b, n) == exponent + kmat.numel()
-    assert _counted(tbil.bilateral_degree, feats) == exponent + kmat.numel()
-
-
-def test_int8_products_count_their_work_once():
-    g = torch.Generator().manual_seed(2)
-    kmat = torch.randint(-127, 128, (2, 40, 40), generator=g).to(torch.int8)
-    z8 = torch.randint(-127, 128, (2, 40, 27), generator=g).to(torch.int8)
-    ref = _flop_counter(lambda: torch.bmm(kmat.double(), z8.double()))
-    assert _counted(tcrf._int8_matmul, kmat, z8) == ref
-    for m in (5, 40):  # fewer than 17 rows are padded; the padding is not counted
-        a = torch.randint(-127, 128, (m, 32), generator=g).to(torch.int8)
-        w = torch.randint(-127, 128, (24, 32), generator=g).to(torch.int8)
-        ref = _flop_counter(lambda: a.double() @ w.double().T)
-        assert profiling.int8_matmul_flops(m, 32, 24) == ref
-        assert _counted(layers.int8_matmul, a, w) == ref
-        assert _flop_counter(lambda: layers.int8_matmul(a, w)) == 0  # _int_mm counts 0
-
-
-def test_int8_cache_counts_its_work_once():
-    """The int8 cache counts the eager build's [N, 5] x [5, N] product per
-    image once, as ``FlopCounterMode`` counts it in float64; its own
-    tensor ops are not counted again."""
-    b, n = 3, 50
-    feats = torch.randn(b, n, 5, generator=torch.Generator().manual_seed(4))
-    f = feats.double()
-    ref = sum(_flop_counter(lambda: f[i] @ f[i].T) for i in range(b))
-    assert profiling.bilateral_cache_flops(b, n) == ref == 2 * b * n * n * 5
-    assert _counted(tcrf.cache_kernel_int8, feats) == ref
-
-
-def test_eval_step_counts_the_same_with_the_counted_cache(monkeypatch):
-    """An eval step at the default point (int8 cache) counts what it counted
-    when ``FlopCounterMode`` saw the eager build's product itself."""
-    cfg = tvit.ViTConfig(embed_dim=128, depth=2, num_heads=2)
-    ecfg = tinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
-                           crf=tcrf.crf_config_from_cfg({}), backbone_dtype="bfloat16")
-    g = torch.Generator().manual_seed(5)
-    img = torch.randn(2, 3, 64, 64, generator=g)
-    label = torch.randint(-1, 5, (2, 64, 64), generator=g)
-    fcfg = tfeat.FeaturizerConfig(vit_config=cfg, dim=16)
-    model = tinf.Segmenter(fcfg, 5, 7).init_weights(torch.Generator().manual_seed(0))
-    step = tinf.make_eval_step(ecfg)
-    counted = profiling.step_flops(step, model, img, label)
-    monkeypatch.setattr(tcrf, "cache_kernel_int8", tcrf.cache_kernel_int8_plain)
-    assert profiling.step_flops(step, model, img, label) == counted
-
-
-def test_eval_step_counts_the_same_through_the_kernels_entry():
-    """A tiny eval step (int8 CRF cache) counts the same on two calls, and
-    through ``attention_qkv`` (the card's path) as through the eager
-    attention (the CPU's), so a count taken on the CPU is the card's."""
-    cfg = tvit.ViTConfig(embed_dim=128, depth=2, num_heads=2)
-    ecfg = tinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=64,
-                           crf=tcrf.crf_config_from_cfg({}), backbone_dtype="bfloat16")
-    g = torch.Generator().manual_seed(3)
-    img = torch.randn(2, 3, 64, 64, generator=g)
-    label = torch.randint(-1, 5, (2, 64, 64), generator=g)
-    counts = {}
-    for impl in ("auto", "fused"):
-        fcfg = tfeat.FeaturizerConfig(vit_config=cfg, dim=16, attention_impl=impl)
-        model = tinf.Segmenter(fcfg, 5, 7).init_weights(torch.Generator().manual_seed(0))
-        step = tinf.make_eval_step(ecfg)
-        counts[impl] = [profiling.step_flops(step, model, img, label) for _ in range(2)]
-    assert counts["auto"][0] == counts["auto"][1] == counts["fused"][0] == counts["fused"][1]
-    tokens = (64 // 8) ** 2 + 1
-    attention = 2 * 2 * profiling.attention_flops(2, 2, tokens, tokens, 64)  # TTA x blocks
-    assert counts["auto"][0] > attention
+@pytest.mark.parametrize("res", [64, 128])
+@pytest.mark.parametrize("name", ["depthg-vits8-cocostuff27", "depthg-vitb8-cocostuff27"])
+def test_featurizer_count_is_the_flop_counters(name, res):
+    """``benchmark/counting.py``'s operations of one image through the ViT
+    and the projection head, from the configuration's widths, equal
+    ``FlopCounterMode`` over the port's featurizer forward (the eager
+    attention on the CPU: its two products) at batch 2."""
+    with open(os.path.join(ROOT, "benchmark", "configs", f"{name}.json")) as f:
+        cfg = json.load(f)
+    net = tfeat.build(common.featurizer_config(cfg))
+    net = net.init_weights(torch.Generator().manual_seed(0)).eval()
+    img = torch.randn(2, 3, res, res, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        tfeat.dispatch_apply(net, img)
+    want = 2 * (counting.vit_flops(cfg["backbone"], res) + counting.head_flops(cfg, res))
+    assert counter.get_total_flops() == want
 
 
 def test_step_timer_log_jsonl_median_time_and_trace():

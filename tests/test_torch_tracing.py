@@ -19,6 +19,9 @@ benchmark's readers of them, on the CPU.
   their span trees; the depth step counts BEiT's relative-position biases
   built: one a block on its first step at a grid, none on the next.
 * ``collect()`` is idempotent, the cap counts what it drops.
+* Each of the four span counters is registered by the module that owns it
+  and reads that module's counter; ``utils.profiling`` imports nothing of
+  the port.
 * Each reader in ``benchmark/metrics/`` that reads spans, loaded by path as
   the harness loads it, computes its value from a hand-built span list and
   returns None without a step, with a step that lacks its span, with a
@@ -28,6 +31,8 @@ benchmark's readers of them, on the CPU.
   spans it names are the ones the tiny steps emit.
 """
 
+import ast
+import importlib
 import importlib.util
 import threading
 import time
@@ -58,6 +63,13 @@ LOSS = dict(feature_samples=3, neg_samples=2, depth_sampling="fps",
             depth_feat_correlation_loss=True)
 # a 64 x 96 image: padded to 96 x 136, prepped to 64 x 96, a 4 x 6 grid
 # against the 6 x 6 pretraining window
+# each span counter: its module, the object that holds it and its attribute
+COUNTERS = {
+    "k1_launches": ("depthg_tpu_torch.ops.attention", "KERNEL", "launches"),
+    "crf_cache_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "cache_launches"),
+    "bins_tail_launches": ("depthg_tpu_torch.ops.zoe_bins", "KERNEL", "bins_launches"),
+    "rel_bias_builds": ("depthg_tpu_torch.models.zoedepth.beit", "BIAS_BUILDS", "count"),
+}
 ZOE = tzoe.ZoeConfig(n_bins=8, bin_embedding_dim=16, n_attractors=(4, 2, 2, 1),
                      img_size=(64, 96),
                      beit=tbeit.BEiTConfig(embed_dim=64, depth=4, num_heads=4, pretrain_window=6,
@@ -126,15 +138,20 @@ def raising(*args, **kwargs):
     raise AssertionError("called while recording is off")
 
 
+def fake_counter(monkeypatch, name, read):
+    """Register ``read`` as the span counter ``name`` for one test."""
+    monkeypatch.setattr(profiling, "_COUNTERS", profiling._COUNTERS)
+    profiling.register_counter(name, read)
+
+
 @pytest.mark.parametrize("make", [eval_call, train_call, depth_call],
                          ids=["eval", "train", "depth"])
 def test_off_is_inert(monkeypatch, make):
     call = make()
     monkeypatch.setattr(torch.cuda, "Event", raising)
     monkeypatch.setattr(torch.profiler, "record_function", raising)
-    monkeypatch.setattr(profiling, "_k1_launches", raising)
-    monkeypatch.setattr(profiling, "_crf_cache_launches", raising)
-    monkeypatch.setattr(profiling, "_rel_bias_builds", raising)
+    for name in COUNTERS:
+        fake_counter(monkeypatch, name, raising)
     call()
     assert profiling.span("a") is profiling.span("b")
     assert profiling.collect() == {"spans": [], "dropped": 0}
@@ -218,12 +235,33 @@ def test_counter_deltas_are_the_kernels_launches():
     assert inner["k1_launches"] == 3
 
 
+@pytest.mark.parametrize("name, module, counter, attr", [
+    (name, *where) for name, where in COUNTERS.items()])
+def test_each_counter_is_registered_by_its_module(monkeypatch, name, module, counter, attr):
+    """Each span counter reads its module's own counter as it stands."""
+    owner = getattr(importlib.import_module(module), counter)
+    monkeypatch.setattr(owner, attr, 41)
+    assert profiling._COUNTERS[name]() == 41
+
+
+def test_profiling_imports_nothing_of_the_port():
+    """``utils.profiling`` is a leaf: the modules register their counters."""
+    names = []
+    for node in ast.walk(ast.parse(Path(profiling.__file__).read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("." * node.level + (node.module or ""))
+    assert "torch" in names
+    assert not [n for n in names if n.startswith((".", "depthg_tpu_torch"))]
+
+
 def test_crf_cache_counter_deltas(monkeypatch):
     """``crf_cache_launches`` is the delta of the cache kernel's counter
     (stubbed here: the CPU builds its cache without the kernel) across each
     span."""
     count = iter([10, 11, 14, 16])  # step opens, inner opens, inner closes, step closes
-    monkeypatch.setattr(profiling, "_crf_cache_launches", lambda: next(count))
+    fake_counter(monkeypatch, "crf_cache_launches", lambda: next(count))
     with profiling.recording():
         with profiling.span("step"):
             with profiling.span("inner"):

@@ -8,8 +8,7 @@ off, the released head's widths, no probabilities asked for): on the CPU,
 in float32, under grad, with ``return_probs`` and at other widths it runs
 the module's code; with the kernel's device type set to the CPU it hands the
 kernel's entry the maps in the layouts the kernel reads. The entry refuses
-CPU tensors, and it counts the work the flop counter counts in the plain
-version. The kernel itself is held to the plain version on the card
+CPU tensors. The kernel itself is held to the plain version on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -23,7 +22,6 @@ from depthg_tpu_torch.models.zoedepth import dpt as tdpt
 from depthg_tpu_torch.models.zoedepth import model as tzoe
 from depthg_tpu_torch.ops import zoe_bins
 from depthg_tpu_torch.ops.resize import resize_bilinear
-from depthg_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -190,11 +188,3 @@ def test_kernel_entry_refuses_cpu_tensors():
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         zoe_bins.bins_tail(*_head_inputs())
     assert zoe_bins.KERNEL.bins_launches == before
-
-
-def test_bins_tail_flops_is_the_flop_counters_count_of_the_plain_version():
-    """The kernel's entry counts ``bins_tail_flops`` for ``step_flops``: the
-    flop counter's count of the plain version's two convolutions."""
-    plain = profiling.step_flops(zoe_bins.bins_tail_plain, *_head_inputs(torch.float32))
-    assert plain == profiling.bins_tail_flops(2, 8, 12, 161, 80) \
-        == 2.0 * 2 * 8 * 12 * (161 * 80 + 80 * 4)

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark import counting_depth
 from benchmark.drivers import depth as depth_driver
@@ -37,7 +38,6 @@ from benchmark.tests._tiny_depth import tiny_depth_spec
 from benchmark.weights_zoedepth import make_state_dict, param_specs
 from depthg_tpu_torch.generate_depth import to_dtype
 from depthg_tpu_torch.models.zoedepth.model import ZoeDepth, zoedepth_infer
-from depthg_tpu_torch.utils.profiling import step_flops
 
 torch.set_num_threads(2)
 
@@ -145,11 +145,13 @@ def test_operation_count_is_the_flop_counters(models):
     port's forward (the eager attention on the CPU: its two products)."""
     _, model, img = models
     with torch.no_grad():
-        counted = step_flops(model, prepped(img))
-        step = step_flops(zoedepth_infer, model, img)
+        with FlopCounterMode(display=False) as forward:
+            model(prepped(img))
+        with FlopCounterMode(display=False) as step:
+            zoedepth_infer(model, img)
     assert counting_depth.net_size(CFG, 64, 96) == (64, 96)
-    assert counted == 2 * counting_depth.forward_flops(CFG, 64, 96)
-    assert step == counting_depth.step_flops(CFG, 2, 64, 96)
+    assert forward.get_total_flops() == 2 * counting_depth.forward_flops(CFG, 64, 96)
+    assert step.get_total_flops() == counting_depth.step_flops(CFG, 2, 64, 96)
 
 
 def test_reference_imports_torch_alone():
