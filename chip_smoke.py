@@ -62,7 +62,13 @@ final line):
    kernel and the eager build at the eval step's B=16, N=6,400 (16 scenes):
    CUDA-event times (also queued behind a long product), the bound (bytes
    written once, or one ex2 per entry) and the entries where the two
-   builds differ; then the CRF on the six fidelity scenes
+   builds differ; the int8 message through that cache (a quantize and a
+   product launch) at B=16, N=6,400 with C=54 and C=1 and at N=8,100, bit
+   for bit against its plain version and (N=6,400) the ``torch._int_mm``
+   route it replaced, CUDA-event times (also queued), each kernel by
+   ``torch.profiler``, the host time a call, the route's and the plain
+   version's times and the bound (the cache read once); then the CRF on the
+   six fidelity scenes
    (the port's copy of ``make_scene``) at the default point: mIoU, accuracy
    and label agreement with the permutohedral lattice (``native_crf`` on
    the CPU), each within 0.2 of the ``docs/CRF_FIDELITY.md`` row (69.67,
@@ -73,7 +79,8 @@ final line):
 6. main path: full-width ViT-S/8 at 320 px with random weights from a
    fixed generator, ``make_eval_step`` at the default point (bf16 backbone,
    bf16 CRF state), batch 16, one warm-up and three timed batches; launch
-   counts (one int8 cache launch per batch), confusion sums, img/s; then
+   counts (one int8 cache launch and 13 int8 messages per batch), confusion
+   sums, img/s; then
    one image in float32 on the card vs the CPU (plain path) for pixel
    agreement (24 launches of K1's float32 kernel); then the same step at
    ``crf_downsample=1`` (batch 2, 11 K4 launches per batch) and at
@@ -288,6 +295,9 @@ SCALE = 64 ** -0.5
 # TF32 tensor cores, float32 outside them (an FMA counts 2, so 33.5e12
 # instructions/s: 128 lanes x 132 SMs x ~1.98 GHz), HBM3
 PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_HBM = 989e12, 495e12, 67e12, 3.35e12
+# int8 messages of one default-point CRF call: the coarse degree, 5 coarse
+# iterations, the mid and full degrees, 4 mid iterations and 1 full one
+CRF_MESSAGES = 13
 SMS = 132
 # kernel vs plain: dtype -> (max abs error, relative error ||out-ref||/||ref||).
 # Outputs here average ~600 keys (~0.04, max ~0.3), so a max-abs limit alone
@@ -1079,6 +1089,73 @@ def crf_phase(fidelity, crf, bil):
             "cache": cache}
 
 
+def int8_message_bound_ms(b, n, c):
+    """(least ms, what bounds it) of the CRF's int8 message: the [B, N, N]
+    cache read once over the memory rate, against its products at the int8
+    peak (the operand, N C bytes an image, is read from L2)."""
+    bytes_ms = float(b) * n * n / PEAK_HBM * 1e3
+    ops_ms = int8_matmul_flops(b * n, n, c) / PEAK_INT8 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def int8_message_phase(bil):
+    """The CRF's int8 message (``crf_bilateral.int8_message``, a quantize and
+    a product launch) at the eval cells' shape (B=16, N=6,400: both probes,
+    C=54, and the degree, C=1) and at 360 px's N=8,100 (rows off 16 bytes),
+    bf16, on ``tests/int8_message_cases.py``'s inputs: bit for bit against
+    its plain version and against the ``torch._int_mm`` route it replaced
+    (the library yardstick; N = 6,400 only), CUDA-event times back to back
+    and queued, each kernel by ``torch.profiler``, the host time a call,
+    the route's and the plain version's times, and the bound."""
+    import int8_message_cases as cases
+
+    rows = {}
+    for name, (b, n, c) in {"b16_n6400_c54": (16, 6400, 54), "b16_n6400_c1": (16, 6400, 1),
+                            "b16_n8100_c54": (16, 8100, 54)}.items():
+        inputs = [cases.inputs("cuda", b, n, c, torch.bfloat16, seed=i) for i in range(2)]
+
+        def kernel(a):
+            return bil.int8_message(a[0], a[1], torch.bfloat16)
+
+        def plain(a):
+            return bil.int8_message_plain(a[0], a[1], torch.bfloat16)
+
+        out = kernel(inputs[0])
+        row = dict(shape=[b, n, c], equal_plain=bool(torch.equal(out, plain(inputs[0]))))
+        row["ms"] = cuda_time_ms(kernel, inputs)
+        row["queued_ms"] = device_time_ms(kernel, inputs)
+        split = profiled_kernel_ms(kernel, inputs, ["int8_quantize_kernel", "int8_message_kernel"])
+        row["quantize_profiler_ms"] = split["int8_quantize_kernel"]
+        row["product_profiler_ms"] = split["int8_message_kernel"]
+        busy = torch.empty(8192, 8192, device="cuda").normal_()
+        torch.cuda.synchronize()
+        busy @ busy
+        t0 = time.perf_counter()
+        for i in range(20):
+            kernel(inputs[i % 2])
+        row["host_us_per_call"] = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        del busy
+        if n % 8 == 0:
+            def library(a):
+                return cases.int_mm_message(a[0], a[1], torch.bfloat16)
+
+            row["equal_library"] = bool(torch.equal(out, library(inputs[0])))
+            row["library_ms"] = cuda_time_ms(library, inputs, iters=20)
+            row["library_queued_ms"] = device_time_ms(library, inputs, iters=20)
+        row["plain_ms"] = cuda_time_ms(plain, inputs, iters=3, warmup=1)
+        row["bound_ms"], row["bound_by"] = int8_message_bound_ms(b, n, c)
+        row["share_of_bound"] = row["bound_ms"] / min(row["ms"], row["queued_ms"])
+        phase("int8_message", case=name, **row)
+        rows[name] = row
+        del inputs, out
+        torch.cuda.empty_cache()
+        if not (row["equal_plain"] and row.get("equal_library", True)):
+            raise AssertionError(f"int8 message {name} differs from its plain version or the "
+                                 f"_int_mm route: {row}")
+    return rows
+
+
 def fidelity_rows_phase(study, bil):
     """The fidelity study's rows away from the default point: the exact CRF
     streams through K4 (11 launches per run), the others cache."""
@@ -1148,18 +1225,21 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
 
     batches = make_batches(gen, B, 4)  # warm-up + 3 timed
     torch.cuda.reset_peak_memory_stats()
-    caches = bil.KERNEL.cache_launches
+    caches, messages = bil.KERNEL.cache_launches, bil.KERNEL.message_launches
     _, img_s, launches, k4 = run_eval_batches(step, model, batches, att, bil)
     caches = bil.KERNEL.cache_launches - caches
-    caches_per_batch = caches / len(batches)
+    messages = bil.KERNEL.message_launches - messages
+    caches_per_batch, messages_per_batch = caches / len(batches), messages / len(batches)
     expected = per_batch * len(batches)
-    if launches != expected or k4 != 0 or caches != len(batches):
+    if (launches != expected or k4 != 0 or caches != len(batches)
+            or messages != CRF_MESSAGES * len(batches)):
         raise AssertionError(f"attention launches {launches} != {expected}, K4 launches "
-                             f"{k4} != 0 or int8 cache launches {caches} != "
-                             f"{len(batches)} at the default point")
+                             f"{k4} != 0, int8 cache launches {caches} != {len(batches)} or "
+                             f"int8 messages {messages} != {CRF_MESSAGES * len(batches)} at "
+                             f"the default point")
     phase("main_path", batch=B, res=320, batches_timed=3, img_per_s=img_s,
           attention_launches=launches, expected_launches=expected,
-          crf_cache_launches=caches,
+          crf_cache_launches=caches, crf_message_launches=messages,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
     # one image in float32: kernel on the card vs plain path on the CPU
@@ -1212,7 +1292,8 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
         torch.cuda.empty_cache()
     return {"img_per_s": img_s, "launches": launches, "agreement": agree,
             "points": points, "f32_eval_launches": f32_eval_launches,
-            "crf_cache_launches_per_batch": caches_per_batch}
+            "crf_cache_launches_per_batch": caches_per_batch,
+            "crf_message_launches_per_batch": messages_per_batch}
 
 
 def train_path_phase(att, bil, inference, featurizer, gen):
@@ -3482,6 +3563,7 @@ def main():
     contract_rows = attention_contract_phase(att, poison, gen)
     k4 = bilateral_phase(bil, crf, study, runtime)
     crf_res = crf_phase(study, crf, bil)
+    messages = int8_message_phase(bil)
     fidelity = fidelity_rows_phase(study, bil)
     main_res = main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen)
     train_res = train_path_phase(att, bil, inference, featurizer, gen)
@@ -3713,6 +3795,26 @@ def main():
         "max_step_from_float64": crf_res["cache"]["max_step_from_float64"],
         "entries_off_float64": crf_res["cache"]["entries_off_float64"],
         "eager_entries_off_float64": crf_res["cache"]["eager_entries_off_float64"],
+    }, {
+        "name": "crf_int8_message", "route": "cuda",
+        "source": "depthg_tpu_torch/csrc/crf_bilateral.cu",
+        "replaces": "none (an XLA int8 product, depthg_tpu/ops/crf.py _cached_matmul)",
+        "launches": main_res["crf_message_launches_per_batch"],
+        "shape": "bf16, B=16, N=6400, C=54 (a message of the default eval step); c1: the "
+                 "degree (C=1); n8100: 360 px",
+        "ms": messages["b16_n6400_c54"]["ms"],
+        "queued_ms": messages["b16_n6400_c54"]["queued_ms"],
+        "quantize_profiler_ms": messages["b16_n6400_c54"]["quantize_profiler_ms"],
+        "product_profiler_ms": messages["b16_n6400_c54"]["product_profiler_ms"],
+        "plain_ms": messages["b16_n6400_c54"]["plain_ms"],
+        "bound_ms": messages["b16_n6400_c54"]["bound_ms"],
+        "bound_by": messages["b16_n6400_c54"]["bound_by"],
+        "library_ms": messages["b16_n6400_c54"]["library_ms"],
+        "library_queued_ms": messages["b16_n6400_c54"]["library_queued_ms"],
+        "c1_queued_ms": messages["b16_n6400_c1"]["queued_ms"],
+        "c1_library_queued_ms": messages["b16_n6400_c1"]["library_queued_ms"],
+        "n8100_queued_ms": messages["b16_n8100_c54"]["queued_ms"],
+        "n8100_bound_ms": messages["b16_n8100_c54"]["bound_ms"],
     }, {
         "name": "zoe_bins_tail", "route": "cuda",
         "source": "depthg_tpu_torch/csrc/zoe_bins.cu",

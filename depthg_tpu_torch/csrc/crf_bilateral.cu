@@ -1,5 +1,6 @@
-// Streaming bilateral message of the dense CRF for Hopper (sm_90a), and the
-// kernel that builds its int8 kernel cache (at the end of this note).
+// Streaming bilateral message of the dense CRF for Hopper (sm_90a), the
+// kernel that builds its int8 kernel cache and the two of the message
+// through that cache (both at the end of this note).
 //
 // Replaces the TPU kernel depthg_tpu/ops/crf_pallas.py bilateral_message_pallas
 // (_kernel), the fused form of depthg_tpu/ops/crf.py _bilateral_message:
@@ -140,9 +141,49 @@
 // and loop work beside the 12.75) at ~76% of the issue rate. Columns read
 // by each lane straight from the [B, N, 5] features (320-byte strides
 // across a warp) cost 0.477 ms against 0.40-0.42 staged; 64-row tiles 0.60.
+//
+// The int8 cached message (int8_quantize_kernel, int8_message_kernel). It
+// replaces no TPU kernel: the JAX package's message through the cache
+// (depthg_tpu/ops/crf.py _cached_matmul) is an XLA int8 product. Per image
+//     q8 = round_half_even(z * (127 / zmax)),  zmax = max(|z|, 1e-20),
+//     out = (K8 @ q8) * (zmax / 127^2)   in the state dtype,
+// in the float32 arithmetic PyTorch's eager ops give on the card (127 / zmax
+// is reciprocal(zmax) * 127 with an IEEE division; zmax / 16129 is a
+// multiply by float(1 / 16129); int32 -> float32 rounds to nearest; the bf16
+// cast to nearest even), so the result is theirs bit for bit: the int32
+// sums are exact in any order. What bounds it: the bytes, the cache read
+// once per message (B N^2: 655 MB at B=16, N=6,400, 0.196 ms at 3.35
+// TB/s); the products (2 B N^2 64 at C=54, 0.04 ms at the int8 peak) and
+// the operand (N C per image, L2-resident) are small beside them. Two
+// launches a message:
+//   * int8_quantize_kernel: a cluster of 8 blocks per image takes max |z|
+//     (each block its tiles, combined through distributed shared memory),
+//     then writes q8 channel-major [B, cpad, np] (zero past n and c: the
+//     product's K-major B operand) and zmax / 16129 per image.
+//   * int8_message_kernel: a block of one warpgroup owns 128 cache rows of
+//     one image (grid: row tile x 64-channel chunk x image: 800 blocks at
+//     B=16, N=6,400) and streams them through a ring of 4 stages of 128
+//     keys, beside the operand's lines: TMA where the cache's row pitch is
+//     a multiple of 16 bytes, else cp.async 4 bytes a copy (N % 4 = 0:
+//     every default-point N = 4 (res / 8)^2) or byte loads. wgmma.m64nNk32.s8
+//     with both operands from shared memory, N = 8 NT the channels padded
+//     to the nearest s8 width (8, 16, 24, 32, 48, 64); int32 sums in
+//     registers; the rescale and the cast in the epilogue. Entries past N
+//     are never read (TMA fills zeros; cp.async's stale bytes meet the
+//     operand's zeros) and rows past N never written.
+// What holds it (H100, B=16, N=6,400; torch.profiler): the product 0.233 ms
+// at C=54 (84% of the memory rate; 0.209 at C=1), the quantize 0.035-0.036
+// ms, ~30 us of it whatever C (its passes read L2 from 128 blocks). The
+// same loop on cp.async 16-byte copies took 0.42 ms with or without the
+// products: the loads bound it. 64-row tiles, 256-key stages, 3 or 6
+// stages and 256-row tiles all read within 3% of this layout under TMA;
+// staggering each block's first stage read 1% slower.
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap types only; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -927,6 +968,467 @@ bilateral_cache_int8_kernel(const float* __restrict__ feats, int8_t* __restrict_
   }
 }
 
+// The int8 cached message (the note at the top): its shapes and constants.
+
+constexpr int MSG_FR = 2;         // m64 tiles of a product block
+constexpr int MSG_ROWS = 64 * MSG_FR;  // its cache rows
+constexpr int MSG_KEYS = 128;     // keys of a stage: a 128-byte swizzled line of each row
+constexpr int MSG_STAGES = 4;     // the ring of stages in shared memory
+constexpr int MSG_MIN_BLOCKS = 2;  // blocks per SM the registers are budgeted for
+constexpr int MSG_MAX_CP = 64;    // channels of a product block (wgmma n64); more take grid.y
+constexpr int MSG_MAX_N = 132104;  // n 128 127 < 2^31: the int32 sums cannot overflow
+constexpr int QUANT_CLUSTER = 8;  // blocks of one image in the quantize kernel
+constexpr int QUANT_KEYS = 256;   // keys of a quantize tile
+constexpr int QUANT_THREADS = 1024;
+constexpr int QUANT_PER_THREAD = QUANT_KEYS * 64 / QUANT_THREADS;  // elements of a tile a thread
+static_assert(QUANT_THREADS == 64 * QUANT_KEYS / 16, "one 16-byte piece of a tile a thread");
+constexpr float ZMAX_FLOOR = 0x1.79ca1p-67f;  // float(1e-20): clamp_min(1e-20)
+constexpr float INV_127_SQ = 0x1.040c2p-14f;  // float(1) / float(16129), rounded to nearest
+
+// the channels of a product block: 8 NT with NT = ceil(min(c, 64) / 8), as
+// wgmma's s8 widths allow it (8, 16, 24, 32, 48, 64)
+int message_nt(int c) {
+  const int nt = (min(c, MSG_MAX_CP) + 7) / 8;
+  return nt == 5 ? 6 : nt == 7 ? 8 : nt;
+}
+
+// the workspace: q8t [B, cpad, np] int8 (the quantized operand, channel-major,
+// zero past n and c), then the rescale factors [B] float32 at a 16-byte offset
+struct MessageLayout {
+  int cp, chunks, cpad, np;
+  long long q_bytes, bytes;
+};
+
+MessageLayout message_layout(int batch, int n, int c) {
+  MessageLayout m;
+  m.cp = 8 * message_nt(c);
+  m.chunks = (c + m.cp - 1) / m.cp;
+  m.cpad = m.chunks * m.cp;
+  m.np = (n + MSG_KEYS - 1) / MSG_KEYS * MSG_KEYS;
+  m.q_bytes = (static_cast<long long>(batch) * m.cpad * m.np + 15) / 16 * 16;
+  m.bytes = m.q_bytes + 4ll * batch;
+  return m;
+}
+
+// |x| as the bits of a float32 (an unsigned compare orders them, NaN above inf)
+__device__ __forceinline__ uint32_t abs_bits(float x) { return __float_as_uint(x) & 0x7FFFFFFFu; }
+__device__ __forceinline__ uint32_t abs_bits(unsigned short x) {
+  return static_cast<uint32_t>(x & 0x7FFFu) << 16;
+}
+__device__ __forceinline__ float as_float(float x) { return x; }
+__device__ __forceinline__ float as_float(unsigned short x) {
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// spins until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a tensor map at (x, y, z) (a 2-d map ignores z), into `dst`, signalled on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
+}
+
+// z [B, N, C] (float32 or bf16 bits, strides sz) -> q8t and rscale. A cluster
+// of QUANT_CLUSTER blocks per image (grid (QUANT_CLUSTER, B)): each takes the
+// |z| max of its tiles (QUANT_KEYS keys x 64 channels: thread t reads
+// channel t % 64 of every 16th key, QUANT_PER_THREAD loads in flight), the
+// cluster combines them through distributed shared memory, then each block
+// quantizes its tiles into shared memory [channel][key] and writes them
+// channel-major, 16 bytes a thread.
+template <typename T>
+__global__ void __cluster_dims__(QUANT_CLUSTER, 1, 1) __launch_bounds__(QUANT_THREADS)
+int8_quantize_kernel(const T* __restrict__ z, Strides sz, int n, int c, int np, int cpad,
+                     int8_t* __restrict__ q8t, float* __restrict__ rscale) {
+  constexpr int ROWS = QUANT_THREADS / 64;  // keys a tile's threads read at once
+  constexpr int PITCH = QUANT_KEYS + 8;     // bytes of a channel's row: 2-way bank conflicts
+  __shared__ uint32_t s_warp[QUANT_THREADS / 32];
+  __shared__ uint32_t s_part;
+  __shared__ __align__(16) int8_t s_tile[64 * PITCH];  // [channel][key]
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int b = blockIdx.y, rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, ch = tid & 63, kr = tid >> 6;
+  const T* zb = z + b * sz.b;
+  const int groups = (c + 63) / 64;  // 64-channel groups of a tile
+  // this thread's elements of tile t: channel c0 + ch of keys k0 + kr + ROWS u
+  auto read_tile = [&](int t, T (&v)[QUANT_PER_THREAD]) {
+    const int k0 = t / groups * QUANT_KEYS, c0 = t % groups * 64;
+    const bool live = c0 + ch < c;
+#pragma unroll
+    for (int u = 0; u < QUANT_PER_THREAD; ++u) {
+      const int key = k0 + kr + ROWS * u;
+      v[u] = live && key < n ? zb[key * sz.n + c0 + ch] : T(0);
+    }
+  };
+  T v[QUANT_PER_THREAD];
+
+  uint32_t m = 0;
+  const int real_tiles = (n + QUANT_KEYS - 1) / QUANT_KEYS * groups;
+  for (int t = rank; t < real_tiles; t += QUANT_CLUSTER) {
+    read_tile(t, v);
+#pragma unroll
+    for (int u = 0; u < QUANT_PER_THREAD; ++u) m = max(m, abs_bits(v[u]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) s_warp[tid >> 5] = m;
+  __syncthreads();
+  if (tid == 0) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int i = 0; i < QUANT_THREADS / 32; ++i) w = max(w, s_warp[i]);
+    s_part = w;
+  }
+  cluster.sync();
+  m = 0;
+#pragma unroll
+  for (int r = 0; r < QUANT_CLUSTER; ++r) m = max(m, *cluster.map_shared_rank(&s_part, r));
+  cluster.sync();  // no block leaves while another reads its s_part
+
+  // the parent's float32 arithmetic: zmax = clamp_min(amax |z|, 1e-20);
+  // 127 / zmax as reciprocal(zmax) * 127; zmax / 16129 as zmax * (1 / 16129)
+  float zmax = __uint_as_float(m);
+  zmax = isnan(zmax) ? zmax : fmaxf(zmax, ZMAX_FLOOR);
+  const float scale = __fmul_rn(__fdiv_rn(1.0f, zmax), 127.0f);
+  if (rank == 0 && tid == 0) rscale[b] = __fmul_rn(zmax, INV_127_SQ);
+
+  const int all_tiles = (np + QUANT_KEYS - 1) / QUANT_KEYS * groups;
+  for (int t = rank; t < all_tiles; t += QUANT_CLUSTER) {
+    const int k0 = t / groups * QUANT_KEYS, c0 = t % groups * 64;
+    read_tile(t, v);
+    __syncthreads();  // the tile before is written out
+#pragma unroll
+    for (int u = 0; u < QUANT_PER_THREAD; ++u)  // round half to even, |q| <= 127; 0 past n and c
+      s_tile[ch * PITCH + kr + ROWS * u] =
+          static_cast<int8_t>(__float2int_rn(__fmul_rn(as_float(v[u]), scale)));
+    __syncthreads();
+    const int row = tid / (QUANT_KEYS / 16), piece = tid % (QUANT_KEYS / 16) * 16;
+    if (c0 + row < cpad && k0 + piece < np) {
+      const uint2* src = reinterpret_cast<const uint2*>(s_tile + row * PITCH + piece);
+      const uint2 lo = src[0], hi = src[1];
+      *reinterpret_cast<uint4*>(q8t + (static_cast<long long>(b) * cpad + c0 + row) * np + k0 +
+                                piece) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
+}
+
+// d[64 rows x 8 NT channels] += a[64 rows x 32 keys] . b[32 keys x 8 NT
+// channels], both int8 K-major in shared memory (128-byte swizzle), int32 sums
+template <int NT>
+__device__ __forceinline__ void wgmma_s8(int (&d)[4 * NT], uint64_t a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_s8<1>(int (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<2>(int (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<3>(int (&d)[12], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<4>(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<6>(int (&d)[24], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+constexpr int message_smem_bytes(int nt) {  // the alignment, the stages, their barriers
+  return 1024 + MSG_STAGES * (MSG_ROWS + 8 * nt) * MSG_KEYS + 8 * MSG_STAGES;
+}
+
+// out[b, rows, c0:c0 + 8 NT] = (K8[b] @ q8[b]) * rscale[b] for a tile of
+// MSG_ROWS rows (grid: row tile x channel chunk x image). One warpgroup; a
+// ring of MSG_STAGES stages, each 128 keys of the tile's cache rows
+// [row][key] and of the operand's lines [channel][key], 128-byte lines in
+// the 128-byte swizzle. TMA (a row pitch of 16-byte multiples) loads them,
+// one thread issuing each stage's two boxes; else cp.async, 4 bytes a copy
+// (N % 4 = 0) or bytes through registers, every thread its share. Cache
+// entries past n are never read: TMA fills them with zeros, and where
+// cp.async leaves stale bytes they meet zeros of q8t (past n) or belong to
+// rows that are not stored. Epilogue: int32 -> float32 (round to nearest)
+// times rscale, cast to bf16 (nearest even) or kept float32, rows < n and
+// channels < c only.
+template <int NT, bool TMA>
+__global__ void __launch_bounds__(128, MSG_MIN_BLOCKS)
+int8_message_kernel(const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_q, const int8_t* __restrict__ kmat,
+                    const int8_t* __restrict__ q8t, const float* __restrict__ rscale,
+                    void* __restrict__ out, Strides so, int n, int c, int np, int cpad, int align,
+                    int out_bf16) {
+  constexpr int CP = 8 * NT;
+  constexpr int A_BYTES = MSG_ROWS * MSG_KEYS, STAGE = A_BYTES + CP * MSG_KEYS;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: the stages start there
+  uint8_t* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, c0 = blockIdx.y * CP, r0 = blockIdx.x * MSG_ROWS;
+  const int n_stages = np / MSG_KEYS;
+
+  int acc[MSG_FR][4 * NT];
+#pragma unroll
+  for (int fr = 0; fr < MSG_FR; ++fr)
+#pragma unroll
+    for (int e = 0; e < 4 * NT; ++e) acc[fr][e] = 0;
+
+  // the products of the stage in `slot`, waited for
+  auto multiply = [&](int slot) {
+    const uint32_t a = smem_u32(sm + slot * STAGE), bq = a + A_BYTES;
+#pragma unroll
+    for (int fr = 0; fr < MSG_FR; ++fr) fence_regs(acc[fr]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < MSG_KEYS / 32; ++ks)
+#pragma unroll
+      for (int fr = 0; fr < MSG_FR; ++fr)
+        wgmma_s8<NT>(acc[fr], smem_desc(a + fr * 64 * MSG_KEYS) + 2 * ks, smem_desc(bq) + 2 * ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int fr = 0; fr < MSG_FR; ++fr) fence_regs(acc[fr]);
+  };
+
+  if constexpr (TMA) {
+    // the cache as [B][N rows][N keys], the operand as [B cpad][np]: TMA
+    // fills what lies past n with zeros and reads none of it
+    const uint32_t full = smem_u32(sm + MSG_STAGES * STAGE);
+    auto load_stage = [&](int s, int slot) {
+      const uint32_t dst = smem_u32(sm + slot * STAGE), bar = full + 8 * slot;
+      mbar_expect_tx(bar, STAGE);
+      tma_load_3d(dst, &map_k, bar, s * MSG_KEYS, r0, b);
+      tma_load_2d(dst + A_BYTES, &map_q, bar, s * MSG_KEYS, b * cpad + c0);
+    };
+    if (tid == 0) {
+      for (int s = 0; s < MSG_STAGES; ++s) mbar_init(full + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int s = 0; s < MSG_STAGES && s < n_stages; ++s) load_stage(s, s);
+    }
+    __syncthreads();
+    for (int s = 0; s < n_stages; ++s) {
+      const int slot = s % MSG_STAGES;
+      mbar_wait(full + 8 * slot, (s / MSG_STAGES) & 1);
+      multiply(slot);
+      __syncthreads();  // every warp is done with the slot before it is refilled
+      if (tid == 0 && s + MSG_STAGES < n_stages) load_stage(s + MSG_STAGES, slot);
+    }
+  } else {
+    const int8_t* kb = kmat + static_cast<long long>(b) * n * n;
+    const int8_t* qb = q8t + (static_cast<long long>(b) * cpad + c0) * np;
+    // one commit group per stage: its cache rows and operand lines, into `slot`
+    auto load = [&](int s, int slot) {
+      uint8_t* sa = sm + slot * STAGE;
+      const int k0 = s * MSG_KEYS;
+      for (int i = tid; i < MSG_ROWS * 8; i += 128) {
+        // 16 keys of one row: 16-byte column kc swizzled by the row
+        const int r = i >> 3, kc = i & 7, row = r0 + r, key = k0 + kc * 16;
+        if (row >= n || key >= n) continue;
+        uint8_t* dst = sa + r * 128 + ((kc ^ (r & 7)) << 4);
+        const int8_t* src = kb + static_cast<long long>(row) * n + key;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (align == 4) {
+            if (key + 4 * q < n) cp_async4(dst + 4 * q, src + 4 * q);
+            continue;
+          }
+          uint32_t w = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key + 4 * q + e < n)
+              w |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + 4 * q + e))) << (8 * e);
+          *reinterpret_cast<uint32_t*>(dst + 4 * q) = w;
+        }
+      }
+      for (int i = tid; i < CP * 8; i += 128) {
+        const int ch = i >> 3, kc = i & 7;
+        cp_async16(sa + A_BYTES + ch * 128 + ((kc ^ (ch & 7)) << 4),
+                   qb + static_cast<long long>(ch) * np + k0 + kc * 16);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < MSG_STAGES - 1; ++s) {
+      if (s < n_stages) load(s, s);
+      else cp_async_commit();
+    }
+    for (int s = 0; s < n_stages; ++s) {
+      cp_async_wait<MSG_STAGES - 2>();  // stage s has landed
+      // the stage is read by the tensor cores' (asynchronous) path
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // stage s is visible to every warp; stage s - 1's slot is free
+      const int next = s + MSG_STAGES - 1;
+      if (next < n_stages) load(next, next % MSG_STAGES);
+      else cp_async_commit();
+      multiply(s % MSG_STAGES);
+    }
+  }
+
+  // accumulator: acc[..][4 dn + {0,1}] = row g, channels dn*8 + 2t + {0,1}; [+2, +3] = row g+8
+  const float r = rscale[b];
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int fr = 0; fr < MSG_FR; ++fr)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + fr * 64 + warp * 16 + g + 8 * h;
+      if (row >= n) continue;
+      const long long o = b * so.b + row * so.n;
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ch = c0 + dn * 8 + 2 * t + e;
+          if (ch >= c) continue;
+          const float v = __fmul_rn(__int2float_rn(acc[fr][4 * dn + 2 * h + e]), r);
+          if (out_bf16) static_cast<__nv_bfloat16*>(out)[o + ch] = __float2bfloat16_rn(v);
+          else static_cast<float*>(out)[o + ch] = v;
+        }
+    }
+}
+
+// libcuda's tensor-map encoder, fetched from the already loaded library (the
+// kernels link against the CUDA runtime only)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// a byte tensor of `rank` dims (innermost first; byte strides of the outer
+// ones) in boxes of `box`, 128-byte swizzle, zeros past its extent
+bool encode_bytes(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const EncodeTiledFn fn = encode_tiled();
+  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NT>
+cudaError_t launch_message(const int8_t* kmat, const int8_t* q8t, const float* rs, void* out,
+                           const MessageLayout& m, Strides so, int batch, int n, int c, int align,
+                           int out_bf16, cudaStream_t st) {
+  constexpr int CP = 8 * NT;
+  CUtensorMap map_k{}, map_q{};
+  const bool tma = align == 16;
+  if (tma) {
+    const cuuint64_t kdims[3] = {cuuint64_t(n), cuuint64_t(n), cuuint64_t(batch)};
+    const cuuint64_t kstrides[2] = {cuuint64_t(n), cuuint64_t(n) * n};
+    const cuuint32_t kbox[3] = {MSG_KEYS, MSG_ROWS, 1};
+    const cuuint64_t qdims[2] = {cuuint64_t(m.np), cuuint64_t(batch) * m.cpad};
+    const cuuint64_t qstrides[1] = {cuuint64_t(m.np)};
+    const cuuint32_t qbox[2] = {MSG_KEYS, CP};
+    if (!encode_bytes(&map_k, kmat, 3, kdims, kstrides, kbox) ||
+        !encode_bytes(&map_q, q8t, 2, qdims, qstrides, qbox))
+      return cudaErrorInvalidValue;
+  }
+  auto kernel = tma ? int8_message_kernel<NT, true> : int8_message_kernel<NT, false>;
+  // per launch: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, message_smem_bytes(NT));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + MSG_ROWS - 1) / MSG_ROWS, m.chunks, batch);
+  kernel<<<grid, 128, message_smem_bytes(NT), st>>>(map_k, map_q, kmat, q8t, rs, out, so, n, c,
+                                                    m.np, m.cpad, align, out_bf16);
+  return cudaGetLastError();
+}
+
 template <int NT>
 void launch_bf16(const float* ft, const __nv_bfloat16* zt, __nv_bfloat16* out,
                  const Packed& p, Strides so, int batch, int n, int c, cudaStream_t st) {
@@ -1055,4 +1557,54 @@ extern "C" int depthg_bilateral_message_f32(
   DEPTHG_DISPATCH_NT(c, launch_f32, static_cast<const float*>(workspace), zt,
                      static_cast<float*>(out), p, so, batch, n, c, st)
   return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 cached message: kmat [B, N, N] int8, contiguous (row pitch N);
+// z [B, N, C] float32 (z_bf16 = 0) or bf16 (1) and out [B, N, C] float32
+// (out_bf16 = 0) or bf16 (1), element strides (x_sb, x_sn) of image and
+// point, contiguous last axis; a workspace of
+// depthg_int8_message_workspace_bytes. Two launches on `stream`: the
+// quantize kernel, then the product. The return value is that of the message
+// entries (cudaErrorInvalidValue for a shape it does not take).
+static bool bad_message_shape(int batch, int n, int c) {
+  return batch < 1 || batch > 65535 || n < 1 || n > MSG_MAX_N || c < 1 ||
+         (c + MSG_MAX_CP - 1) / MSG_MAX_CP > 65535;
+}
+
+extern "C" long long depthg_int8_message_workspace_bytes(int batch, int n, int c) {
+  return bad_message_shape(batch, n, c) ? 0 : message_layout(batch, n, c).bytes;
+}
+
+extern "C" int depthg_int8_message(const void* kmat, const void* z, void* out, void* workspace,
+                                   long long z_sb, long long z_sn, long long o_sb, long long o_sn,
+                                   int batch, int n, int c, int z_bf16, int out_bf16,
+                                   void* stream) {
+  if (bad_message_shape(batch, n, c)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const MessageLayout m = message_layout(batch, n, c);
+  int8_t* q8t = static_cast<int8_t*>(workspace);
+  float* rs = reinterpret_cast<float*>(static_cast<char*>(workspace) + m.q_bytes);
+  const Strides sz{z_sb, z_sn}, so{o_sb, o_sn};
+  const dim3 qgrid(QUANT_CLUSTER, batch);
+  if (z_bf16)
+    int8_quantize_kernel<unsigned short><<<qgrid, QUANT_THREADS, 0, st>>>(
+        static_cast<const unsigned short*>(z), sz, n, c, m.np, m.cpad, q8t, rs);
+  else
+    int8_quantize_kernel<float><<<qgrid, QUANT_THREADS, 0, st>>>(
+        static_cast<const float*>(z), sz, n, c, m.np, m.cpad, q8t, rs);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(kmat);
+  const int align = n % 16 == 0 && base % 16 == 0 ? 16 : n % 4 == 0 && base % 4 == 0 ? 4 : 1;
+  const int8_t* k8 = static_cast<const int8_t*>(kmat);
+  const cudaError_t qerr = cudaGetLastError();
+  if (qerr != cudaSuccess) return static_cast<int>(qerr);
+  cudaError_t err;
+  switch (message_nt(c)) {
+    case 1: err = launch_message<1>(k8, q8t, rs, out, m, so, batch, n, c, align, out_bf16, st); break;
+    case 2: err = launch_message<2>(k8, q8t, rs, out, m, so, batch, n, c, align, out_bf16, st); break;
+    case 3: err = launch_message<3>(k8, q8t, rs, out, m, so, batch, n, c, align, out_bf16, st); break;
+    case 4: err = launch_message<4>(k8, q8t, rs, out, m, so, batch, n, c, align, out_bf16, st); break;
+    case 6: err = launch_message<6>(k8, q8t, rs, out, m, so, batch, n, c, align, out_bf16, st); break;
+    default: err = launch_message<8>(k8, q8t, rs, out, m, so, batch, n, c, align, out_bf16, st);
+  }
+  return static_cast<int>(err);
 }

@@ -19,20 +19,21 @@ kernel exp(-|f_i - f_j|^2 / 2) is cached per image when it fits
 ``kernel_cache_mb`` (int8 with fixed scale 127 and an int8 x int8 -> int32
 product, or the state dtype and a plain ``bmm``). The int8 cache is built
 on CUDA by one kernel launch for the batch
-(``ops/crf_bilateral.bilateral_cache_int8``); every other cache build is
-eager torch in full float32 (TF32 off: ``runtime.configure_numerics``). A
-point set whose cache would not fit streams through
+(``ops/crf_bilateral.bilateral_cache_int8``) and every message through it
+is one quantize and one product launch for the batch
+(``ops/crf_bilateral.int8_message``); every other cache build is eager
+torch in full float32 (TF32 off: ``runtime.configure_numerics``). A point
+set whose cache would not fit streams through
 ``ops/crf_bilateral.bilateral_message`` (the K4 kernel on CUDA), which never
 stores the kernel.
 
-Batching: batched tensor ops over the image axis, except the int8 product
-(``torch._int_mm`` has no batch form) and the eager cache builds (one image
-at a time). The caches of a batch are held together up to ``CACHE_BUDGET_BYTES``;
-a larger batch runs in groups of images that fit it (at ``downsample=2`` a
-float32 cache is 2.44 GiB per image), as the JAX package's cache-sized
-chunks do. Whether a point set caches depends on its size alone, never on
-free memory. The TPU's batch strategies, vmap budgets and unroll limits
-are not ported.
+Batching: batched tensor ops over the image axis, except the eager cache
+builds (one image at a time). The caches of a batch are held together up
+to ``CACHE_BUDGET_BYTES``; a larger batch runs in groups of images that fit
+it (at ``downsample=2`` a float32 cache is 2.44 GiB per image), as the JAX
+package's cache-sized chunks do. Whether a point set caches depends on its
+size alone, never on free memory. The TPU's batch strategies, vmap budgets
+and unroll limits are not ported.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from depthg_tpu_torch.ops.crf_bilateral import bilateral_cache_int8, bilateral_degree, \
-    bilateral_message, row_blocks
+    bilateral_message, int8_message, row_blocks
 from depthg_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -228,32 +229,15 @@ def _cache_kernel(feats: torch.Tensor, ccfg: CRFConfig, dt) -> torch.Tensor:
     return out
 
 
-def _int8_matmul(kmat: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:
-    """[B, N, N] int8 @ [B, N, C] int8 -> [B, N, C] (int32 sums as float32).
-
-    CUDA: ``torch._int_mm`` per image, with C zero-padded to a multiple of 8
-    (its constraint) and the right operand column-major. CPU: float64, which
-    is exact here (|sum| <= N * 127^2 < 2^53)."""
-    if kmat.device.type == "cpu":
-        return torch.bmm(kmat.double(), z8.double()).float()
-    b, n, c = z8.shape
-    cp = -(-c // 8) * 8
-    zp = torch.zeros((b, cp, n), dtype=torch.int8, device=z8.device)
-    zp[:, :c] = z8.transpose(1, 2)
-    out = torch.stack([torch._int_mm(kmat[i], zp[i].T) for i in range(b)])
-    return out[..., :c].float()
-
-
 def cached_matmul(kmat: torch.Tensor, z: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """kmat @ z in the cache's storage dtype. A bf16/f32 cache is a plain
     ``bmm`` against z in the same dtype. For an int8 cache, z is quantized
     per image with a dynamic scale zmax/127 (round half to even), the product
-    accumulates in int32, and the result is rescaled and returned in ``dt``."""
+    accumulates in int32, and the result is rescaled and returned in ``dt``
+    (``ops/crf_bilateral.int8_message``)."""
     if kmat.dtype != torch.int8:
         return torch.bmm(kmat, z)
-    zmax = z.abs().amax(dim=(1, 2), keepdim=True).float().clamp_min(1e-20)
-    z8 = torch.round(z.float() * (127.0 / zmax)).to(torch.int8)
-    return (_int8_matmul(kmat, z8) * (zmax / (127.0 * 127.0))).to(dt)
+    return int8_message(kmat, z, dt)
 
 
 def _message(bf: torch.Tensor, kmat, z: torch.Tensor, dt) -> torch.Tensor:

@@ -41,6 +41,12 @@ to float32's limits), the plain version in float32.
   CRF builds its cache eagerly on the CPU); ``KERNEL.cache_launches``
   counts its launches, which ``KERNEL.launches`` does not (the spans record
   them as ``crf_cache_launches``).
+* ``int8_message`` is the CRF's message through that cache, ``K8 @ z`` with
+  z quantized per image (``int8_message_plain`` has the arithmetic): on
+  CUDA one quantize and one product launch for the batch, any N, bit for
+  bit the float32 arithmetic of the plain version's eager ops on the card
+  (the int32 sums are exact); ``KERNEL.message_launches`` counts its calls
+  on CUDA (the spans record them as ``crf_message_launches``).
 
 The TPU forms are not ported: the unrolled symmetric diagonals, the
 +inf/-1e30 padding of the features and the VMEM budget check. Any N is
@@ -74,6 +80,7 @@ class _BilateralKernel:
         self.launches = 0
         self.f32_launches = 0
         self.cache_launches = 0
+        self.message_launches = 0
         self._fns = None
         # the service's replicas launch from one thread each
         self._lock = threading.Lock()
@@ -87,9 +94,14 @@ class _BilateralKernel:
         with self._lock:
             self.cache_launches += 1
 
+    def count_message(self) -> None:
+        with self._lock:
+            self.message_launches += 1
+
     def fn(self):
         """The entries of ``csrc/crf_bilateral.cu``: ``bf16`` and ``f32``
-        messages, ``degree``, ``cache_int8`` and ``workspace_bytes``."""
+        messages, ``degree``, ``cache_int8``, ``workspace_bytes``,
+        ``int8_message`` and ``int8_workspace_bytes``."""
         with self._lock:
             if self._fns is None:
                 lib = _build.load("crf_bilateral")
@@ -98,7 +110,9 @@ class _BilateralKernel:
                     f32=lib.depthg_bilateral_message_f32,
                     degree=lib.depthg_bilateral_degree,
                     cache_int8=lib.depthg_bilateral_cache_int8,
-                    workspace_bytes=lib.depthg_bilateral_workspace_bytes)
+                    workspace_bytes=lib.depthg_bilateral_workspace_bytes,
+                    int8_message=lib.depthg_int8_message,
+                    int8_workspace_bytes=lib.depthg_int8_message_workspace_bytes)
                 for f in (fns.bf16, fns.f32):
                     f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -111,12 +125,18 @@ class _BilateralKernel:
                 fns.cache_int8.restype = ctypes.c_int
                 fns.workspace_bytes.argtypes = [ctypes.c_int] * 4
                 fns.workspace_bytes.restype = ctypes.c_longlong
+                fns.int8_message.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+                                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                fns.int8_message.restype = ctypes.c_int
+                fns.int8_workspace_bytes.argtypes = [ctypes.c_int] * 3
+                fns.int8_workspace_bytes.restype = ctypes.c_longlong
                 self._fns = fns
             return self._fns
 
 
 KERNEL = _BilateralKernel()
 profiling.register_counter("crf_cache_launches", lambda: KERNEL.cache_launches)
+profiling.register_counter("crf_message_launches", lambda: KERNEL.message_launches)
 
 
 def row_blocks(b: int, n: int):
@@ -274,3 +294,82 @@ def bilateral_cache_int8(feats: torch.Tensor, out: torch.Tensor | None = None) -
                            f"CUDA error {err}")
     KERNEL.count_cache()
     return out
+
+
+# the int8 message's dtypes, and its largest N: N 128 127 < 2^31 keeps the
+# int32 sums from overflowing
+INT8_DTYPES = (torch.float32, torch.bfloat16)
+INT8_MAX_N = 132_104
+
+
+def int8_message_plain(kmat: torch.Tensor, z: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """[B, N, N] int8 @ [B, N, C] -> [B, N, C] in ``dt``: z quantized per
+    image with the dynamic scale zmax / 127 (round half to even), the product
+    in float64, which is exact here (|sum| <= N 128 127 < 2^53), rescaled by
+    zmax / 127^2. Any device: on the card these eager ops give the kernel's
+    bits."""
+    zmax = z.abs().amax(dim=(1, 2), keepdim=True).float().clamp_min(1e-20)
+    z8 = torch.round(z.float() * (127.0 / zmax)).to(torch.int8)
+    return (torch.bmm(kmat.double(), z8.double()).float() * (zmax / (127.0 * 127.0))).to(dt)
+
+
+def _check_int8(kmat, z, dt):
+    if kmat.dtype != torch.int8 or kmat.dim() != 3 or kmat.shape[1] != kmat.shape[2]:
+        raise ValueError(f"int8 message needs an int8 cache [B, N, N], got "
+                         f"{tuple(kmat.shape)} {kmat.dtype}")
+    if z.dim() != 3 or z.shape[:2] != kmat.shape[:2] or z.shape[1] < 1 or z.shape[2] < 1:
+        raise ValueError(f"int8 message needs z [B, N, C >= 1] matching the cache "
+                         f"{tuple(kmat.shape)}, got {tuple(z.shape)}")
+    if z.dtype not in INT8_DTYPES or dt not in INT8_DTYPES:
+        raise ValueError(f"int8 message needs z and its result in float32 or bfloat16, got "
+                         f"{z.dtype} -> {dt}")
+    if z.device != kmat.device:
+        raise ValueError("the cache and z must be on one device")
+    if kmat.shape[1] > INT8_MAX_N:
+        raise ValueError(f"int8 message takes N <= {INT8_MAX_N} (int32 sums), got "
+                         f"{kmat.shape[1]}")
+
+
+def _rows_contiguous(t):
+    """Whether the kernels can read t [B, N, C] through its image and point
+    strides alone: its last axis contiguous (or of one element)."""
+    return t.stride(-1) == 1 or t.shape[-1] == 1
+
+
+def _launch_int8(kmat, z, out):
+    """Launch the quantize and product kernels: the contiguous cache, z and
+    out [B, N, C] views with a contiguous last axis, the result in out's
+    dtype."""
+    if not kmat.is_contiguous():
+        raise ValueError(f"int8 message needs a contiguous cache, got strides {kmat.stride()}")
+    if (not _rows_contiguous(z) or not _rows_contiguous(out) or out.shape != z.shape
+            or out.dtype not in INT8_DTYPES or out.device != z.device):
+        raise ValueError(f"int8 message needs z and out [B, N, C] on one device with a "
+                         f"contiguous last axis, got {tuple(z.shape)} {z.stride()} and "
+                         f"{tuple(out.shape)} {out.stride()} {out.dtype}")
+    b, n, c = z.shape
+    fns = KERNEL.fn()
+    # the quantized operand and the rescale factors (their layout is the kernel's own)
+    ws = torch.empty(fns.int8_workspace_bytes(b, n, c), dtype=torch.uint8, device=z.device)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        err = fns.int8_message(kmat.data_ptr(), z.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                               *z.stride()[:2], *out.stride()[:2], b, n, c,
+                               z.dtype == torch.bfloat16, out.dtype == torch.bfloat16, stream)
+    if err != 0:
+        raise RuntimeError(f"int8 message launch failed for {tuple(z.shape)}: CUDA error {err}")
+    KERNEL.count_message()
+    return out
+
+
+def int8_message(kmat: torch.Tensor, z: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The CRF's message through its int8 cache: kmat [B, N, N] int8 (entries
+    at the scale 127), z [B, N, C] float32 or bf16 -> [B, N, C] in ``dt``
+    (float32 or bf16). The kernels on CUDA tensors (two launches for the
+    batch; the cache contiguous), the plain version on CPU ones."""
+    _check_int8(kmat, z, dt)
+    if kmat.device.type == "cpu":
+        return int8_message_plain(kmat, z, dt)
+    if not _rows_contiguous(z):
+        z = z.contiguous()
+    return _launch_int8(kmat, z, torch.empty(z.shape, dtype=dt, device=z.device))

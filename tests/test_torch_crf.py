@@ -280,6 +280,53 @@ def test_cached_matmul_matches_jax():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("bad", ["float16_z", "float64_dt", "int16_cache", "rank2",
+                                 "not_square", "z_rows", "c0", "devices", "too_long"])
+def test_int8_message_refuses_bad_inputs_before_any_build(monkeypatch, bad):
+    """``int8_message`` checks its shapes and dtypes before it asks for the
+    kernel's library (here a build would raise), on any device."""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(tbil.KERNEL, "fn", no_build)
+    k8 = torch.zeros((2, 16, 16), dtype=torch.int8)
+    z = torch.rand(2, 16, 3)
+    long_n = tbil.INT8_MAX_N + 1
+    args = {"float16_z": (k8, z.half(), torch.float32),
+            "float64_dt": (k8, z, torch.float64),
+            "int16_cache": (k8.short(), z, torch.float32),
+            "rank2": (k8[0], z[0], torch.float32),
+            "not_square": (k8[:, :8], z[:, :8], torch.float32),
+            "z_rows": (k8, z[:, :8], torch.float32),
+            "c0": (k8, z[..., :0], torch.float32),
+            "devices": (k8, z.to("meta"), torch.float32),
+            "too_long": (torch.zeros((1, 1, 1), dtype=torch.int8).expand(1, long_n, long_n),
+                         torch.zeros((1, 1, 1)).expand(1, long_n, 1), torch.float32)}[bad]
+    before = tbil.KERNEL.message_launches
+    with pytest.raises(ValueError):
+        tbil.int8_message(*args)
+    assert tbil.KERNEL.message_launches == before
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_int8_message_on_the_cpu_is_its_plain_version(dt):
+    """On the CPU the message is the plain version (the float64 product,
+    exact) with no launch counted; the CRF's ``cached_matmul`` takes it for
+    an int8 cache."""
+    gen = torch.Generator().manual_seed(4)
+    k8 = torch.randint(0, 128, (2, 40, 40), generator=gen, dtype=torch.int8)
+    z = torch.rand(2, 40, 5, generator=gen).to(dt)
+    before = tbil.KERNEL.message_launches
+    want = tbil.int8_message_plain(k8, z, dt)
+    assert torch.equal(tbil.int8_message(k8, z, dt), want)
+    assert torch.equal(tcrf.cached_matmul(k8, z, dt), want)
+    assert tbil.KERNEL.message_launches == before
+    zmax = z.float().abs().amax(dim=(1, 2), keepdim=True)
+    z8 = torch.round(z.float() * (127.0 / zmax))
+    exact = torch.bmm(k8.double(), z8.double()) * (zmax.double() / 127.0 ** 2)
+    assert (want.double() - exact).abs().max() <= 2 ** -7 * exact.abs().max()
+
+
 def test_lattice_agreement_matches_jax_on_a_small_scene():
     """The fidelity study's lattice column on one 96 px scene: the port's
     CRF and the JAX package's ``dense_crf_multi`` at the default point, each

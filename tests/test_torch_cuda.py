@@ -67,7 +67,13 @@ their reasons); faults planted in the plain version (centers not
 interpolated, the rel channel left out, ``align_corners=False``, the
 temperature not applied) each read at least five times the limit; one
 launch a call; its refusals; and a small ZoeDepth with the released head's
-widths, kernel against the module path.
+widths, kernel against the module path. The int8 message slice adds the
+CRF's message through its int8 cache (``crf_bilateral.int8_message``) bit
+for bit against the ``torch._int_mm`` route it replaced
+(``tests/int8_message_cases.py``) at the eval cells' shapes and against the
+exact float64 product at N off a multiple of 16, through views of buffers
+that held NaN past N and C and -128 past the cache, its refusals, and the
+default point's predict step at 200 and 360 px against the CPU.
 """
 
 import pytest
@@ -416,13 +422,18 @@ def test_bilateral_kernel_reads_nothing_past_n(cuda, dtype):
 
 
 def test_int8_product_exact_on_card(cuda):
-    """torch._int_mm (int32 sums) == the CPU's float64 product: both exact."""
+    """The int8 message's int32 sums are exact: operands that are already
+    int8 codes (max |z| = 127, so the quantize leaves them as they are) give
+    the CPU's float64 product, rescaled by float(127 / 16129) as the card
+    rescales."""
     gen = torch.Generator().manual_seed(1)
     k8 = torch.randint(-127, 128, (2, 1600, 1600), generator=gen, dtype=torch.int8)
     z8 = torch.randint(-127, 128, (2, 1600, 54), generator=gen, dtype=torch.int8)
-    ref = tcrf._int8_matmul(k8, z8)
-    out = tcrf._int8_matmul(k8.to(cuda), z8.to(cuda))
-    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+    z8[:, 0, 0] = 127
+    exact = torch.bmm(k8.double(), z8.double()).float()
+    rescale = torch.tensor(127.0) * (torch.tensor(1.0) / torch.tensor(16129.0))
+    out = tbil.int8_message(k8.to(cuda), z8.float().to(cuda), torch.float32)
+    torch.testing.assert_close(out.cpu(), exact * rescale, rtol=0, atol=0)
 
 
 def test_cached_matmul_close_on_card(cuda):
@@ -435,6 +446,141 @@ def test_cached_matmul_close_on_card(cuda):
     out = tcrf.cached_matmul(k8.to(cuda), z.to(cuda), torch.float32).cpu()
     assert (out - ref).abs().max() <= 1600 * (1.0 / 127)
     assert (out - ref).abs().mean() <= 1e-3 * ref.abs().mean()
+
+
+@pytest.mark.parametrize("b,n,c,dt", [
+    (16, 6400, 54, torch.bfloat16), (16, 6400, 54, torch.float32),
+    (16, 6400, 1, torch.bfloat16), (16, 6400, 1, torch.float32),
+    (1, 6400, 27, torch.bfloat16), (4, 12800, 54, torch.bfloat16),
+    (2, 1024, 70, torch.bfloat16)])
+def test_int8_message_equals_the_int_mm_route(cuda, b, n, c, dt):
+    """The int8 message kernel (``crf_bilateral.int8_message``: a quantize
+    and a product launch for the batch) at the eval cells' shape (B=16,
+    N=6,400, both probes or the degree's C=1, bf16 and float32 state), one
+    image with one probe, ``quality_plus``'s N=12,800 and C=70 (two
+    64-channel chunks of the product's grid): bit for bit the
+    route the CRF took before it (``torch._int_mm`` image by image behind
+    the same eager quantize and rescale), and its plain version; one
+    counted launch a call."""
+    import int8_message_cases as cases
+
+    kmat, z = cases.inputs(cuda, b, n, c, dt, seed=n + c)
+    before = tbil.KERNEL.message_launches
+    out = tbil.int8_message(kmat, z, dt)
+    assert tbil.KERNEL.message_launches == before + 1
+    torch.testing.assert_close(out, cases.int_mm_message(kmat, z, dt), rtol=0, atol=0)
+    torch.testing.assert_close(out, tbil.int8_message_plain(kmat, z, dt), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,c", [(2500, 54), (8100, 54), (1601, 27)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_int8_message_at_a_ragged_n_is_exact(cuda, n, c, dt):
+    """N off a multiple of 16 (the default point's N at 200 and 360 px, an
+    odd N): the cache rows are read 4 bytes or one byte a copy, and the
+    message equals the plain version, whose float64 product on the CPU is
+    exact (``torch._int_mm`` takes no such N)."""
+    import int8_message_cases as cases
+
+    kmat, z = cases.inputs(cuda, 2, n, c, dt, seed=n)
+    out = tbil.int8_message(kmat, z, dt)
+    zmax = z.abs().amax(dim=(1, 2), keepdim=True).float().clamp_min(1e-20)
+    z8 = torch.round(z.float() * (127.0 / zmax)).to(torch.int8)  # the card's quantize
+    exact = torch.bmm(kmat.cpu().double(), z8.cpu().double()).float().to(cuda)
+    torch.testing.assert_close(out, (exact * (zmax / (127.0 * 127.0))).to(dt), rtol=0, atol=0)
+    torch.testing.assert_close(out, tbil.int8_message_plain(kmat, z, dt), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1601, 2500, 6400])
+def test_int8_message_reads_and_writes_nothing_past_n_and_c(cuda, n):
+    """The cache is a view of a buffer whose bytes past it hold -128; z and
+    the output are views [B, N, C] of buffers [B, N + 5, C + 3] that held
+    NaN: the message equals the one on clean copies, the output's NaN past
+    N and C is left as it was and none lies inside (a byte read past the
+    cache would move a sum, a NaN read from z every output)."""
+    import int8_message_cases as cases
+
+    b, c = 2, 27
+    kmat, z = cases.inputs(cuda, b, n, c, torch.bfloat16, seed=5)
+    ref = tbil.int8_message(kmat, z, torch.bfloat16)
+    kbuf = torch.full((b * n * n + 4096,), -128, dtype=torch.int8, device=cuda)
+    kbuf[:b * n * n] = kmat.reshape(-1)
+    zbuf = torch.full((b, n + 5, c + 3), float("nan"), dtype=torch.bfloat16, device=cuda)
+    zbuf[:, :n, :c] = z
+    obuf = torch.full((b, n + 5, c + 3), float("nan"), dtype=torch.bfloat16, device=cuda)
+    out = tbil._launch_int8(kbuf[:b * n * n].view(b, n, n), zbuf[:, :n, :c], obuf[:, :n, :c])
+    torch.cuda.synchronize()
+    assert out.data_ptr() == obuf.data_ptr()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert torch.isnan(obuf[:, n:]).all() and torch.isnan(obuf[:, :n, c:]).all()
+
+
+@pytest.mark.parametrize("c", [1, 27])
+def test_int8_message_takes_the_crfs_transposed_operands(cuda, c):
+    """z as the CRF hands some of it over, a transposed [B, C, N] view: read
+    through its image and point strides where C = 1 (its last-axis stride N
+    then says nothing), made contiguous first where C > 1."""
+    import int8_message_cases as cases
+
+    kmat, _ = cases.inputs(cuda, 2, 1600, c, torch.bfloat16, seed=3)
+    zt = torch.rand((2, c, 1600), generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(torch.bfloat16)
+    out = tbil.int8_message(kmat, zt.transpose(1, 2), torch.bfloat16)
+    ref = tbil.int8_message_plain(kmat, zt.transpose(1, 2).contiguous(), torch.bfloat16)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["float16_z", "float64_dt", "rank2", "not_square", "c0",
+                                 "strided_cache", "cpu_z", "too_long"])
+def test_int8_message_refuses_what_it_cannot_take(cuda, bad):
+    kmat = torch.zeros((2, 64, 64), dtype=torch.int8, device=cuda)
+    z = torch.rand((2, 64, 8), device=cuda)
+    args = {"float16_z": (kmat, z.half(), torch.float32),
+            "float64_dt": (kmat, z, torch.float64),
+            "rank2": (kmat[0], z[0], torch.float32),
+            "not_square": (kmat[:, :32], z[:, :32], torch.float32),
+            "c0": (kmat, z[..., :0], torch.float32),
+            "strided_cache": (kmat.transpose(1, 2), z, torch.float32),
+            "cpu_z": (kmat, z.cpu(), torch.float32),
+            "too_long": (torch.zeros((1, 1, 1), dtype=torch.int8, device=cuda).expand(
+                1, tbil.INT8_MAX_N + 1, tbil.INT8_MAX_N + 1), torch.rand(
+                (1, tbil.INT8_MAX_N + 1, 1), device=cuda), torch.float32)}[bad]
+    before = tbil.KERNEL.message_launches
+    with pytest.raises(ValueError):
+        tbil.int8_message(*args)
+    assert tbil.KERNEL.message_launches == before
+
+
+@pytest.mark.parametrize("res", [200, 360])
+def test_default_point_predict_at_a_res_off_a_multiple_of_8_card_vs_cpu(cuda, res):
+    """The default point at 200 and 360 px, whose phase-point counts (N =
+    2,500 and 8,100) the CRF's old ``torch._int_mm`` route refused: the
+    predict step of a small segmenter on the card, 13 int8 messages a call,
+    against the CPU's step from the same weights (the eager cache build,
+    the plain message): the labels of both probes agree on
+    >= 99.5% of pixels."""
+    import numpy as np
+
+    from depthg_tpu_torch import crf_fidelity_study as study
+    from depthg_tpu_torch import inference
+    from depthg_tpu_torch.models import featurizer, vit
+
+    fcfg = featurizer.FeaturizerConfig(vit_config=vit.ViTConfig(
+        embed_dim=128, depth=2, num_heads=2, patch_size=8), dim=16)
+    model = inference.Segmenter(fcfg, 27, 27).init_weights(torch.Generator().manual_seed(0))
+    scenes = np.stack([study.make_scene(res, 27, seed=i)[0] for i in range(2)]) / 255.0
+    mean = torch.tensor(inference.IMAGENET_MEAN)[None, :, None, None]
+    std = torch.tensor(inference.IMAGENET_STD)[None, :, None, None]
+    img = ((torch.from_numpy(scenes).float() - mean) / std)
+    ecfg = inference.EvalConfig(n_classes=27, label_res=res, crf=tcrf.crf_config_from_cfg({}))
+    step = inference.make_predict_step(ecfg)
+    before = tbil.KERNEL.message_launches
+    card = [p.cpu() for p in step(model.to(cuda), img.to(cuda))]
+    assert tbil.KERNEL.message_launches == before + 13
+    cpu = step(model.cpu(), img)
+    for got, want in zip(card, cpu):
+        agree = (got == want).float().mean().item()
+        print(f"res {res}: labels agree on {agree:.5f}")
+        assert agree >= 0.995
 
 
 def _cache_feats(b, n, seed, cuda, width=5):

@@ -327,6 +327,15 @@ def test_package_never_calls_the_library_attention():
                     assert "scaled_dot_product_attention" not in f.read(), name
 
 
+def test_crf_never_calls_the_library_int8_product():
+    """``torch._int_mm`` is the yardstick ``chip_smoke.py`` times beside the
+    CRF's int8 message kernel (``tests/int8_message_cases.py``); the CRF's
+    sources never name it."""
+    for name in ("crf.py", "crf_bilateral.py"):
+        with open(os.path.join(ROOT, "depthg_tpu_torch", "ops", name)) as f:
+            assert "_int_mm" not in f.read(), name
+
+
 @pytest.mark.parametrize("h,w", [(3, 3), (4, 6), (24, 24), (24, 32), (32, 24)])
 def test_relative_position_index_matches_jax_package(h, w):
     from depthg_tpu.models.zoedepth.beit import relative_position_index as jindex

@@ -67,6 +67,7 @@ LOSS = dict(feature_samples=3, neg_samples=2, depth_sampling="fps",
 COUNTERS = {
     "k1_launches": ("depthg_tpu_torch.ops.attention", "KERNEL", "launches"),
     "crf_cache_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "cache_launches"),
+    "crf_message_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "message_launches"),
     "bins_tail_launches": ("depthg_tpu_torch.ops.zoe_bins", "KERNEL", "bins_launches"),
     "rel_bias_builds": ("depthg_tpu_torch.models.zoedepth.beit", "BIAS_BUILDS", "count"),
 }
@@ -368,26 +369,26 @@ def test_cap_counts_dropped_spans(monkeypatch):
 
 
 def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0,
-         cache=0, bins=0):
+         cache=0, bins=0, message=0):
     return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
             "host_ms": host, "self_host_ms": host if self_host is None else self_host,
             "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache,
-            "bins_tail_launches": bins}
+            "bins_tail_launches": bins, "crf_message_launches": message}
 
 
 def eval_spans(device=True):
     """Two eval steps (one with two passes) and the spans of a predict step,
     which has no step span of its own."""
     d = (lambda v: v) if device else (lambda v: None)
-    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12, cache=1),
+    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12, cache=1, message=13),
             span(2, "backbone", 1, 1, host=5.0, device=d(20.0)),
-            span(3, "crf", 1, 1, host=30.0, device=d(44.0)),
-            span(4, "eval.step", host=52.0, device=d(74.0), k1=12, cache=1),
+            span(3, "crf", 1, 1, host=30.0, device=d(44.0), cache=1, message=13),
+            span(4, "eval.step", host=52.0, device=d(74.0), k1=12, cache=1, message=11),
             span(5, "backbone", 4, 4, host=3.0, device=d(11.0)),
             span(6, "backbone", 4, 4, host=3.0, device=d(11.0)),
-            span(7, "crf", 4, 4, host=31.0, device=d(46.0)),
+            span(7, "crf", 4, 4, host=31.0, device=d(46.0), cache=1, message=11),
             span(8, "backbone", host=5.0, device=d(99.0), k1=12),
-            span(9, "crf", host=30.0, device=d(99.0))]
+            span(9, "crf", host=30.0, device=d(99.0), cache=1, message=13)]
 
 
 def depth_spans(device=True):
@@ -420,6 +421,7 @@ READERS = {
     "backbone_device_ms.eval": (eval_spans, (20.0 + 22.0) / 2),
     "k1_launches_per_step.eval": (eval_spans, 12.0),
     "crf_cache_launches_per_step.eval": (eval_spans, 1.0),
+    "crf_message_launches_per_step.eval": (eval_spans, 12.0),
     "backbone_host_ms.train": (train_spans, (16.0 + 17.0) / 2),
     "losses_host_ms.train": (train_spans, (14.0 + 15.0) / 2),
     "backward_host_ms.train": (train_spans, (9.0 + 11.0) / 2),
@@ -494,6 +496,37 @@ def test_cache_reader_reads_nothing_without_the_kernel(monkeypatch, case):
 
 
 @pytest.mark.parametrize("case", ["without_the_counter", "a_step_without_a_launch"])
+def test_message_reader_reads_nothing_without_the_kernel(monkeypatch, case):
+    """Spans of a program whose steps do not carry ``crf_message_launches``
+    (the parent of the int8 message kernel), or where an eval step launched
+    it no time (its messages run without the kernel), read nothing, and
+    raise nothing: losing the kernel never reads as fewer launches."""
+    spans = eval_spans()
+    for s in spans:
+        if case == "without_the_counter":
+            del s["crf_message_launches"]
+        elif s["id"] == 4:
+            s["crf_message_launches"] = 0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader("crf_message_launches_per_step.eval").read({}, {}) is None
+    assert load_reader("crf_cache_launches_per_step.eval").read({}, {}) == 1.0
+
+
+def test_crf_message_counter_deltas(monkeypatch):
+    """``crf_message_launches`` is the delta of the message kernel's counter
+    (stubbed here: the CPU runs its messages without the kernel) across each
+    span."""
+    count = iter([100, 101, 112, 113])  # step opens, inner opens, inner closes, step closes
+    fake_counter(monkeypatch, "crf_message_launches", lambda: next(count))
+    with profiling.recording():
+        with profiling.span("step"):
+            with profiling.span("inner"):
+                pass
+    step, inner = profiling.collect()["spans"]
+    assert step["crf_message_launches"] == 13 and inner["crf_message_launches"] == 11
+
+
+@pytest.mark.parametrize("case", ["without_the_counter", "a_step_without_a_launch"])
 def test_bins_tail_reader_reads_nothing_without_the_kernel(monkeypatch, case):
     """Spans of a program whose steps do not carry ``bins_tail_launches``,
     or where a depth step launched the bins tail kernel no time (its tail
@@ -541,8 +574,8 @@ def test_readers_name_the_spans_the_steps_emit(name):
     value = reader.read({}, {})
     if reader.KEY == "device_ms":
         assert value is None  # no CUDA here
-    elif reader.KEY == "crf_cache_launches":
-        assert value is None  # the CPU builds its cache without the kernel
+    elif reader.KEY in ("crf_cache_launches", "crf_message_launches"):
+        assert value is None  # the CPU builds its cache and messages without the kernels
         assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     elif reader.KEY == "bins_tail_launches":
         assert value is None  # the CPU runs the bins tail without the kernel
