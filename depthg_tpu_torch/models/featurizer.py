@@ -95,7 +95,9 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
                       backbone_dtype: str | None = None, need_attn: bool = False):
     """Frozen-backbone dense features [B, C, H/ps, W/ps] (float32) plus the
     last block's attention (None under the kernel). ``need_attn`` (LHP's
-    attention propagation) takes the eager path for the whole forward.
+    attention propagation) takes the eager path for the whole forward. The
+    class token and a DINOv2 backbone's registers are dropped from the
+    features (the attention keeps every token).
 
     ``backbone_dtype="bfloat16"`` runs the ViT with its parameters and the
     image cast to bf16 for this call (the module keeps float32 weights) and
@@ -129,11 +131,12 @@ def backbone_features(net: DinoFeaturizer, img: torch.Tensor,
         if attn is not None:
             attn = attn.float()
 
+        # the patch tokens follow the class token and any registers
         if fcfg.feat_type == "feat":
             b = feat.shape[0]
-            image_feat = feat[:, 1:].reshape(b, fh, fw, -1).permute(0, 3, 1, 2)
+            image_feat = feat[:, vcfg.n_prefix:].reshape(b, fh, fw, -1).permute(0, 3, 1, 2)
         elif fcfg.feat_type == "KK":
-            k = qkv[1][:, :, 1:, :]  # [B, h, HW, hd] keys of the last block
+            k = qkv[1][:, :, vcfg.n_prefix:, :]  # [B, h, HW, hd] keys of the last block
             b, nh, _, hd = k.shape
             image_feat = (k.reshape(b, nh, fh, fw, hd).permute(0, 1, 4, 2, 3)
                           .reshape(b, nh * hd, fh, fw))

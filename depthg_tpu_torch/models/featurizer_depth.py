@@ -87,9 +87,16 @@ class DepthStage(nn.Module):
 
 class DinoDepthFeaturizer(base.DinoFeaturizer):
     def __init__(self, fcfg: DepthFeaturizerConfig):
-        super().__init__(fcfg)
         nf = fcfg.n_feats
         chans = _pyramid_channels(nf)
+        ps = fcfg.vit.patch_size
+        if ps & (ps - 1):
+            # backbone_features drops a DINOv2 backbone's registers, but the
+            # depth pyramid's stride-2 stages meet no grid of such a patch
+            raise ValueError(f"arch=dino_depth embeds depth by {len(chans) - 1} stride-2 "
+                             f"stages, which line up with no grid of patch size {ps} "
+                             f"(model_type={fcfg.arch!r}): use a patch-8 or 16 backbone")
+        super().__init__(fcfg)
         self.depth_downscaling = nn.ModuleList(
             DepthStage(chans[i], chans[i + 1], i < len(chans) - 2)
             for i in range(len(chans) - 1))

@@ -140,9 +140,14 @@ def _depth_affinity(depth: torch.Tensor, hw: tuple, original: bool) -> torch.Ten
     return torch.where(normed > thresh, 0.0, 1.0 - normed)
 
 
-def _attn_affinity(attn: torch.Tensor, original: bool) -> torch.Tensor:
-    """[B, h, N+1, N+1] attention -> [B, P, P] affinity."""
-    a = attn[:, :, 1:, 1:].mean(dim=1).float()
+def _attn_affinity(attn: torch.Tensor, original: bool,
+                   n_patches: int | None = None) -> torch.Tensor:
+    """[B, h, N, N] attention -> [B, P, P] affinity over the last P =
+    ``n_patches`` tokens, the patches (by default every token but the
+    first, the class token; a DINOv2 backbone also has registers before
+    its patches)."""
+    p = attn.shape[-1] - 1 if n_patches is None else n_patches
+    a = attn[:, :, -p:, -p:].mean(dim=1).float()
     if original:
         hi = quantile(a, 0.9)
         lo = quantile(a, 0.1)
@@ -174,7 +179,7 @@ def lhp_apply(lhp: LHP, code: torch.Tensor, depth: torch.Tensor | None = None,
     if cfg.propagation_strategy == "depth":
         aff = _depth_affinity(depth, (h, w), cfg.original)
     elif cfg.propagation_strategy == "attn":
-        aff = _attn_affinity(attn, cfg.original)
+        aff = _attn_affinity(attn, cfg.original, h * w)
     else:
         raise ValueError(f"Unknown propagation strategy: {cfg.propagation_strategy}")
 

@@ -5,6 +5,18 @@ Parameter names are the DINO/reference keys (``patch_embed.proj``,
 mlp.fc1, mlp.fc2}``, ``norm``), so a DINO state dict, or the JAX package's
 ``utils/ckpt.py:vit_state_dict`` output, loads with ``strict=True``.
 
+The ``dinov2_vitg14_reg`` preset is DINOv2's ViT-g/14 with registers
+(arXiv:2304.07193, arXiv:2309.16588; ``dinov2/models/vision_transformer.py``
+``vit_giant2`` as ``dinov2/hub/backbones.py`` builds it), under the hub's
+keys: ``register_tokens`` inserted after the class token (after the
+position table is added), ``blocks.i.ls1.gamma`` / ``ls2.gamma``
+(LayerScale on both residual branches, ``LayerScaleBlock``), a SwiGLU
+feed-forward ``blocks.i.mlp.{w12, w3}`` (``SwiGLUFFNFused``: hidden
+(int(4 D 2/3) + 7) // 8 * 8, one ``swiglu`` span each) and the position
+table resized bicubically to the grid by size, antialiased. The DINO v1
+presets build ``Block`` and ``Mlp`` and insert no token: their forward
+launches what it did before the DINOv2 parts existed.
+
 Kept from the JAX version: the bicubic positional-embedding quirk
 (scale = (side_px // ps + 0.1) / sqrt(N) passed as an explicit scale
 factor), the ``get_intermediate_feat`` contract (normed tokens, attention
@@ -39,6 +51,7 @@ from torch import nn
 from depthg_tpu_torch.models.layers import LayerNorm, cast_bf16, quantize_linear
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic
+from depthg_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,17 +64,37 @@ class ViTConfig:
     qkv_bias: bool = True
     ln_eps: float = 1e-6
     img_size: int = 224  # only fixes the size of the learned pos_embed table
+    # DINOv2's parts; the defaults are DINO v1's
+    n_registers: int = 0       # register tokens after the class token
+    layer_scale: bool = False  # ls1 / ls2 on the residual branches
+    ffn: str = "mlp"           # "mlp" (fc1, GELU, fc2) | "swiglu" (w12, SiLU gate, w3)
+    pos_resize: str = "dino"   # "dino" (+0.1 scale factor) | "dinov2" (by size, antialiased)
+
+    @property
+    def n_prefix(self) -> int:
+        """Tokens before the patches: the class token and the registers."""
+        return 1 + self.n_registers
 
 
 VIT_PRESETS = {
     "vit_tiny": dict(embed_dim=192, depth=12, num_heads=3),
     "vit_small": dict(embed_dim=384, depth=12, num_heads=6),
     "vit_base": dict(embed_dim=768, depth=12, num_heads=12),
+    # the hub's dinov2_vitg14_reg: vit_giant2, 518-px pretraining (a 37 x 37 table)
+    "dinov2_vitg14_reg": dict(patch_size=14, embed_dim=1536, depth=40, num_heads=24,
+                              img_size=518, n_registers=4, layer_scale=True, ffn="swiglu",
+                              pos_resize="dinov2"),
 }
 
 
 def make_config(arch: str, patch_size: int) -> ViTConfig:
-    return ViTConfig(patch_size=patch_size, **VIT_PRESETS[arch])
+    """The preset ``arch`` at ``patch_size``; a preset that fixes its patch
+    size (DINOv2's 14) refuses any other."""
+    preset = VIT_PRESETS[arch]
+    if preset.get("patch_size", patch_size) != patch_size:
+        raise ValueError(f"{arch} has patch size {preset['patch_size']}; got "
+                         f"dino_patch_size={patch_size}")
+    return ViTConfig(**{"patch_size": patch_size, **preset})
 
 
 def resolve_attn_impl(impl: str, precision: str | None, device: torch.device,
@@ -128,13 +161,45 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate=approx))
 
 
+def swiglu_hidden(cfg: ViTConfig) -> int:
+    """``SwiGLUFFNFused``'s hidden width: (int(D ratio 2/3) + 7) // 8 * 8."""
+    return (int(int(cfg.embed_dim * cfg.mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLU(nn.Module):
+    """DINOv2's ``SwiGLUFFNFused``: w3(silu(a) * b), [a, b] = chunk(w12(x), 2);
+    one ``swiglu`` span (``utils.profiling``)."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        hidden = swiglu_hidden(cfg)
+        self.w12 = nn.Linear(cfg.embed_dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, cfg.embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with profiling.span("swiglu"):
+            a, b = self.w12(x).chunk(2, dim=-1)
+            return self.w3(F.silu(a) * b)
+
+
+class LayerScale(nn.Module):
+    """x * gamma, a learned scale per channel (DINOv2's ``LayerScale``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.norm1 = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.attn = Attention(cfg)
         self.norm2 = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = SwiGLU(cfg) if cfg.ffn == "swiglu" else Mlp(cfg)
 
     def forward(self, x: torch.Tensor, impl: str = "xla"):
         y, attn, qkv = self.attn(self.norm1(x), impl)
@@ -142,21 +207,47 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x)), attn, qkv
 
 
+class LayerScaleBlock(Block):
+    """DINOv2's block: x + ls1(attn(norm1(x))), then x + ls2(mlp(norm2(x)))."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__(cfg)
+        self.ls1 = LayerScale(cfg.embed_dim)
+        self.ls2 = LayerScale(cfg.embed_dim)
+
+    def forward(self, x: torch.Tensor, impl: str = "xla"):
+        y, attn, qkv = self.attn(self.norm1(x), impl)
+        x = x + self.ls1(y)
+        return x + self.ls2(self.mlp(self.norm2(x))), attn, qkv
+
+
 def interpolate_pos_encoding(pos_embed: torch.Tensor, npatch: int, w: int,
-                             h: int, ps: int) -> torch.Tensor:
-    """Bicubic pos-embed resize for any input size, with the reference's
-    +0.1 scale-factor fudge (``w``/``h`` are the true image width/height)."""
+                             h: int, ps: int, mode: str = "dino") -> torch.Tensor:
+    """Bicubic pos-embed resize for any input size (``w``/``h`` are the
+    true image width/height), skipped for a square image at the table's own
+    grid. ``mode="dino"``: the reference's +0.1 scale-factor fudge;
+    ``"dinov2"``: DINOv2's, to the grid by size, antialiased (its
+    ``interpolate_offset`` 0, ``interpolate_antialias``)."""
     n = pos_embed.shape[1] - 1
     if npatch == n and w == h:
         return pos_embed
     dim = pos_embed.shape[-1]
     side = int(math.sqrt(n))
     patch_pos = pos_embed[:, 1:].reshape(1, side, side, dim).permute(0, 3, 1, 2)
-    sf = ((h // ps + 0.1) / side, (w // ps + 0.1) / side)  # (H, W) factors
-    out_hw = (int(side * sf[0]), int(side * sf[1]))
-    patch_pos = resize_bicubic(patch_pos, out_hw, scale=sf)
+    if mode == "dinov2":
+        patch_pos = resize_bicubic(patch_pos, (h // ps, w // ps), antialias=True)
+    else:
+        sf = ((h // ps + 0.1) / side, (w // ps + 0.1) / side)  # (H, W) factors
+        out_hw = (int(side * sf[0]), int(side * sf[1]))
+        patch_pos = resize_bicubic(patch_pos, out_hw, scale=sf)
     patch_pos = patch_pos.permute(0, 2, 3, 1).reshape(1, -1, dim)
     return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
+
+
+# DINOv2's LayerScale init for training (``dinov2/configs/ssl_default_config.yaml``
+# ``student.layerscale``; the hub builds its backbones with ``init_values`` 1.0
+# and loads the trained gammas over it)
+LAYER_SCALE_INIT = 1e-5
 
 
 class VisionTransformer(nn.Module):
@@ -167,17 +258,23 @@ class VisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tok, cfg.embed_dim))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.register_parameter("register_tokens", nn.Parameter(
+            torch.zeros(1, cfg.n_registers, cfg.embed_dim)) if cfg.n_registers else None)
+        block = LayerScaleBlock if cfg.layer_scale else Block
+        self.blocks = nn.ModuleList(block(cfg) for _ in range(cfg.depth))
         self.norm = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
     def init_weights(self, generator: torch.Generator) -> "VisionTransformer":
         """DINO's init: trunc_normal(std .02) weights and tokens, zero
         biases, unit layer norms (for random-weight runs: no checkpoint is
-        needed to drive the full-width model)."""
+        needed to drive the full-width model); LayerScale at DINOv2's
+        training init (1e-5, ``LAYER_SCALE_INIT``)."""
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("bias") or ".norm" in name or name.startswith("norm"):
                     p.fill_(1.0 if name.endswith("weight") else 0.0)
+                elif name.endswith(".gamma"):
+                    p.fill_(LAYER_SCALE_INIT)
                 else:
                     nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                           generator=generator)
@@ -189,8 +286,12 @@ class VisionTransformer(nn.Module):
         cls = self.cls_token.to(tok.dtype).expand(b, 1, -1)
         tok = torch.cat([cls, tok], dim=1)
         pos = interpolate_pos_encoding(self.pos_embed, tok.shape[1] - 1, w, h,
-                                       self.cfg.patch_size)
-        return tok + pos.to(tok.dtype)
+                                       self.cfg.patch_size, self.cfg.pos_resize)
+        tok = tok + pos.to(tok.dtype)
+        if self.register_tokens is None:
+            return tok
+        reg = self.register_tokens.to(tok.dtype).expand(b, -1, -1)
+        return torch.cat([tok[:, :1], reg, tok[:, 1:]], dim=1)
 
     def forward(self, x: torch.Tensor, n: int = 1, attn_impl: str = "xla"):
         """``get_intermediate_feat``: (feats, attns, qkvs) of the last ``n``
@@ -213,16 +314,17 @@ class VisionTransformer(nn.Module):
 @torch.no_grad()
 def quantize_vit(model: VisionTransformer) -> VisionTransformer:
     """The int8 (w8a8) copy of ``model``: every block's ``attn.qkv``,
-    ``attn.proj``, ``mlp.fc1`` and ``mlp.fc2`` becomes a ``W8A8Linear``
-    quantized from the float32 weights; the patch embedding, tokens,
-    position table and norms are cast to bf16. The model is not changed."""
+    ``attn.proj`` and feed-forward linears (``mlp.fc1`` and ``mlp.fc2``, or
+    SwiGLU's ``mlp.w12`` and ``mlp.w3``) becomes a ``W8A8Linear`` quantized
+    from the float32 weights; the patch embedding, tokens, position table,
+    LayerScale gammas and norms are cast to bf16. The model is not changed."""
     with torch.inference_mode(False):
         out = copy.deepcopy(model).requires_grad_(False)
         for blk in out.blocks:
             blk.attn.qkv = quantize_linear(blk.attn.qkv)
             blk.attn.proj = quantize_linear(blk.attn.proj)
-            blk.mlp.fc1 = quantize_linear(blk.mlp.fc1)
-            blk.mlp.fc2 = quantize_linear(blk.mlp.fc2)
+            for name, lin in list(blk.mlp.named_children()):
+                setattr(blk.mlp, name, quantize_linear(lin))
         return cast_bf16(out)
 
 

@@ -10,6 +10,7 @@ interpolation matrices.
 * bilinear align_corners=False — probe/logit upsampling;
 * bilinear align_corners=True — kept for parity with the JAX signature;
 * bicubic with an explicit ``scale`` — DINO's positional-embedding quirk;
+  by size and antialiased — DINOv2's;
 * ``resize_bilinear_array`` — numpy in, numpy out (depth metrics, readers);
 * ``adaptive_avg_pool2d`` — the depth map at feature resolution (FPS).
 """
@@ -60,22 +61,26 @@ def resize_bilinear_array(x, size, align_corners: bool = False) -> np.ndarray:
     return resize_bilinear(torch.from_numpy(np.asarray(x)), size, align_corners).numpy()
 
 
-def resize_bicubic(x: torch.Tensor, size, scale: tuple | None = None) -> torch.Tensor:
+def resize_bicubic(x: torch.Tensor, size, scale: tuple | None = None,
+                   antialias: bool = False) -> torch.Tensor:
     """torch bicubic resize (align_corners=False), computed in float32.
 
     ``scale`` is the explicit ``scale_factor`` pair: the source index then
     uses 1/scale rather than in/out (DINO's ``interpolate_pos_encoding``
     passes ``(h0/side, w0/side)`` with a +0.1 fudge), which is exactly
     ``F.interpolate(scale_factor=...)``'s behaviour. The output size is
-    ``size``; with ``scale`` given it must equal floor(in * scale)."""
+    ``size``; with ``scale`` given it must equal floor(in * scale).
+    ``antialias`` is ``F.interpolate``'s (DINOv2's table resize): PIL's
+    filter, its kernel widened by the reduction when shrinking."""
     oh, ow = _size2(size)
     dtype = x.dtype
     x4, lead = _as4d(x.float())
     if scale is None:
-        y = F.interpolate(x4, size=(oh, ow), mode="bicubic", align_corners=False)
+        y = F.interpolate(x4, size=(oh, ow), mode="bicubic", align_corners=False,
+                          antialias=antialias)
     else:
         y = F.interpolate(x4, scale_factor=tuple(float(s) for s in scale),
-                          mode="bicubic", align_corners=False)
+                          mode="bicubic", align_corners=False, antialias=antialias)
         if tuple(y.shape[-2:]) != (oh, ow):
             raise ValueError(f"scale {scale} gives {tuple(y.shape[-2:])}, "
                              f"expected {(oh, ow)}")

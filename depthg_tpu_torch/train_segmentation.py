@@ -81,8 +81,18 @@ from depthg_tpu_torch.utils.metrics import SegMetrics
 STEP_SEED_STRIDE = 1_000_003  # the draws of step k are seeded seed * stride + k
 
 
+def validation_res(cfg) -> int:
+    """The reference's fixed validation size (224 for MAE, else 320), for a
+    ViT at the nearest multiple of its patch size: 322 for DINOv2's 14."""
+    res = 224 if cfg.model_type == "mae" else 320
+    if cfg.get("arch") == "feature-pyramid":
+        return res
+    patch = int(cfg.get("dino_patch_size", 8))
+    return round(res / patch) * patch
+
+
 def build_datasets(cfg):
-    eval_res = 224 if cfg.model_type == "mae" else 320
+    eval_res = validation_res(cfg)
     use_augs = float(cfg.aug_alignment_weight) > 0
     data_dir = cfg.data_dir
     train_dataset = ContrastiveSegDataset(

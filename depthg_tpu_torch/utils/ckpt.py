@@ -235,14 +235,15 @@ def strip_prefixes(sd: dict, prefixes=("module.", "backbone.")) -> dict:
 
 
 def load_dino_pth(path: str) -> dict:
-    """A DINO pretrain ``.pth`` (optionally a {"teacher": ...} wrapper with
-    ``module.`` / ``backbone.`` prefixes) -> the ViT's state dict in DINO's
-    own keys, which are ``models.vit.VisionTransformer``'s; keys of DINO's
-    projection head (``head.*``) are dropped."""
+    """A DINO or DINOv2 pretrain ``.pth`` (optionally a {"teacher": ...}
+    wrapper with ``module.`` / ``backbone.`` prefixes) -> the ViT's state
+    dict in DINO's own keys, which are ``models.vit.VisionTransformer``'s;
+    keys of DINO's projection head (``head.*``) and DINOv2's ``mask_token``
+    (used only by its masked-image pretraining) are dropped."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "teacher" in sd:
         sd = strip_prefixes(sd["teacher"])
-    return {k: v for k, v in sd.items() if not k.startswith("head.")}
+    return {k: v for k, v in sd.items() if not k.startswith("head.") and k != "mask_token"}
 
 
 def export_lightning_ckpt(path: str, state_dict: dict, cfg: dict | None = None,

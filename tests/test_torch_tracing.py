@@ -58,6 +58,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 EVAL_VIT = dict(embed_dim=128, depth=2, num_heads=2, patch_size=8)
+# a tiny DINOv2 (registers, LayerScale, SwiGLU) at 56 px: a 4 x 4 grid
+DINOV2_VIT = dict(patch_size=14, embed_dim=64, depth=3, num_heads=4, img_size=70, n_registers=2,
+                  layer_scale=True, ffn="swiglu", pos_resize="dinov2")
 TRAIN_VIT = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32)
 LOSS = dict(feature_samples=3, neg_samples=2, depth_sampling="fps",
             depth_feat_correlation_loss=True)
@@ -96,6 +99,17 @@ def eval_call(predict=False, **kw):
         step = tinf.make_predict_step(ecfg)
         return lambda: step(model, img)
     label = torch.randint(-1, 5, (2, 64, 64), generator=gen)
+    step = tinf.make_eval_step(ecfg)
+    return lambda: step(model, img, label)
+
+
+def dinov2_eval_call():
+    fcfg = tfeat.FeaturizerConfig(vit_config=tvit.ViTConfig(**DINOV2_VIT), dim=16)
+    model = tinf.Segmenter(fcfg, 5, 7).init_weights(torch.Generator().manual_seed(0))
+    ecfg = tinf.EvalConfig(n_classes=5, extra_clusters=2, label_res=56, fused_tta=True)
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 3, 56, 56, generator=gen)
+    label = torch.randint(-1, 5, (2, 56, 56), generator=gen)
     step = tinf.make_eval_step(ecfg)
     return lambda: step(model, img, label)
 
@@ -145,8 +159,8 @@ def fake_counter(monkeypatch, name, read):
     profiling.register_counter(name, read)
 
 
-@pytest.mark.parametrize("make", [eval_call, train_call, depth_call],
-                         ids=["eval", "train", "depth"])
+@pytest.mark.parametrize("make", [eval_call, dinov2_eval_call, train_call, depth_call],
+                         ids=["eval", "eval-dinov2", "train", "depth"])
 def test_off_is_inert(monkeypatch, make):
     call = make()
     monkeypatch.setattr(torch.cuda, "Event", raising)
@@ -305,7 +319,10 @@ def test_stamps_bracket_profiler_events():
                       ("backward", []), ("optimizer", [])])]),
     (depth_call,
      [("depth.step", [("backbone", []), ("dpt", []), ("bins", [])] * 2)]),
-], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair", "depth"])
+    (dinov2_eval_call,
+     [("eval.step", [("backbone", [("swiglu", [])] * DINOV2_VIT["depth"]), ("crf", [])])]),
+], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair", "depth",
+        "eval-dinov2"])
 def test_steps_emit_their_span_trees(make, want):
     call = make()
     with profiling.recording():
@@ -404,6 +421,21 @@ def depth_spans(device=True):
     return out
 
 
+def dinov2_spans(device=True):
+    """Two DINOv2 eval steps: one backbone pass of 3 blocks, one ``swiglu``
+    span each."""
+    d = (lambda v: v) if device else (lambda v: None)
+    out = []
+    for i, base in enumerate((1, 7)):
+        out += [span(base, "eval.step", host=200.0, device=d(250.0), k1=40, cache=1, message=13),
+                span(base + 1, "backbone", base, base, host=20.0, device=d(160.0 + i))]
+        out += [span(base + 2 + k, "swiglu", base + 1, base, host=1.0, device=d(30.0 + k + i))
+                for k in range(3)]
+        out.append(span(base + 5, "crf", base, base, host=30.0, device=d(60.0),
+                        cache=1, message=13))
+    return out
+
+
 def train_spans():
     out = []
     for i, base in enumerate((1, 8)):
@@ -432,7 +464,19 @@ READERS = {
     "bins_device_ms.depth": (depth_spans, 13.0),
     "k1_launches_per_step.depth": (depth_spans, 48.0),
     "bins_tail_launches_per_step.depth": (depth_spans, 2.0),
+    "swiglu_device_ms.eval_dinov2": (dinov2_spans, (93.0 + 96.0) / 2),
 }
+
+# the eval readers that read the DINOv2 cell too, on its step's spans
+DINOV2_READS = {
+    "backbone_device_ms.eval": (160.0 + 161.0) / 2,
+    "k1_launches_per_step.eval": 40.0,
+    "crf_cache_launches_per_step.eval": 1.0,
+    "crf_message_launches_per_step.eval": 13.0,
+}
+SPAN_CASES = [pytest.param(name, make, want, id=name) for name, (make, want) in READERS.items()] \
+    + [pytest.param(name, dinov2_spans, want, id=name + "-dinov2")
+       for name, want in DINOV2_READS.items()]
 
 
 def load_reader(name):
@@ -454,9 +498,8 @@ def test_readers_are_the_span_metrics_of_the_benchmark():
     assert span_readers == set(READERS)
 
 
-@pytest.mark.parametrize("name", sorted(READERS))
-def test_span_readers(monkeypatch, name):
-    make, want = READERS[name]
+@pytest.mark.parametrize("name,make,want", SPAN_CASES)
+def test_span_readers(monkeypatch, name, make, want):
     reader = load_reader(name)
 
     def read(spans, dropped=0):
@@ -465,7 +508,7 @@ def test_span_readers(monkeypatch, name):
 
     assert read(make()) == pytest.approx(want)
     assert read([]) is None
-    other = train_spans if make is eval_spans else eval_spans
+    other = train_spans if make in (eval_spans, dinov2_spans) else eval_spans
     assert read(other()) is None  # no step of its kind
     assert read(make(), dropped=1) is None
     if reader.SPAN != reader.STEP:  # a step whose span is gone (renamed, moved) reads nothing
@@ -555,16 +598,20 @@ def test_depth_spans_carry_the_bins_tail_launches():
     assert all(s["bins_tail_launches"] == 0 for s in spans)
 
 
-@pytest.mark.parametrize("name", sorted(READERS))
-def test_readers_name_the_spans_the_steps_emit(name):
-    """Each reader's step and span, as the tiny step of its cell's kind
-    emits them: every step holds the span, and the reader reads a number
-    (a stream time only where CUDA runs)."""
+STEP_CASES = [pytest.param(name, name.rsplit(".", 1)[1], id=name) for name in sorted(READERS)] \
+    + [pytest.param(name, "eval_dinov2", id=name + "-dinov2") for name in sorted(DINOV2_READS)]
+
+
+@pytest.mark.parametrize("name,kind", STEP_CASES)
+def test_readers_name_the_spans_the_steps_emit(name, kind):
+    """Each reader's step and span, as the tiny step of each cell kind it
+    reads emits them: every step holds the span, and the reader reads a
+    number (a stream time only where CUDA runs)."""
     from benchmark.spans import per_step
 
     reader = load_reader(name)
     call = {"eval": lambda: eval_call(fused_tta=True), "train": train_call,
-            "depth": depth_call}[name.rsplit(".", 1)[1]]()
+            "depth": depth_call, "eval_dinov2": dinov2_eval_call}[kind]()
     with profiling.recording():
         call()
         call()
@@ -582,3 +629,33 @@ def test_readers_name_the_spans_the_steps_emit(name):
         assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     else:
         assert value is not None and value >= 0
+
+
+def test_only_a_swiglu_backbone_opens_swiglu_spans():
+    """One ``swiglu`` span per block under each ``backbone`` span of a
+    DINOv2 step; a DINO v1 step (GELU ``Mlp``) opens none, and the span
+    reader of the SwiGLU reads nothing from its spans."""
+    for make, want in ((dinov2_eval_call, DINOV2_VIT["depth"]),
+                       (lambda: eval_call(fused_tta=True), 0)):
+        call = make()
+        profiling.clear()
+        with profiling.recording():
+            call()
+        spans = profiling.collect()["spans"]
+        backbone = [s for s in spans if s["name"] == "backbone"]
+        assert len(backbone) == 1
+        swiglu = [s for s in spans if s["name"] == "swiglu"]
+        assert len(swiglu) == want and all(s["parent"] == backbone[0]["id"] for s in swiglu)
+    reader = load_reader("swiglu_device_ms.eval_dinov2")
+    assert reader.read({}, {}) is None  # the DINO v1 step's spans, recorded last
+
+
+def test_swiglu_reader_reads_nothing_without_the_span(monkeypatch):
+    """Spans of a step whose backbone opens no ``swiglu`` span (DINO v1's,
+    or a program without the span) read nothing, and raise nothing."""
+    spans = [s for s in dinov2_spans() if s["name"] != "swiglu"]
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader("swiglu_device_ms.eval_dinov2").read({}, {}) is None
+    assert load_reader("backbone_device_ms.eval").read({}, {}) == pytest.approx(160.5)
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": eval_spans(), "dropped": 0})
+    assert load_reader("swiglu_device_ms.eval_dinov2").read({}, {}) is None
