@@ -7,8 +7,8 @@ final line):
 
 1. device: CUDA required; card name and power limit; TF32 off;
 2. build: nvcc builds ``depthg_tpu_torch/csrc/attention.cu``,
-   ``csrc/crf_bilateral.cu`` and ``csrc/zoe_bins.cu``, one process each,
-   started together;
+   ``csrc/crf_bilateral.cu``, ``csrc/zoe_bins.cu`` and ``csrc/swiglu.cu``,
+   one process each, started together;
 3. attention kernel vs ``attention_plain`` at the ViT-S/8 eval shape
    (B=16, N=1601, 6 heads x 64, packed qkv) in bf16 and f32, plus
    n_valid=1601 inside N=1664: max abs and relative error, exact-zero
@@ -153,7 +153,21 @@ final line):
     shape (B=8, 384 x 512, a pass; ``tests/bins_tail_cases.py``'s inputs and
     limits): the kernel against its plain version, its time back to back,
     queued and by ``torch.profiler``, its host time a call, the plain
-    version's time, the bound (bytes);
+    version's time, the bound (bytes); then DINOv2's SwiGLU gate at the
+    DINOv2 cell's shape (``w12``'s bf16 output [32 x 1,029, 8,192]): the
+    kernel bit for bit against eager ``F.silu(a) * b`` (and in float32 at
+    1,029 rows), one launch a call, its time back to back, queued and by
+    ``torch.profiler``, its host time a call, the eager pair's time (the
+    plain version, and the library yardstick), the bound (bytes); then the
+    DINOv2 path: the DINOv2 cell's eval step (``inference.make_eval_step``
+    with the CRF, resolution, flip-TTA and bf16 backbone of
+    ``benchmark/configs/depthg-dinov2-vitg14reg-cocostuff27.json``) on a
+    full-width ViT-g/14-reg segmenter with random weights from seed 0, at
+    batch 16 and 448 px: one warm-up and 3 timed steps, the gate's and K1's
+    counts set to 0 just before and read just after (40 of each a step, one
+    a block of the stacked [32] forward), the confusion sums, and in the
+    warm-up step one block's ``w3`` input bit for bit against eager
+    ``F.silu(a) * b`` of its ``w12`` output;
 14. fine-tune path: ``finetune_zoedepth.main`` at full width (random
     float32 ZoeDepth from seed 0, TF32 off) on a synthetic NYU layout of 8
     training and 4 evaluation pairs at 640 x 480: 4 steps at batch 4 (the
@@ -298,6 +312,16 @@ PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_HBM = 989e12, 495e12, 67e12, 3.35e12
 # int8 messages of one default-point CRF call: the coarse degree, 5 coarse
 # iterations, the mid and full degrees, 4 mid iterations and 1 full one
 CRF_MESSAGES = 13
+# DINOv2's SwiGLU gate at the DINOv2 cell's shape: w12's output over stacked
+# flip-TTA at batch 16 (32 x 1,029 tokens: the class token, 4 registers,
+# 32 x 32 patches at 448 px) and ViT-g's hidden width
+SWIGLU_M, SWIGLU_H = 32 * 1029, 4096
+# the DINOv2 cell's configuration (its step's CRF, resolution, flip-TTA and
+# backbone dtype), its batch, and the block whose gate the path phase checks
+DINOV2_CONFIG = os.path.join(ROOT, "benchmark", "configs",
+                             "depthg-dinov2-vitg14reg-cocostuff27.json")
+DINOV2_B = 16
+DINOV2_CHECKED_BLOCK = 20
 SMS = 132
 # kernel vs plain: dtype -> (max abs error, relative error ||out-ref||/||ref||).
 # Outputs here average ~600 keys (~0.04, max ~0.3), so a max-abs limit alone
@@ -2211,6 +2235,130 @@ def bins_tail_phase(zb):
     return out
 
 
+def swiglu_gate_bound_ms(m, hidden, itemsize):
+    """(least ms, bytes) of the SwiGLU gate over [m, 2H]: the input read
+    once and the [m, H] output written once, over the memory rate."""
+    nbytes = 3 * m * hidden * itemsize
+    return nbytes / PEAK_HBM * 1e3, nbytes
+
+
+def swiglu_gate_phase(sw):
+    """DINOv2's SwiGLU gate at the DINOv2 cell's shape (``w12``'s bf16
+    output [32 x 1,029, 2 x 4,096]: stacked flip-TTA at batch 16): the
+    kernel bit for bit against eager ``F.silu(a) * b`` (and in float32 at
+    1,029 rows), one launch a call, the kernel on CUDA events back to back,
+    queued behind a long product and by ``torch.profiler``, its host time a
+    call, the eager pair (the plain version, and the two PyTorch calls the
+    module made before the kernel: the library yardstick), the bound."""
+    m, hidden = SWIGLU_M, SWIGLU_H
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def w12_output(rows, dtype):
+        return (torch.randn(rows, 2 * hidden, device="cuda", generator=gen) * 3.0).to(dtype)
+
+    inputs = [w12_output(m, torch.bfloat16) for _ in range(2)]
+    with torch.inference_mode():
+        before = sw.KERNEL.gate_launches
+        got = sw.swiglu_gate(inputs[0])
+        launched = sw.KERNEL.gate_launches - before
+        eager = sw.swiglu_gate_plain(inputs[0])
+        mismatched = int((got.view(torch.int16) != eager.view(torch.int16)).sum())
+        h32 = w12_output(1029, torch.float32)
+        f32_mismatched = int((sw.swiglu_gate(h32).view(torch.int32)
+                              != sw.swiglu_gate_plain(h32).view(torch.int32)).sum())
+        del got, eager, h32
+        kernel_ms = cuda_time_ms(sw.swiglu_gate, inputs, iters=50)
+        queued_ms = device_time_ms(sw.swiglu_gate, inputs, iters=50)
+        profiled_ms = profiled_kernel_ms(sw.swiglu_gate, inputs, ["swiglu_gate_kernel"])[
+            "swiglu_gate_kernel"]
+        # the host's time a call, while the card works through a long product
+        busy = torch.empty(8192, 8192, device="cuda").normal_()
+        torch.cuda.synchronize()
+        busy @ busy
+        t0 = time.perf_counter()
+        for i in range(20):
+            sw.swiglu_gate(inputs[i % 2])
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        del busy
+        library_ms = cuda_time_ms(sw.swiglu_gate_plain, inputs, iters=20)
+        library_queued_ms = device_time_ms(sw.swiglu_gate_plain, inputs, iters=20)
+    bound, nbytes = swiglu_gate_bound_ms(m, hidden, 2)
+    out = dict(shape=[m, 2 * hidden], dtype="bf16", bytes=nbytes, launches_per_call=launched,
+               elements_differing=mismatched, f32_rows=1029, f32_elements_differing=f32_mismatched,
+               kernel_ms=kernel_ms, kernel_queued_ms=queued_ms, kernel_profiler_ms=profiled_ms,
+               host_us_per_call=host_us, library_ms=library_ms,
+               library_queued_ms=library_queued_ms, bound_ms=bound, bound_by="bytes",
+               share_of_bound=bound / min(queued_ms, profiled_ms or queued_ms))
+    phase("swiglu_gate", **out)
+    del inputs
+    torch.cuda.empty_cache()
+    if mismatched or f32_mismatched or launched != 1:
+        raise AssertionError(f"SwiGLU gate kernel vs eager: {out}")
+    return out
+
+
+def dinov2_path_phase(att, bil, sw, inference, crf_lib):
+    """The DINOv2 cell's eval step on a full-width ViT-g/14-reg (random
+    weights from seed 0): 40 gate and 40 K1 launches a step, the gate's bits
+    in one block of the path, the step's rate (docstring, phase 13)."""
+    cfg = json.loads(open(DINOV2_CONFIG).read())
+    bb, head, ev = cfg["backbone"], cfg["head"], cfg["eval"]
+    fcfg = inference.fcfg_from_run_cfg({
+        "model_type": bb["arch"], "dino_patch_size": bb["patch_size"],
+        "dino_feat_type": head["feat_type"], "projection_type": head["projection_type"],
+        "dim": head["dim"], "dropout": head["dropout"]})
+    n_classes, res = cfg["n_classes"], ev["res"]
+    with torch.device("cuda"):
+        model = inference.Segmenter(fcfg, n_classes, n_classes + cfg["extra_clusters"])
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    ecfg = inference.EvalConfig(
+        n_classes=n_classes, extra_clusters=cfg["extra_clusters"], label_res=res,
+        cluster_alpha=ev["cluster_alpha"], crf=crf_lib.CRFConfig(**ev["crf"]),
+        backbone_dtype=ev["backbone_dtype"], fused_tta=ev["fused_tta"])
+    step = inference.make_eval_step(ecfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    low = torch.rand(DINOV2_B, 3, 40, 40, device="cuda", generator=gen)
+    base = torch.nn.functional.interpolate(low, size=(res, res), mode="bilinear")
+    labels = torch.randint(-1, n_classes, (DINOV2_B, res, res), device="cuda", generator=gen)
+    batches = [((base + 0.02 * i - 0.45) / 0.226, labels.roll(i, dims=-1)) for i in range(4)]
+
+    # the warm-up step's gate in one block: w3's input against the eager
+    # pair over w12's output
+    ffn = model.net.model.blocks[DINOV2_CHECKED_BLOCK].mlp
+    seen = {}
+    hooks = [ffn.w12.register_forward_hook(
+                 lambda m, i, o: seen.setdefault("w12", o.detach().clone())),
+             ffn.w3.register_forward_pre_hook(
+                 lambda m, i: seen.setdefault("w3_in", i[0].detach().clone()))]
+    gates = sw.KERNEL.gate_launches
+    try:
+        _, img_s, launches, k4 = run_eval_batches(step, model, batches, att, bil)
+    finally:
+        for h in hooks:
+            h.remove()
+    gates = sw.KERNEL.gate_launches - gates
+    got, ref = seen["w3_in"], sw.swiglu_gate_plain(seen["w12"])
+    differing = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+    depth = bb["depth"]
+    out = dict(batch=DINOV2_B, res=res, steps=len(batches), batches_timed=len(batches) - 1,
+               img_per_s=img_s, gate_launches=gates,
+               gate_launches_per_step=gates / len(batches),
+               attention_launches_per_step=launches / len(batches), k4_launches=k4,
+               w12_output_shape=list(seen["w12"].shape), w12_output_dtype=str(ref.dtype),
+               checked_block=DINOV2_CHECKED_BLOCK, gate_elements_differing=differing,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    phase("dinov2_path", **out)
+    del model, step, batches, seen, got, ref
+    torch.cuda.empty_cache()
+    if (gates != depth * 4 or launches != depth * 4 or differing
+            or out["w12_output_dtype"] != str(torch.bfloat16)):
+        raise AssertionError(f"DINOv2 path: {gates} gate launches and {launches} K1 launches "
+                             f"in 4 steps (expected {depth * 4} each), {differing} gate "
+                             f"elements off the eager pair: {out}")
+    return out
+
+
 def write_nyu_layout(root, n_train, n_eval, hw=(480, 640), seed=0):
     """A synthetic NYU-layout folder as ``tests/test_zoedepth_data.py``
     writes one: random RGB PNGs and 16-bit depth PNGs in millimetres
@@ -3531,6 +3679,7 @@ def main():
     from depthg_tpu_torch.ops import _build, crf
     from depthg_tpu_torch.ops import attention as att
     from depthg_tpu_torch.ops import crf_bilateral as bil
+    from depthg_tpu_torch.ops import swiglu as sw
     from depthg_tpu_torch.ops import zoe_bins as zb
     from depthg_tpu_torch.models.zoedepth import beit
 
@@ -3542,11 +3691,12 @@ def main():
           gpu=torch.cuda.get_device_name(0), tf32_off=True)
 
     t_build = time.perf_counter()
-    _build.build(["attention", "crf_bilateral", "zoe_bins"])
+    _build.build(["attention", "crf_bilateral", "zoe_bins", "swiglu"])
     att.KERNEL.fn()
     bil.KERNEL.fn()
     zb.KERNEL.fn()
-    for name in ("attention", "crf_bilateral", "zoe_bins"):
+    sw.KERNEL.fn()
+    for name in ("attention", "crf_bilateral", "zoe_bins", "swiglu"):
         phase("build", source=f"depthg_tpu_torch/csrc/{name}.cu",
               seconds=_build.BUILD_SECONDS[name],
               ptxas=[ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
@@ -3577,6 +3727,8 @@ def main():
         depth_res = depth_path_phase(att, bil, tmp)
     depth_numerics_phase(att)
     bins = bins_tail_phase(zb)
+    gate = swiglu_gate_phase(sw)
+    dinov2_res = dinov2_path_phase(att, bil, sw, inference, crf)
     with tempfile.TemporaryDirectory() as tmp:
         ft_res = finetune_path_phase(att, bil, tmp)
     nk_res = nk_path_phase(att)
@@ -3827,6 +3979,21 @@ def main():
         "library_ms": None,
         "depth_p99_over_range": bins["depth_p99_over_range"],
         "depth_max_over_range": bins["depth_max_over_range"],
+    }, {
+        "name": "swiglu_gate", "route": "cuda",
+        "source": "depthg_tpu_torch/csrc/swiglu.cu",
+        "replaces": "none (the JAX package has no DINOv2)",
+        # per step of the DINOv2 cell's eval step (one a block)
+        "launches": dinov2_res["gate_launches_per_step"],
+        "shape": f"bf16, [{SWIGLU_M}, {2 * SWIGLU_H}] (w12's output in the DINOv2 cell's step)",
+        "ms": gate["kernel_ms"], "queued_ms": gate["kernel_queued_ms"],
+        "profiler_ms": gate["kernel_profiler_ms"], "plain_ms": gate["library_ms"],
+        "bound_ms": gate["bound_ms"], "bound_by": gate["bound_by"],
+        "library_ms": gate["library_ms"],
+        "elements_differing": gate["elements_differing"],
+        "host_us_per_call": gate["host_us_per_call"],
+        "dinov2_path_elements_differing": dinov2_res["gate_elements_differing"],
+        "dinov2_path_img_per_s": dinov2_res["img_per_s"],
     }]}
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))

@@ -51,6 +51,7 @@ from torch import nn
 from depthg_tpu_torch.models.layers import LayerNorm, cast_bf16, quantize_linear
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic
+from depthg_tpu_torch.ops.swiglu import swiglu_gate
 from depthg_tpu_torch.utils import profiling
 
 
@@ -167,7 +168,8 @@ def swiglu_hidden(cfg: ViTConfig) -> int:
 
 
 class SwiGLU(nn.Module):
-    """DINOv2's ``SwiGLUFFNFused``: w3(silu(a) * b), [a, b] = chunk(w12(x), 2);
+    """DINOv2's ``SwiGLUFFNFused``: w3(silu(a) * b), [a, b] = chunk(w12(x), 2),
+    the gate through ``ops.swiglu.swiglu_gate`` (one kernel launch on CUDA);
     one ``swiglu`` span (``utils.profiling``)."""
 
     def __init__(self, cfg: ViTConfig):
@@ -178,8 +180,7 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with profiling.span("swiglu"):
-            a, b = self.w12(x).chunk(2, dim=-1)
-            return self.w3(F.silu(a) * b)
+            return self.w3(swiglu_gate(self.w12(x)))
 
 
 class LayerScale(nn.Module):

@@ -133,7 +133,8 @@ class Recorder:
         its children), ``device_ms`` (stream time between the span's edges)
         with ``device_start_ns`` / ``device_end_ns`` on the host clock, and
         one key a registered counter (``k1_launches``, ``crf_cache_launches``,
-        ``bins_tail_launches``, ``rel_bias_builds`` once their modules are
+        ``crf_message_launches``, ``bins_tail_launches``,
+        ``swiglu_gate_launches``, ``rel_bias_builds`` once their modules are
         imported); the device fields are None for a span recorded before
         CUDA was in use.
         One synchronize: an

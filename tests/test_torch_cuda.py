@@ -73,7 +73,13 @@ for bit against the ``torch._int_mm`` route it replaced
 (``tests/int8_message_cases.py``) at the eval cells' shapes and against the
 exact float64 product at N off a multiple of 16, through views of buffers
 that held NaN past N and C and -128 past the cache, its refusals, and the
-default point's predict step at 200 and 360 px against the CPU.
+default point's predict step at 200 and 360 px against the CPU. The
+SwiGLU slice adds DINOv2's gate kernel (``swiglu.swiglu_gate``) bit for bit
+against eager ``F.silu(a) * b`` on the card, in bf16 and float32, at the
+DINOv2 cell's shape (32 x 1,029 rows, H = 4,096), at 1, 7 and 1,029 rows
+and at H = 64, into output memory that held NaN; its refusals; one launch
+a call; and a small DINOv2 ViT on the card, bf16 and its int8 copy, one
+gate launch a block and the same bits as with the eager gate.
 """
 
 import pytest
@@ -82,6 +88,7 @@ import torch
 from depthg_tpu_torch.ops import attention as tatt
 from depthg_tpu_torch.ops import crf as tcrf
 from depthg_tpu_torch.ops import crf_bilateral as tbil
+from depthg_tpu_torch.ops import swiglu as tswi
 from depthg_tpu_torch.ops import zoe_bins as tzb
 import bins_tail_cases as bcases
 from test_torch_f32_split import emulate_attention, emulate_bilateral
@@ -1672,3 +1679,94 @@ def test_small_zoedepth_bins_kernel_vs_module_path(cuda, monkeypatch, b):
     assert p99 <= bcases.P99_TOL and worst <= bcases.MAX_TOL, (p99, worst)
     apart, share = bcases.feats_apart(got["feats"], want["feats"], calls[0][2])
     assert apart == 0 and share <= bcases.FEATS_SHARE, (apart, share)
+
+
+# DINOv2's SwiGLU gate kernel (``ops.swiglu.swiglu_gate``) against eager
+# ``F.silu(a) * b`` on the card: the kernel rounds where the eager pair
+# rounds, so the two are held bit for bit.
+def _w12_output(m, hidden, dtype, seed=0):
+    """[m, 2H] on the card, spread like a trained ``w12`` output, with the
+    gate's far ends (exp(-x) overflowing, silu(x) = x) on a few entries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(m, 2 * hidden, device="cuda", generator=gen) * 3.0
+    h.view(-1)[::97] = 100.0
+    h.view(-1)[5::89] = -100.0
+    return h.to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("m,hidden", [(32 * 1029, 4096), (1, 4096), (7, 4096), (1029, 4096),
+                                      (1, 64), (7, 64), (1029, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swiglu_gate_kernel_is_the_eager_gate_bit_for_bit(cuda, dtype, m, hidden):
+    h = _w12_output(m, hidden, dtype, seed=m + hidden)
+    before = tswi.KERNEL.gate_launches
+    with torch.inference_mode():
+        got = poisoned(lambda: tswi.swiglu_gate(h), (m, hidden), dtype)
+        torch.cuda.synchronize()
+        a, b = h.chunk(2, dim=-1)
+        eager = torch.nn.functional.silu(a) * b
+    assert tswi.KERNEL.gate_launches == before + 1
+    assert got.shape == (m, hidden) and got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(eager))
+
+
+@pytest.mark.parametrize("bad", ["odd_width", "half_width_not_a_multiple_of_8", "strided",
+                                 "misaligned", "requires_grad", "float16"])
+def test_swiglu_gate_kernel_refuses_what_it_cannot_take(cuda, bad):
+    h = _w12_output(7, 64, torch.bfloat16)
+    if bad == "odd_width":
+        h = h[:, :127].contiguous()
+    elif bad == "half_width_not_a_multiple_of_8":
+        h = h[:, :120].contiguous()
+    elif bad == "strided":
+        h = h[:, :64]
+    elif bad == "misaligned":
+        h = h.view(-1)[4: 4 + 6 * 64].view(6, 64)
+    elif bad == "requires_grad":
+        h = h.float().requires_grad_()
+    elif bad == "float16":
+        h = h.half()
+    before = tswi.KERNEL.gate_launches
+    with pytest.raises(ValueError):
+        tswi.swiglu_gate(h)
+    assert tswi.KERNEL.gate_launches == before
+
+
+def test_swiglu_gate_kernel_counts_one_launch_a_call(cuda):
+    h = _w12_output(7, 64, torch.bfloat16)
+    before = tswi.KERNEL.gate_launches
+    with torch.inference_mode():
+        for i in range(3):
+            tswi.swiglu_gate(h)
+            assert tswi.KERNEL.gate_launches == before + i + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("backbone", ["bf16", "int8"])
+def test_small_dinov2_gates_through_the_kernel(cuda, monkeypatch, backbone):
+    """A small DINOv2 ViT (registers, LayerScale, SwiGLU hidden 176) on the
+    card, bf16 or its int8 copy (``W8A8Linear`` products): one gate launch a
+    block, and the features equal, bit for bit, to the same forward with
+    the eager gate."""
+    from depthg_tpu_torch.models import vit as tvit
+
+    cfg = tvit.ViTConfig(patch_size=14, embed_dim=64, depth=3, num_heads=4, img_size=70,
+                         n_registers=2, layer_scale=True, ffn="swiglu", pos_resize="dinov2")
+    model = tvit.VisionTransformer(cfg).init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda).requires_grad_(False)
+    model = tvit.quantize_vit(model) if backbone == "int8" else model.to(torch.bfloat16)
+    x = torch.randn(2, 3, 56, 56, generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    before = tswi.KERNEL.gate_launches
+    with torch.inference_mode():
+        got = model(x)[0][0]
+        torch.cuda.synchronize()
+        assert tswi.KERNEL.gate_launches == before + cfg.depth
+        monkeypatch.setattr(tvit, "swiglu_gate", tswi.swiglu_gate_plain)
+        want = model(x)[0][0]
+    assert tswi.KERNEL.gate_launches == before + cfg.depth
+    assert torch.equal(_bits(got), _bits(want))

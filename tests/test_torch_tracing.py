@@ -8,9 +8,10 @@ benchmark's readers of them, on the CPU.
 * On: the parent is the innermost open span of the same thread, every span
   under one outermost span shares its step id, self time is the span less
   its children, the K1 counter's delta is the kernel's own
-  ``KERNEL.launches`` delta, the int8 cache kernel's and the bins tail
-  kernel's counters are recorded as deltas too (every span of the depth
-  step carries the latter, 0 on the CPU), and the host stamps bracket a
+  ``KERNEL.launches`` delta, the int8 cache, int8 message, bins tail and
+  SwiGLU gate kernels' counters are recorded as deltas too (every span of
+  the depth step carries the bins tail's, every span of the DINOv2 eval
+  step the gate's, 0 on the CPU), and the host stamps bracket a
   profiler event recorded inside (one clock, ``time.time_ns()``). A running
   ``torch.profiler`` turns recording on by itself.
 * The tiny eval, predict and train steps (the sizes of
@@ -19,15 +20,15 @@ benchmark's readers of them, on the CPU.
   their span trees; the depth step counts BEiT's relative-position biases
   built: one a block on its first step at a grid, none on the next.
 * ``collect()`` is idempotent, the cap counts what it drops.
-* Each of the four span counters is registered by the module that owns it
+* Each span counter is registered by the module that owns it
   and reads that module's counter; ``utils.profiling`` imports nothing of
   the port.
 * Each reader in ``benchmark/metrics/`` that reads spans, loaded by path as
   the harness loads it, computes its value from a hand-built span list and
   returns None without a step, with a step that lacks its span, with a
-  dropped span, or from a program that has no spans (the cache and bins
-  tail launches' readers also from spans without their counter, or with a
-  step that launched the kernel no time, as every step on the CPU); and the
+  dropped span, or from a program that has no spans (the kernels' launch
+  readers also from spans without their counter, or with a step that
+  launched the kernel no time, as every step on the CPU); and the
   spans it names are the ones the tiny steps emit.
 """
 
@@ -72,6 +73,7 @@ COUNTERS = {
     "crf_cache_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "cache_launches"),
     "crf_message_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "message_launches"),
     "bins_tail_launches": ("depthg_tpu_torch.ops.zoe_bins", "KERNEL", "bins_launches"),
+    "swiglu_gate_launches": ("depthg_tpu_torch.ops.swiglu", "KERNEL", "gate_launches"),
     "rel_bias_builds": ("depthg_tpu_torch.models.zoedepth.beit", "BIAS_BUILDS", "count"),
 }
 ZOE = tzoe.ZoeConfig(n_bins=8, bin_embedding_dim=16, n_attractors=(4, 2, 2, 1),
@@ -386,11 +388,12 @@ def test_cap_counts_dropped_spans(monkeypatch):
 
 
 def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0,
-         cache=0, bins=0, message=0):
+         cache=0, bins=0, message=0, gate=0):
     return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
             "host_ms": host, "self_host_ms": host if self_host is None else self_host,
             "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache,
-            "bins_tail_launches": bins, "crf_message_launches": message}
+            "bins_tail_launches": bins, "crf_message_launches": message,
+            "swiglu_gate_launches": gate}
 
 
 def eval_spans(device=True):
@@ -423,14 +426,15 @@ def depth_spans(device=True):
 
 def dinov2_spans(device=True):
     """Two DINOv2 eval steps: one backbone pass of 3 blocks, one ``swiglu``
-    span each."""
+    span each (the steps' launch counts those of ViT-g's 40 blocks)."""
     d = (lambda v: v) if device else (lambda v: None)
     out = []
     for i, base in enumerate((1, 7)):
-        out += [span(base, "eval.step", host=200.0, device=d(250.0), k1=40, cache=1, message=13),
+        out += [span(base, "eval.step", host=200.0, device=d(250.0), k1=40, cache=1, message=13,
+                     gate=40),
                 span(base + 1, "backbone", base, base, host=20.0, device=d(160.0 + i))]
-        out += [span(base + 2 + k, "swiglu", base + 1, base, host=1.0, device=d(30.0 + k + i))
-                for k in range(3)]
+        out += [span(base + 2 + k, "swiglu", base + 1, base, host=1.0, device=d(30.0 + k + i),
+                     gate=1) for k in range(3)]
         out.append(span(base + 5, "crf", base, base, host=30.0, device=d(60.0),
                         cache=1, message=13))
     return out
@@ -465,6 +469,7 @@ READERS = {
     "k1_launches_per_step.depth": (depth_spans, 48.0),
     "bins_tail_launches_per_step.depth": (depth_spans, 2.0),
     "swiglu_device_ms.eval_dinov2": (dinov2_spans, (93.0 + 96.0) / 2),
+    "swiglu_gate_launches_per_step.eval_dinov2": (dinov2_spans, 40.0),
 }
 
 # the eval readers that read the DINOv2 cell too, on its step's spans
@@ -627,6 +632,9 @@ def test_readers_name_the_spans_the_steps_emit(name, kind):
     elif reader.KEY == "bins_tail_launches":
         assert value is None  # the CPU runs the bins tail without the kernel
         assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
+    elif reader.KEY == "swiglu_gate_launches":
+        assert value is None  # the CPU runs the SwiGLU gate without the kernel
+        assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     else:
         assert value is not None and value >= 0
 
@@ -659,3 +667,48 @@ def test_swiglu_reader_reads_nothing_without_the_span(monkeypatch):
     assert load_reader("backbone_device_ms.eval").read({}, {}) == pytest.approx(160.5)
     monkeypatch.setattr(profiling, "collect", lambda: {"spans": eval_spans(), "dropped": 0})
     assert load_reader("swiglu_device_ms.eval_dinov2").read({}, {}) is None
+
+
+@pytest.mark.parametrize("case", ["without_the_counter", "a_step_without_a_launch"])
+def test_swiglu_gate_reader_reads_nothing_without_the_kernel(monkeypatch, case):
+    """Spans of a program whose steps do not carry ``swiglu_gate_launches``
+    (the parent of the gate kernel), or where a DINOv2 eval step launched
+    it no time (its gate run eagerly), read nothing, and raise nothing:
+    losing the kernel never reads as fewer launches."""
+    spans = dinov2_spans()
+    for s in spans:
+        if case == "without_the_counter":
+            del s["swiglu_gate_launches"]
+        elif s["step"] == 7:
+            s["swiglu_gate_launches"] = 0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader("swiglu_gate_launches_per_step.eval_dinov2").read({}, {}) is None
+    assert load_reader("k1_launches_per_step.eval").read({}, {}) == 40.0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": eval_spans(), "dropped": 0})
+    # a DINO v1 step launches no gate
+    assert load_reader("swiglu_gate_launches_per_step.eval_dinov2").read({}, {}) is None
+
+
+def test_swiglu_gate_counter_deltas(monkeypatch):
+    """``swiglu_gate_launches`` is the delta of the gate kernel's counter
+    (stubbed here: the CPU runs the gate without the kernel) across each
+    span."""
+    count = iter([0, 2, 3, 40])  # step opens, inner opens, inner closes, step closes
+    fake_counter(monkeypatch, "swiglu_gate_launches", lambda: next(count))
+    with profiling.recording():
+        with profiling.span("step"):
+            with profiling.span("swiglu"):
+                pass
+    step, inner = profiling.collect()["spans"]
+    assert step["swiglu_gate_launches"] == 40 and inner["swiglu_gate_launches"] == 1
+
+
+def test_dinov2_spans_carry_the_swiglu_gate_launches():
+    """Every span of the tiny DINOv2 eval step carries the gate kernel's
+    launches, 0 on the CPU (the plain gate runs there)."""
+    call = dinov2_eval_call()
+    with profiling.recording():
+        call()
+    spans = profiling.collect()["spans"]
+    assert sum(s["name"] == "swiglu" for s in spans) == DINOV2_VIT["depth"]
+    assert all(s["swiglu_gate_launches"] == 0 for s in spans)
