@@ -19,6 +19,11 @@ Scale quirks preserved on purpose:
 * ``CityscapesSeg.mask`` is the *void* mask (``target == -1``,
   ``src/data.py:508``) while ``Potsdam.mask`` is ``label > 0``
   (``src/data.py:237``) — opposite polarities, as in the reference.
+
+``depth_type`` ``depth_anything_v2`` reads the maps ``generate_depth --model
+depth_anything_v2`` writes, ``{stem}_depth_anything_v2.png``, from the
+folder that holds the ``{stem}_zoedepth.png`` maps, wherever ``zoedepth``
+reads those (``MODEL_DEPTHS``).
 """
 
 from __future__ import annotations
@@ -154,6 +159,11 @@ def _remap(label: np.ndarray, mapping: dict) -> np.ndarray:
     return out
 
 
+# depth types whose maps ``generate_depth`` writes as ``{stem}_{model}.png``,
+# side by side in one folder
+MODEL_DEPTHS = ("zoedepth", "depth_anything_v2")
+
+
 def _minmax(arr: np.ndarray) -> np.ndarray:
     lo, hi = arr.min(), arr.max()
     return (arr - lo) / max(hi - lo, 1e-12)
@@ -263,9 +273,9 @@ class Potsdam(_Base):
 
     def _load_depth(self, image_id, size):
         try:
-            if self.depth_type == "zoedepth":
+            if self.depth_type in MODEL_DEPTHS:
                 d = _open_depth_01(join(self.root, "zoe_depth", self.split, "imgs",
-                                        image_id + "_zoedepth.png"))
+                                        f"{image_id}_{self.depth_type}.png"))
             elif self.depth_type == "kbr":
                 arr = T.image_to_array(open_image(
                     join(self.root, "kbr_depth", self.split, image_id + ".png")))
@@ -370,9 +380,9 @@ class Coco(_Base):
                     self.image_files.append(join(self.root, "images", split_dir, img_id + ".jpg"))
                     self.label_files.append(join(self.root, "annotations", split_dir, img_id + ".png"))
                     if return_depth:
-                        if depth_type == "zoedepth":
+                        if depth_type in MODEL_DEPTHS:
                             self.depth_files.append(join(self.root, "depth", split_dir,
-                                                         img_id + "_zoedepth.png"))
+                                                         f"{img_id}_{depth_type}.png"))
                         elif depth_type == "kbr":
                             self.depth_files.append(join(self.root, "kbr_depth", split_dir,
                                                          img_id + ".png"))
@@ -456,12 +466,13 @@ class CityscapesSeg(_Base):
 
         depth = None
         if self.return_depth:
-            if self.depth_type != "zoedepth":
+            if self.depth_type not in MODEL_DEPTHS:
                 raise NotImplementedError(self.depth_type)
             path = self.images[index]
             stem = os.path.splitext(os.path.basename(path))[0]
             city = os.path.basename(os.path.dirname(path))
-            depth = _open_depth_01(join(self.depth_folder_path, city, stem + "_zoedepth.png"))
+            depth = _open_depth_01(join(self.depth_folder_path, city,
+                                        f"{stem}_{self.depth_type}.png"))
 
         label = label - self.first_nonvoid
         label[label < 0] = -1
@@ -502,9 +513,9 @@ class NYUv2(_Base):
         if self.return_depth:
             if self.depth_type == "gt":
                 raw = np.asarray(open_image(os.path.join(self._folder("depth"), fn)))
-            elif self.depth_type == "zoedepth":
+            elif self.depth_type in MODEL_DEPTHS:
                 raw = np.asarray(open_image(os.path.join(
-                    self._folder("zoedepth_depth"), fn.replace(".png", "_zoedepth.png"))))
+                    self._folder("zoedepth_depth"), fn.replace(".png", f"_{self.depth_type}.png"))))
             elif self.depth_type in ("kbr", "midas"):
                 raw = np.asarray(open_image(os.path.join(self._folder(f"{self.depth_type}_depth"), fn)))
             else:
@@ -541,10 +552,10 @@ class PascalVOC(_Base):
         self.return_depth = return_depth
         self.depth_type = depth_type
         if return_depth:
-            if depth_type == "zoedepth":
+            if depth_type in MODEL_DEPTHS:
                 dp = f"zoe_depth/{image_set}/JPEGImages"
-                self.depth = [join(self.root, dp, os.path.basename(i).replace(".jpg", "_zoedepth.png"))
-                              for i in self.images]
+                self.depth = [join(self.root, dp, os.path.basename(i).replace(
+                    ".jpg", f"_{depth_type}.png")) for i in self.images]
             elif depth_type == "kbr":
                 dp = f"kbr_depth/{image_set}/JPEGImages"
                 self.depth = [join(self.root, dp, os.path.basename(i).replace(".jpg", ".png"))

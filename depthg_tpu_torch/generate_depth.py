@@ -1,17 +1,19 @@
-"""Per-image depth PNGs for a dataset with ZoeDepth or MiDaS DPT_Large, on one GPU or more.
+"""Per-image depth PNGs for a dataset with ZoeDepth, MiDaS or Depth Anything V2, on one GPU or more.
 
     python -m depthg_tpu_torch.generate_depth --data_dir DIR --output_dir OUT \\
-        [--model zoedepth|midas] (--weights FILE | --allow_random) \\
+        [--model zoedepth|midas|depth_anything_v2] (--weights FILE | --allow_random) \\
         [--dataset imagefolder|cocostuff|...] [--split val] [--batch_size 8] \\
         [--dtype bfloat16|float32|int8] [--attn_impl auto|xla|fused|flash] \\
         [--save_features] [--device cuda|cpu]
 
 The port of ``scripts/generate_depth.py``. It iterates a dataset, buckets
-the images by size (aspect kept, long side <= 512, multiples of 32), runs
-``--batch_size`` images of one bucket per forward, resizes each depth map
-back to its image, min-max normalizes it per image (MiDaS's relative depth
-inverted) and writes ``{output_dir}/{parent folder}/{stem}_{model}.png``
-(8-bit), and ``{stem}_feats.npy`` under ``--save_features``.
+the images by size (aspect kept, long side <= 512, multiples of 32; Depth
+Anything V2: its own rule, below), runs ``--batch_size`` images of one
+bucket per forward, resizes each depth map back to its image, min-max
+normalizes it per image (the relative disparities of MiDaS and Depth
+Anything V2 inverted) and writes
+``{output_dir}/{parent folder}/{stem}_{model}.png`` (8-bit), and
+``{stem}_feats.npy`` under ``--save_features``.
 
 * ``--model zoedepth``: ``models/zoedepth`` with the reflect-pad + flip TTA
   of ``zoedepth_infer``; BEiT-L attention goes through the Hopper kernel
@@ -19,9 +21,21 @@ inverted) and writes ``{output_dir}/{parent folder}/{stem}_{model}.png``
   passes), each batch one ``depth.step`` span of ``utils.profiling``.
   ``--model midas``: ``models/midas_dpt`` on raw images (24 kernel
   launches per batch, no bias).
-* Weights: ``--weights`` (``ZoeD_M12_N.pt`` or ``dpt_large-midas-2f21e586.pt``,
-  nothing is downloaded) or ``--allow_random`` (full width, random weights
-  from seed 0); without either it refuses.
+* ``--model depth_anything_v2``: ``models/depth_anything_v2`` (the
+  released ViT-L, ``depth_anything_v2_vitl.pth``), one pass without a flip
+  as its ``infer_image`` runs it, 24 kernel launches per batch, each batch
+  one ``depth.step`` span. Its input rule (``image2tensor``): the short
+  side to 518 as a lower bound, aspect kept, each side rounded to a
+  multiple of 14 (``model.prep_size``): a 640x480 image runs at 518x686.
+  Departures: the image is resized on the host with PIL's bicubic filter
+  in place of OpenCV's ``INTER_CUBIC``, and the map goes back to the image
+  size with PIL's bilinear filter as every model's here, in place of
+  ``infer_image``'s ``align_corners=True`` resize; the ImageNet
+  normalization runs on the device.
+* Weights: ``--weights`` (``ZoeD_M12_N.pt``, ``dpt_large-midas-2f21e586.pt``
+  or ``depth_anything_v2_vitl.pth``, nothing is downloaded) or
+  ``--allow_random`` (full width, random weights from seed 0); without
+  either it refuses, naming the file.
 * ``--device`` defaults to ``cuda`` and raises without a card; the CPU runs
   only when asked for.
 * Data-parallel over N GPUs, one process each: ``torchrun --nproc_per_node
@@ -30,7 +44,7 @@ inverted) and writes ``{output_dir}/{parent folder}/{stem}_{model}.png``
   writes its contiguous share of the images (the JAX script shards each
   dispatch over its mesh), so every PNG is the single-process run's.
 * ``--dtype int8``: the weights are loaded (or drawn) in float32, then the
-  backbone (BEiT-L or ViT-L) is quantized to w8a8 (``beit.quantize_beit``,
+  backbone (BEiT-L or a ViT-L) is quantized to w8a8 (``beit.quantize_beit``,
   ``vit.quantize_vit``: int8 block linears, bf16 elsewhere) and the rest of
   the model is cast to bf16, as the JAX script does; the images enter in
   bf16 and K1 runs in bf16.
@@ -56,7 +70,8 @@ from depthg_tpu_torch.utils import profiling
 
 def get_args_parser():
     p = argparse.ArgumentParser("Depth", add_help=False)
-    p.add_argument("--model", default="zoedepth", choices=["zoedepth", "midas"])
+    p.add_argument("--model", default="zoedepth",
+                   choices=["zoedepth", "midas", "depth_anything_v2"])
     p.add_argument("--data_dir", default="")
     p.add_argument("--dataset", default="imagefolder",
                    choices=["cocostuff", "potsdam", "cityscapes", "imagefolder",
@@ -64,7 +79,9 @@ def get_args_parser():
     p.add_argument("--split", default="val")
     p.add_argument("--output_dir", default="")
     p.add_argument("--save_features", action="store_true")
-    p.add_argument("--weights", default=None, help="path to ZoeD_M12_N.pt")
+    p.add_argument("--weights", default=None,
+                   help="ZoeD_M12_N.pt, dpt_large-midas-2f21e586.pt or "
+                        "depth_anything_v2_vitl.pth")
     p.add_argument("--allow_random", action="store_true",
                    help="run with random weights (smoke testing only)")
     p.add_argument("--dtype", default="bfloat16",
@@ -134,8 +151,21 @@ def bucket_size(ow: int, oh: int) -> tuple:
     return bh, bw
 
 
+def dav2_bucket_size(ow: int, oh: int) -> tuple:
+    """(bh, bw) of an ow x oh image under Depth Anything V2's input rule:
+    518 x 518 as a lower bound, aspect kept, multiples of 14."""
+    from depthg_tpu_torch.models.depth_anything_v2 import DepthAnythingV2Config
+    from depthg_tpu_torch.models.zoedepth.model import prep_size
+
+    return prep_size(oh, ow, DepthAnythingV2Config(), resize_method="lower_bound", multiple=14)
+
+
+# models whose output is a relative disparity: their PNGs are inverted
+DISPARITY_MODELS = ("midas", "depth_anything_v2")
+
+
 def write_one(args, depth, ow, oh, src, feats=None):
-    """Resize one depth map to its image, min-max normalize it (MiDaS
+    """Resize one depth map to its image, min-max normalize it (a disparity
     inverted) and write its 8-bit PNG (and its features)."""
     if depth.shape != (oh, ow):
         depth = np.asarray(Image.fromarray(depth, mode="F")
@@ -143,7 +173,7 @@ def write_one(args, depth, ow, oh, src, feats=None):
     # per-image min-max normalization (batching does not change it);
     # MiDaS relative depth is inverted — reference generate_depth.py:192-197
     depth = (depth - depth.min()) / max(depth.max() - depth.min(), 1e-12)
-    if args.model == "midas":
+    if args.model in DISPARITY_MODELS:
         depth = 1.0 - depth
     src_path = Path(src)
     folder = Path(args.output_dir) / src_path.parent.name
@@ -181,12 +211,15 @@ def run_pipeline(args, infer, *, device: torch.device) -> int:
             if n % 50 == 0:
                 print(f"{n} depth maps written", flush=True)
 
+    dav2 = args.model == "depth_anything_v2"
+    bucket, resample = ((dav2_bucket_size, Image.BICUBIC) if dav2
+                        else (bucket_size, Image.BILINEAR))
     for pil, src in iter_images(args):
         if pil is None:
             continue
         ow, oh = pil.size
-        bh, bw = bucket_size(ow, oh)
-        x = _image_to_array(pil.resize((bw, bh), Image.BILINEAR))[None]
+        bh, bw = bucket(ow, oh)
+        x = _image_to_array(pil.resize((bw, bh), resample))[None]
         buckets.setdefault((bh, bw), []).append((x, (ow, oh, src)))
         if len(buckets[(bh, bw)]) >= bs:
             flush(buckets.pop((bh, bw)))
@@ -199,10 +232,11 @@ def run_pipeline(args, infer, *, device: torch.device) -> int:
 
 
 def to_dtype(model: torch.nn.Module, dtype: str) -> torch.nn.Module:
-    """A float32 ZoeDepth or MiDaS model in ``--dtype``: cast whole to
-    float32 or bf16, or for int8 its backbone (``core.core.pretrained.model``
-    of ZoeDepth, ``pretrained.model`` of MiDaS) replaced by its w8a8 copy
-    and the rest cast to bf16."""
+    """A float32 ZoeDepth, MiDaS or Depth Anything V2 model in ``--dtype``:
+    cast whole to float32 or bf16, or for int8 its backbone
+    (``core.core.pretrained.model`` of ZoeDepth, ``pretrained.model`` of the
+    other two, each a ``DPT``) replaced by its w8a8 copy and the rest cast
+    to bf16."""
     if dtype != "int8":
         return model.to(torch.float32 if dtype == "float32" else torch.bfloat16)
     from depthg_tpu_torch.models.layers import cast_bf16
@@ -216,18 +250,42 @@ def to_dtype(model: torch.nn.Module, dtype: str) -> torch.nn.Module:
     return cast_bf16(model)
 
 
-def build(args, device: torch.device, zoe_config=None, midas_config=None):
+WEIGHT_FILES = {"zoedepth": "ZoeD_M12_N.pt", "midas": "dpt_large-midas-2f21e586.pt",
+                "depth_anything_v2": "depth_anything_v2_vitl.pth"}
+
+
+def build(args, device: torch.device, zoe_config=None, midas_config=None, dav2_config=None):
     """(infer, model) for ``args``: the weights loaded or drawn at random on
-    ``device`` (``--allow_random`` draws ``zoe_config`` / ``midas_config``,
-    the released models' by default), cast to ``--dtype`` (``to_dtype``), in
-    eval mode."""
+    ``device`` (``--allow_random`` draws ``zoe_config`` / ``midas_config`` /
+    ``dav2_config``, the released models' by default), cast to ``--dtype``
+    (``to_dtype``), in eval mode."""
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     weights = args.weights if args.weights and os.path.exists(args.weights) else None
     if weights is None and not args.allow_random:
-        name = "ZoeD_M12_N.pt" if args.model == "zoedepth" else "dpt_large-midas-2f21e586.pt"
-        raise SystemExit(f"No --weights given (nothing is downloaded: {name} must be on "
-                         "disk). Pass --weights or --allow_random.")
+        raise SystemExit(f"No --weights given (nothing is downloaded: "
+                         f"{WEIGHT_FILES[args.model]} must be on disk). Pass --weights or "
+                         "--allow_random.")
     gen = torch.Generator(device=device).manual_seed(0)
+    if args.model == "depth_anything_v2":
+        from depthg_tpu_torch.models.depth_anything_v2 import (DepthAnythingV2,
+                                                               DepthAnythingV2Config)
+        from depthg_tpu_torch.models.zoedepth.convert import load_depth_anything_v2
+
+        if weights:
+            model = load_depth_anything_v2(weights).to(device)
+        else:
+            print("WARNING: running with RANDOM Depth Anything V2 weights (smoke test only).")
+            with device:
+                model = DepthAnythingV2(dav2_config or DepthAnythingV2Config()).init_weights(gen)
+        model = to_dtype(model, args.dtype).eval()
+        impl = args.attn_impl
+
+        def infer(x):
+            # one pass without a flip, as the published infer_image
+            with torch.inference_mode(), profiling.span("depth.step"):
+                depth, hooks = model(x, attn_impl=impl)
+                return depth[:, None].float(), hooks["out_conv"]
+        return infer, model
     if args.model == "midas":
         from depthg_tpu_torch.models.midas_dpt import MidasDPT, MidasDPTConfig
         from depthg_tpu_torch.models.zoedepth.convert import load_midas_dpt
@@ -272,7 +330,7 @@ def build(args, device: torch.device, zoe_config=None, midas_config=None):
     return infer, model
 
 
-def main(argv=None, zoe_config=None, midas_config=None) -> int:
+def main(argv=None, zoe_config=None, midas_config=None, dav2_config=None) -> int:
     """The CLI; returns the number of depth maps written. The configurations
     are those ``--allow_random`` draws (the released models' by default)."""
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0],
@@ -283,7 +341,7 @@ def main(argv=None, zoe_config=None, midas_config=None) -> int:
     device = dist.rank_device(device)
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    infer, _ = build(args, device, zoe_config, midas_config)
+    infer, _ = build(args, device, zoe_config, midas_config, dav2_config)
     return run_pipeline(args, infer, device=device)
 
 

@@ -15,7 +15,10 @@ feed-forward ``blocks.i.mlp.{w12, w3}`` (``SwiGLUFFNFused``: hidden
 (int(4 D 2/3) + 7) // 8 * 8, one ``swiglu`` span each) and the position
 table resized bicubically to the grid by size, antialiased. The DINO v1
 presets build ``Block`` and ``Mlp`` and insert no token: their forward
-launches what it did before the DINOv2 parts existed.
+launches what it did before the DINOv2 parts existed. The ``dinov2_vitl14``
+preset is the ViT-L/14 that Depth Anything V2 vendors (``vit_large``:
+LayerScale, the GELU ``Mlp``, no registers, DINO's +0.1 table resize
+without antialias); ``normed_taps`` is its ``get_intermediate_layers``.
 
 Kept from the JAX version: the bicubic positional-embedding quirk
 (scale = (side_px // ps + 0.1) / sqrt(N) passed as an explicit scale
@@ -85,6 +88,11 @@ VIT_PRESETS = {
     "dinov2_vitg14_reg": dict(patch_size=14, embed_dim=1536, depth=40, num_heads=24,
                               img_size=518, n_registers=4, layer_scale=True, ffn="swiglu",
                               pos_resize="dinov2"),
+    # Depth Anything V2's vendored ViT-L/14 (``depth_anything_v2/dinov2.py`` vit_large):
+    # 518-px table, LayerScale, GELU MLP, no registers, interpolate_offset 0.1
+    # without antialias, which is DINO's resize ("dino")
+    "dinov2_vitl14": dict(patch_size=14, embed_dim=1024, depth=24, num_heads=16, img_size=518,
+                          layer_scale=True, pos_resize="dino"),
 }
 
 
@@ -310,6 +318,19 @@ class VisionTransformer(nn.Module):
                 qkvs.append(qkv.view(b, t, 3, self.cfg.num_heads, -1)
                             .permute(2, 0, 3, 1, 4))
         return feats, attns, qkvs
+
+    def normed_taps(self, x: torch.Tensor, blocks, attn_impl: str = "xla") -> list:
+        """DINOv2's ``get_intermediate_layers(norm=True)``: for each of
+        ``blocks`` (in that order, repeats allowed), that block's output
+        through the final norm with the class token and registers dropped,
+        [B, Hp*Wp, D]. The blocks after the last one asked for do not run."""
+        x = self.prepare_tokens(x)
+        normed = {}
+        for i, blk in enumerate(self.blocks[:max(blocks) + 1]):
+            x, _, _ = blk(x, attn_impl)
+            if i in blocks:
+                normed[i] = self.norm(x)[:, self.cfg.n_prefix:]
+        return [normed[i] for i in blocks]
 
 
 @torch.no_grad()

@@ -8,7 +8,10 @@ midas_dpt_from_torch``): the JAX parameter tree (numpy arrays) -> the
 released layout (ZoeDepth, ZoeDepth-NK, DPT_Large), so the same random
 weights reach both packages; the loaders of ``ZoeD_M12_N.pt`` and
 ``dpt_large-midas-2f21e586.pt``; and the configurations derived from a
-state dict's shapes.
+state dict's shapes. Depth Anything V2's released files
+(``depth_anything_v2_vitl.pth``) name their parts ``pretrained.*`` and
+``depth_head.*``; ``depth_anything_v2_state_dict`` maps them onto the port's
+DPT layout.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import re
 import numpy as np
 import torch
 
+from depthg_tpu_torch.models.depth_anything_v2 import DepthAnythingV2, DepthAnythingV2Config
 from depthg_tpu_torch.models.midas_dpt import MidasDPT, MidasDPTConfig
 from depthg_tpu_torch.models.zoedepth.beit import BEiTConfig
 from depthg_tpu_torch.models.zoedepth.dpt import DPTConfig
@@ -231,5 +235,65 @@ def load_midas_dpt(path: str):
     ``MidasDPT`` on the CPU, loaded with ``strict=True``."""
     sd = _released(torch.load(path, map_location="cpu", weights_only=False))
     model = MidasDPT(midas_config_from_state_dict(sd))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+# the released file's names -> the port's (``DepthAnythingV2``'s DPT layout)
+_DAV2_NAMES = (
+    (r"pretrained\.(.+)", r"pretrained.model.\1"),
+    (r"depth_head\.projects\.(\d)\.(.+)", lambda m: f"pretrained.act_postprocess"
+                                             f"{int(m.group(1)) + 1}.3.{m.group(2)}"),
+    (r"depth_head\.resize_layers\.([013])\.(.+)", lambda m: f"pretrained.act_postprocess"
+                                                  f"{int(m.group(1)) + 1}.4.{m.group(2)}"),
+    (r"depth_head\.scratch\.output_conv1\.(.+)", r"scratch.output_conv.0.\1"),
+    (r"depth_head\.scratch\.output_conv2\.0\.(.+)", r"scratch.output_conv.2.\1"),
+    (r"depth_head\.scratch\.output_conv2\.2\.(.+)", r"scratch.output_conv.4.\1"),
+    (r"depth_head\.scratch\.((?:layer\d_rn|refinenet\d)\..+)", r"scratch.\1"),
+)
+
+
+def depth_anything_v2_state_dict(sd: dict) -> dict:
+    """A state dict in the released Depth Anything V2 names -> the port's.
+    ``pretrained.mask_token`` (DINOv2's masked-image token, never read at
+    inference) is dropped; any other name the published model does not
+    have raises."""
+    out = {}
+    for k, v in sd.items():
+        if k == "pretrained.mask_token":
+            continue
+        for pattern, repl in _DAV2_NAMES:
+            m = re.fullmatch(pattern, k)
+            if m:
+                out[m.expand(repl) if isinstance(repl, str) else repl(m)] = v
+                break
+        else:
+            raise KeyError(f"{k!r} is not a name of the released Depth Anything V2")
+    return out
+
+
+def check_depth_anything_v2_vitl(sd: dict) -> None:
+    """Raises ValueError unless ``sd`` (the port's names) has exactly the
+    names and shapes of the released vitl (``DepthAnythingV2Config()``: 24
+    blocks 1024 wide, a 37 x 37 table, features 256); the 12-block vits and
+    vitb files among the refused. The model it is checked against is built
+    on the meta device, so nothing is allocated."""
+    with torch.device("meta"):
+        want = {k: v.shape for k, v in DepthAnythingV2(DepthAnythingV2Config()).state_dict().items()}
+    got = {k: v.shape for k, v in sd.items()}
+    if got != want:
+        off = sorted(k for k in want.keys() | got.keys() if want.get(k) != got.get(k))
+        raise ValueError(f"not the released depth_anything_v2_vitl.pth: {len(off)} names missing, "
+                         f"extra or of another shape, first {off[:3]}")
+
+
+def load_depth_anything_v2(path: str) -> DepthAnythingV2:
+    """The released ``depth_anything_v2_vitl.pth`` as a float32
+    ``DepthAnythingV2`` on the CPU, loaded with ``strict=True``; a file of
+    any other layout raises ValueError before the model is built."""
+    sd = depth_anything_v2_state_dict(
+        _released(torch.load(path, map_location="cpu", weights_only=False)))
+    check_depth_anything_v2_vitl(sd)
+    model = DepthAnythingV2(DepthAnythingV2Config())
     model.load_state_dict(sd, strict=True)
     return model

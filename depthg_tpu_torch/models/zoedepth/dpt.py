@@ -6,7 +6,10 @@ slice readout when a file has no readout keys), 4-scale reassembly
 RefineNet fusion blocks with residual conv units (``align_corners=True``
 resizes) and the monocular-depth head. ``decode`` returns the relative
 depth and the six activations the reference taps (``out_conv``, ``l4_rn``,
-``r4``, ``r3``, ``r2``, ``r1``).
+``r4``, ``r3``, ``r2``, ``r1``); it is ``fuse`` (reassembly through
+``refinenet1``) then ``head`` (``output_conv``), whose resize goes to twice
+the finest map (MiDaS's) or to a size the caller gives (Depth Anything
+V2's: the input's).
 
 Module names are those of the released files: an encoder wrapped in
 ``DPT`` lays out as ``pretrained.model.*``, ``pretrained.act_postprocess{1..4}.*``
@@ -140,6 +143,11 @@ class DPT(nn.Module):
     def decode(self, taps, grid_hw):
         """taps: 4 token tensors [B, 1+N, D]; grid_hw: the patch grid (h, w).
         Returns (relative depth [B, H, W], hooks dict)."""
+        return self.head(*self.fuse(taps, grid_hw))
+
+    def fuse(self, taps, grid_hw):
+        """Reassembly, the ``rn`` projections and the four fusion blocks:
+        (``refinenet1``'s output [B, F, 8h, 8w], hooks dict)."""
         h, w = grid_hw
         maps = []
         for i, tok in enumerate(taps):
@@ -161,10 +169,18 @@ class DPT(nn.Module):
         hooks["r2"] = p2
         p1 = s.refinenet1(p2, l1, (l1.shape[-2] * 2, l1.shape[-1] * 2))
         hooks["r1"] = p1
+        return p1, hooks
 
-        head = s.output_conv
+    def head(self, p1, hooks, out_hw=None):
+        """``output_conv`` on ``refinenet1``'s output: a 3x3 convolution, the
+        bilinear resize (``align_corners=True``) to ``out_hw`` (default x2),
+        3x3 + ReLU (``hooks["out_conv"]``), 1x1 + ReLU. Returns (relative
+        depth [B, H, W], hooks)."""
+        head = self.scratch.output_conv
         y = head[0](p1)
-        y = resize_bilinear(y, (y.shape[-2] * 2, y.shape[-1] * 2), align_corners=True)
+        if out_hw is None:
+            out_hw = (y.shape[-2] * 2, y.shape[-1] * 2)
+        y = resize_bilinear(y, tuple(out_hw), align_corners=True)
         y = F.relu(head[2](y))
         hooks["out_conv"] = y
         y = F.relu(head[4](y))

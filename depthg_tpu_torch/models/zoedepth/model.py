@@ -151,8 +151,9 @@ class ZoeDepth(nn.Module):
 
 
 def prep_size(h: int, w: int, cfg: ZoeConfig, keep_aspect_ratio: bool = True,
-              resize_method: str = "minimal") -> tuple:
-    """MiDaS Resize.get_size: target (net_h, net_w) = cfg.img_size, multiple of 32."""
+              resize_method: str = "minimal", multiple: int = 32) -> tuple:
+    """MiDaS Resize.get_size: target (net_h, net_w) = cfg.img_size, each side
+    a multiple of ``multiple`` (ZoeDepth's 32; Depth Anything V2's 14)."""
     net_h, net_w = cfg.img_size
     scale_h = net_h / h
     scale_w = net_w / w
@@ -168,11 +169,11 @@ def prep_size(h: int, w: int, cfg: ZoeConfig, keep_aspect_ratio: bool = True,
             raise ValueError(resize_method)
 
     def mult(x, min_val=0, max_val=None):
-        y = int(np.round(x / 32) * 32)
+        y = int(np.round(x / multiple) * multiple)
         if max_val is not None and y > max_val:
-            y = int(np.floor(x / 32) * 32)
+            y = int(np.floor(x / multiple) * multiple)
         if y < min_val:
-            y = int(np.ceil(x / 32) * 32)
+            y = int(np.ceil(x / multiple) * multiple)
         return y
 
     if resize_method == "lower_bound":

@@ -16,8 +16,9 @@ benchmark's readers of them, on the CPU.
   ``torch.profiler`` turns recording on by itself.
 * The tiny eval, predict and train steps (the sizes of
   ``test_torch_eval_step.py`` and ``test_torch_train_step.py``) and the
-  depth step of ``generate_depth.build`` on a tiny ZoeDepth emit exactly
-  their span trees; the depth step counts BEiT's relative-position biases
+  depth steps of ``generate_depth.build`` on a tiny ZoeDepth and a tiny
+  Depth Anything V2 (one ``backbone``, ``dpt`` and ``out_head`` a step)
+  emit exactly their span trees; the depth step counts BEiT's relative-position biases
   built: one a block on its first step at a grid, none on the next.
 * ``collect()`` is idempotent, the cap counts what it drops.
 * Each span counter is registered by the module that owns it
@@ -46,6 +47,7 @@ import torch
 from depthg_tpu_torch import generate_depth as tgen
 from depthg_tpu_torch import inference as tinf
 from depthg_tpu_torch.models import featurizer as tfeat
+from depthg_tpu_torch.models import depth_anything_v2 as tdav2
 from depthg_tpu_torch.models import vit as tvit
 from depthg_tpu_torch.models.zoedepth import beit as tbeit
 from depthg_tpu_torch.models.zoedepth import dpt as tdpt
@@ -139,6 +141,20 @@ def depth_call():
     return lambda: infer(img)
 
 
+def dav2_call():
+    """A Depth Anything V2 of 2 blocks 64 wide on a 56 x 98 image (a 4 x 7
+    grid), hooks (0, 0, 1, 1)."""
+    vit = tvit.ViTConfig(patch_size=14, embed_dim=64, depth=2, num_heads=4, img_size=70,
+                         layer_scale=True)
+    cfg = tdav2.DepthAnythingV2Config(vit=vit, hooks=(0, 0, 1, 1), features=16,
+                                      out_channels=(8, 16, 32, 32))
+    args = tgen.get_args_parser().parse_args(["--model", "depth_anything_v2", "--allow_random",
+                                              "--dtype", "float32"])
+    infer, _ = tgen.build(args, torch.device("cpu"), dav2_config=cfg)
+    img = torch.rand(2, 3, 56, 98, generator=torch.Generator().manual_seed(1))
+    return lambda: infer(img)
+
+
 def tree(spans):
     """The spans as nested (name, [children]) tuples, in the order they opened."""
     kids = {s["id"]: [] for s in spans}
@@ -161,8 +177,8 @@ def fake_counter(monkeypatch, name, read):
     profiling.register_counter(name, read)
 
 
-@pytest.mark.parametrize("make", [eval_call, dinov2_eval_call, train_call, depth_call],
-                         ids=["eval", "eval-dinov2", "train", "depth"])
+@pytest.mark.parametrize("make", [eval_call, dinov2_eval_call, train_call, depth_call, dav2_call],
+                         ids=["eval", "eval-dinov2", "train", "depth", "depth-dav2"])
 def test_off_is_inert(monkeypatch, make):
     call = make()
     monkeypatch.setattr(torch.cuda, "Event", raising)
@@ -323,8 +339,9 @@ def test_stamps_bracket_profiler_events():
      [("depth.step", [("backbone", []), ("dpt", []), ("bins", [])] * 2)]),
     (dinov2_eval_call,
      [("eval.step", [("backbone", [("swiglu", [])] * DINOV2_VIT["depth"]), ("crf", [])])]),
+    (dav2_call, [("depth.step", [("backbone", []), ("dpt", []), ("out_head", [])])]),
 ], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair", "depth",
-        "eval-dinov2"])
+        "eval-dinov2", "depth-dav2"])
 def test_steps_emit_their_span_trees(make, want):
     call = make()
     with profiling.recording():
@@ -440,6 +457,18 @@ def dinov2_spans(device=True):
     return out
 
 
+def dav2_spans(device=True):
+    """Two Depth Anything V2 depth steps of one pass each."""
+    d = (lambda v: v) if device else (lambda v: None)
+    out = []
+    for i, base in enumerate((1, 5)):
+        out += [span(base, "depth.step", host=60.0, device=d(58.0), k1=24),
+                span(base + 1, "backbone", base, base, device=d(33.0 + i)),
+                span(base + 2, "dpt", base, base, device=d(17.0)),
+                span(base + 3, "out_head", base, base, device=d(6.0 + 2 * i))]
+    return out
+
+
 def train_spans():
     out = []
     for i, base in enumerate((1, 8)):
@@ -470,6 +499,7 @@ READERS = {
     "bins_tail_launches_per_step.depth": (depth_spans, 2.0),
     "swiglu_device_ms.eval_dinov2": (dinov2_spans, (93.0 + 96.0) / 2),
     "swiglu_gate_launches_per_step.eval_dinov2": (dinov2_spans, 40.0),
+    "out_head_device_ms.depth_dav2": (dav2_spans, 7.0),
 }
 
 # the eval readers that read the DINOv2 cell too, on its step's spans
@@ -479,9 +509,17 @@ DINOV2_READS = {
     "crf_cache_launches_per_step.eval": 1.0,
     "crf_message_launches_per_step.eval": 13.0,
 }
+# the depth readers that read the Depth Anything V2 cell too, on its step's spans
+DAV2_READS = {
+    "backbone_device_ms.depth": (33.0 + 34.0) / 2,
+    "dpt_device_ms.depth": 17.0,
+    "k1_launches_per_step.depth": 24.0,
+}
 SPAN_CASES = [pytest.param(name, make, want, id=name) for name, (make, want) in READERS.items()] \
     + [pytest.param(name, dinov2_spans, want, id=name + "-dinov2")
-       for name, want in DINOV2_READS.items()]
+       for name, want in DINOV2_READS.items()] \
+    + [pytest.param(name, dav2_spans, want, id=name + "-dav2")
+       for name, want in DAV2_READS.items()]
 
 
 def load_reader(name):
@@ -604,7 +642,8 @@ def test_depth_spans_carry_the_bins_tail_launches():
 
 
 STEP_CASES = [pytest.param(name, name.rsplit(".", 1)[1], id=name) for name in sorted(READERS)] \
-    + [pytest.param(name, "eval_dinov2", id=name + "-dinov2") for name in sorted(DINOV2_READS)]
+    + [pytest.param(name, "eval_dinov2", id=name + "-dinov2") for name in sorted(DINOV2_READS)] \
+    + [pytest.param(name, "depth_dav2", id=name + "-dav2") for name in sorted(DAV2_READS)]
 
 
 @pytest.mark.parametrize("name,kind", STEP_CASES)
@@ -616,7 +655,8 @@ def test_readers_name_the_spans_the_steps_emit(name, kind):
 
     reader = load_reader(name)
     call = {"eval": lambda: eval_call(fused_tta=True), "train": train_call,
-            "depth": depth_call, "eval_dinov2": dinov2_eval_call}[kind]()
+            "depth": depth_call, "eval_dinov2": dinov2_eval_call,
+            "depth_dav2": dav2_call}[kind]()
     with profiling.recording():
         call()
         call()
@@ -712,3 +752,11 @@ def test_dinov2_spans_carry_the_swiglu_gate_launches():
     spans = profiling.collect()["spans"]
     assert sum(s["name"] == "swiglu" for s in spans) == DINOV2_VIT["depth"]
     assert all(s["swiglu_gate_launches"] == 0 for s in spans)
+
+
+def test_out_head_reader_reads_nothing_from_a_zoedepth_step(monkeypatch):
+    """ZoeDepth's depth step opens no ``out_head`` span (its head is inside
+    ``dpt``): the reader reads nothing there, and raises nothing."""
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": depth_spans(), "dropped": 0})
+    assert load_reader("out_head_device_ms.depth_dav2").read({}, {}) is None
+    assert load_reader("dpt_device_ms.depth").read({}, {}) == pytest.approx(18.0)
