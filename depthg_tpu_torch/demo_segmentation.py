@@ -82,7 +82,8 @@ def main(argv=None):
 
     sd, run_cfg = load_segmenter(cfg.model_path)
     ecfg = ecfg_from_checkpoint(cfg, sd, run_cfg)
-    model = Segmenter.from_state_dict(sd, fcfg_from_run_cfg(run_cfg)).to(device)
+    model = Segmenter.from_state_dict(sd, fcfg_from_run_cfg(run_cfg),
+                                     ecfg.backbone_dtype).to(device)
     predict = make_predict_step(
         ecfg, torch.distributed.group.WORLD if dist.active() else None)
     bs = int(cfg.batch_size) * 2

@@ -100,7 +100,7 @@ def evaluate_checkpoint(model_path: str, cfg: Config, device: torch.device,
 
     ecfg = ecfg_from_checkpoint(cfg, sd, run_cfg, n_classes=n_classes,
                                 extra_clusters=extra_clusters)
-    model = Segmenter.from_state_dict(sd, fcfg).to(device)
+    model = Segmenter.from_state_dict(sd, fcfg, ecfg.backbone_dtype).to(device)
     eval_step = make_eval_step(ecfg, _group())
     linear_metrics = SegMetrics("final/linear/", n_classes, 0, False)
     cluster_metrics = SegMetrics("final/cluster/", n_classes, extra_clusters, True)

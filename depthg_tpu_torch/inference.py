@@ -28,6 +28,7 @@ from torch import nn
 from depthg_tpu_torch.models import featurizer as featurizer_lib
 from depthg_tpu_torch.models.featurizer_depth import DepthFeaturizerConfig
 from depthg_tpu_torch.models.pyramid import PyramidConfig
+from depthg_tpu_torch.models.vit import VisionTransformer
 from depthg_tpu_torch.models.probes import ClusterLookup, cluster_lookup_apply, \
     cluster_lookup_resized
 from depthg_tpu_torch.ops.crf import CRFConfig, crf_config_from_cfg, \
@@ -94,13 +95,19 @@ class Segmenter(nn.Module):
         return self.eval()
 
     @classmethod
-    def from_state_dict(cls, sd: dict, fcfg: featurizer_lib.FeaturizerConfig):
+    def from_state_dict(cls, sd: dict, fcfg: featurizer_lib.FeaturizerConfig,
+                        backbone_dtype: str | None = None):
         """Build with the probe sizes of ``sd`` (and its decoder, if it has
-        one) and load it strictly."""
+        one) and load it strictly. For the eval CLI, demo and serve, whose
+        every forward runs at ``backbone_dtype``: with ``"bfloat16"`` a
+        frozen ViT is stored in bf16, so that it is not held in float32
+        beside its bf16 copy (the same bits: the copy is its cast)."""
         model = cls(fcfg, sd["linear_probe.weight"].shape[0],
                     sd["cluster_probe.clusters"].shape[0],
                     decoder="decoder.weight" in sd)
         model.load_state_dict(sd, strict=True)
+        if backbone_dtype == "bfloat16" and isinstance(model.net.model, VisionTransformer):
+            model.net.model.to(torch.bfloat16)
         return model.eval()
 
 

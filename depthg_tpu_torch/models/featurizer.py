@@ -22,6 +22,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from depthg_tpu_torch.models import frozen_cache
 from depthg_tpu_torch.models import vit as vit_lib
 from depthg_tpu_torch.models.layers import conv1x1, dropout2d
 from depthg_tpu_torch.utils import profiling
@@ -80,13 +81,27 @@ def bf16_parameters(module: nn.Module, names=None) -> dict:
     """bf16 copies of ``module``'s parameters (or of those in ``names``) by
     name, cast by one multi-tensor copy (a ``.to`` per tensor is one launch
     each, 150 for a ViT-S, and the forward is bound by the host's launch
-    rate)."""
+    rate); a parameter stored in bf16 is passed as it is. While gradients
+    are off the copies are made once per set of weights and kept with
+    ``module`` (``frozen_cache``)."""
+    def cast():
+        named = (list(module.named_parameters()) if names is None
+                 else [(n, module.get_parameter(n)) for n in names])
+        out = {n: p if p.dtype == torch.bfloat16 else torch.empty_like(p, dtype=torch.bfloat16)
+               for n, p in named}
+        todo = [(out[n], p) for n, p in named if out[n] is not p]
+        if todo:
+            torch._foreach_copy_([c for c, _ in todo], [p for _, p in todo])
+        return out
+
+    if torch.is_grad_enabled():
+        return cast()
     if names is None:
-        names = [n for n, _ in module.named_parameters()]
-    params = [module.get_parameter(n) for n in names]
-    copies = [torch.empty_like(p, dtype=torch.bfloat16) for p in params]
-    torch._foreach_copy_(copies, params)
-    return dict(zip(names, copies))
+        sources = list(module.parameters())
+    else:
+        names = tuple(names)
+        sources = [module.get_parameter(n) for n in names]
+    return frozen_cache.derived(module, ("bf16", names), sources, cast)
 
 
 @torch.no_grad()

@@ -31,7 +31,8 @@ choice; its error is below the bf16 step).
 whose block linears (qkv, proj, fc1, fc2) are ``layers.W8A8Linear`` and
 whose other parameters are bf16. ``int8_copy`` keeps one such copy per
 model and derives it again when any of the model's parameters is replaced
-or changed in place.
+or changed in place; the resized position table is kept per grid the same
+way (``models/frozen_cache.py``).
 
 Attention: ``"xla"`` is the eager softmax that can return attention maps;
 ``"fused"`` / ``"flash"`` go through ``ops.attention.attention_qkv``, which
@@ -45,12 +46,12 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-import weakref
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from depthg_tpu_torch.models import frozen_cache
 from depthg_tpu_torch.models.layers import LayerNorm, cast_bf16, quantize_linear
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic
@@ -230,27 +231,43 @@ class LayerScaleBlock(Block):
         return x + self.ls2(self.mlp(self.norm2(x))), attn, qkv
 
 
+# resized tables kept per table: every grid that Depth Anything V2's input
+# rule (``generate_depth.dav2_bucket_size``) gives at aspect ratios from 1:2
+# to 2:1 (37 x 38-74 either way; 37 x 37 is the table's own), so a
+# collection of photos evicts none (at most 314 MB of ViT-L bf16 tables)
+TABLE_GRIDS = 74
+
+
 def interpolate_pos_encoding(pos_embed: torch.Tensor, npatch: int, w: int,
                              h: int, ps: int, mode: str = "dino") -> torch.Tensor:
     """Bicubic pos-embed resize for any input size (``w``/``h`` are the
     true image width/height), skipped for a square image at the table's own
     grid. ``mode="dino"``: the reference's +0.1 scale-factor fudge;
     ``"dinov2"``: DINOv2's, to the grid by size, antialiased (its
-    ``interpolate_offset`` 0, ``interpolate_antialias``)."""
+    ``interpolate_offset`` 0, ``interpolate_antialias``). While gradients
+    are off the resized table is made once per grid and kept with
+    ``pos_embed`` (``frozen_cache``: again after a load or an update)."""
     n = pos_embed.shape[1] - 1
     if npatch == n and w == h:
         return pos_embed
-    dim = pos_embed.shape[-1]
-    side = int(math.sqrt(n))
-    patch_pos = pos_embed[:, 1:].reshape(1, side, side, dim).permute(0, 3, 1, 2)
-    if mode == "dinov2":
-        patch_pos = resize_bicubic(patch_pos, (h // ps, w // ps), antialias=True)
-    else:
-        sf = ((h // ps + 0.1) / side, (w // ps + 0.1) / side)  # (H, W) factors
-        out_hw = (int(side * sf[0]), int(side * sf[1]))
-        patch_pos = resize_bicubic(patch_pos, out_hw, scale=sf)
-    patch_pos = patch_pos.permute(0, 2, 3, 1).reshape(1, -1, dim)
-    return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
+
+    def resize():
+        dim = pos_embed.shape[-1]
+        side = int(math.sqrt(n))
+        patch_pos = pos_embed[:, 1:].reshape(1, side, side, dim).permute(0, 3, 1, 2)
+        if mode == "dinov2":
+            patch_pos = resize_bicubic(patch_pos, (h // ps, w // ps), antialias=True)
+        else:
+            sf = ((h // ps + 0.1) / side, (w // ps + 0.1) / side)  # (H, W) factors
+            out_hw = (int(side * sf[0]), int(side * sf[1]))
+            patch_pos = resize_bicubic(patch_pos, out_hw, scale=sf)
+        patch_pos = patch_pos.permute(0, 2, 3, 1).reshape(1, -1, dim)
+        return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
+
+    if torch.is_grad_enabled():
+        return resize()
+    return frozen_cache.derived(pos_embed, ("table", h // ps, w // ps, mode), (pos_embed,),
+                                resize, keep=TABLE_GRIDS)
 
 
 # DINOv2's LayerScale init for training (``dinov2/configs/ssl_default_config.yaml``
@@ -350,23 +367,10 @@ def quantize_vit(model: VisionTransformer) -> VisionTransformer:
         return cast_bf16(out)
 
 
-_INT8_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def _weights_key(model: nn.Module) -> tuple:
-    return tuple((p.data_ptr(), p._version, p.device) for p in model.parameters())
-
-
 def int8_copy(model: VisionTransformer) -> VisionTransformer:
-    """``quantize_vit(model)``, derived once per set of weights: the copy is
-    kept with the storage and version counter of every parameter of
-    ``model``, so a load, a move or an in-place update derives it again
-    (and frees the older copy first)."""
-    key = _weights_key(model)
-    hit = _INT8_COPIES.get(model)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    _INT8_COPIES.pop(model, None)
-    quantized = quantize_vit(model)
-    _INT8_COPIES[model] = (key, quantized)
-    return quantized
+    """``quantize_vit(model)``, derived once per set of weights and kept
+    with ``model`` (``frozen_cache``: keyed on the storage and version
+    counter of every parameter, so a load, a move or an in-place update
+    derives it again, and frees the older copy first)."""
+    return frozen_cache.derived(model, ("int8",), list(model.parameters()),
+                                lambda: quantize_vit(model))

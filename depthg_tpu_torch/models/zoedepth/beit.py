@@ -11,8 +11,9 @@ any window other than the pretraining one. (``BEiTConfig.rel_pos_resize =
 published model.) Parameter names are timm's, so ``core.core.pretrained.model.*`` of a
 released ZoeDepth file loads with ``strict=True``.
 
-The bias of a block is built once per input size and kept in a small cache
-(inference only: with gradients on it is rebuilt every call), as
+The bias of a block is built once per input size and kept with its table
+(``models/frozen_cache.py``; inference only: with gradients on it is
+rebuilt every call), as
 [heads, N, round_up(N, 8)] storage whose [:, :, :N] view goes to the
 attention kernel, which reads bias rows in aligned pairs. ``BIAS_BUILDS``
 counts the biases built (the spans record it as ``rel_bias_builds``).
@@ -37,7 +38,6 @@ and every other parameter in bf16.
 
 from __future__ import annotations
 
-import collections
 import copy
 import dataclasses
 import functools
@@ -48,16 +48,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from depthg_tpu_torch.models import frozen_cache
 from depthg_tpu_torch.models.layers import LayerNorm, W8A8Linear, cast_bf16, quantize_linear
 from depthg_tpu_torch.models.vit import resolve_attn_impl
 from depthg_tpu_torch.models.zoedepth.layers import trunc_normal_
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
 from depthg_tpu_torch.utils import profiling
-
-# biases kept per block (one per input size)
-BIAS_CACHE_SIZES = 4
-
 
 class _BiasBuilds:
     """The number of [heads, N, N] biases ``Attention.rel_pos_bias`` has
@@ -158,31 +155,20 @@ class Attention(nn.Module):
         self.proj = nn.Linear(d, d)
         n_rel = (2 * cfg.pretrain_window - 1) ** 2 + 3
         self.relative_position_bias_table = nn.Parameter(torch.zeros(n_rel, nh))
-        self._bias_cache = collections.OrderedDict()
 
     def rel_pos_bias(self, h: int, w: int) -> torch.Tensor:
-        """This block's [heads, N, N] bias for an h x w window; cached by
-        size while gradients are off (keyed also on the table's storage and
-        version, so a load or an in-place update rebuilds it, and drops the
-        entry of the older version)."""
+        """This block's [heads, N, N] bias for an h x w window; kept with
+        the table per size while gradients are off (``frozen_cache``: a load
+        or an in-place update rebuilds it and drops the older ones)."""
         table = self.relative_position_bias_table
-        if torch.is_grad_enabled():
+
+        def build():
             BIAS_BUILDS.add()
             return relative_position_bias(table, self.window, h, w, self.resize)
-        key = (h, w, table.data_ptr(), table._version, table.dtype, table.device)
-        bias = self._bias_cache.get(key)
-        if bias is None:
-            # an in-place update of the table (an optimizer step) leaves the
-            # entries of its older versions dead: drop them
-            for stale in [k for k in self._bias_cache
-                          if k[:3] == key[:3] and k[4:] == key[4:]]:
-                del self._bias_cache[stale]
-            BIAS_BUILDS.add()
-            bias = relative_position_bias(table, self.window, h, w, self.resize)
-            self._bias_cache[key] = bias
-            while len(self._bias_cache) > BIAS_CACHE_SIZES:
-                self._bias_cache.popitem(last=False)
-        return bias
+
+        if torch.is_grad_enabled():
+            return build()
+        return frozen_cache.derived(table, ("rel_bias", h, w), (table,), build)
 
     def forward(self, x: torch.Tensor, h: int, w: int, impl: str) -> torch.Tensor:
         b, n, d = x.shape
@@ -283,7 +269,6 @@ def quantize_beit(model: BEiT) -> BEiT:
         out = copy.deepcopy(model).requires_grad_(False)
         for blk in out.blocks:
             attn = blk.attn
-            attn._bias_cache.clear()
             qkv_bias = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias), attn.v_bias])
             attn.qkv = quantize_linear(attn.qkv, bias=qkv_bias)
             attn.q_bias = attn.v_bias = None

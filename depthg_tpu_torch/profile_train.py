@@ -20,7 +20,8 @@ ResNet-50. Prints one JSON object (also written to ``--out``):
   are close);
 * ``parts_ms``: each part on its own over the same number of calls: the two
   frozen backbone forwards (the ViT, or the pyramid's ResNet), the bf16
-  casts of the backbone's parameters (done on every forward), FPS for both images, the loss forward
+  copies of the backbone's parameters as each forward gets them (made once
+  per set of weights and looked up after), FPS for both images, the loss forward
   (``loss_fn``, backbone included), backward, the three optimizer steps.
   Parts run one after another with a sync between them, so they need not
   add up to ``step_ms``;
@@ -79,6 +80,7 @@ def frozen_forward(net, img: torch.Tensor):
     return featurizer.backbone_features(net, img, backbone_dtype="bfloat16")
 
 
+@torch.no_grad()
 def bf16_casts(net):
     if isinstance(net, FeaturePyramidNet):
         return net.model.conv_weights_bf16()

@@ -478,7 +478,7 @@ def build_service(cfg, device: str | torch.device = "cuda") -> SegmentationServi
     fcfg = fcfg_from_run_cfg(run_cfg)
     ecfg = ecfg_from_checkpoint(cfg, sd, run_cfg)
     return SegmentationService(
-        Segmenter.from_state_dict(sd, fcfg), ecfg, res=int(cfg.res),
+        Segmenter.from_state_dict(sd, fcfg, ecfg.backbone_dtype), ecfg, res=int(cfg.res),
         max_batch=int(cfg.max_batch), max_wait_ms=float(cfg.max_wait_ms),
         device=device, devices=devices)
 

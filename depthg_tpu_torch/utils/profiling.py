@@ -134,7 +134,8 @@ class Recorder:
         with ``device_start_ns`` / ``device_end_ns`` on the host clock, and
         one key a registered counter (``k1_launches``, ``crf_cache_launches``,
         ``crf_message_launches``, ``bins_tail_launches``,
-        ``swiglu_gate_launches``, ``rel_bias_builds`` once their modules are
+        ``swiglu_gate_launches``, ``rel_bias_builds``,
+        ``frozen_cache_builds``, ``frozen_cache_hits`` once their modules are
         imported); the device fields are None for a span recorded before
         CUDA was in use.
         One synchronize: an

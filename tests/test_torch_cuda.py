@@ -79,7 +79,14 @@ against eager ``F.silu(a) * b`` on the card, in bf16 and float32, at the
 DINOv2 cell's shape (32 x 1,029 rows, H = 4,096), at 1, 7 and 1,029 rows
 and at H = 64, into output memory that held NaN; its refusals; one launch
 a call; and a small DINOv2 ViT on the card, bf16 and its int8 copy, one
-gate launch a block and the same bits as with the eager gate.
+gate launch a block and the same bits as with the eager gate. The frozen
+cache slice runs the ViT-S/8 eval step's logits at 320 px, the DINOv2
+preset (cut to 2 blocks) at 448 px and Depth Anything V2's ``infer`` at
+518 x 686 with the backbone's bf16 copy and resized table derived afresh,
+then kept twice, then derived again: the same bits each time, and the
+builds and hits of ``models.frozen_cache`` as each step expects; and the
+ViT-S/8 eval step of a model whose ViT is stored in bf16 gives the bits of
+the float32 model's copy.
 """
 
 import pytest
@@ -1770,3 +1777,110 @@ def test_small_dinov2_gates_through_the_kernel(cuda, monkeypatch, backbone):
         want = model(x)[0][0]
     assert tswi.KERNEL.gate_launches == before + cfg.depth
     assert torch.equal(_bits(got), _bits(want))
+
+
+def _frozen_runs(run):
+    """``run()`` with the frozen backbone's kept values cold, then twice
+    warm, then cold again (everything kept dropped): the outputs and each
+    run's (builds, hits) of ``models.frozen_cache``."""
+    from depthg_tpu_torch.models import frozen_cache
+
+    outs, deltas = [], []
+    for cold in (True, False, False, True):
+        if cold:
+            frozen_cache._ENTRIES.clear()
+        before = (frozen_cache.COUNTS.builds, frozen_cache.COUNTS.hits)
+        outs.append(run())
+        torch.cuda.synchronize()
+        deltas.append((frozen_cache.COUNTS.builds - before[0],
+                       frozen_cache.COUNTS.hits - before[1]))
+    return outs, deltas
+
+
+def test_vits8_eval_step_same_bits_with_warm_and_cold_frozen_cache(cuda):
+    """The ViT-S/8 eval step's logits at 320 px (bf16 backbone, stacked
+    flip-TTA: a 40 x 40 grid against the 28 x 28 table): the same bits with
+    the bf16 copy and the resized table kept (2 hits a step, no build) as
+    with both derived afresh (2 builds)."""
+    from depthg_tpu_torch import inference as tinf
+    from depthg_tpu_torch.models import featurizer as tfeat
+
+    fcfg = tfeat.FeaturizerConfig(arch="vit_small", patch_size=8, dim=70)
+    model = tinf.Segmenter(fcfg, 27, 27).init_weights(torch.Generator().manual_seed(0)).to(cuda)
+    ecfg = tinf.EvalConfig(n_classes=27, label_res=320, backbone_dtype="bfloat16",
+                           fused_tta=True)
+    img = torch.randn(4, 3, 320, 320, generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run():
+        with torch.inference_mode():
+            return torch.cat([x.flatten() for x in tinf.eval_logits(model, img, ecfg)])
+
+    outs, deltas = _frozen_runs(run)
+    assert deltas == [(2, 0), (0, 2), (0, 2), (2, 0)]
+    for out in outs[1:]:
+        assert torch.equal(_bits(out), _bits(outs[0]))
+
+
+def test_dinov2_preset_same_bits_with_warm_and_cold_frozen_cache(cuda):
+    """The ``dinov2_vitg14reg`` preset cut to 2 blocks (the copy and the
+    table do not depend on depth) at 448 px: its bf16 features (the 37 x 37
+    table resized to 32 x 32, antialiased) the same bits warm and cold."""
+    import dataclasses
+
+    from depthg_tpu_torch.models import featurizer as tfeat
+    from depthg_tpu_torch.models import vit as tvit
+
+    vcfg = dataclasses.replace(tvit.make_config("dinov2_vitg14_reg", 14), depth=2)
+    fcfg = tfeat.FeaturizerConfig(arch="dinov2_vitg14_reg", patch_size=14, dim=90,
+                                  vit_config=vcfg)
+    net = tfeat.DinoFeaturizer(fcfg).init_weights(torch.Generator().manual_seed(0)).to(cuda)
+    img = torch.randn(2, 3, 448, 448, generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run():
+        with torch.inference_mode():
+            return tfeat.backbone_features(net, img, backbone_dtype="bfloat16")[0]
+
+    outs, deltas = _frozen_runs(run)
+    assert deltas == [(2, 0), (0, 2), (0, 2), (2, 0)]
+    for out in outs[1:]:
+        assert torch.equal(_bits(out), _bits(outs[0]))
+
+
+def test_depth_anything_v2_same_bits_with_warm_and_cold_frozen_cache(cuda):
+    """Depth Anything V2-Large's ``infer`` (``generate_depth.build``, random
+    weights, bf16) at 518 x 686: the 37 x 37 table resized to 37 x 49 once
+    (the model is stored in bf16, so there is no copy: 1 hit a step), the
+    disparity the same bits warm and cold."""
+    from depthg_tpu_torch import generate_depth as tgen
+
+    args = tgen.get_args_parser().parse_args(["--model", "depth_anything_v2", "--allow_random",
+                                              "--dtype", "bfloat16"])
+    infer, _ = tgen.build(args, cuda)
+    x = torch.rand(2, 3, 518, 686, generator=torch.Generator().manual_seed(1)).to(cuda)
+    outs, deltas = _frozen_runs(lambda: infer(x)[0])
+    assert deltas == [(1, 0), (0, 1), (0, 1), (1, 0)]
+    for out in outs[1:]:
+        assert torch.equal(_bits(out), _bits(outs[0]))
+
+
+def test_vits8_eval_step_same_bits_with_its_vit_stored_in_bf16(cuda):
+    """The eval CLI's model for a bf16 backbone (``Segmenter.from_state_dict``
+    with ``"bfloat16"``: the ViT stored in bf16, no copy) gives the ViT-S/8
+    eval step's logits at 320 px bit for bit as the float32 model with its
+    kept bf16 copy does."""
+    from depthg_tpu_torch import inference as tinf
+    from depthg_tpu_torch.models import featurizer as tfeat
+
+    fcfg = tfeat.FeaturizerConfig(arch="vit_small", patch_size=8, dim=70)
+    sd = tinf.Segmenter(fcfg, 27, 27).init_weights(torch.Generator().manual_seed(0)).state_dict()
+    stored = tinf.Segmenter.from_state_dict(sd, fcfg, "bfloat16").to(cuda)
+    master = tinf.Segmenter.from_state_dict(sd, fcfg).to(cuda)
+    assert all(p.dtype == torch.bfloat16 for p in stored.net.model.parameters())
+    ecfg = tinf.EvalConfig(n_classes=27, label_res=320, backbone_dtype="bfloat16",
+                           fused_tta=True)
+    img = torch.randn(4, 3, 320, 320, generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.inference_mode():
+        for _ in range(2):
+            got, want = (torch.cat([x.flatten() for x in tinf.eval_logits(m, img, ecfg)])
+                         for m in (stored, master))
+            assert torch.equal(_bits(got), _bits(want))

@@ -77,6 +77,8 @@ COUNTERS = {
     "bins_tail_launches": ("depthg_tpu_torch.ops.zoe_bins", "KERNEL", "bins_launches"),
     "swiglu_gate_launches": ("depthg_tpu_torch.ops.swiglu", "KERNEL", "gate_launches"),
     "rel_bias_builds": ("depthg_tpu_torch.models.zoedepth.beit", "BIAS_BUILDS", "count"),
+    "frozen_cache_builds": ("depthg_tpu_torch.models.frozen_cache", "COUNTS", "builds"),
+    "frozen_cache_hits": ("depthg_tpu_torch.models.frozen_cache", "COUNTS", "hits"),
 }
 ZOE = tzoe.ZoeConfig(n_bins=8, bin_embedding_dim=16, n_attractors=(4, 2, 2, 1),
                      img_size=(64, 96),
@@ -357,7 +359,7 @@ def test_steps_emit_their_span_trees(make, want):
 def test_rel_bias_builds_once_a_grid():
     """The first depth step at a grid builds one bias a block, in its first
     pass's ``backbone`` span; the flip pass and the next step build none
-    (each block's bias cache holds them)."""
+    (each block's table keeps them)."""
     call = depth_call()
     before = tbeit.BIAS_BUILDS.count
     with profiling.recording():
@@ -367,6 +369,10 @@ def test_rel_bias_builds_once_a_grid():
     steps = [s for s in spans if s["name"] == "depth.step"]
     assert [s["rel_bias_builds"] for s in steps] == [ZOE.beit.depth, 0]
     assert tbeit.BIAS_BUILDS.count - before == ZOE.beit.depth
+    # kept with each table by ``models.frozen_cache``: the flip pass and the
+    # next step's two passes hit
+    assert [(s["frozen_cache_builds"], s["frozen_cache_hits"]) for s in steps] == \
+        [(ZOE.beit.depth, ZOE.beit.depth), (0, 2 * ZOE.beit.depth)]
     first = [s["rel_bias_builds"] for s in spans if s["step"] == steps[0]["id"]
              and s["name"] == "backbone"]
     assert first == [ZOE.beit.depth, 0]

@@ -38,6 +38,7 @@ import torch
 
 from depthg_tpu.models.zoedepth import finetune as jft
 from depthg_tpu.models.zoedepth.model import zoedepth_init
+from depthg_tpu_torch.models import frozen_cache
 from depthg_tpu_torch.models.zoedepth import beit as tbeit
 from depthg_tpu_torch.models.zoedepth import finetune as tft
 from depthg_tpu_torch.models.zoedepth import model as tmodel
@@ -399,23 +400,29 @@ def test_native_checkpoint_refused(tmp_path, path, monkeypatch):
 
 def test_bias_cache_keeps_one_entry_per_size_across_updates():
     """Two in-place updates of the table between no-grad forwards (an
-    optimizer step between validations) leave one cached bias per input
-    size, the newest; the other size's entry stays until it is rebuilt."""
+    optimizer step between validations) leave the biases of the newest
+    table alone: an update drops every older one, and each size is built
+    again when it is next asked for."""
     model = tmodel.ZoeDepth(port_config(TINY)).init_weights(torch.Generator().manual_seed(0))
     attn = model.core.core.pretrained.model.blocks[0].attn
+    table = attn.relative_position_bias_table
+
+    def kept():  # (size, the table's version it was built from) of each kept bias
+        return sorted((tag[1:], key[0][1]) for tag, (key, _) in
+                      frozen_cache._ENTRIES[table].items())
+
     x64, x32 = torch.rand(1, 3, 64, 96), torch.rand(1, 3, 32, 64)
     with torch.no_grad():
         model(x64)
         model(x32)
-        assert len(attn._bias_cache) == 2
+        assert len(kept()) == 2
         for _ in range(2):
-            attn.relative_position_bias_table.add_(0.5)
+            table.add_(0.5)
             model(x64)
-            assert sorted(k[:2] for k in attn._bias_cache) == [(2, 4), (4, 6)]
+            assert [size for size, _ in kept()] == [(4, 6)]
         model(x32)
-        version = attn.relative_position_bias_table._version
-        assert sorted((k[:2], k[3]) for k in attn._bias_cache) == [((2, 4), version),
-                                                                   ((4, 6), version)]
+        version = table._version
+        assert kept() == [((2, 4), version), ((4, 6), version)]
         fresh = attn.rel_pos_bias(4, 6)
     torch.testing.assert_close(fresh, tbeit.relative_position_bias(
         attn.relative_position_bias_table.detach(), 4, 4, 6, "bicubic"), rtol=0, atol=0)
