@@ -14,8 +14,13 @@ step all-gathers its label maps along the batch, as the JAX steps do over
 their mesh. The ``backbone_sub_batch`` chunking and the ``batch_shards``
 CRF hint of the JAX package (TPU workarounds) are not ported.
 
-Spans (``utils.profiling``): the eval step is ``eval.step``; under it, the
-CRF with its guidance is ``crf`` and each backbone forward ``backbone``.
+Spans (``utils.profiling``): the eval step is ``eval.step``; under it,
+``logits`` (the flip-TTA, the projection head and both probes resized to
+``label_res``, with each backbone forward a ``backbone`` inside), ``crf``
+(the CRF with its guidance) and ``confusion`` twice: the two argmaxes,
+which end ``predictions`` (the eval step calls it whole), then the
+confusion blocks, a ``host_sync`` each, and their sum over the group. The
+predict step opens ``logits`` and ``crf`` alone.
 """
 
 from __future__ import annotations
@@ -112,9 +117,13 @@ class Segmenter(nn.Module):
 
 
 def unnormalize_255(img: torch.Tensor) -> torch.Tensor:
-    """ImageNet-normalized [B,3,H,W] -> raw 0..255 floats for CRF guidance."""
-    mean = torch.tensor(IMAGENET_MEAN, device=img.device)[None, :, None, None]
-    std = torch.tensor(IMAGENET_STD, device=img.device)[None, :, None, None]
+    """ImageNet-normalized [B,3,H,W] -> raw 0..255 floats for CRF guidance.
+    On CUDA each statistic's copy from the host waits for the stream's
+    queued work (a ``host_sync``)."""
+    with profiling.host_sync():
+        mean = torch.tensor(IMAGENET_MEAN, device=img.device)[None, :, None, None]
+    with profiling.host_sync():
+        std = torch.tensor(IMAGENET_STD, device=img.device)[None, :, None, None]
     return (img * std + mean).clamp(0.0, 1.0) * 255.0
 
 
@@ -156,9 +165,11 @@ def eval_logits(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig,
             cluster_lookup_apply(clusters, code, ecfg.cluster_alpha, normalized))
 
 
-def predictions(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig):
-    """(linear_preds, cluster_preds) [B, R, R] int32, with optional CRF."""
-    linear_log, cluster_log = eval_logits(model, img, ecfg, normalized=False)
+def _scores(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig):
+    """(linear, cluster) raw logits at ``label_res``, through the CRF when
+    ``run_crf``: a ``logits`` span, then a ``crf`` span."""
+    with profiling.span("logits"):
+        linear_log, cluster_log = eval_logits(model, img, ecfg, normalized=False)
     if ecfg.run_crf:
         with profiling.span("crf"):
             guidance = unnormalize_255(img)
@@ -167,8 +178,21 @@ def predictions(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig):
             # one mean field: both probes share each image's pairwise kernel
             linear_log, cluster_log = dense_crf_multi_batch(
                 guidance, [linear_log, cluster_log], ecfg.crf)
+    return linear_log, cluster_log
+
+
+def _labels(linear_log: torch.Tensor, cluster_log: torch.Tensor):
     return (linear_log.argmax(1).to(torch.int32),
             cluster_log.argmax(1).to(torch.int32))
+
+
+def predictions(model: Segmenter, img: torch.Tensor, ecfg: EvalConfig):
+    """(linear_preds, cluster_preds) [B, R, R] int32, with optional CRF: the
+    labels the eval step scores, so their argmaxes open its first
+    ``confusion`` span."""
+    scores = _scores(model, img, ecfg)
+    with profiling.span("confusion"):
+        return _labels(*scores)
 
 
 def _sum_blocks(blocks, group):
@@ -188,9 +212,10 @@ def make_eval_step(ecfg: EvalConfig, group=None):
     def step(model, img, label):
         with profiling.span("eval.step"):
             linear_preds, cluster_preds = predictions(model, img, ecfg)
-            return _sum_blocks((confusion_update(linear_preds, label, ecfg.n_classes, 0),
-                                confusion_update(cluster_preds, label, ecfg.n_classes,
-                                                 ecfg.extra_clusters)), group)
+            with profiling.span("confusion"):
+                return _sum_blocks((confusion_update(linear_preds, label, ecfg.n_classes, 0),
+                                    confusion_update(cluster_preds, label, ecfg.n_classes,
+                                                     ecfg.extra_clusters)), group)
 
     return step
 
@@ -202,7 +227,7 @@ def make_predict_step(ecfg: EvalConfig, group=None):
 
     @torch.inference_mode()
     def step(model, img):
-        preds = predictions(model, img, ecfg)
+        preds = _labels(*_scores(model, img, ecfg))
         if group is None:
             return preds
         return tuple(dist.all_gather(p, group) for p in preds)

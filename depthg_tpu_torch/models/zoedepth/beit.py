@@ -15,8 +15,8 @@ The bias of a block is built once per input size and kept with its table
 (``models/frozen_cache.py``; inference only: with gradients on it is
 rebuilt every call), as
 [heads, N, round_up(N, 8)] storage whose [:, :, :N] view goes to the
-attention kernel, which reads bias rows in aligned pairs. ``BIAS_BUILDS``
-counts the biases built (the spans record it as ``rel_bias_builds``).
+attention kernel, which reads bias rows in aligned pairs. A bias built
+without gradients is counted by ``frozen_cache``'s builds.
 
 Attention (the ``attn_impl`` argument of the forward, by default
 ``BEiTConfig.attn_impl``, ``"auto"``): ``"xla"`` is the eager softmax of the
@@ -41,7 +41,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -54,23 +53,6 @@ from depthg_tpu_torch.models.vit import resolve_attn_impl
 from depthg_tpu_torch.models.zoedepth.layers import trunc_normal_
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
-from depthg_tpu_torch.utils import profiling
-
-class _BiasBuilds:
-    """The number of [heads, N, N] biases ``Attention.rel_pos_bias`` has
-    built in this process."""
-
-    def __init__(self):
-        self.count = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
-
-
-BIAS_BUILDS = _BiasBuilds()
-profiling.register_counter("rel_bias_builds", lambda: BIAS_BUILDS.count)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +145,6 @@ class Attention(nn.Module):
         table = self.relative_position_bias_table
 
         def build():
-            BIAS_BUILDS.add()
             return relative_position_bias(table, self.window, h, w, self.resize)
 
         if torch.is_grad_enabled():

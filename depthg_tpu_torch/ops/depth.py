@@ -22,6 +22,7 @@ import math
 import torch
 
 from depthg_tpu_torch.ops.resize import adaptive_avg_pool2d
+from depthg_tpu_torch.utils import profiling
 
 
 def _depth2points(depth: torch.Tensor, fov: float, far: float) -> torch.Tensor:
@@ -109,7 +110,8 @@ def farthest_point_sampling_depth(t: torch.Tensor, depth: torch.Tensor,
     inds = _fps_indices_batched(cloud, n_samples * n_samples).sort(dim=1).values
     rows = torch.div(inds, w, rounding_mode="floor").float()
     cols = (inds % w).float()
-    size = torch.tensor([h, w], dtype=torch.float32, device=inds.device)
+    with profiling.host_sync():  # on CUDA a copy from the host, waiting for the stream
+        size = torch.tensor([h, w], dtype=torch.float32, device=inds.device)
     return (torch.stack([rows, cols], dim=-1) / size).reshape(-1, n_samples, n_samples, 2)
 
 

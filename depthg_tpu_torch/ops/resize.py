@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from depthg_tpu_torch.utils import profiling
+
 
 def _size2(size):
     return (size, size) if isinstance(size, int) else tuple(size)
@@ -122,6 +124,13 @@ def _quad_linear_matrices(in_size: int, out_size: int, align_corners: bool):
     return a2, ab
 
 
+def _to_device(mat: np.ndarray, dev) -> torch.Tensor:
+    """``mat`` on ``dev``: on CUDA a copy from pageable host memory, which
+    waits for the stream's queued work (a ``host_sync``)."""
+    with profiling.host_sync():
+        return torch.from_numpy(mat).to(dev)
+
+
 def resized_sq_norm(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
     """Channel-summed squares of a bilinear resize, without materializing it.
 
@@ -135,13 +144,12 @@ def resized_sq_norm(x: torch.Tensor, size, align_corners: bool = False) -> torch
     if (h, w) == (oh, ow):
         return (x * x).sum(1)
     dev = x.device
-    lw = torch.from_numpy(_linear_matrix(w, ow, align_corners)).to(dev)
+    lw = _to_device(_linear_matrix(w, ow, align_corners), dev)
     y = torch.einsum("bchw,vw->bchv", x, lw)
     y_next = torch.cat([y[:, :, 1:], y[:, :, -1:]], dim=2)
     g0 = (y * y).sum(1)
     g1 = (y * y_next).sum(1)
-    a2, ab = (torch.from_numpy(m).to(dev)
-              for m in _quad_linear_matrices(h, oh, align_corners))
+    a2, ab = (_to_device(m, dev) for m in _quad_linear_matrices(h, oh, align_corners))
     s = torch.einsum("uh,bhv->buv", a2, g0) + torch.einsum("uh,bhv->buv", ab, g1)
     return s.clamp_min(0.0)  # rounding can leave tiny negatives
 

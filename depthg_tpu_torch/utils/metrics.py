@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from depthg_tpu_torch.utils import profiling
+
 
 def confusion_update(preds: torch.Tensor, target: torch.Tensor, n_classes: int,
                      extra_clusters: int = 0) -> torch.Tensor:
@@ -25,8 +27,9 @@ def confusion_update(preds: torch.Tensor, target: torch.Tensor, n_classes: int,
     mask = (actual >= 0) & (actual < n_classes) & (pred >= 0) & (pred < n_classes)
     # masked pixels land in one overflow bin, so no data-dependent shapes
     idx = torch.where(mask, k * actual + pred, torch.full_like(actual, k * n_classes))
-    counts = torch.bincount(idx, minlength=k * n_classes + 1)[:k * n_classes]
-    return counts.reshape(n_classes, k).T
+    with profiling.host_sync():  # on CUDA it reads idx's min and max to size its output
+        counts = torch.bincount(idx, minlength=k * n_classes + 1)
+    return counts[:k * n_classes].reshape(n_classes, k).T
 
 
 def compute_metrics(stats: np.ndarray, n_classes: int, extra_clusters: int,

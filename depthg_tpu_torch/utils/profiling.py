@@ -1,11 +1,14 @@
 """Profiling / observability helpers of the port (``depthg_tpu/utils/profiling.py``).
 
 * ``span`` / ``recording`` / ``collect`` / ``clear`` — the port's spans:
-  named ranges at its layer boundaries (``eval.step``, ``backbone``,
-  ``crf``, ``train.step``, ``depth.step``, ``dpt``, ``bins``, ...), recorded while a ``torch.profiler``
+  named ranges at its layer boundaries (``eval.step``, ``logits``,
+  ``backbone``, ``crf``, ``confusion``, ``train.step``, ``depth.step``,
+  ``dpt``, ``bins``, ...), recorded while a ``torch.profiler``
   session is active or inside ``recording()``, and inert otherwise.
 * ``register_counter`` — a module's own counter (a kernel's launches, say),
   which every span records as its change between the span's edges.
+* ``host_sync`` — a ``host_sync`` span around a call that makes the host
+  wait for the device, counted by this module's ``host_syncs`` counter.
 * ``median_time`` — median host-clock seconds of a call that ends in a
   synchronize or a host fetch.
 * ``dispatch_rtt`` — the round trip of one trivial kernel and its fetch.
@@ -132,9 +135,9 @@ class Recorder:
         (``time.time_ns()``), ``host_ms``, ``self_host_ms`` (the span less
         its children), ``device_ms`` (stream time between the span's edges)
         with ``device_start_ns`` / ``device_end_ns`` on the host clock, and
-        one key a registered counter (``k1_launches``, ``crf_cache_launches``,
-        ``crf_message_launches``, ``bins_tail_launches``,
-        ``swiglu_gate_launches``, ``rel_bias_builds``,
+        one key a registered counter (``host_syncs``; ``k1_launches``,
+        ``crf_cache_launches``, ``crf_message_launches``,
+        ``bins_tail_launches``, ``swiglu_gate_launches``,
         ``frozen_cache_builds``, ``frozen_cache_hits`` once their modules are
         imported); the device fields are None for a span recorded before
         CUDA was in use.
@@ -188,6 +191,28 @@ span = RECORDER.span
 recording = RECORDER.recording
 collect = RECORDER.collect
 clear = RECORDER.clear
+
+
+class _Syncs:
+    """The calls made through ``host_sync`` in this process."""
+
+    def __init__(self):
+        self.count = 0
+
+
+SYNCS = _Syncs()
+register_counter("host_syncs", lambda: SYNCS.count)
+
+
+def host_sync():
+    """A ``host_sync`` span around a call that makes the host wait for the
+    device (a device-to-host read: ``bincount`` sizing its output from its
+    input's min and max, ``.item()``, a boolean-mask index), counted once
+    on ``host_syncs``. Every span open around it records the count; the
+    ``host_sync`` span itself opens after it and records 0. Off: the
+    shared null context and one integer add."""
+    SYNCS.count += 1
+    return RECORDER.span("host_sync")
 
 
 def median_time(fn, repeats: int = 5) -> float:

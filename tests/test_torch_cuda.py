@@ -86,7 +86,11 @@ preset (cut to 2 blocks) at 448 px and Depth Anything V2's ``infer`` at
 then kept twice, then derived again: the same bits each time, and the
 builds and hits of ``models.frozen_cache`` as each step expects; and the
 ViT-S/8 eval step of a model whose ViT is stored in bf16 gives the bits of
-the float32 model's copy.
+the float32 model's copy. The host-sync slice runs one warm step of each
+benchmark cell's step function at the cell's sizes (ViT-S/8 and DINOv2
+eval, ViT-S/8 train, ZoeDepth and Depth Anything V2 depth) under
+``torch.cuda.set_sync_debug_mode("warn")``: every call that makes the host
+wait for the device runs inside a ``host_sync`` span.
 """
 
 import pytest
@@ -1884,3 +1888,86 @@ def test_vits8_eval_step_same_bits_with_its_vit_stored_in_bf16(cuda):
             got, want = (torch.cat([x.flatten() for x in tinf.eval_logits(m, img, ecfg)])
                          for m in (stored, master))
             assert torch.equal(_bits(got), _bits(want))
+
+
+# The cells' step functions at the cells' sizes, as the benchmark's drivers
+# build them (``benchmark/drivers``), seed 0, one batch.
+SYNC_CELLS = ["vits8-eval-default", "vitg14reg-eval-b16-448", "vits8-train-b32",
+              "zoedepth-gen-b8", "dav2l-depth-b8-518x686"]
+
+
+def _cell_call(name, dev):
+    from benchmark.run import resolve
+
+    spec = resolve(name)
+    cfg, tr = spec["config"], {**spec["traffic"], "ring": 1}
+    kind = tr["kind"]
+    if kind in ("eval", "eval_dinov2"):
+        from benchmark.drivers import eval as ev
+        from benchmark.drivers import eval_dinov2
+
+        model, step = (ev if kind == "eval" else eval_dinov2).build_program(cfg, 0, dev)
+        b = ev.make_ring(cfg, tr, 0, dev)[0]
+        return lambda: step(model, b["img"], b["label"])
+    if kind == "train":
+        from benchmark.drivers import train
+
+        prog = train.Program(cfg, 0, dev)
+        b = train.make_ring(cfg, tr, 0, dev)[0]
+        return lambda: prog.launch(0, b)
+    from benchmark.drivers import depth, depth_dav2
+
+    infer, _ = (depth if kind == "depth" else depth_dav2).build_program(cfg, 0, dev)
+    img = depth.make_ring(tr, 0, dev)[0]
+    return lambda: infer(img)
+
+
+@pytest.mark.parametrize("cell", SYNC_CELLS)
+def test_cell_steps_sync_only_inside_host_sync(cuda, cell):
+    """One warm step of the cell's step function under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every call that makes the
+    host wait for the device runs inside a ``host_sync`` span
+    (``utils.profiling``), so ``host_syncs`` counts each one. A call outside
+    is named by its open spans and the port's frames that made it. A step
+    that counts a ``host_sync`` shows the mode seeing one inside it."""
+    import traceback
+    import warnings
+
+    from depthg_tpu_torch.utils import profiling
+
+    call = _cell_call(cell, cuda)
+    call()
+    call()
+    torch.cuda.synchronize()
+    inside, outside = [], []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # the mode's own notice that it is a prototype, say
+        names = [s.name for s in profiling.RECORDER._stack()]
+        if "host_sync" in names:
+            inside.append(names)
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack
+                if "depthg_tpu_torch" in f.filename or "/benchmark/" in f.filename]
+        frames = [f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno} {f.name}"
+                  for f in (port or stack)[::-1][:6]]
+        outside.append(f"{message} [{' > '.join(names)}] " + " < ".join(frames))
+
+    profiling.clear()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            torch.cuda.set_sync_debug_mode("warn")
+            with profiling.recording():
+                call()
+            syncs = sum(s["host_syncs"] for s in profiling.collect()["spans"]
+                        if s["parent"] is None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.clear()
+    torch.cuda.synchronize()
+    assert outside == [], "\n".join(outside)
+    assert (len(inside) > 0) == (syncs > 0), (len(inside), syncs)

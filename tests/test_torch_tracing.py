@@ -14,12 +14,20 @@ benchmark's readers of them, on the CPU.
   step the gate's, 0 on the CPU), and the host stamps bracket a
   profiler event recorded inside (one clock, ``time.time_ns()``). A running
   ``torch.profiler`` turns recording on by itself.
+* ``host_sync`` is one on the ``host_syncs`` counter (registered by
+  ``utils.profiling`` itself) in every span open around it, and off it is
+  the shared null context: no counter read, no allocation.
 * The tiny eval, predict and train steps (the sizes of
   ``test_torch_eval_step.py`` and ``test_torch_train_step.py``) and the
   depth steps of ``generate_depth.build`` on a tiny ZoeDepth and a tiny
   Depth Anything V2 (one ``backbone``, ``dpt`` and ``out_head`` a step)
-  emit exactly their span trees; the depth step counts BEiT's relative-position biases
-  built: one a block on its first step at a grid, none on the next.
+  emit exactly their span trees (eval: ``logits`` > ``backbone``, ``crf``,
+  ``confusion`` (the argmaxes) and ``confusion`` (the blocks), with their
+  ``host_sync`` spans) and count their
+  ``host_sync`` calls (7 an eval step, 1 a train step, none a depth step);
+  the depth step builds BEiT's relative-position biases through
+  ``models.frozen_cache``: one a block on its first step at a grid, none
+  on the next.
 * ``collect()`` is idempotent, the cap counts what it drops.
 * Each span counter is registered by the module that owns it
   and reads that module's counter; ``utils.profiling`` imports nothing of
@@ -29,8 +37,10 @@ benchmark's readers of them, on the CPU.
   returns None without a step, with a step that lacks its span, with a
   dropped span, or from a program that has no spans (the kernels' launch
   readers also from spans without their counter, or with a step that
-  launched the kernel no time, as every step on the CPU); and the
-  spans it names are the ones the tiny steps emit.
+  launched the kernel no time, as every step on the CPU; the host-sync
+  readers from spans without ``host_syncs``, while a step without a wait
+  reads 0); and the spans it names are the ones the tiny steps emit.
+  ``profile_eval.spans_ms`` keys the eval steps' spans by path.
 """
 
 import ast
@@ -47,6 +57,7 @@ import torch
 from depthg_tpu_torch import generate_depth as tgen
 from depthg_tpu_torch import inference as tinf
 from depthg_tpu_torch.models import featurizer as tfeat
+from depthg_tpu_torch.models import frozen_cache
 from depthg_tpu_torch.models import depth_anything_v2 as tdav2
 from depthg_tpu_torch.models import vit as tvit
 from depthg_tpu_torch.models.zoedepth import beit as tbeit
@@ -76,7 +87,7 @@ COUNTERS = {
     "crf_message_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "message_launches"),
     "bins_tail_launches": ("depthg_tpu_torch.ops.zoe_bins", "KERNEL", "bins_launches"),
     "swiglu_gate_launches": ("depthg_tpu_torch.ops.swiglu", "KERNEL", "gate_launches"),
-    "rel_bias_builds": ("depthg_tpu_torch.models.zoedepth.beit", "BIAS_BUILDS", "count"),
+    "host_syncs": ("depthg_tpu_torch.utils.profiling", "SYNCS", "count"),
     "frozen_cache_builds": ("depthg_tpu_torch.models.frozen_cache", "COUNTS", "builds"),
     "frozen_cache_hits": ("depthg_tpu_torch.models.frozen_cache", "COUNTS", "hits"),
 }
@@ -210,6 +221,70 @@ def test_off_span_allocates_nothing():
     assert grown == []
 
 
+def test_off_host_sync_allocates_nothing(monkeypatch):
+    """Off, ``host_sync`` is the shared null context and one add to the
+    count: it reads no counter, makes no CUDA event and allocates nothing."""
+    monkeypatch.setattr(torch.cuda, "Event", raising)
+    fake_counter(monkeypatch, "host_syncs", raising)
+    here = tracemalloc.Filter(True, profiling.__file__)
+    assert profiling.host_sync() is profiling.span("x")
+    # past the cached small ints: each add replaces the count's int object
+    monkeypatch.setattr(profiling.SYNCS, "count", 1000)
+    tracemalloc.start()
+    try:
+        for _ in range(10):  # warm: the count's int object is traced from here
+            with profiling.host_sync():
+                pass
+        before = tracemalloc.take_snapshot().filter_traces([here])
+        for _ in range(1000):
+            with profiling.host_sync():
+                pass
+        after = tracemalloc.take_snapshot().filter_traces([here])
+    finally:
+        tracemalloc.stop()
+    assert profiling.SYNCS.count == 1000 + 10 + 1000
+    assert [d for d in after.compare_to(before, "lineno") if d.size_diff > 0] == []
+    assert profiling.collect() == {"spans": [], "dropped": 0}
+
+
+def test_host_sync_counts_in_every_enclosing_span():
+    """Each ``host_sync`` is one on ``host_syncs`` in every span open around
+    it; the ``host_sync`` span itself opens after the count and reads 0."""
+    with profiling.recording():
+        with profiling.span("step"):
+            with profiling.host_sync():
+                pass
+            with profiling.span("inner"):
+                with profiling.host_sync():
+                    pass
+    step, first, inner, second = profiling.collect()["spans"]
+    assert [s["name"] for s in (first, second)] == ["host_sync"] * 2
+    assert first["parent"] == step["id"] and second["parent"] == inner["id"]
+    assert (step["host_syncs"], inner["host_syncs"]) == (2, 1)
+    assert first["host_syncs"] == second["host_syncs"] == 0
+
+
+@pytest.mark.parametrize("make, want", [
+    (lambda: eval_call(fused_tta=True), 7), (lambda: eval_call(fused_tta=False), 7),
+    (dinov2_eval_call, 7), (train_call, 1), (lambda: train_call(fused_pair_forward=True), 1),
+    (depth_call, 0), (dav2_call, 0),
+], ids=["eval-fused-tta", "eval-two-passes", "eval-dinov2", "train", "train-fused-pair",
+        "depth", "depth-dav2"])
+def test_steps_count_their_host_syncs(make, want):
+    """Each step span carries its ``host_sync`` calls, counted on the CPU too
+    (where they wait for nothing): the eval step's 3 + 2 + 2 (see
+    ``test_steps_emit_their_span_trees``), the train step's FPS copy, none
+    in a depth step."""
+    call = make()
+    with profiling.recording():
+        call()
+        call()
+    spans = profiling.collect()["spans"]
+    steps = [s for s in spans if s["parent"] is None]
+    assert len(steps) == 2 and [s["host_syncs"] for s in steps] == [want, want]
+    assert sum(s["name"] == "host_sync" for s in spans) == 2 * want
+
+
 def test_nesting_parent_step_and_self_time():
     with profiling.recording():
         for _ in range(2):
@@ -324,23 +399,37 @@ def test_stamps_bracket_profiler_events():
     assert len(profiling.collect()["spans"]) == 1
 
 
+# the waits of the eval step: the resize matrices' three copies to the
+# device (``ops.resize.resized_sq_norm``), the CRF guidance's two statistics
+# (``inference.unnormalize_255``), one bincount a confusion block; its two
+# ``confusion`` spans: the argmaxes, then the blocks
+SYNC = ("host_sync", [])
+LOGITS_SYNCS, CRF_SYNCS = [SYNC] * 3, [SYNC] * 2
+CONFUSION = [("confusion", []), ("confusion", [SYNC] * 2)]
+
+
 @pytest.mark.parametrize("make, want", [
     (lambda: eval_call(fused_tta=True),
-     [("eval.step", [("backbone", []), ("crf", [])])]),
+     [("eval.step", [("logits", [("backbone", [])] + LOGITS_SYNCS), ("crf", CRF_SYNCS)]
+      + CONFUSION)]),
     (lambda: eval_call(fused_tta=False),
-     [("eval.step", [("backbone", []), ("backbone", []), ("crf", [])])]),
+     [("eval.step", [("logits", [("backbone", [])] * 2 + LOGITS_SYNCS), ("crf", CRF_SYNCS)]
+      + CONFUSION)]),
     (lambda: eval_call(predict=True, fused_tta=True),
-     [("backbone", []), ("crf", [])]),
+     [("logits", [("backbone", [])] + LOGITS_SYNCS), ("crf", CRF_SYNCS)]),
+    # the depth-guided FPS's one copy to the device (``ops.depth``)
     (lambda: train_call(),
-     [("train.step", [("optimizer", []), ("train.forward", [("backbone", []), ("backbone", [])]),
+     [("train.step", [("optimizer", []),
+                      ("train.forward", [("backbone", []), ("backbone", []), SYNC]),
                       ("backward", []), ("optimizer", [])])]),
     (lambda: train_call(fused_pair_forward=True),
-     [("train.step", [("optimizer", []), ("train.forward", [("backbone", [])]),
+     [("train.step", [("optimizer", []), ("train.forward", [("backbone", []), SYNC]),
                       ("backward", []), ("optimizer", [])])]),
     (depth_call,
      [("depth.step", [("backbone", []), ("dpt", []), ("bins", [])] * 2)]),
     (dinov2_eval_call,
-     [("eval.step", [("backbone", [("swiglu", [])] * DINOV2_VIT["depth"]), ("crf", [])])]),
+     [("eval.step", [("logits", [("backbone", [("swiglu", [])] * DINOV2_VIT["depth"])]
+                      + LOGITS_SYNCS), ("crf", CRF_SYNCS)] + CONFUSION)]),
     (dav2_call, [("depth.step", [("backbone", []), ("dpt", []), ("out_head", [])])]),
 ], ids=["eval-fused-tta", "eval-two-passes", "predict", "train", "train-fused-pair", "depth",
         "eval-dinov2", "depth-dav2"])
@@ -357,26 +446,24 @@ def test_steps_emit_their_span_trees(make, want):
 
 
 def test_rel_bias_builds_once_a_grid():
-    """The first depth step at a grid builds one bias a block, in its first
-    pass's ``backbone`` span; the flip pass and the next step build none
-    (each block's table keeps them)."""
+    """The first depth step at a grid builds one bias a block
+    (``models.frozen_cache``'s builds), in its first pass's ``backbone``
+    span; the flip pass and the next step build none and take each block's
+    bias from its table's cache (hits)."""
     call = depth_call()
-    before = tbeit.BIAS_BUILDS.count
+    before = frozen_cache.COUNTS.builds
     with profiling.recording():
         call()
         call()
     spans = profiling.collect()["spans"]
     steps = [s for s in spans if s["name"] == "depth.step"]
-    assert [s["rel_bias_builds"] for s in steps] == [ZOE.beit.depth, 0]
-    assert tbeit.BIAS_BUILDS.count - before == ZOE.beit.depth
-    # kept with each table by ``models.frozen_cache``: the flip pass and the
-    # next step's two passes hit
     assert [(s["frozen_cache_builds"], s["frozen_cache_hits"]) for s in steps] == \
         [(ZOE.beit.depth, ZOE.beit.depth), (0, 2 * ZOE.beit.depth)]
-    first = [s["rel_bias_builds"] for s in spans if s["step"] == steps[0]["id"]
-             and s["name"] == "backbone"]
-    assert first == [ZOE.beit.depth, 0]
-    assert all(s["rel_bias_builds"] == 0 for s in spans
+    assert frozen_cache.COUNTS.builds - before == ZOE.beit.depth
+    first = [(s["frozen_cache_builds"], s["frozen_cache_hits"]) for s in spans
+             if s["step"] == steps[0]["id"] and s["name"] == "backbone"]
+    assert first == [(ZOE.beit.depth, 0), (0, ZOE.beit.depth)]
+    assert all(s["frozen_cache_builds"] == s["frozen_cache_hits"] == 0 for s in spans
                if s["name"] in ("dpt", "bins"))
 
 
@@ -411,27 +498,38 @@ def test_cap_counts_dropped_spans(monkeypatch):
 
 
 def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0,
-         cache=0, bins=0, message=0, gate=0):
+         cache=0, bins=0, message=0, gate=0, syncs=0):
     return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
             "host_ms": host, "self_host_ms": host if self_host is None else self_host,
             "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache,
             "bins_tail_launches": bins, "crf_message_launches": message,
-            "swiglu_gate_launches": gate}
+            "swiglu_gate_launches": gate, "host_syncs": syncs}
 
 
 def eval_spans(device=True):
     """Two eval steps (one with two passes) and the spans of a predict step,
-    which has no step span of its own."""
+    which has no step span of its own; the ``logits`` and ``confusion``
+    spans come last (ids 10-16: a step's blocks, then its argmaxes), each
+    ``backbone`` inside a ``logits``."""
     d = (lambda v: v) if device else (lambda v: None)
-    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12, cache=1, message=13),
-            span(2, "backbone", 1, 1, host=5.0, device=d(20.0)),
-            span(3, "crf", 1, 1, host=30.0, device=d(44.0), cache=1, message=13),
-            span(4, "eval.step", host=52.0, device=d(74.0), k1=12, cache=1, message=11),
-            span(5, "backbone", 4, 4, host=3.0, device=d(11.0)),
-            span(6, "backbone", 4, 4, host=3.0, device=d(11.0)),
-            span(7, "crf", 4, 4, host=31.0, device=d(46.0), cache=1, message=11),
-            span(8, "backbone", host=5.0, device=d(99.0), k1=12),
-            span(9, "crf", host=30.0, device=d(99.0), cache=1, message=13)]
+    return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12, cache=1, message=13,
+                 syncs=7),
+            span(2, "backbone", 10, 1, host=5.0, device=d(20.0)),
+            span(3, "crf", 1, 1, host=30.0, device=d(44.0), cache=1, message=13, syncs=2),
+            span(4, "eval.step", host=52.0, device=d(74.0), k1=12, cache=1, message=11,
+                 syncs=7),
+            span(5, "backbone", 11, 4, host=3.0, device=d(11.0)),
+            span(6, "backbone", 11, 4, host=3.0, device=d(11.0)),
+            span(7, "crf", 4, 4, host=31.0, device=d(46.0), cache=1, message=11, syncs=2),
+            span(8, "backbone", 14, 14, host=5.0, device=d(99.0), k1=12),
+            span(9, "crf", host=30.0, device=d(99.0), cache=1, message=13, syncs=2),
+            span(10, "logits", 1, 1, host=8.0, device=d(24.0), syncs=3),
+            span(11, "logits", 4, 4, host=9.0, device=d(27.0), syncs=3),
+            span(12, "confusion", 1, 1, host=2.0, device=d(2.0), syncs=2),
+            span(13, "confusion", 4, 4, host=2.0, device=d(3.0), syncs=2),
+            span(14, "logits", host=8.0, device=d(99.0), syncs=3),
+            span(15, "confusion", 1, 1, host=0.1, device=d(0.4)),
+            span(16, "confusion", 4, 4, host=0.1, device=d(0.6))]
 
 
 def depth_spans(device=True):
@@ -439,7 +537,8 @@ def depth_spans(device=True):
     d = (lambda v: v) if device else (lambda v: None)
     out = []
     for i, base in enumerate((1, 8)):
-        out.append(span(base, "depth.step", host=90.0, device=d(85.0), k1=48, bins=2))
+        out.append(span(base, "depth.step", host=90.0, device=d(85.0), k1=48, bins=2,
+                        syncs=i))
         for p in range(2):
             out += [span(base + 1 + 3 * p, "backbone", base, base, device=d(20.0 + i)),
                     span(base + 2 + 3 * p, "dpt", base, base, device=d(9.0)),
@@ -449,17 +548,21 @@ def depth_spans(device=True):
 
 def dinov2_spans(device=True):
     """Two DINOv2 eval steps: one backbone pass of 3 blocks, one ``swiglu``
-    span each (the steps' launch counts those of ViT-g's 40 blocks)."""
+    span each (the steps' launch counts those of ViT-g's 40 blocks), inside
+    a ``logits`` span (ids 20-21), then ``crf`` and ``confusion`` (22-23)."""
     d = (lambda v: v) if device else (lambda v: None)
     out = []
     for i, base in enumerate((1, 7)):
         out += [span(base, "eval.step", host=200.0, device=d(250.0), k1=40, cache=1, message=13,
-                     gate=40),
-                span(base + 1, "backbone", base, base, host=20.0, device=d(160.0 + i))]
+                     gate=40, syncs=7),
+                span(base + 1, "backbone", 20 + i, base, host=20.0, device=d(160.0 + i))]
         out += [span(base + 2 + k, "swiglu", base + 1, base, host=1.0, device=d(30.0 + k + i),
                      gate=1) for k in range(3)]
         out.append(span(base + 5, "crf", base, base, host=30.0, device=d(60.0),
-                        cache=1, message=13))
+                        cache=1, message=13, syncs=2))
+    for i, base in enumerate((1, 7)):
+        out += [span(20 + i, "logits", base, base, host=25.0, device=d(190.0 + 2 * i), syncs=3),
+                span(22 + i, "confusion", base, base, host=3.0, device=d(6.0 + i), syncs=2)]
     return out
 
 
@@ -478,7 +581,7 @@ def dav2_spans(device=True):
 def train_spans():
     out = []
     for i, base in enumerate((1, 8)):
-        out += [span(base, "train.step", host=44.0, k1=24),
+        out += [span(base, "train.step", host=44.0, k1=24, syncs=1 + 2 * i),
                 span(base + 1, "optimizer", base, base, host=0.2),
                 span(base + 2, "train.forward", base, base, host=30.0, self_host=14.0 + i),
                 span(base + 3, "backbone", base + 2, base, host=8.0 + i),
@@ -506,6 +609,11 @@ READERS = {
     "swiglu_device_ms.eval_dinov2": (dinov2_spans, (93.0 + 96.0) / 2),
     "swiglu_gate_launches_per_step.eval_dinov2": (dinov2_spans, 40.0),
     "out_head_device_ms.depth_dav2": (dav2_spans, 7.0),
+    "host_syncs_per_step.eval": (eval_spans, 7.0),
+    "host_syncs_per_step.train": (train_spans, 2.0),
+    "host_syncs_per_step.depth": (depth_spans, 0.5),
+    "logits_device_ms.eval": (eval_spans, (4.0 + 5.0) / 2),
+    "confusion_device_ms.eval": (eval_spans, (2.4 + 3.6) / 2),
 }
 
 # the eval readers that read the DINOv2 cell too, on its step's spans
@@ -514,12 +622,16 @@ DINOV2_READS = {
     "k1_launches_per_step.eval": 40.0,
     "crf_cache_launches_per_step.eval": 1.0,
     "crf_message_launches_per_step.eval": 13.0,
+    "host_syncs_per_step.eval": 7.0,
+    "logits_device_ms.eval": (30.0 + 31.0) / 2,
+    "confusion_device_ms.eval": 6.5,
 }
 # the depth readers that read the Depth Anything V2 cell too, on its step's spans
 DAV2_READS = {
     "backbone_device_ms.depth": (33.0 + 34.0) / 2,
     "dpt_device_ms.depth": 17.0,
     "k1_launches_per_step.depth": 24.0,
+    "host_syncs_per_step.depth": 0.0,  # a step without a wait reads 0
 }
 SPAN_CASES = [pytest.param(name, make, want, id=name) for name, (make, want) in READERS.items()] \
     + [pytest.param(name, dinov2_spans, want, id=name + "-dinov2")
@@ -683,6 +795,56 @@ def test_readers_name_the_spans_the_steps_emit(name, kind):
         assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     else:
         assert value is not None and value >= 0
+
+
+HOST_SYNC_READERS = {"host_syncs_per_step.eval": eval_spans,
+                     "host_syncs_per_step.train": train_spans,
+                     "host_syncs_per_step.depth": depth_spans}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_SYNC_READERS))
+@pytest.mark.parametrize("case", ["without_the_counter", "steps_without_a_wait"])
+def test_host_sync_readers_read_zero_but_not_without_the_counter(monkeypatch, name, case):
+    """Steps without a ``host_sync`` read 0, a reading; spans of a program
+    whose spans do not carry ``host_syncs`` (the parent of the counter)
+    read nothing, and raise nothing."""
+    spans = HOST_SYNC_READERS[name]()
+    for s in spans:
+        if case == "without_the_counter":
+            del s["host_syncs"]
+        else:
+            s["host_syncs"] = 0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    got = load_reader(name).read({}, {})
+    assert got is None if case == "without_the_counter" else got == 0.0
+
+
+def test_logits_reader_reads_nothing_without_a_backbone_inside(monkeypatch):
+    """A step whose ``logits`` span holds no ``backbone`` span (a backbone
+    moved out of it, or renamed) reads nothing: its logits would count the
+    backbone's time."""
+    spans = eval_spans()
+    for s in spans:
+        if s["name"] == "backbone" and s["step"] == 4:
+            s["parent"] = 4
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader("logits_device_ms.eval").read({}, {}) is None
+    assert load_reader("backbone_device_ms.eval").read({}, {}) == pytest.approx(21.0)
+
+
+def test_profile_eval_splits_the_eval_steps_by_span_path():
+    """``profile_eval.spans_ms``: each span under the ``eval.step`` spans,
+    keyed by its path, per step; the predict step's spans are left out."""
+    from depthg_tpu_torch.profile_eval import spans_ms
+
+    got = spans_ms(eval_spans())
+    assert sorted(got) == ["eval.step", "eval.step/confusion", "eval.step/crf",
+                           "eval.step/logits", "eval.step/logits/backbone"]
+    assert got["eval.step"] == pytest.approx({"host": 51.0, "self_host": 51.0, "device": 72.0})
+    assert got["eval.step/logits/backbone"] == pytest.approx(
+        {"host": 5.5, "self_host": 5.5, "device": 21.0})
+    assert got["eval.step/confusion"] == pytest.approx(  # both spans of a step
+        {"host": 2.1, "self_host": 2.1, "device": 3.0})
 
 
 def test_only_a_swiglu_backbone_opens_swiglu_spans():
