@@ -7,8 +7,8 @@ final line):
 
 1. device: CUDA required; card name and power limit; TF32 off;
 2. build: nvcc builds ``depthg_tpu_torch/csrc/attention.cu``,
-   ``csrc/crf_bilateral.cu``, ``csrc/zoe_bins.cu`` and ``csrc/swiglu.cu``,
-   one process each, started together;
+   ``csrc/crf_bilateral.cu``, ``csrc/zoe_bins.cu``, ``csrc/swiglu.cu`` and
+   ``csrc/residual_norm.cu``, one process each, started together;
 3. attention kernel vs ``attention_plain`` at the ViT-S/8 eval shape
    (B=16, N=1601, 6 heads x 64, packed qkv) in bf16 and f32, plus
    n_valid=1601 inside N=1664: max abs and relative error, exact-zero
@@ -159,13 +159,21 @@ final line):
     1,029 rows), one launch a call, its time back to back, queued and by
     ``torch.profiler``, its host time a call, the eager pair's time (the
     plain version, and the library yardstick), the bound (bytes); then the
+    ViT blocks' residual junction kernel at the DINOv2 cell's shape
+    ([32 x 1,029, 1,536]) and Depth Anything V2's ([8 x 1,814, 1,024]), bf16
+    with LayerScale: each entry (the residual with the next norm, the
+    residual, the norm) back to back, queued and by ``torch.profiler``,
+    against its bound (bytes) and beside the eager passes it replaced; the
+    sum bit for bit against eager, the norm within one bf16 step, one launch
+    a call; then the
     DINOv2 path: the DINOv2 cell's eval step (``inference.make_eval_step``
     with the CRF, resolution, flip-TTA and bf16 backbone of
     ``benchmark/configs/depthg-dinov2-vitg14reg-cocostuff27.json``) on a
     full-width ViT-g/14-reg segmenter with random weights from seed 0, at
     batch 16 and 448 px: one warm-up and 3 timed steps, the gate's and K1's
     counts set to 0 just before and read just after (40 of each a step, one
-    a block of the stacked [32] forward), the confusion sums, and in the
+    a block of the stacked [32] forward; 121 residual junction launches, three
+    a block and the final norm), the confusion sums, and in the
     warm-up step one block's ``w3`` input bit for bit against eager
     ``F.silu(a) * b`` of its ``w12`` output;
 14. fine-tune path: ``finetune_zoedepth.main`` at full width (random
@@ -316,6 +324,11 @@ CRF_MESSAGES = 13
 # flip-TTA at batch 16 (32 x 1,029 tokens: the class token, 4 registers,
 # 32 x 32 patches at 448 px) and ViT-g's hidden width
 SWIGLU_M, SWIGLU_H = 32 * 1029, 4096
+# the residual junction's rows: the DINOv2 cell's stacked [32] forward at
+# N = 1,029, Depth Anything V2's batch 8 at N = 1,814
+RESIDUAL_DINOV2_ROWS, RESIDUAL_DAV2_ROWS = 32 * 1029, 8 * 1814
+# and ViT-S/8's or ViT-B/8's stacked eval batch of 16 at 320 px (N = 1,601)
+RESIDUAL_VIT8_ROWS = 32 * N
 # the DINOv2 cell's configuration (its step's CRF, resolution, flip-TTA and
 # backbone dtype), its batch, and the block whose gate the path phase checks
 DINOV2_CONFIG = os.path.join(ROOT, "benchmark", "configs",
@@ -1229,6 +1242,12 @@ def run_eval_batches(step, model, batches, att, bil):
     return stats, img_s, att.KERNEL.launches, bil.KERNEL.launches
 
 
+def junction_launches(depth, forwards):
+    """Residual junction launches of ``forwards`` ViT forwards of ``depth``
+    blocks, each with one final norm: three a block and one."""
+    return forwards * (3 * depth + 1)
+
+
 def make_batches(gen, b, n):
     low = torch.rand(b, 3, 40, 40, device="cuda", generator=gen)
     base = torch.nn.functional.interpolate(low, size=(320, 320), mode="bilinear")
@@ -1238,6 +1257,8 @@ def make_batches(gen, b, n):
 
 
 def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
+    from depthg_tpu_torch.ops import residual_norm as rn
+
     fcfg = featurizer.FeaturizerConfig()  # vit_small, patch 8, dim 70
     cpu_gen = torch.Generator().manual_seed(0)
     model_cpu = inference.Segmenter(fcfg, 27, 27).init_weights(cpu_gen)
@@ -1245,24 +1266,31 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
     ecfg = inference.EvalConfig(n_classes=27, crf=crf.crf_config_from_cfg({}),
                                 backbone_dtype="bfloat16")
     step = inference.make_eval_step(ecfg)
-    per_batch = vit_lib.VIT_PRESETS["vit_small"]["depth"] * 2
+    depth = vit_lib.VIT_PRESETS["vit_small"]["depth"]
+    per_batch = depth * 2  # flip-TTA in two forwards
 
     batches = make_batches(gen, B, 4)  # warm-up + 3 timed
     torch.cuda.reset_peak_memory_stats()
     caches, messages = bil.KERNEL.cache_launches, bil.KERNEL.message_launches
+    rn.KERNEL.launches = 0
     _, img_s, launches, k4 = run_eval_batches(step, model, batches, att, bil)
+    junctions = rn.KERNEL.launches
     caches = bil.KERNEL.cache_launches - caches
     messages = bil.KERNEL.message_launches - messages
     caches_per_batch, messages_per_batch = caches / len(batches), messages / len(batches)
+    junctions_per_batch = junctions / len(batches)
     expected = per_batch * len(batches)
+    expected_junctions = junction_launches(depth, 2 * len(batches))
     if (launches != expected or k4 != 0 or caches != len(batches)
-            or messages != CRF_MESSAGES * len(batches)):
+            or messages != CRF_MESSAGES * len(batches) or junctions != expected_junctions):
         raise AssertionError(f"attention launches {launches} != {expected}, K4 launches "
-                             f"{k4} != 0, int8 cache launches {caches} != {len(batches)} or "
-                             f"int8 messages {messages} != {CRF_MESSAGES * len(batches)} at "
-                             f"the default point")
+                             f"{k4} != 0, int8 cache launches {caches} != {len(batches)}, "
+                             f"int8 messages {messages} != {CRF_MESSAGES * len(batches)} or "
+                             f"junction launches {junctions} != {expected_junctions} at the "
+                             f"default point")
     phase("main_path", batch=B, res=320, batches_timed=3, img_per_s=img_s,
           attention_launches=launches, expected_launches=expected,
+          junction_launches_per_batch=junctions_per_batch,
           crf_cache_launches=caches, crf_message_launches=messages,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -1273,15 +1301,17 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
     predict = inference.make_predict_step(e32)
     img = batches[0][0][:1]
     before = att.KERNEL.launches
-    att.KERNEL.f32_launches = 0
+    att.KERNEL.f32_launches = rn.KERNEL.launches = 0
     on_card = [p.cpu() for p in predict(model, img)]
-    f32_eval_launches = att.KERNEL.f32_launches
-    if att.KERNEL.launches != before + 24 or f32_eval_launches != 24:
-        raise AssertionError("the float32 card run did not go through the float32 kernel")
+    f32_eval_launches, f32_junctions = att.KERNEL.f32_launches, rn.KERNEL.launches
+    if (att.KERNEL.launches != before + 24 or f32_eval_launches != 24
+            or f32_junctions != junction_launches(depth, 2)):
+        raise AssertionError(f"the float32 card run did not go through the float32 kernels: "
+                             f"{f32_eval_launches} K1 and {f32_junctions} junction launches")
     on_cpu = predict(model_cpu, img.cpu())
     agree = [float((a == b).float().mean()) for a, b in zip(on_card, on_cpu)]
     phase("f32_card_vs_cpu", linear_agreement=agree[0], cluster_agreement=agree[1],
-          k1_f32_launches=f32_eval_launches)
+          k1_f32_launches=f32_eval_launches, junction_f32_launches=f32_junctions)
     if min(agree) < 0.995:
         raise AssertionError(f"card vs CPU prediction agreement {agree} < 99.5%")
     del batches
@@ -1316,6 +1346,8 @@ def main_path_phase(att, bil, inference, vit_lib, featurizer, crf, gen):
         torch.cuda.empty_cache()
     return {"img_per_s": img_s, "launches": launches, "agreement": agree,
             "points": points, "f32_eval_launches": f32_eval_launches,
+            "junction_launches_per_batch": junctions_per_batch,
+            "f32_junction_launches": f32_junctions,
             "crf_cache_launches_per_batch": caches_per_batch,
             "crf_message_launches_per_batch": messages_per_batch}
 
@@ -1325,6 +1357,7 @@ def train_path_phase(att, bil, inference, featurizer, gen):
     on one fixed batch, counts of both kernels set to 0 just before and read
     just after; then FPS alone and one validation batch at 320 px."""
     from depthg_tpu_torch import profile_train
+    from depthg_tpu_torch.ops import residual_norm as rn
     from depthg_tpu_torch.ops.depth import farthest_point_sampling_depth
     from depthg_tpu_torch.train import losses as loss_lib
     from depthg_tpu_torch.train import step as step_lib
@@ -1351,6 +1384,7 @@ def train_path_phase(att, bil, inference, featurizer, gen):
     torch.cuda.reset_peak_memory_stats()
     att.KERNEL.launches = 0
     bil.KERNEL.launches = 0
+    rn.KERNEL.launches = 0
     all_logs = [step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen)]
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1359,15 +1393,20 @@ def train_path_phase(att, bil, inference, featurizer, gen):
         all_logs.append(step_lib.train_step(state, batch, hp, lcfg, w, sh, generator=gen))
     stop.record()
     torch.cuda.synchronize()
-    launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+    launches, k4, junctions = att.KERNEL.launches, bil.KERNEL.launches, rn.KERNEL.launches
     step_ms = start.elapsed_time(stop) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated() / 2**30
     after = probe_losses()
 
-    per_step = 2 * len(state.model.net.model.blocks)
-    if launches != per_step * (TRAIN_STEPS + 1) or k4 != 0:
+    depth = len(state.model.net.model.blocks)
+    per_step = 2 * depth  # two frozen forwards a step
+    junctions_per_step = junction_launches(depth, 2)
+    if (launches != per_step * (TRAIN_STEPS + 1) or k4 != 0
+            or junctions != junctions_per_step * (TRAIN_STEPS + 1)):
         raise AssertionError(f"train path: {launches} attention launches (expected "
-                             f"{per_step * (TRAIN_STEPS + 1)}) and {k4} K4 launches (expected 0)")
+                             f"{per_step * (TRAIN_STEPS + 1)}), {k4} K4 launches (expected 0) "
+                             f"and {junctions} junction launches (expected "
+                             f"{junctions_per_step * (TRAIN_STEPS + 1)})")
     for i, logs in enumerate(all_logs):
         bad = [k for k, v in logs.items() if not bool(torch.isfinite(v).all())]
         if bad:
@@ -1389,26 +1428,31 @@ def train_path_phase(att, bil, inference, featurizer, gen):
     phase("train_path", batch=TRAIN_B, res=TRAIN_RES, steps_timed=TRAIN_STEPS, step_ms=step_ms,
           img_per_s=TRAIN_B / step_ms * 1e3, fps_ms=fps_ms, peak_mem_gb=peak,
           attention_launches=launches, attention_launches_per_step=per_step, k4_launches=k4,
+          junction_launches_per_step=junctions / (TRAIN_STEPS + 1),
           probe_losses_before=before, probe_losses_after=after,
           optimizer_parameters=n_params, optimizer_parameters_total=sum(n_params.values()),
           last_logs=last)
 
     # one validation batch at 320 px (plain float32 forward through the kernel)
     img, label = make_batches(gen, B, 1)[0]
-    att.KERNEL.launches = att.KERNEL.f32_launches = 0
+    att.KERNEL.launches = att.KERNEL.f32_launches = rn.KERNEL.launches = 0
     lin, clu = inference.make_validation_step(27, 0)(state.model, img, label, 320)
     counted = int(((label >= 0) & (label < 27)).sum())
     validation_launches = att.KERNEL.f32_launches
     if (int(lin.sum()) != counted or int(clu.sum()) != counted
             or lin.shape != (27, 27) or att.KERNEL.launches != per_step // 2
-            or validation_launches != per_step // 2):
+            or validation_launches != per_step // 2
+            or rn.KERNEL.launches != junction_launches(depth, 1)):
         raise AssertionError(f"validation step: confusion sums {int(lin.sum())}, "
-                             f"{int(clu.sum())} != {counted} or attention launches "
-                             f"{att.KERNEL.launches} != {per_step // 2}")
+                             f"{int(clu.sum())} != {counted}, attention launches "
+                             f"{att.KERNEL.launches} != {per_step // 2} or junction launches "
+                             f"{rn.KERNEL.launches} != {junction_launches(depth, 1)}")
     phase("train_validation", batch=B, res=320, attention_launches=att.KERNEL.launches,
-          attention_f32_launches=validation_launches, labelled_pixels=counted)
+          attention_f32_launches=validation_launches, junction_launches=rn.KERNEL.launches,
+          labelled_pixels=counted)
     return {"launches": launches, "k4_launches": k4, "step_ms": step_ms, "fps_ms": fps_ms,
-            "validation_launches": validation_launches}
+            "validation_launches": validation_launches,
+            "junction_launches_per_step": junctions / (TRAIN_STEPS + 1)}
 
 
 def train_card_vs_cpu_phase(att, inference, featurizer):
@@ -1483,6 +1527,7 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
 
     from depthg_tpu_torch import serve, serve_loadgen
     from depthg_tpu_torch.config import load_config
+    from depthg_tpu_torch.ops import residual_norm as rn
     from depthg_tpu_torch.profile_serve import load_run, synthetic_jpeg
     from depthg_tpu_torch.utils.ckpt import export_lightning_ckpt
 
@@ -1497,7 +1542,10 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
     t0 = time.perf_counter()
     svc = serve.build_service(cfg, "cuda")
     build_s = time.perf_counter() - t0
-    per_batch = len(svc._model.net.model.blocks) * (1 if svc.ecfg.fused_tta else 2)
+    depth = len(svc._model.net.model.blocks)
+    forwards = 1 if svc.ecfg.fused_tta else 2  # backbone forwards a batch
+    per_batch = depth * forwards
+    junctions_per_batch = junction_launches(depth, forwards)
     t0 = time.perf_counter()
     buckets = svc.warmup()
     warmup_s = time.perf_counter() - t0
@@ -1512,18 +1560,19 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
     # each bucket after its warm-up run: host clock around stage + step + fetch
     bucket_ms = {}
     for b in buckets:
-        att.KERNEL.launches = 0
+        att.KERNEL.launches = rn.KERNEL.launches = 0
         times = []
         for rep in range(4):
             t0 = time.perf_counter()
             svc._predict_padded(arrs[rep:rep + b], b)
             times.append((time.perf_counter() - t0) * 1e3)
-        if att.KERNEL.launches != 4 * per_batch:
-            raise AssertionError(f"bucket {b}: {att.KERNEL.launches} K1 launches in 4 runs")
+        if att.KERNEL.launches != 4 * per_batch or rn.KERNEL.launches != 4 * junctions_per_batch:
+            raise AssertionError(f"bucket {b}: {att.KERNEL.launches} K1 and "
+                                 f"{rn.KERNEL.launches} junction launches in 4 runs")
         bucket_ms[b] = times
     phase("serve_buckets", build_service_s=build_s, warmup_s=warmup_s, buckets=buckets,
-          k1_launches_per_batch=per_batch, fused_tta=svc.ecfg.fused_tta,
-          ms_per_bucket_4_runs=bucket_ms,
+          k1_launches_per_batch=per_batch, junction_launches_per_batch=junctions_per_batch,
+          fused_tta=svc.ecfg.fused_tta, ms_per_bucket_4_runs=bucket_ms,
           ms_per_image_best={b: min(t) / b for b, t in bucket_ms.items()})
 
     # record what each dispatched batch held, to hold responses to the step
@@ -1540,6 +1589,7 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
     try:
         att.KERNEL.launches = 0
         bil.KERNEL.launches = 0
+        rn.KERNEL.launches = 0
         before = svc.batcher.metrics.snapshot()
 
         npz = np.load(io.BytesIO(post(base, bodies[0])))
@@ -1593,7 +1643,7 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
         if [len(b) for b in batches_seen[n_lone:]] != [1]:
             raise AssertionError(f"a lone request was dispatched as "
                                  f"{[len(b) for b in batches_seen[n_lone:]]}")
-        launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+        launches, k4, junctions = att.KERNEL.launches, bil.KERNEL.launches, rn.KERNEL.launches
         after = json.loads(urllib.request.urlopen(f"{base}/metrics", timeout=30).read())
     finally:
         server.shutdown()
@@ -1602,9 +1652,11 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
     n_batches = after["batches"] - before["batches"]
     if after["errors"] != 0:  # the junk body failed in its decode, before the batcher
         raise AssertionError(f"server errors: {after}")
-    if launches != per_batch * n_batches or k4 != 0 or n_batches != len(batches_seen):
-        raise AssertionError(f"serve path: {launches} K1 launches over {n_batches} batches "
-                             f"(expected {per_batch} each), {k4} K4 launches (expected 0)")
+    if (launches != per_batch * n_batches or k4 != 0 or n_batches != len(batches_seen)
+            or junctions != junctions_per_batch * n_batches):
+        raise AssertionError(f"serve path: {launches} K1 and {junctions} junction launches "
+                             f"over {n_batches} batches (expected {per_batch} and "
+                             f"{junctions_per_batch} each), {k4} K4 launches (expected 0)")
 
     # each response against make_predict_step on the padded batch it rode in
     predict = inference.make_predict_step(svc.ecfg)
@@ -1639,7 +1691,7 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
         raise AssertionError("the batcher's dispatcher thread is still alive")
     phase("serve_path", requests=after["requests"] - before["requests"], batches=n_batches,
           k1_launches=launches, k1_launches_per_batch=per_batch, k4_launches=k4,
-          errors=after["errors"],
+          junction_launches=junctions, errors=after["errors"],
           concurrent_batch_sizes=[len(b) for b in batches_seen[n_before:n_lone]],
           responses_equal_to_padded_batch_predict=checked,
           min_agreement_with_batch16_predict=min(agree), distinct_label_maps=distinct,
@@ -1676,6 +1728,7 @@ def serve_path_phase(att, bil, inference, featurizer, tmp):
         raise AssertionError(f"exact serve request: {k1_exact} K1 and {k4_exact} K4 launches "
                              "(expected 24 and 11)")
     return {"launches": launches, "k4_launches": k4, "batches": n_batches, "per_batch": per_batch,
+            "junction_launches_per_batch": junctions / n_batches,
             "exact_k4_launches": k4_exact, "bucket_ms": bucket_ms, "load": load, "ckpt": ckpt}
 
 
@@ -1743,6 +1796,7 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
     import numpy as np
 
     from depthg_tpu_torch import precompute_knns
+    from depthg_tpu_torch.ops import residual_norm as rn
     from depthg_tpu_torch.parallel import knn
     from depthg_tpu_torch.profile_serve import synthetic_jpeg
 
@@ -1753,13 +1807,13 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
         with open(os.path.join(crop_dir, "img", "train", f"{i}.jpg"), "wb") as f:
             f.write(synthetic_jpeg(300 + i, 240, 240))
     att.KERNEL.launches = att.KERNEL.f32_launches = 0
-    bil.KERNEL.launches = 0
+    bil.KERNEL.launches = rn.KERNEL.launches = 0
     t0 = time.perf_counter()
     written = precompute_knns.main([
         f"data_dir={os.path.join(tmp, 'knn_data')}", "knn_datasets=[cocostuff27]",
         "knn_crop_types=[five]", "knn_image_sets=[train]", "num_workers=4"])
     cli_s = time.perf_counter() - t0
-    launches, k4 = att.KERNEL.launches, bil.KERNEL.launches
+    launches, k4, junctions = att.KERNEL.launches, bil.KERNEL.launches, rn.KERNEL.launches
     f32_launches = att.KERNEL.f32_launches
     nns = np.load(written[0])["nns"]
     name = os.path.basename(written[0])
@@ -1767,9 +1821,11 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
             or nns.dtype != np.int32 or nns.min() < 0 or nns.max() >= n_img
             or any(len(set(row)) != KNN_K for row in nns.tolist())):
         raise AssertionError(f"precompute_knns wrote {name}: {nns.shape} {nns.dtype}")
-    if launches != 12 * 2 or f32_launches != launches or k4 != 0:
+    if (launches != 12 * 2 or f32_launches != launches or k4 != 0
+            or junctions != junction_launches(12, 2)):
         raise AssertionError(f"KNN embedding: {launches} K1 launches (expected 24 for two "
-                             f"batches of {KNN_EMBED_B}) and {k4} K4 launches")
+                             f"batches of {KNN_EMBED_B}), {junctions} junction launches "
+                             f"(expected {junction_launches(12, 2)}) and {k4} K4 launches")
 
     net = featurizer.DinoFeaturizer(featurizer.FeaturizerConfig())
     net.model.init_weights(torch.Generator().manual_seed(0))
@@ -1821,7 +1877,7 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
     if not runtime.tf32_off():
         raise AssertionError("TF32 is on after the KNN")
     phase("knn_path", cli_seconds=cli_s, cli_images=n_img, file=name, k1_launches=launches,
-          k1_launches_per_batch=12, embed_batch=KNN_EMBED_B, embed_ms=embed_ms,
+          k1_launches_per_batch=12, junction_launches=junctions, embed_batch=KNN_EMBED_B, embed_ms=embed_ms,
           embed_img_per_s=KNN_EMBED_B / embed_ms * 1e3, unit_norm_err=norm_err,
           n=KNN_N, c=KNN_C, k=KNN_K, key_blocks=-(-KNN_N // knn._KEY_BLOCK),
           topk_highest_s=exact_s, topk_default_bf16_s=bf16_s, peak_mem_gb=peak,
@@ -1829,7 +1885,7 @@ def knn_path_phase(att, bil, featurizer, runtime, gen, tmp):
           worst_similarity_gap=worst_gap, bf16_entries_equal_to_float64=bf16_same,
           tf32_off=True)
     return {"launches": launches, "f32_launches": f32_launches, "k4_launches": k4,
-            "embed_ms": embed_ms}
+            "junction_launches": junctions, "embed_ms": embed_ms}
 
 
 def attention_bias_phase(att, beit, gen):
@@ -2271,16 +2327,7 @@ def swiglu_gate_phase(sw):
         queued_ms = device_time_ms(sw.swiglu_gate, inputs, iters=50)
         profiled_ms = profiled_kernel_ms(sw.swiglu_gate, inputs, ["swiglu_gate_kernel"])[
             "swiglu_gate_kernel"]
-        # the host's time a call, while the card works through a long product
-        busy = torch.empty(8192, 8192, device="cuda").normal_()
-        torch.cuda.synchronize()
-        busy @ busy
-        t0 = time.perf_counter()
-        for i in range(20):
-            sw.swiglu_gate(inputs[i % 2])
-        host_us = (time.perf_counter() - t0) / 20 * 1e6
-        torch.cuda.synchronize()
-        del busy
+        host_us = host_us_per_call(sw.swiglu_gate, inputs)
         library_ms = cuda_time_ms(sw.swiglu_gate_plain, inputs, iters=20)
         library_queued_ms = device_time_ms(sw.swiglu_gate_plain, inputs, iters=20)
     bound, nbytes = swiglu_gate_bound_ms(m, hidden, 2)
@@ -2298,10 +2345,158 @@ def swiglu_gate_phase(sw):
     return out
 
 
+def residual_norm_bound_ms(rows, d, itemsize, entry):
+    """(least ms, bytes) of one junction launch over [rows, d]: the fused
+    entry reads x and y and writes the sum and its norm, the residual
+    reads two and writes one, the norm reads one and writes one."""
+    nbytes = {"fused": 4, "residual": 3, "norm": 2}[entry] * rows * d * itemsize
+    return nbytes / PEAK_HBM * 1e3, nbytes
+
+
+def step_at(scale):
+    """One bf16 step at each magnitude of ``scale`` (float32)."""
+    return torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0 ** -126))) - 7)
+
+
+def host_us_per_call(fn, inputs, calls=20):
+    """The host's microseconds a call of ``fn``, while the card works
+    through a long product (so no call waits for the card)."""
+    busy = torch.empty(8192, 8192, device="cuda").normal_()
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    busy @ busy
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(inputs[i % len(inputs)])
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host_us
+
+
+# the residual junction phase's shapes: (label, rows, D, dtype, LayerScale).
+# DINOv2's stacked flip-TTA at batch 16 (N = 1,029), Depth Anything V2's
+# batch 8 (N = 1,814), and ViT-S/8's and ViT-B/8's stacked eval batch of 16
+# at 320 px (N = 1,601; no LayerScale), ViT-S/8 also in float32
+RESIDUAL_CASES = (
+    ("dinov2", RESIDUAL_DINOV2_ROWS, 1536, torch.bfloat16, True),
+    ("dav2", RESIDUAL_DAV2_ROWS, 1024, torch.bfloat16, True),
+    ("vits8", RESIDUAL_VIT8_ROWS, 384, torch.bfloat16, False),
+    ("vits8_f32", RESIDUAL_VIT8_ROWS, 384, torch.float32, False),
+    ("vitb8", RESIDUAL_VIT8_ROWS, 768, torch.bfloat16, False),
+)
+
+
+def residual_norm_phase(rn):
+    """The ViT blocks' residual junction kernel at each shape of
+    ``RESIDUAL_CASES``: for each of its three entries (the residual with
+    the next norm, the residual, the norm) the kernel back to back, queued
+    behind a long product and by ``torch.profiler``, against its bound
+    (bytes), beside the eager passes it replaced (the plain versions), and
+    the host's microseconds a call of each; the sum's elements whose bits
+    differ from eager, the norm's elements more than one bf16 step off and
+    those differing at all (of the fused entry and the norm entry), and one
+    launch a call. A bf16 step of the norm is taken at the larger of the
+    output and the terms it sums (normalized value times weight, bias):
+    where they cancel, float32's own rounding of the terms exceeds a step of
+    the small result; the elements past a step at their own magnitude (in
+    bf16 at most 4 and one in 100,000, as the card tests hold), and the
+    three farthest, are reported beside."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, rows, d, dtype, layer_scale in RESIDUAL_CASES:
+        def inputs():
+            x = torch.randn(rows, d, device="cuda", generator=gen) * 2.0 + 0.5
+            y = torch.randn(rows, d, device="cuda", generator=gen)
+            gamma = torch.rand(d, device="cuda", generator=gen) * 0.2
+            w = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+            b = 0.1 * torch.randn(d, device="cuda", generator=gen)
+            x, y, gamma, w, b = [t.to(dtype) for t in (x, y, gamma, w, b)]
+            return [x, y, gamma if layer_scale else None, w, b]
+
+        def bits(t):
+            return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+        sets = [inputs(), inputs()]
+        entries = {
+            "fused": (lambda a: rn.residual_norm(*a, 1e-6)[1],
+                      lambda a: rn.residual_norm_plain(*a, 1e-6)[1]),
+            "residual": (lambda a: rn.residual_add(*a[:3]),
+                         lambda a: rn.residual_add_plain(*a[:3])),
+            "norm": (lambda a: rn.layer_norm(a[0], *a[3:], 1e-6),
+                     lambda a: rn.layer_norm_plain(a[0], *a[3:], 1e-6)),
+        }
+        with torch.inference_mode():
+            x, y, gamma, w, b = sets[0]
+            before = rn.KERNEL.launches
+            got_x, got_n = rn.residual_norm(x, y, gamma, w, b, 1e-6)
+            launched = rn.KERNEL.launches - before
+            want_x, want_n = rn.residual_norm_plain(x, y, gamma, w, b, 1e-6)
+            got_norm, want_norm = rn.layer_norm(x, w, b, 1e-6), rn.layer_norm_plain(x, w, b, 1e-6)
+            checks = dict(launches_per_call=launched,
+                          sum_elements_differing=int((bits(got_x) != bits(want_x)).sum()))
+            for name, got, want, s in (("fused", got_n, want_n, want_x),
+                                       ("norm", got_norm, want_norm, x)):
+                got, want = got.float(), want.float()
+                # the terms the norm sums in float32, in float64: the
+                # normalized value times the weight, and the bias
+                s64 = s.double()
+                t = ((s64 - s64.mean(-1, keepdim=True)) * w.double()
+                     * (s64.var(-1, unbiased=False, keepdim=True) + 1e-6).rsqrt())
+                terms = torch.maximum(t.abs(), b.double().abs()).float()
+                del s64, t
+                own = step_at(want.abs())
+                at_terms = step_at(torch.maximum(want.abs(), terms))
+                off = (got - want).abs()
+                checks[f"{name}_norm_elements_differing"] = int((got != want).sum())
+                checks[f"{name}_norm_max_abs_diff"] = off.max().item()
+                checks[f"{name}_norm_elements_past_a_step"] = int((off > at_terms).sum())
+                past = off > own
+                checks[f"{name}_norm_elements_past_their_own_step"] = int(past.sum())
+                worst = (off / own).flatten().topk(3).indices
+                checks[f"{name}_norm_worst_own_steps"] = [
+                    dict(got=got.flatten()[i].item(), want=want.flatten()[i].item(),
+                         terms=terms.flatten()[i].item()) for i in worst.tolist()]
+                del own, at_terms, off, past, terms
+            del got_x, got_n, want_x, want_n, got_norm, want_norm
+            for entry, (kernel, eager) in entries.items():
+                bound, nbytes = residual_norm_bound_ms(rows, d, sets[0][0].element_size(), entry)
+                queued = device_time_ms(kernel, sets, iters=50)
+                profiled = profiled_kernel_ms(kernel, sets, ["residual_norm_kernel"])[
+                    "residual_norm_kernel"]
+                checks[entry] = dict(
+                    bytes=nbytes, bound_ms=bound, kernel_ms=cuda_time_ms(kernel, sets, iters=50),
+                    kernel_queued_ms=queued, kernel_profiler_ms=profiled,
+                    host_us_per_call=host_us_per_call(kernel, sets),
+                    eager_ms=cuda_time_ms(eager, sets, iters=20),
+                    eager_queued_ms=device_time_ms(eager, sets, iters=20),
+                    eager_host_us_per_call=host_us_per_call(eager, sets),
+                    share_of_bound=bound / min(queued, profiled or queued))
+        out[label] = dict(shape=[rows, d], dtype=str(dtype).replace("torch.", ""),
+                          layer_scale=layer_scale, **checks)
+        del sets
+        torch.cuda.empty_cache()
+    phase("residual_norm", **out)
+    def rare(v):  # bf16 norms past a step at their own magnitude: 4 and 1 in 100,000
+        return v["dtype"] != "bfloat16" or max(
+            v["fused_norm_elements_past_their_own_step"],
+            v["norm_norm_elements_past_their_own_step"]) <= 4 + math.prod(v["shape"]) // 100_000
+
+    bad = {k: v for k, v in out.items()
+           if v["launches_per_call"] != 1 or v["sum_elements_differing"]
+           or v["fused_norm_elements_past_a_step"] or v["norm_norm_elements_past_a_step"]
+           or not rare(v)}
+    if bad:
+        raise AssertionError(f"residual junction kernel vs eager: {bad}")
+    return out
+
+
 def dinov2_path_phase(att, bil, sw, inference, crf_lib):
     """The DINOv2 cell's eval step on a full-width ViT-g/14-reg (random
-    weights from seed 0): 40 gate and 40 K1 launches a step, the gate's bits
-    in one block of the path, the step's rate (docstring, phase 13)."""
+    weights from seed 0): 40 gate and 40 K1 launches a step, 121 residual
+    junction launches, the gate's bits in one block of the path, the step's
+    rate (docstring, phase 13)."""
+    from depthg_tpu_torch.ops import residual_norm as rn
+
     cfg = json.loads(open(DINOV2_CONFIG).read())
     bb, head, ev = cfg["backbone"], cfg["head"], cfg["eval"]
     fcfg = inference.fcfg_from_run_cfg({
@@ -2331,19 +2526,21 @@ def dinov2_path_phase(att, bil, sw, inference, crf_lib):
                  lambda m, i, o: seen.setdefault("w12", o.detach().clone())),
              ffn.w3.register_forward_pre_hook(
                  lambda m, i: seen.setdefault("w3_in", i[0].detach().clone()))]
-    gates = sw.KERNEL.gate_launches
+    gates, junctions = sw.KERNEL.gate_launches, rn.KERNEL.launches
     try:
         _, img_s, launches, k4 = run_eval_batches(step, model, batches, att, bil)
     finally:
         for h in hooks:
             h.remove()
     gates = sw.KERNEL.gate_launches - gates
+    junctions = rn.KERNEL.launches - junctions
     got, ref = seen["w3_in"], sw.swiglu_gate_plain(seen["w12"])
     differing = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
     depth = bb["depth"]
     out = dict(batch=DINOV2_B, res=res, steps=len(batches), batches_timed=len(batches) - 1,
                img_per_s=img_s, gate_launches=gates,
                gate_launches_per_step=gates / len(batches),
+               junction_launches_per_step=junctions / len(batches),
                attention_launches_per_step=launches / len(batches), k4_launches=k4,
                w12_output_shape=list(seen["w12"].shape), w12_output_dtype=str(ref.dtype),
                checked_block=DINOV2_CHECKED_BLOCK, gate_elements_differing=differing,
@@ -2351,10 +2548,11 @@ def dinov2_path_phase(att, bil, sw, inference, crf_lib):
     phase("dinov2_path", **out)
     del model, step, batches, seen, got, ref
     torch.cuda.empty_cache()
-    if (gates != depth * 4 or launches != depth * 4 or differing
-            or out["w12_output_dtype"] != str(torch.bfloat16)):
+    if (gates != depth * 4 or launches != depth * 4 or junctions != (3 * depth + 1) * 4
+            or differing or out["w12_output_dtype"] != str(torch.bfloat16)):
         raise AssertionError(f"DINOv2 path: {gates} gate launches and {launches} K1 launches "
-                             f"in 4 steps (expected {depth * 4} each), {differing} gate "
+                             f"in 4 steps (expected {depth * 4} each), {junctions} junction "
+                             f"launches (expected {(3 * depth + 1) * 4}), {differing} gate "
                              f"elements off the eager pair: {out}")
     return out
 
@@ -3679,6 +3877,7 @@ def main():
     from depthg_tpu_torch.ops import _build, crf
     from depthg_tpu_torch.ops import attention as att
     from depthg_tpu_torch.ops import crf_bilateral as bil
+    from depthg_tpu_torch.ops import residual_norm as rn
     from depthg_tpu_torch.ops import swiglu as sw
     from depthg_tpu_torch.ops import zoe_bins as zb
     from depthg_tpu_torch.models.zoedepth import beit
@@ -3691,12 +3890,13 @@ def main():
           gpu=torch.cuda.get_device_name(0), tf32_off=True)
 
     t_build = time.perf_counter()
-    _build.build(["attention", "crf_bilateral", "zoe_bins", "swiglu"])
+    _build.build(["attention", "crf_bilateral", "zoe_bins", "swiglu", "residual_norm"])
     att.KERNEL.fn()
     bil.KERNEL.fn()
     zb.KERNEL.fn()
     sw.KERNEL.fn()
-    for name in ("attention", "crf_bilateral", "zoe_bins", "swiglu"):
+    rn.KERNEL.fn()
+    for name in ("attention", "crf_bilateral", "zoe_bins", "swiglu", "residual_norm"):
         phase("build", source=f"depthg_tpu_torch/csrc/{name}.cu",
               seconds=_build.BUILD_SECONDS[name],
               ptxas=[ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
@@ -3728,6 +3928,7 @@ def main():
     depth_numerics_phase(att)
     bins = bins_tail_phase(zb)
     gate = swiglu_gate_phase(sw)
+    junction = residual_norm_phase(rn)
     dinov2_res = dinov2_path_phase(att, bil, sw, inference, crf)
     with tempfile.TemporaryDirectory() as tmp:
         ft_res = finetune_path_phase(att, bil, tmp)
@@ -3994,6 +4195,33 @@ def main():
         "host_us_per_call": gate["host_us_per_call"],
         "dinov2_path_elements_differing": dinov2_res["gate_elements_differing"],
         "dinov2_path_img_per_s": dinov2_res["img_per_s"],
+    }, {
+        "name": "residual_norm", "route": "cuda",
+        "source": "depthg_tpu_torch/csrc/residual_norm.cu",
+        "replaces": "none (the JAX package leaves its blocks' element-wise work to XLA)",
+        # per step of the DINOv2 cell's eval step (three a block, one final norm)
+        "launches": dinov2_res["junction_launches_per_step"],
+        "shape": f"bf16, [{RESIDUAL_DINOV2_ROWS}, 1536] (the DINOv2 cell's step), fused entry",
+        "ms": junction["dinov2"]["fused"]["kernel_ms"],
+        "queued_ms": junction["dinov2"]["fused"]["kernel_queued_ms"],
+        "profiler_ms": junction["dinov2"]["fused"]["kernel_profiler_ms"],
+        "plain_ms": junction["dinov2"]["fused"]["eager_ms"],
+        "bound_ms": junction["dinov2"]["fused"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "elements_differing": junction["dinov2"]["sum_elements_differing"],
+        "norm_elements_past_a_step": junction["dinov2"]["fused_norm_elements_past_a_step"],
+        "host_us_per_call": {label: {entry: case[entry]["host_us_per_call"]
+                                     for entry in ("fused", "residual", "norm")}
+                             for label, case in junction.items()},
+        "eager_host_us_per_call": {label: {entry: case[entry]["eager_host_us_per_call"]
+                                           for entry in ("fused", "residual", "norm")}
+                                   for label, case in junction.items()},
+        # per batch or step of the paths that count them
+        "main_path_launches_per_batch": main_res["junction_launches_per_batch"],
+        "f32_eval_predict_launches": main_res["f32_junction_launches"],
+        "train_path_launches_per_step": train_res["junction_launches_per_step"],
+        "serve_path_launches_per_batch": serve_res["junction_launches_per_batch"],
+        "knn_path_launches": knn_res["junction_launches"],
     }]}
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps(kernels))

@@ -34,6 +34,12 @@ model and derives it again when any of the model's parameters is replaced
 or changed in place; the resized position table is kept per grid the same
 way (``models/frozen_cache.py``).
 
+On CUDA the blocks' residual junctions (``Block``, ``LayerScaleBlock``) and
+the final norm (``final_norm``) go through ``ops.residual_norm``, one Hopper
+kernel launch each (three a block and one a final norm), which raises on
+what it does not take (``ops/residual_norm.py``); there is no fallback. On
+the CPU the eager modules run.
+
 Attention: ``"xla"`` is the eager softmax that can return attention maps;
 ``"fused"`` / ``"flash"`` go through ``ops.attention.attention_qkv``, which
 launches the Hopper kernel on CUDA tensors (one launch per layer for all
@@ -53,6 +59,7 @@ from torch import nn
 
 from depthg_tpu_torch.models import frozen_cache
 from depthg_tpu_torch.models.layers import LayerNorm, cast_bf16, quantize_linear
+from depthg_tpu_torch.ops import residual_norm as junction
 from depthg_tpu_torch.ops.attention import attention_qkv
 from depthg_tpu_torch.ops.resize import resize_bicubic
 from depthg_tpu_torch.ops.swiglu import swiglu_gate
@@ -204,6 +211,11 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
+    """DINO's block: x + attn(norm1(x)), then x + mlp(norm2(x)). On CUDA
+    its three junctions are one ``ops.residual_norm`` launch each:
+    ``norm1``; the first residual with ``norm2``; the second residual. On
+    the CPU the eager modules run (``eager_forward``)."""
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.norm1 = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
@@ -211,7 +223,19 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.mlp = SwiGLU(cfg) if cfg.ffn == "swiglu" else Mlp(cfg)
 
+    def gammas(self):
+        """The residual branches' LayerScale gammas: none in DINO's block."""
+        return None, None
+
     def forward(self, x: torch.Tensor, impl: str = "xla"):
+        if x.device.type != junction.DEVICE_TYPE:
+            return self.eager_forward(x, impl)
+        (g1, g2), n1, n2 = self.gammas(), self.norm1, self.norm2
+        y, attn, qkv = self.attn(junction.layer_norm(x, n1.weight, n1.bias, n1.eps), impl)
+        x, h = junction.residual_norm(x, y, g1, n2.weight, n2.bias, n2.eps)
+        return junction.residual_add(x, self.mlp(h), g2), attn, qkv
+
+    def eager_forward(self, x: torch.Tensor, impl: str):
         y, attn, qkv = self.attn(self.norm1(x), impl)
         x = x + y
         return x + self.mlp(self.norm2(x)), attn, qkv
@@ -225,7 +249,10 @@ class LayerScaleBlock(Block):
         self.ls1 = LayerScale(cfg.embed_dim)
         self.ls2 = LayerScale(cfg.embed_dim)
 
-    def forward(self, x: torch.Tensor, impl: str = "xla"):
+    def gammas(self):
+        return self.ls1.gamma, self.ls2.gamma
+
+    def eager_forward(self, x: torch.Tensor, impl: str):
         y, attn, qkv = self.attn(self.norm1(x), impl)
         x = x + self.ls1(y)
         return x + self.ls2(self.mlp(self.norm2(x))), attn, qkv
@@ -319,6 +346,14 @@ class VisionTransformer(nn.Module):
         reg = self.register_tokens.to(tok.dtype).expand(b, -1, -1)
         return torch.cat([tok[:, :1], reg, tok[:, 1:]], dim=1)
 
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """``self.norm(x)``: on CUDA one launch of ``ops.residual_norm``'s
+        norm, on the CPU the eager module."""
+        norm = self.norm
+        if x.device.type != junction.DEVICE_TYPE:
+            return norm(x)
+        return junction.layer_norm(x, norm.weight, norm.bias, norm.eps)
+
     def forward(self, x: torch.Tensor, n: int = 1, attn_impl: str = "xla"):
         """``get_intermediate_feat``: (feats, attns, qkvs) of the last ``n``
         blocks — post-norm tokens [B, N, D], attention maps (None under the
@@ -330,7 +365,7 @@ class VisionTransformer(nn.Module):
             x, attn, qkv = blk(x, attn_impl)
             if depth - i <= n:
                 b, t, _ = qkv.shape
-                feats.append(self.norm(x))
+                feats.append(self.final_norm(x))
                 attns.append(attn)
                 qkvs.append(qkv.view(b, t, 3, self.cfg.num_heads, -1)
                             .permute(2, 0, 3, 1, 4))
@@ -346,7 +381,7 @@ class VisionTransformer(nn.Module):
         for i, blk in enumerate(self.blocks[:max(blocks) + 1]):
             x, _, _ = blk(x, attn_impl)
             if i in blocks:
-                normed[i] = self.norm(x)[:, self.cfg.n_prefix:]
+                normed[i] = self.final_norm(x)[:, self.cfg.n_prefix:]
         return [normed[i] for i in blocks]
 
 

@@ -138,8 +138,8 @@ class Recorder:
         one key a registered counter (``host_syncs``; ``k1_launches``,
         ``crf_cache_launches``, ``crf_message_launches``,
         ``bins_tail_launches``, ``swiglu_gate_launches``,
-        ``frozen_cache_builds``, ``frozen_cache_hits`` once their modules are
-        imported); the device fields are None for a span recorded before
+        ``residual_norm_launches``, ``frozen_cache_builds``,
+        ``frozen_cache_hits`` once their modules are imported); the device fields are None for a span recorded before
         CUDA was in use.
         One synchronize: an
         anchor event recorded now on the current device puts the events on

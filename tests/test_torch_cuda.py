@@ -90,7 +90,17 @@ the float32 model's copy. The host-sync slice runs one warm step of each
 benchmark cell's step function at the cell's sizes (ViT-S/8 and DINOv2
 eval, ViT-S/8 train, ZoeDepth and Depth Anything V2 depth) under
 ``torch.cuda.set_sync_debug_mode("warn")``: every call that makes the host
-wait for the device runs inside a ``host_sync`` span.
+wait for the device runs inside a ``host_sync`` span. The residual
+junction slice adds the ViT blocks' junction kernel
+(``residual_norm.residual_norm`` / ``residual_add`` / ``layer_norm``) on the
+card against its plain versions, into output memory that held NaN: the
+residual bit for bit, the norm within one bf16 step of ``F.layer_norm``'s
+and, in float32, within float32 rounding of a float64 norm; at the ViT
+widths 384 to 1,536 (128 and 2,048 for the norm and the add) and ragged
+row counts up to the DINOv2 cell's 32 x 1,029; its refusals; one launch a
+call; and a small ViT-S/8, DINOv2 and Depth Anything V2 ViT on the card:
+three launches a block and one a final norm or tap, features close to the
+eager modules'.
 """
 
 import pytest
@@ -99,6 +109,7 @@ import torch
 from depthg_tpu_torch.ops import attention as tatt
 from depthg_tpu_torch.ops import crf as tcrf
 from depthg_tpu_torch.ops import crf_bilateral as tbil
+from depthg_tpu_torch.ops import residual_norm as tjun
 from depthg_tpu_torch.ops import swiglu as tswi
 from depthg_tpu_torch.ops import zoe_bins as tzb
 import bins_tail_cases as bcases
@@ -1781,6 +1792,227 @@ def test_small_dinov2_gates_through_the_kernel(cuda, monkeypatch, backbone):
         want = model(x)[0][0]
     assert tswi.KERNEL.gate_launches == before + cfg.depth
     assert torch.equal(_bits(got), _bits(want))
+
+
+# The ViT blocks' residual junction kernel (``ops.residual_norm``) against
+# its plain versions on the card: the residual rounds where eager rounds, so
+# it is held bit for bit; the norm may differ from ``F.layer_norm`` only in
+# the order of its float32 sums, so it is held within one bf16 step of the
+# plain version (at the scale of the terms it sums; a bf16 norm past a step
+# at its own magnitude in at most 4 elements plus one in 100,000), and in
+# float32 within float32 rounding of a float64 norm. ViT-Ti's, ViT-S's, ViT-B's, ViT-L's
+# and ViT-g's widths.
+JUNCTION_WIDTHS = [192, 384, 768, 1024, 1536]
+
+
+def _junction_inputs(rows, d, dtype, seed=0):
+    """x [rows, d] (a residual stream with an offset and a few large
+    entries), y (a branch output), trained-looking gamma, weight and bias,
+    all on the card in ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, d, device="cuda", generator=gen) * 2.0 + 0.5
+    x.view(-1)[::211] = 40.0
+    y = torch.randn(rows, d, device="cuda", generator=gen)
+    gamma = torch.rand(d, device="cuda", generator=gen) * 0.2
+    weight = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    return [t.to(dtype) for t in (x, y, gamma, weight, bias)]
+
+
+def _poisoned_pair(call, shape, dtype):
+    """``call()``'s outputs, written into two blocks that held NaN (the two
+    outputs have one size, so either may take either block)."""
+    torch.cuda.empty_cache()
+    junk = [torch.empty(shape, dtype=dtype, device="cuda").fill_(float("nan")) for _ in range(2)]
+    ptrs = {j.data_ptr() for j in junk}
+    del junk
+    out = call()
+    if {o.data_ptr() for o in out} != ptrs:
+        raise AssertionError("the outputs did not land in the poisoned blocks")
+    return out
+
+
+def _norm_scale(s, weight, bias, eps):
+    """The largest magnitude each element of the norm of ``s`` sums in
+    float32: its normalized value times the weight, the bias, the result
+    (float64)."""
+    s64 = s.double()
+    t = ((s64 - s64.mean(-1, keepdim=True))
+         * (s64.var(-1, unbiased=False, keepdim=True) + eps).rsqrt() * weight.double())
+    return torch.maximum(torch.maximum(t.abs(), bias.double().abs()), (t + bias.double()).abs())
+
+
+def _bf16_step(scale):
+    return torch.exp2(torch.floor(torch.log2(scale.float().clamp_min(2.0 ** -126))) - 7)
+
+
+def _assert_within_a_bf16_step(got, want, scale):
+    """Each element of ``got`` within one bf16 step of ``want``, the step
+    taken at ``scale``: where the normalized value and the bias cancel,
+    float32's own rounding of those terms exceeds a bf16 step of the small
+    result, whichever order the sums take. Beside it, in bf16, the elements
+    more than a step off at their own magnitude are at most 4 plus one in
+    100,000: such cancellation is rare (1.3e-6 of the elements over every
+    case here, at most 2.2e-6 of a case of 11M elements or more; 54-64 of
+    50.6M at the DINOv2 shape), so a kernel whose sums drift further shows
+    there; the 4 take the chance of a few at the small cases. A float32
+    norm is held to a float64 one instead (``_f32_norm_error``)."""
+    off = (got.float() - want.float()).abs()
+    past_scale = int((off > _bf16_step(scale)).sum())
+    past_own = int((off > _bf16_step(want.abs())).sum()) if got.dtype == torch.bfloat16 else 0
+    allowed = 4 + want.numel() // 100_000
+    assert past_scale == 0 and past_own <= allowed, (
+        f"{past_scale} elements past a bf16 step at the terms' scale, {past_own} past a step at "
+        f"their own magnitude (at most {allowed}) of {want.numel()}")
+
+
+def _f32_norm_error(got, s, weight, bias, eps):
+    """(worst |got - LN64| over its limit, LN64): the float64 layer norm of
+    ``s`` and the float32 rounding limit of each element: 2^-24 x (64 |w|
+    rstd (|s - mean| + mean |s|) + 4 |LN64|), the sums' and the rsqrt's
+    errors carried through the scale."""
+    s64 = s.double()
+    mean = s64.mean(-1, keepdim=True)
+    rstd = (s64.var(-1, unbiased=False, keepdim=True) + eps).rsqrt()
+    ref = (s64 - mean) * rstd * weight.double() + bias.double()
+    limit = 2.0 ** -24 * (64 * weight.double().abs() * rstd
+                          * ((s64 - mean).abs() + s64.abs().mean(-1, keepdim=True))
+                          + 4 * ref.abs())
+    return ((got.double() - ref).abs() / limit).max().item(), ref
+
+
+@pytest.mark.parametrize("rows", [1, 7, 33, 1029, 32 * 1029])
+@pytest.mark.parametrize("d", JUNCTION_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gamma", ["layer_scale", "none"])
+def test_residual_norm_kernel_matches_plain_on_poisoned_output(cuda, dtype, d, rows, gamma):
+    x, y, g, w, b = _junction_inputs(rows, d, dtype, seed=rows + d)
+    g = g if gamma == "layer_scale" else None
+    before = tjun.KERNEL.launches
+    with torch.inference_mode():
+        got_x, got_n = _poisoned_pair(lambda: tjun.residual_norm(x, y, g, w, b, 1e-6),
+                                      (rows, d), dtype)
+        torch.cuda.synchronize()
+        want_x, want_n = tjun.residual_norm_plain(x, y, g, w, b, 1e-6)
+    assert tjun.KERNEL.launches == before + 1
+    assert got_x.dtype == got_n.dtype == dtype and got_n.shape == (rows, d)
+    assert torch.equal(_bits(got_x), _bits(want_x))
+    _assert_within_a_bf16_step(got_n, want_n, _norm_scale(want_x, w, b, 1e-6))
+    if dtype == torch.float32:
+        worst, _ = _f32_norm_error(got_n, want_x, w, b, 1e-6)
+        eager_worst, _ = _f32_norm_error(want_n, want_x, w, b, 1e-6)
+        assert worst <= 1.0 and eager_worst <= 1.0, (worst, eager_worst)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1029, 14512])
+@pytest.mark.parametrize("d", [64, 128] + JUNCTION_WIDTHS + [2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_residual_add_and_layer_norm_kernels_match_plain_on_poisoned_output(cuda, dtype, d,
+                                                                             rows):
+    x, y, g, w, b = _junction_inputs(rows, d, dtype, seed=3 * rows + d)
+    with torch.inference_mode():
+        added = poisoned(lambda: tjun.residual_add(x, y, g), (rows, d), dtype)
+        summed = poisoned(lambda: tjun.residual_add(x, y, None), (rows, d), dtype)
+        normed = poisoned(lambda: tjun.layer_norm(x, w, b, 1e-6), (rows, d), dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(added), _bits(tjun.residual_add_plain(x, y, g)))
+        assert torch.equal(_bits(summed), _bits(x + y))
+        _assert_within_a_bf16_step(normed, tjun.layer_norm_plain(x, w, b, 1e-6),
+                                   _norm_scale(x, w, b, 1e-6))
+    if dtype == torch.float32:
+        worst, _ = _f32_norm_error(normed, x, w, b, 1e-6)
+        assert worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("bad", ["float16", "gamma_float32", "width_160", "width_2176", "strided",
+                                 "misaligned", "requires_grad", "weight_on_cpu"])
+def test_residual_norm_kernel_refuses_what_it_cannot_take(cuda, bad):
+    x, y, g, w, b = _junction_inputs(7, 384, torch.bfloat16)
+    call = {
+        "float16": lambda: tjun.residual_norm(x.half(), y.half(), g.half(), w.half(), b.half(),
+                                              1e-6),
+        "gamma_float32": lambda: tjun.residual_add(x, y, g.float()),
+        "width_160": lambda: tjun.layer_norm(x[:, :160].contiguous(), w[:160].contiguous(),
+                                             b[:160].contiguous(), 1e-6),
+        "width_2176": lambda: tjun.residual_add(torch.zeros(3, 2176, device="cuda"),
+                                                torch.zeros(3, 2176, device="cuda"), None),
+        "strided": lambda: tjun.residual_add(torch.cat([x, y], 1)[:, :384],
+                                             torch.cat([x, y], 1)[:, 384:], None),
+        "misaligned": lambda: tjun.residual_add(x.view(-1)[4: 4 + 6 * 384].view(6, 384),
+                                                y[:6], None),
+        "requires_grad": lambda: tjun.residual_add(x.float().requires_grad_(), y.float(), None),
+        "weight_on_cpu": lambda: tjun.layer_norm(x, w.cpu(), b, 1e-6),
+    }[bad]
+    before = tjun.KERNEL.launches
+    with pytest.raises(ValueError):
+        call()
+    assert tjun.KERNEL.launches == before
+
+
+def test_residual_norm_kernel_counts_one_launch_a_call(cuda):
+    x, y, g, w, b = _junction_inputs(7, 768, torch.bfloat16)
+    before = tjun.KERNEL.launches
+    with torch.inference_mode():
+        for i, call in enumerate([lambda: tjun.residual_norm(x, y, g, w, b, 1e-6),
+                                  lambda: tjun.residual_add(x, y, None),
+                                  lambda: tjun.layer_norm(x, w, b, 1e-6)]):
+            call()
+            assert tjun.KERNEL.launches == before + i + 1
+    torch.cuda.synchronize()
+
+
+# small ViTs of the kinds the port runs, ViT-Ti's width among them: (preset
+# overrides, normed taps)
+JUNCTION_VITS = {
+    "vit_s8": (dict(patch_size=8, embed_dim=384, depth=3, num_heads=6, img_size=32), None),
+    "vit_ti8": (dict(patch_size=8, embed_dim=192, depth=2, num_heads=3, img_size=32), None),
+    "dinov2": (dict(patch_size=14, embed_dim=256, depth=3, num_heads=4, img_size=56,
+                    n_registers=2, layer_scale=True, ffn="swiglu", pos_resize="dinov2"), None),
+    "dav2": (dict(patch_size=14, embed_dim=256, depth=4, num_heads=4, img_size=56,
+                  layer_scale=True), [0, 1, 3]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(JUNCTION_VITS))
+def test_small_vits_run_their_junctions_through_the_kernel(cuda, monkeypatch, name, dtype):
+    """A small ViT of each kind on the card: three junction launches a block
+    and one a final norm (or normed tap), and its features (taps) close to
+    the eager modules' on the same card: float32 within 1e-5 and bf16
+    within 2e-2 relative (a norm one bf16 step off moves what follows)."""
+    from depthg_tpu_torch.models import vit as tvit
+
+    over, taps = JUNCTION_VITS[name]
+    cfg = tvit.ViTConfig(**over)
+    model = tvit.VisionTransformer(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p_name, p in model.named_parameters():
+            if p_name.endswith(".gamma"):
+                p.fill_(0.3)
+    model = model.to(cuda, dtype)
+    x = torch.randn(2, 3, 3 * cfg.patch_size, 4 * cfg.patch_size,
+                    generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+
+    def run():
+        if taps is None:
+            return torch.cat([f.flatten() for f in model(x, n=2, attn_impl="fused")[0]])
+        return torch.cat([t.flatten() for t in model.normed_taps(x, taps, "fused")])
+
+    before = tjun.KERNEL.launches
+    with torch.inference_mode():
+        got = run()
+        torch.cuda.synchronize()
+        want_launches = 3 * (cfg.depth if taps is None else max(taps) + 1) + (
+            2 if taps is None else len(taps))
+        assert tjun.KERNEL.launches == before + want_launches
+        # the eager modules on the same card
+        monkeypatch.setattr(tvit.Block, "forward",
+                            lambda self, x, impl="xla": self.eager_forward(x, impl))
+        monkeypatch.setattr(tvit.VisionTransformer, "final_norm", lambda self, x: self.norm(x))
+        want = run()
+    assert tjun.KERNEL.launches == before + want_launches
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 2e-2), rel
 
 
 def _frozen_runs(run):

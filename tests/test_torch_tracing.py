@@ -87,6 +87,7 @@ COUNTERS = {
     "crf_message_launches": ("depthg_tpu_torch.ops.crf_bilateral", "KERNEL", "message_launches"),
     "bins_tail_launches": ("depthg_tpu_torch.ops.zoe_bins", "KERNEL", "bins_launches"),
     "swiglu_gate_launches": ("depthg_tpu_torch.ops.swiglu", "KERNEL", "gate_launches"),
+    "residual_norm_launches": ("depthg_tpu_torch.ops.residual_norm", "KERNEL", "launches"),
     "host_syncs": ("depthg_tpu_torch.utils.profiling", "SYNCS", "count"),
     "frozen_cache_builds": ("depthg_tpu_torch.models.frozen_cache", "COUNTS", "builds"),
     "frozen_cache_hits": ("depthg_tpu_torch.models.frozen_cache", "COUNTS", "hits"),
@@ -498,12 +499,13 @@ def test_cap_counts_dropped_spans(monkeypatch):
 
 
 def span(id, name, parent=None, step=None, host=1.0, self_host=None, device=None, k1=0,
-         cache=0, bins=0, message=0, gate=0, syncs=0):
+         cache=0, bins=0, message=0, gate=0, syncs=0, junction=0):
     return {"id": id, "name": name, "parent": parent, "step": id if step is None else step,
             "host_ms": host, "self_host_ms": host if self_host is None else self_host,
             "device_ms": device, "k1_launches": k1, "crf_cache_launches": cache,
             "bins_tail_launches": bins, "crf_message_launches": message,
-            "swiglu_gate_launches": gate, "host_syncs": syncs}
+            "swiglu_gate_launches": gate, "host_syncs": syncs,
+            "residual_norm_launches": junction}
 
 
 def eval_spans(device=True):
@@ -513,11 +515,11 @@ def eval_spans(device=True):
     ``backbone`` inside a ``logits``."""
     d = (lambda v: v) if device else (lambda v: None)
     return [span(1, "eval.step", host=50.0, device=d(70.0), k1=12, cache=1, message=13,
-                 syncs=7),
+                 syncs=7, junction=37),
             span(2, "backbone", 10, 1, host=5.0, device=d(20.0)),
             span(3, "crf", 1, 1, host=30.0, device=d(44.0), cache=1, message=13, syncs=2),
             span(4, "eval.step", host=52.0, device=d(74.0), k1=12, cache=1, message=11,
-                 syncs=7),
+                 syncs=7, junction=37),
             span(5, "backbone", 11, 4, host=3.0, device=d(11.0)),
             span(6, "backbone", 11, 4, host=3.0, device=d(11.0)),
             span(7, "crf", 4, 4, host=31.0, device=d(46.0), cache=1, message=11, syncs=2),
@@ -554,7 +556,7 @@ def dinov2_spans(device=True):
     out = []
     for i, base in enumerate((1, 7)):
         out += [span(base, "eval.step", host=200.0, device=d(250.0), k1=40, cache=1, message=13,
-                     gate=40, syncs=7),
+                     gate=40, syncs=7, junction=121),
                 span(base + 1, "backbone", 20 + i, base, host=20.0, device=d(160.0 + i))]
         out += [span(base + 2 + k, "swiglu", base + 1, base, host=1.0, device=d(30.0 + k + i),
                      gate=1) for k in range(3)]
@@ -571,7 +573,7 @@ def dav2_spans(device=True):
     d = (lambda v: v) if device else (lambda v: None)
     out = []
     for i, base in enumerate((1, 5)):
-        out += [span(base, "depth.step", host=60.0, device=d(58.0), k1=24),
+        out += [span(base, "depth.step", host=60.0, device=d(58.0), k1=24, junction=76),
                 span(base + 1, "backbone", base, base, device=d(33.0 + i)),
                 span(base + 2, "dpt", base, base, device=d(17.0)),
                 span(base + 3, "out_head", base, base, device=d(6.0 + 2 * i))]
@@ -614,6 +616,8 @@ READERS = {
     "host_syncs_per_step.depth": (depth_spans, 0.5),
     "logits_device_ms.eval": (eval_spans, (4.0 + 5.0) / 2),
     "confusion_device_ms.eval": (eval_spans, (2.4 + 3.6) / 2),
+    "residual_norm_launches_per_step.eval": (eval_spans, 37.0),
+    "residual_norm_launches_per_step.depth_dav2": (dav2_spans, 76.0),
 }
 
 # the eval readers that read the DINOv2 cell too, on its step's spans
@@ -625,6 +629,7 @@ DINOV2_READS = {
     "host_syncs_per_step.eval": 7.0,
     "logits_device_ms.eval": (30.0 + 31.0) / 2,
     "confusion_device_ms.eval": 6.5,
+    "residual_norm_launches_per_step.eval": 121.0,
 }
 # the depth readers that read the Depth Anything V2 cell too, on its step's spans
 DAV2_READS = {
@@ -793,6 +798,9 @@ def test_readers_name_the_spans_the_steps_emit(name, kind):
     elif reader.KEY == "swiglu_gate_launches":
         assert value is None  # the CPU runs the SwiGLU gate without the kernel
         assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
+    elif reader.KEY == "residual_norm_launches":
+        assert value is None  # the CPU runs the blocks' junctions without the kernel
+        assert per_step(reader.STEP, reader.SPAN, reader.KEY) == 0
     else:
         assert value is not None and value >= 0
 
@@ -895,6 +903,35 @@ def test_swiglu_gate_reader_reads_nothing_without_the_kernel(monkeypatch, case):
     monkeypatch.setattr(profiling, "collect", lambda: {"spans": eval_spans(), "dropped": 0})
     # a DINO v1 step launches no gate
     assert load_reader("swiglu_gate_launches_per_step.eval_dinov2").read({}, {}) is None
+
+
+@pytest.mark.parametrize("case", ["without_the_counter", "a_step_without_a_launch"])
+@pytest.mark.parametrize("name,make", [
+    ("residual_norm_launches_per_step.eval", eval_spans),
+    ("residual_norm_launches_per_step.eval", dinov2_spans),
+    ("residual_norm_launches_per_step.depth_dav2", dav2_spans)])
+def test_residual_norm_readers_read_nothing_without_the_kernel(monkeypatch, name, make, case):
+    """Spans of a program whose steps do not carry
+    ``residual_norm_launches`` (the parent of the junction kernel), or where
+    a step launched it no time (its junctions run eagerly), read nothing, and
+    raise nothing: losing the kernel never reads as fewer launches."""
+    spans = make()
+    first = spans[0]["id"]
+    for s in spans:
+        if case == "without_the_counter":
+            del s["residual_norm_launches"]
+        elif s["step"] == first:
+            s["residual_norm_launches"] = 0
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": spans, "dropped": 0})
+    assert load_reader(name).read({}, {}) is None
+
+
+def test_dav2_junction_reader_reads_nothing_from_a_zoedepth_step(monkeypatch):
+    """ZoeDepth's BEiT keeps its eager junctions: its depth steps launch the
+    junction kernel no time, and the Depth Anything V2 reader reads nothing."""
+    monkeypatch.setattr(profiling, "collect", lambda: {"spans": depth_spans(), "dropped": 0})
+    assert load_reader("residual_norm_launches_per_step.depth_dav2").read({}, {}) is None
+    assert load_reader("k1_launches_per_step.depth").read({}, {}) == 48.0
 
 
 def test_swiglu_gate_counter_deltas(monkeypatch):
